@@ -1,0 +1,70 @@
+"""Port parity: zkarray_torch.ff.fp against zkarray.ff.fp, bit for bit
+(tolerance zero: a wrong limb is a wrong field element), on BLS12-381 Fq and
+Fr; and the plain versions of the port's mont_mul/mont_sqr kernels against
+the Pallas kernels of zkarray.kernels.mont in interpret mode.
+
+Widths are the ones tests/test_fp.py and tests/test_kernels.py compile: 64
+for the element-wise ops, 16 for Fermat inv, 70 with zeros for batch_inv,
+700 and 513 at L = 16 for the kernels. The CUDA kernels themselves are held
+against these plain versions on the card by chip_smoke.py."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from torch_parity import FIELD_IDS, FIELDS, both, rand_ints, same  # noqa: E402
+from zkarray.curves import bls12_381 as jcurves  # noqa: E402
+from zkarray.ff import fp as jfp  # noqa: E402
+from zkarray.kernels import mont as jkm  # noqa: E402
+from zkarray_torch.curves import bls12_381 as tcurves  # noqa: E402
+from zkarray_torch.ff import fp as tfp  # noqa: E402
+from zkarray_torch.kernels import mont as tkm  # noqa: E402
+
+
+@pytest.mark.parametrize("pair", FIELDS, ids=FIELD_IDS)
+def test_fp_ops_match_jax(pair):
+    js, ts = pair
+    p = js.modulus
+    xs, ys = rand_ints(p, 64, 3), rand_ints(p, 64, 4)
+    ja, ta = both(js, xs)
+    jb, tb = both(js, ys)
+    assert same(jfp.mont_mul(js, ja, jb), tfp.mont_mul(ts, ta, tb))
+    assert same(jfp.mont_sqr(js, ja), tfp.mont_sqr(ts, ta))
+    assert same(jfp.add(js, ja, jb), tfp.add(ts, ta, tb))
+    assert same(jfp.sub(js, ja, jb), tfp.sub(ts, ta, tb))
+    assert same(jfp.neg(js, ja), tfp.neg(ts, ta))
+    assert same(jfp.double(js, ja), tfp.double(ts, ta))
+    jc, tc = both(js, xs, mont=False)
+    assert same(jfp.to_mont(js, jc), tfp.to_mont(ts, tc))
+    assert same(jfp.from_mont(js, ja), tfp.from_mont(ts, ta))
+    assert tfp.to_ints(ts, tfp.mont_mul(ts, ta, tb)) == [x * y % p for x, y in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("pair", FIELDS, ids=FIELD_IDS)
+def test_fp_inv_and_batch_inv_match_jax(pair):
+    js, ts = pair
+    p = js.modulus
+    xs = rand_ints(p, 16, 5)
+    ja, ta = both(js, xs)
+    assert same(jfp.inv(js, ja), tfp.inv(ts, ta))
+    ys = rand_ints(p, 70, 6)
+    ys[10] = ys[40] = 0  # zeros map to zero
+    jb, tb = both(js, ys)
+    got = tfp.batch_inv(ts, tb)
+    assert same(jfp.batch_inv(js, jb), got)
+    assert tfp.to_ints(ts, got) == [pow(y, -1, p) if y else 0 for y in ys]
+
+
+def test_plain_mont_kernels_match_pallas_interpret():
+    js, ts = jcurves.FR, tcurves.FR
+    p = js.modulus
+    xs, ys = rand_ints(p, 700, 7), rand_ints(p, 700, 8)
+    ja, ta = both(js, xs)
+    jb, tb = both(js, ys)
+    got = tkm.mont_mul_plain(ts, ta, tb)
+    assert same(jkm.mont_mul(js, ja, jb), got)
+    assert same(jkm.mont_mul(js, ja, jb), tkm.mont_mul(ts, ta, tb))  # CPU wrapper = plain
+    zs = rand_ints(p, 513, 9)
+    jz, tz = both(js, zs)
+    assert same(jkm.mont_sqr(js, jz), tkm.mont_sqr_plain(ts, tz))

@@ -1,0 +1,106 @@
+"""Port parity: zkarray_torch.ec.msm against zkarray.ec.msm and the host
+oracle, on BLS12-381 G1 at n = 64, c = 5 (the shape tests/test_msm.py
+compiles), bit for bit:
+
+* the digit and window geometry;
+* msm_accumulate's (L, W, half) bucket state, in one window group and in
+  two; equal states also show that torch's stable sort and JAX's CPU sort
+  order ties alike here;
+* msm's XYZZ result, also with points at infinity and with all-equal
+  scalars, which overflow both static bands so the residual loop must
+  finish the bucket;
+* ChunkedMSM against the O(1) host known answer on tiled inputs.
+
+The port runs its one accumulate path, the grid-structured feed with the
+plain kernels, so these tests cover the production feed building."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from torch_parity import BITS, JC, TC, C, N, assert_same_points, msm_inputs  # noqa: E402
+from zkarray.ec import msm as jmsm  # noqa: E402
+from zkarray.ec import sw as jsw  # noqa: E402
+from zkarray_torch.ec import msm as tmsm  # noqa: E402
+from zkarray_torch.ec import sw as tsw  # noqa: E402
+from zkarray_torch.interop import affine_from_numpy, limbs_from_numpy  # noqa: E402
+from zkarray_torch.kernels import sw as ksw  # noqa: E402
+from zkarray_torch.testing import ec_msm_oracle, expected_msm, tiled_inputs  # noqa: E402
+
+
+def test_signed_digits_and_window_geometry_match_jax():
+    for c, bits in [(5, 255), (13, 254), (8, 63), (3, 255), (16, 255)]:
+        assert tmsm._window_geometry(c, bits) == jmsm._window_geometry(c, bits)
+        assert tmsm._accum_bounds(c, 1 << 20, 16) == jmsm._accum_bounds(c, 1 << 20, 16)
+        assert tmsm.default_window_size(1 << c) == jmsm.default_window_size(1 << c)
+    _, _, _, js, _, ts = msm_inputs(1)
+    for c in (5, 13):
+        W = tmsm._window_geometry(c, BITS)[0]
+        want = np.asarray(jmsm.signed_digits(JC.scalar, js, c, W))
+        assert np.array_equal(want, tmsm.signed_digits(TC.scalar, ts, c, W).numpy())
+
+
+def test_msm_matches_jax_and_oracle():
+    pts, ks, jA, js, tA, ts = msm_inputs(3)
+    got = tmsm.msm(TC, tA, ts, C)
+    assert_same_points(jmsm.msm(JC, jA, js, C), got)
+    aff = tsw.xyzz_to_affine(TC, tsw.XYZZPoints(*(v[:, None] for v in got)))
+    assert tsw.affine_to_ints(TC, aff)[0] == ec_msm_oracle(pts, ks, 0, JC.base.modulus)
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_msm_accumulate_bucket_state_matches_jax(groups, monkeypatch):
+    """One window group, and two (a budget that fits 26 of the 52 windows'
+    band-1 feeds)."""
+    _, _, jA, js, tA, ts = msm_inputs(2)
+    W, half, _, _ = tmsm._window_geometry(C, BITS)
+    if groups == 2:
+        r1b, _ = tmsm._accum_bounds(C, N, tmsm.ACCUM_T)
+        monkeypatch.setattr(tmsm, "GROUP_BYTES", (W // 2) * r1b * half * TC.base.num_limbs * 4)
+    want = jmsm.msm_accumulate(JC, jA, js, C, BITS, jsw.xyzz_zero(JC, (W, half)))
+    got = tmsm.msm_accumulate(TC, tA, ts, C, BITS, tsw.xyzz_zero(TC, (W, half), "cpu"))
+    assert_same_points(want, got)
+
+
+def test_msm_infinity_points_match_jax_and_oracle():
+    pts, ks, jA, js, tA, ts = msm_inputs(4, inf_at=(1, 3, 9, 10, 63))
+    got = tmsm.msm(TC, tA, ts, C)
+    assert_same_points(jmsm.msm(JC, jA, js, C), got)
+    aff = tsw.xyzz_to_affine(TC, tsw.XYZZPoints(*(v[:, None] for v in got)))
+    assert tsw.affine_to_ints(TC, aff)[0] == ec_msm_oracle(pts, ks, 0, JC.base.modulus)
+
+
+def test_msm_all_equal_scalars_runs_residual_tiles(monkeypatch):
+    """Every scalar equal: one bucket per window holds all 64 points, past
+    both static bands."""
+    k = 0x1234567890ABCDEF1234567890ABCDEF % JC.scalar.modulus
+    _, _, jA, js, tA, ts = msm_inputs(5, scalars=[k] * N)
+    calls = []
+    tiles = ksw.xyzz_accum_tiles
+
+    def counting_tiles(*args):
+        calls.append(1)
+        return tiles(*args)
+
+    monkeypatch.setattr(ksw, "xyzz_accum_tiles", counting_tiles)
+    got = tmsm.msm(TC, tA, ts, C)
+    assert len(calls) == 2  # 64 points - 32 band rounds = 2 tiles of 16
+    assert_same_points(jmsm.msm(JC, jA, js, C), got)
+
+
+def test_chunked_msm_matches_known_answer():
+    """Two chunks of 40 and 24 points, the second padded to the chunk size."""
+    rng = np.random.default_rng(6)
+    n = 64
+    px, py, sc, ks, bits = tiled_inputs(TC, n, rng, base_n=16)
+    A = affine_from_numpy(px, py, np.zeros(n, dtype=bool), "cpu")
+    s = limbs_from_numpy(sc, "cpu")
+    cm = tmsm.ChunkedMSM(TC, 40, c=C, max_scalar_bits=bits, device="cpu")
+    for lo in (0, 40):
+        hi = min(lo + 40, n)
+        cm.add_chunk(tsw.AffinePoints(A.x[:, lo:hi], A.y[:, lo:hi], A.inf[lo:hi]), s[:, lo:hi])
+    res = cm.result()
+    aff = tsw.xyzz_to_affine(TC, tsw.XYZZPoints(*(v[:, None] for v in res)))
+    assert tsw.affine_to_ints(TC, aff)[0] == expected_msm(TC, ks, sc)

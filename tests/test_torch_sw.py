@@ -1,0 +1,78 @@
+"""Port parity: zkarray_torch.ec.sw XYZZ ops against zkarray.ec.sw, bit for
+bit, on the six edge classes of tests/test_kernels.py (generic, P == A,
+P == -A, P at infinity, A at infinity, both at infinity), plus the
+Python-int oracle. Batch width 8 is the one tests/test_sw.py compiles."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from torch_parity import JC, TC, assert_same_points  # noqa: E402
+from zkarray.ec import sw as jsw  # noqa: E402
+from zkarray_torch.ec import sw as tsw  # noqa: E402
+from zkarray_torch.interop import affine_from_numpy, limbs_to_numpy  # noqa: E402
+from zkarray_torch.testing import ec_add, ec_mul  # noqa: E402
+
+
+def edge_pairs(n=8, seed=11):
+    mod = JC.base.modulus
+    gen = (JC.gen_x, JC.gen_y)
+    rng = np.random.default_rng(seed)
+    ps, qs = [], []
+    for i in range(n):
+        k1, k2 = (int(k) for k in rng.integers(1, 1 << 20, size=2))
+        P = ec_mul(gen, k1, 0, mod)
+        cls = i % 6
+        if cls == 0:
+            Q = ec_mul(gen, k2, 0, mod)  # generic
+        elif cls == 1:
+            Q = P  # doubling
+        elif cls == 2:
+            Q = (P[0], (-P[1]) % mod)  # cancellation
+        elif cls == 3:
+            P, Q = None, ec_mul(gen, k2, 0, mod)  # P at infinity
+        elif cls == 4:
+            Q = None  # A at infinity
+        else:
+            P, Q = None, None
+        ps.append(P)
+        qs.append(Q)
+    return ps, qs
+
+
+def port_affine(jA):
+    return affine_from_numpy(np.asarray(jA.x), np.asarray(jA.y), np.asarray(jA.inf), "cpu")
+
+
+def test_xyzz_ops_match_jax_and_oracle():
+    mod = JC.base.modulus
+    ps, qs = edge_pairs()
+    jA1, jA2 = JC.affine_from_ints(ps), JC.affine_from_ints(qs)
+    tA1, tA2 = port_affine(jA1), port_affine(jA2)
+    jP, jQ = jsw.xyzz_from_affine(JC, jA1), jsw.xyzz_from_affine(JC, jA2)
+    tP, tQ = tsw.xyzz_from_affine(TC, tA1), tsw.xyzz_from_affine(TC, tA2)
+    assert_same_points(jP, tP)
+
+    jS, tS = jsw.xyzz_add(JC, jP, jQ), tsw.xyzz_add(TC, tP, tQ)
+    assert_same_points(jS, tS)
+    jD, tD = jsw.xyzz_double(JC, jP), tsw.xyzz_double(TC, tP)
+    assert_same_points(jD, tD)
+
+    jaff, taff = jsw.xyzz_to_affine(JC, jS), tsw.xyzz_to_affine(TC, tS)
+    assert np.array_equal(np.asarray(jaff.x), limbs_to_numpy(taff.x))
+    assert np.array_equal(np.asarray(jaff.y), limbs_to_numpy(taff.y))
+    assert np.array_equal(np.asarray(jaff.inf), taff.inf.numpy())
+    assert tsw.affine_to_ints(TC, taff) == [ec_add(p, q, 0, mod) for p, q in zip(ps, qs)]
+    assert tsw.affine_to_ints(TC, tsw.xyzz_to_affine(TC, tD)) == [
+        ec_add(p, p, 0, mod) for p in ps
+    ]
+
+
+def test_xyzz_zero_and_affine_round_trip():
+    ps, _ = edge_pairs()
+    tA = tsw.affine_from_ints(TC, ps, device="cpu")
+    assert tsw.affine_to_ints(TC, tA) == ps
+    assert_same_points(jsw.xyzz_zero(JC, (3, 2)), tsw.xyzz_zero(TC, (3, 2), "cpu"))
+    assert bool(tsw.xyzz_is_inf(tsw.xyzz_zero(TC, (4,), "cpu")).all())

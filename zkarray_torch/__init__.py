@@ -1,0 +1,16 @@
+"""zkarray_torch — the PyTorch/CUDA port of zkarray for NVIDIA Hopper.
+
+Same data model as the JAX package beside it: a field array is a planar,
+limb-major tensor ``int32[L, *batch]`` of base-2^16 limbs (values < 2^16),
+with Montgomery radix R = 2^(16 L). Every public function runs on the device
+of its input tensors; constructors take ``device=`` and default to
+``DEFAULT_DEVICE``. Hot loops run in hand-written CUDA kernels
+(``zkarray_torch/kernels/csrc``); a tensor on the CPU takes each kernel's
+plain PyTorch version instead.
+
+This package imports torch and numpy only: no JAX, and nothing of ``zkarray``.
+"""
+
+DEFAULT_DEVICE = "cuda"
+
+__version__ = "0.1.0"

@@ -1,0 +1,54 @@
+"""Per-field Montgomery constants (the port's own copy of the subset it needs).
+
+Counterpart of zkarray/core/fieldspec.py:FieldSpec. Base-2^16 limbs, L =
+4·ceil(bits/64), so R = 2^(16 L) equals arkworks' 64-bit-limb radix and
+Montgomery-form values match the JAX package's bit for bit.
+"""
+
+from __future__ import annotations
+
+LIMB_BITS = 16
+LIMB_MASK = (1 << LIMB_BITS) - 1
+
+
+class FieldSpec:
+    """Constants of one prime field, as plain Python ints."""
+
+    def __init__(self, modulus: int, generator: int, name: str = ""):
+        if modulus < 3 or modulus % 2 == 0:
+            raise ValueError("modulus must be an odd prime >= 3")
+        self.modulus = modulus
+        self.generator_int = generator % modulus
+        self.name = name or f"Fp{modulus.bit_length()}"
+        self.bits = modulus.bit_length()
+        self.num_limbs = 4 * (-(-self.bits // 64))
+        self.r_bits = LIMB_BITS * self.num_limbs
+        self.r_int = (1 << self.r_bits) % modulus
+        self.r2_int = (self.r_int * self.r_int) % modulus
+        # -p^-1 mod 2^16 (plain CIOS) and mod 2^32 (the kernels' 32-bit words)
+        self.inv16 = (-pow(modulus, -1, 1 << 16)) % (1 << 16)
+        self.inv32 = (-pow(modulus, -1, 1 << 32)) % (1 << 32)
+        self._rinv = pow(self.r_int, -1, modulus)
+
+    def __hash__(self):
+        return hash((self.modulus, self.generator_int))
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, FieldSpec)
+            and self.modulus == other.modulus
+            and self.generator_int == other.generator_int
+        )
+
+    def __repr__(self):
+        return f"FieldSpec({self.name}, bits={self.bits}, L={self.num_limbs})"
+
+    def limbs_of(self, x: int):
+        """Little-endian base-2^16 limbs of ``x`` (L of them)."""
+        return [(x >> (LIMB_BITS * i)) & LIMB_MASK for i in range(self.num_limbs)]
+
+    def to_mont_int(self, x: int) -> int:
+        return (x * self.r_int) % self.modulus
+
+    def from_mont_int(self, x: int) -> int:
+        return (x * self._rinv) % self.modulus

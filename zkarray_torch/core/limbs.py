@@ -1,0 +1,133 @@
+"""Planar base-2^16 limb primitives on torch tensors.
+
+Counterpart of zkarray/core/limbs.py. Layout ``[L, *batch]``, limb axis
+leading. Tensors at the API hold limbs in int32; the arithmetic here runs in
+int64, where a signed carry is an arithmetic right shift (torch's CPU uint32
+has no add, sub, shift or compare).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from zkarray_torch.core.fieldspec import LIMB_BITS, LIMB_MASK
+
+
+# ---------------------------------------------------------------------------
+# host <-> limb conversion (numpy; boundary code, not a hot path)
+# ---------------------------------------------------------------------------
+
+def ints_to_limbs_np(xs: Sequence[int], num_limbs: int) -> np.ndarray:
+    """Python ints -> (L, len(xs)) uint32 planar limb array."""
+    out = np.empty((num_limbs, len(xs)), dtype=np.uint32)
+    for j, x in enumerate(xs):
+        x = int(x)
+        if x < 0 or x >> (LIMB_BITS * num_limbs):
+            raise ValueError("integer does not fit in given limb count")
+        for i in range(num_limbs):
+            out[i, j] = (x >> (LIMB_BITS * i)) & LIMB_MASK
+    return out
+
+
+def limbs_to_ints(limbs) -> list:
+    """(L, *batch) limb tensor or array -> flat list of Python ints."""
+    if isinstance(limbs, torch.Tensor):
+        limbs = limbs.detach().cpu().numpy()
+    arr = np.asarray(limbs).astype(np.int64)
+    flat = arr.reshape(arr.shape[0], -1)
+    out = []
+    for j in range(flat.shape[1]):
+        x = 0
+        for i in range(flat.shape[0] - 1, -1, -1):
+            x = (x << LIMB_BITS) | int(flat[i, j])
+        out.append(x)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# device primitives (broadcast over trailing batch axes)
+# ---------------------------------------------------------------------------
+
+def zeros(num_limbs: int, batch_shape=(), device=None) -> torch.Tensor:
+    return torch.zeros((num_limbs,) + tuple(batch_shape), dtype=torch.int32, device=device)
+
+
+def normalize(cols: torch.Tensor, out_limbs: int) -> torch.Tensor:
+    """Carry-propagate signed int64 base-2^16 columns into 16-bit limbs.
+
+    Returns (out_limbs, *batch) int64 limbs in [0, 2^16); the final carry is
+    dropped (callers guarantee it is zero or read it via ``sub_with_borrow``).
+    """
+    out, _ = _ripple(cols, out_limbs)
+    return out
+
+
+def _ripple(cols: torch.Tensor, out_limbs: int):
+    """(limbs, final signed carry) of int64 columns with |value| < 2^62.
+
+    Three carry-save passes bring every column below 2^17 (each pass moves
+    all columns' high bits up one limb at once); the exact ripple then runs
+    over 48-bit chunks of three limbs, a third of the serial steps."""
+    x = cols.to(torch.int64)
+    if x.shape[0] < out_limbs:
+        x = torch.cat([x, x.new_zeros((out_limbs - x.shape[0],) + tuple(x.shape[1:]))])
+    else:
+        x = x[:out_limbs].clone()
+    top = torch.zeros_like(x[0])
+    for _ in range(3):
+        c = x >> LIMB_BITS
+        x &= LIMB_MASK
+        x[1:] += c[:-1]
+        top += c[-1]
+    m = -(-out_limbs // 3)
+    x = torch.cat([x, x.new_zeros((3 * m - out_limbs,) + tuple(x.shape[1:]))])
+    x = x.reshape((m, 3) + tuple(x.shape[1:]))
+    # columns are now in (-2^15, 2^17): a chunk is exact in int64
+    chunks = x[:, 0] + (x[:, 1] << LIMB_BITS) + (x[:, 2] << (2 * LIMB_BITS))
+    c = torch.zeros_like(top)
+    for j in range(m):
+        t = chunks[j] + c
+        chunks[j] = t & ((1 << 48) - 1)
+        c = t >> 48
+    out = torch.stack([chunks & LIMB_MASK, (chunks >> LIMB_BITS) & LIMB_MASK,
+                       chunks >> (2 * LIMB_BITS)], dim=1).reshape((3 * m,) + tuple(x.shape[2:]))
+    # limbs past out_limbs in the top chunk belong to the final carry
+    carry = top + (c << (LIMB_BITS * (3 * m - out_limbs)))
+    for k in range(out_limbs, 3 * m):
+        carry = carry + (out[k] << (LIMB_BITS * (k - out_limbs)))
+    return out[:out_limbs], carry
+
+
+def sub_with_borrow(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """a - b over canonical limbs of equal length. Returns (int64 diff limbs
+    mod 2^(16 L), borrow) with borrow True where b > a."""
+    diff, c = _ripple(a.to(torch.int64) - b.to(torch.int64), a.shape[0])
+    return diff, c < 0
+
+
+def is_zero(a: torch.Tensor) -> torch.Tensor:
+    """True where all limbs are zero (batch-shaped bool)."""
+    return (a == 0).all(dim=0)
+
+
+def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a == b).all(dim=0)
+
+
+def pack_pairs(a: torch.Tensor) -> torch.Tensor:
+    """(2k, ...) 16-bit limb rows -> (k, ...) 32-bit words as int32 bit
+    patterns (zkarray/ec/msm.py:_pack_pairs)."""
+    a = a.to(torch.int64)
+    w = a[0::2] | (a[1::2] << LIMB_BITS)
+    return (w - ((w >> 31) << 32)).to(torch.int32)
+
+
+def unpack_pairs(w: torch.Tensor) -> torch.Tensor:
+    """(k, ...) int32 word bit patterns -> (2k, ...) int32 16-bit limb rows."""
+    k = w.shape[0]
+    lo = w & LIMB_MASK
+    hi = (w >> LIMB_BITS) & LIMB_MASK
+    return torch.stack([lo, hi], dim=1).reshape((2 * k,) + tuple(w.shape[1:]))

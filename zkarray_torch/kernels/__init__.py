@@ -1,0 +1,14 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
+PyTorch version.
+
+Sources live in ``csrc/``; ``_build`` compiles them with nvcc at first use
+and binds them with ctypes. ``LAUNCHES`` counts each kernel's launches.
+
+    kernel          wrappers                               replaces (zkarray/kernels)
+    mont_mul        mont.mont_mul                          mont.py:mont_mul
+    mont_sqr        mont.mont_sqr                          mont.py:mont_sqr
+    xyzz_accum      sw.xyzz_accum_grid, sw.xyzz_accum_tiles sw.py:xyzz_accum_grid, :xyzz_accum_tiles
+    horner_windows  sw.horner_windows                      sw.py:horner_windows
+"""
+
+from zkarray_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401

@@ -1,0 +1,57 @@
+// Element-wise Montgomery product and square on planar 16-bit limbs.
+//
+// Replaces zkarray/kernels/mont.py:mont_mul and :mont_sqr (Pallas,
+// _elementwise_call): one thread per element instead of one (L, 8, 128) VMEM
+// block per grid step.
+//
+// Bound on an H100: bytes. An L = 24 product reads 2 x 96 B and writes 96 B
+// per element (16-bit limbs held in int32, twice the bytes of the values) and
+// does ~4 NW^2 = 576 32-bit multiply-adds; at 3.35 TB/s and ~16.7 T int32
+// ops/s the bytes take longer. Design: limb k of consecutive elements sits at
+// consecutive addresses, so each of the 2L loads and L stores of a warp is
+// one coalesced 128-byte line; limb pairs are packed into NW = L/2 32-bit
+// words in registers and the CIOS runs there.
+#include "field.cuh"
+
+template <int NW>
+__global__ void __launch_bounds__(256)
+mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+                int32_t* __restrict__ out, long long n, FieldConsts<NW> F) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Fe<NW> x = load16<NW>(a, (size_t)n, (size_t)i);
+  const Fe<NW> y = load16<NW>(b, (size_t)n, (size_t)i);
+  store16<NW>(out, (size_t)n, (size_t)i, fmul<NW>(x, y, F));
+}
+
+template <int NW>
+__global__ void __launch_bounds__(256)
+mont_sqr_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out, long long n,
+                FieldConsts<NW> F) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Fe<NW> x = load16<NW>(a, (size_t)n, (size_t)i);
+  store16<NW>(out, (size_t)n, (size_t)i, fmul<NW>(x, x, F));
+}
+
+static inline unsigned blocks_for(long long n, int threads) {
+  return (unsigned)((n + threads - 1) / threads);
+}
+
+// a, b, out: int32[L, n] contiguous; consts: host words (see field.cuh).
+extern "C" int zk_mont_mul(const void* a, const void* b, void* out, long long n, int nw,
+                           const uint32_t* consts, void* stream) {
+  if (n <= 0) return 0;
+  ZK_DISPATCH_NW(nw, mont_mul_kernel<NW><<<blocks_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
+                          (const int32_t*)a, (const int32_t*)b, (int32_t*)out, n,
+                          consts_from_host<NW>(consts)));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int zk_mont_sqr(const void* a, void* out, long long n, int nw,
+                           const uint32_t* consts, void* stream) {
+  if (n <= 0) return 0;
+  ZK_DISPATCH_NW(nw, mont_sqr_kernel<NW><<<blocks_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
+                          (const int32_t*)a, (int32_t*)out, n, consts_from_host<NW>(consts)));
+  return (int)cudaGetLastError();
+}

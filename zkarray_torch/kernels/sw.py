@@ -1,0 +1,252 @@
+"""MSM bucket accumulation and window Horner: CUDA kernels and plain versions.
+
+Counterparts of zkarray/kernels/sw.py:xyzz_accum_grid, xyzz_accum_tiles and
+horner_windows. One CUDA kernel (``csrc/sw.cu:xyzz_accum_kernel``) serves
+both accumulation wrappers: the port drops the TPU's (8, 128) block tiling,
+so the grid sweep and the residual tiles share one flat layout over S bucket
+slots:
+
+    state  int32[2L, S]     packed 32-bit words, X | Y | ZZ | ZZZ (L/2 each)
+    coords int32[L, R, S]   round r's affine x | y packed words per slot
+    valid  int32[R, S]      bit0: the slot has a point that round; bit1: negate y
+
+Wrappers take the plain version for CPU tensors and launch the kernel for
+CUDA tensors (or raise). The plain versions mirror _madd_core, _dbl_core and
+_fadd_core, select order included, with the plain Montgomery product, so
+they are independent of the kernels they are checked against.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from zkarray_torch.core import limbs as lb
+from zkarray_torch.kernels import _build
+from zkarray_torch.kernels import mont as km
+
+
+def _ops(curve):
+    f = curve.base
+    return (
+        lambda u, v: km.mont_mul_plain(f, u, v),
+        lambda u: km.mont_sqr_plain(f, u),
+        lambda u, v: km.add(f, u, v),
+        lambda u, v: km.sub(f, u, v),
+    )
+
+
+def _sel(mask, a, b):
+    return tuple(torch.where(mask[None], x, y) for x, y in zip(a, b))
+
+
+def _inf(curve, batch, device):
+    f = curve.base
+    one = km.const(f, f.r_int, batch, device)
+    zero = lb.zeros(f.num_limbs, batch, device)
+    return one, one, zero, zero
+
+
+def _a_const(curve, like):
+    """The curve's a in Montgomery form, shaped like ``like``."""
+    f = curve.base
+    return km.const(f, f.to_mont_int(curve.a_int), like.shape[1:], like.device)
+
+
+def _madd_plain(curve, st, AX, AY, a_inf):
+    """XYZZ += affine (mmadd-xyzz), edge selects as _madd_core: doubling,
+    cancel, P = inf, A = inf. The doubling candidate is computed only when
+    some slot needs it, as the TPU kernel's lazy_dbl does per block."""
+    mul, sqr, add, sub = _ops(curve)
+    X1, Y1, ZZ1, ZZZ1 = st
+    U2 = mul(AX, ZZ1)
+    S2 = mul(AY, ZZZ1)
+    Pp = sub(U2, X1)
+    R = sub(S2, Y1)
+    PP = sqr(Pp)
+    PPP = mul(Pp, PP)
+    Q = mul(X1, PP)
+    X3 = sub(sub(sqr(R), PPP), add(Q, Q))
+    Y3 = sub(mul(R, sub(Q, X3)), mul(Y1, PPP))
+    out = (X3, Y3, mul(ZZ1, PP), mul(ZZZ1, PPP))
+
+    p0 = lb.is_zero(Pp)
+    r0 = lb.is_zero(R)
+    p_inf = lb.is_zero(ZZ1)
+    both = ~p_inf & ~a_inf
+    is_dbl = both & p0 & r0
+    is_cancel = both & p0 & ~r0
+    inf = _inf(curve, AX.shape[1:], AX.device)
+
+    if bool(is_dbl.any()):
+        U = add(AY, AY)
+        V = sqr(U)
+        Wr = mul(U, V)
+        S = mul(AX, V)
+        XX = sqr(AX)
+        M = add(add(XX, XX), XX)
+        if not curve.a_is_zero:
+            M = add(M, _a_const(curve, AX))
+        X3d = sub(sqr(M), add(S, S))
+        Y3d = sub(mul(M, sub(S, X3d)), mul(Wr, AY))
+        dbl_bad = a_inf | lb.is_zero(AY)
+        out = _sel(is_dbl, _sel(dbl_bad, inf, (X3d, Y3d, V, Wr)), out)
+    out = _sel(is_cancel, inf, out)
+    one_or_zero = torch.where(a_inf[None], inf[2], inf[0])
+    out = _sel(p_inf, (AX, AY, one_or_zero, one_or_zero), out)
+    out = _sel(a_inf, st, out)
+    return out
+
+
+def _dbl_plain(curve, st):
+    """Full XYZZ doubling, edge-complete (_dbl_core)."""
+    mul, sqr, add, sub = _ops(curve)
+    X1, Y1, ZZ1, ZZZ1 = st
+    U = add(Y1, Y1)
+    V = sqr(U)
+    Wr = mul(U, V)
+    S = mul(X1, V)
+    XX = sqr(X1)
+    M = add(add(XX, XX), XX)
+    if not curve.a_is_zero:
+        M = add(M, mul(_a_const(curve, X1), sqr(ZZ1)))
+    X3 = sub(sqr(M), add(S, S))
+    Y3 = sub(mul(M, sub(S, X3)), mul(Wr, Y1))
+    out = (X3, Y3, mul(V, ZZ1), mul(Wr, ZZZ1))
+    bad = lb.is_zero(ZZ1) | lb.is_zero(Y1)
+    return _sel(bad, _inf(curve, X1.shape[1:], X1.device), out)
+
+
+def _fadd_plain(curve, st, st2):
+    """Full XYZZ + XYZZ, edge-complete (_fadd_core)."""
+    mul, sqr, add, sub = _ops(curve)
+    X1, Y1, ZZ1, ZZZ1 = st
+    X2, Y2, ZZ2, ZZZ2 = st2
+    U1 = mul(X1, ZZ2)
+    U2 = mul(X2, ZZ1)
+    S1 = mul(Y1, ZZZ2)
+    S2 = mul(Y2, ZZZ1)
+    Pp = sub(U2, U1)
+    R = sub(S2, S1)
+    PP = sqr(Pp)
+    PPP = mul(Pp, PP)
+    Q = mul(U1, PP)
+    X3 = sub(sub(sqr(R), PPP), add(Q, Q))
+    Y3 = sub(mul(R, sub(Q, X3)), mul(S1, PPP))
+    out = (X3, Y3, mul(mul(ZZ1, ZZ2), PP), mul(mul(ZZZ1, ZZZ2), PPP))
+
+    p0 = lb.is_zero(Pp)
+    r0 = lb.is_zero(R)
+    p_inf = lb.is_zero(ZZ1)
+    q_inf = lb.is_zero(ZZ2)
+    both = ~p_inf & ~q_inf
+    is_dbl = both & p0 & r0
+    if bool(is_dbl.any()):
+        out = _sel(is_dbl, _dbl_plain(curve, st), out)
+    out = _sel(both & p0 & ~r0, _inf(curve, X1.shape[1:], X1.device), out)
+    out = _sel(p_inf, st2, out)
+    out = _sel(q_inf, st, out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def xyzz_accum_plain(curve, state, coords, valid):
+    """R sequential bucket rounds over S slots (layout in the module doc)."""
+    f = curve.base
+    L = f.num_limbs
+    Lp = L // 2
+    st = tuple(lb.unpack_pairs(state[i * Lp : (i + 1) * Lp]) for i in range(4))
+    zero = lb.zeros(L, state.shape[1:], state.device)
+    for r in range(coords.shape[1]):
+        cd = coords[:, r]
+        AX = lb.unpack_pairs(cd[:Lp])
+        AY = lb.unpack_pairs(cd[Lp:])
+        v = valid[r]
+        a_inf = (v & 1) == 0
+        sign = ((v >> 1) & 1) != 0
+        AY = torch.where(sign[None], km.sub(f, zero, AY), AY)
+        st = _madd_plain(curve, st, AX, AY, a_inf)
+    return torch.cat([lb.pack_pairs(v) for v in st], dim=0)
+
+
+def horner_windows_plain(curve, win, c: int):
+    """total = sum_w 2^(c w) win_w; win int32[W, 4L] (X | Y | ZZ | ZZZ limbs
+    per window) -> int32[4L]."""
+    L = curve.base.num_limbs
+    W = win.shape[0]
+
+    def point(w):
+        return tuple(win[w, i * L : (i + 1) * L, None] for i in range(4))
+
+    st = point(W - 1)
+    for wi in range(W - 1):
+        for _ in range(c):
+            st = _dbl_plain(curve, st)
+        st = _fadd_plain(curve, st, point(W - 2 - wi))
+    return torch.cat([v[:, 0] for v in st]).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _curve_words(curve):
+    f = curve.base
+    return km.field_words(f, f.to_mont_int(curve.a_int))
+
+
+def _accum(curve, state, coords, valid, what):
+    L = curve.base.num_limbs
+    if km.on_cpu(state, coords, valid):
+        return xyzz_accum_plain(curve, state, coords, valid)
+    km.check_cuda_int32(what, state, coords, valid)
+    S = state.shape[1]
+    R = coords.shape[1]
+    if state.shape != (2 * L, S) or coords.shape != (L, R, S) or valid.shape != (R, S):
+        raise ValueError(
+            f"{what}: shapes state {tuple(state.shape)}, coords {tuple(coords.shape)}, "
+            f"valid {tuple(valid.shape)} do not match (2L, S), (L, R, S), (R, S) for L={L}"
+        )
+    out = torch.empty_like(state)
+    lib = _build.load("sw")
+    words = _curve_words(curve)
+    with torch.cuda.device(state.device):
+        err = lib.zk_xyzz_accum(
+            state.data_ptr(), out.data_ptr(), coords.data_ptr(), valid.data_ptr(), R, S,
+            L // 2, km.words_ptr(words), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, what)
+    _build.LAUNCHES["xyzz_accum"] += 1
+    return out
+
+
+def xyzz_accum_grid(curve, state, coords, valid):
+    """A whole band of bucket rounds in one launch (msm band 1 and band 2)."""
+    return _accum(curve, state, coords, valid, "xyzz_accum_grid")
+
+
+def xyzz_accum_tiles(curve, state, coords, valid):
+    """T residual bucket rounds in one launch (msm's residual loop)."""
+    return _accum(curve, state, coords, valid, "xyzz_accum_tiles")
+
+
+def horner_windows(curve, win, c: int):
+    """Window Horner in one launch: win int32[W, 4L] -> int32[4L]."""
+    L = curve.base.num_limbs
+    if km.on_cpu(win):
+        return horner_windows_plain(curve, win, c)
+    win = win.contiguous()
+    km.check_cuda_int32("horner_windows", win)
+    W = win.shape[0]
+    if win.shape != (W, 4 * L) or W < 1:
+        raise ValueError(f"horner_windows: win shape {tuple(win.shape)} is not (W, {4 * L})")
+    out = torch.empty(4 * L, dtype=torch.int32, device=win.device)
+    lib = _build.load("sw")
+    words = _curve_words(curve)
+    with torch.cuda.device(win.device):
+        err = lib.zk_horner_windows(win.data_ptr(), out.data_ptr(), W, c, L // 2,
+                                    km.words_ptr(words), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "horner_windows")
+    _build.LAUNCHES["horner_windows"] += 1
+    return out
