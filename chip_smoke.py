@@ -22,9 +22,30 @@ Phases, each printing one JSON line and raising on any failure:
    to-affine; and one msm_reduce under torch.profiler (CUDA activity only)
    for the device's busy time, idle share and host time per device op.
 4. ChunkedMSM at 2^21 as two 2^20 chunks, known-answer checked.
-5. the kernels line: per kernel its launches in phase 3, error against the
-   plain version, times and bound. For mont_mul and mont_sqr the times and
-   bound are means per launch over phase 3's launches, shape by shape.
+5. NTT path: Radix2Domain(Fr, 2^24).fft of geometric coefficients
+   a_j = c r^j, held at 256+ output indices against the host closed form
+   c (1 - r^n) / (1 - r w^k); launch counts from that run, with every
+   butterfly_dit launch's (C, H, R, stride) and every mont_mul/mont_sqr
+   launch's shape and strides recorded. fft/ifft round trip of seeded random
+   coefficients at 2^24 (bit for bit, input unchanged); a coset (offset 7)
+   round trip and closed-form check at 2^20 (fft_fourstep_core); the
+   degree-aware fft of 2^22 coefficients at 2^24, closed-form checked; the
+   median of 3 timed ffts at 2^24 (ms, elems/s, peak memory); one fft under
+   torch.profiler. Then butterfly_dit and mont_mul/mont_sqr against their
+   plain versions at every recorded shape and layout, with both times.
+6. butterfly_stage through its entry (kernels.mont.butterfly_stage) on 2^20
+   Fr elements against its plain version.
+7. xyzz_add_affine through its entry (ec.sw.xyzz_add_affine) on 4096 real
+   BLS12-381 G1 point pairs against the host oracle; then the kernel
+   against its plain version on 2^20 Fq points with the edge classes
+   (generic, P == A, P == -A, P = inf, A = inf, both inf, doubling a y = 0
+   point).
+8. the kernels line: per kernel its launches on its path (phase 3 for the
+   MSM kernels, 5 for butterfly_dit, 6 and 7 for the element-wise entries),
+   error against the plain version, times and bound. For mont_mul,
+   mont_sqr and butterfly_dit the times and bound are means per launch over
+   the path's launches, shape by shape; the products' NTT-path figures sit
+   under "ntt".
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
@@ -48,6 +69,12 @@ INT32_LANES_PER_SM = 64  # 32-bit integer multiply-add per SM per clock, compute
 DEVICE = "cuda"
 LOG_N = 20  # main-path MSM size; ChunkedMSM runs two chunks of this size
 EDGE_SLOTS, EDGE_ROUNDS = 16384, 32
+NTT_LOG_N = 24  # the NTT path: Radix2Domain(Fr, 2^24), fft_fourstep_big
+COSET_LOG_N = 20  # coset round trip through fft_fourstep_core
+DEG_LOG_M = 22  # coefficients of the degree-aware fft at 2^NTT_LOG_N
+KAT_POINTS = 256  # output indices held against the host closed form
+ELEM_LOG_N = 20  # butterfly_stage and the xyzz_add_affine edge feed
+MADD_KAT_BASE = 64  # xyzz_add_affine known answer: all pairs of 64 points
 
 
 def emit(phase, **kw):
@@ -86,6 +113,51 @@ def union_ns(intervals):
     if cur_e is not None:
         total += cur_e - cur_s
     return total
+
+
+def device_trace(torch, fn, untraced_ms):
+    """Run fn() once under torch.profiler with CUDA activity only (kernels,
+    copies and the runtime calls that launch them). Returns (fn's result,
+    fields), fields None when this torch build cannot trace CUDA activity.
+    The untraced idle share is an estimate: device time under the trace over
+    the untraced wall time ``untraced_ms`` of the same work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, supported_activities
+
+    from zkarray_torch.kernels import LAUNCHES
+
+    if ProfilerActivity.CUDA not in supported_activities():
+        return fn(), None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t) * 1e3
+    evs = prof.profiler.kineto_results.events()
+    dev_iv = [(e.start_ns(), e.end_ns(), e.name()) for e in evs if e.device_type() == DeviceType.CUDA]
+    api = collections.Counter(e.name() for e in evs if e.device_type() == DeviceType.CPU)
+    by_name = collections.defaultdict(lambda: [0, 0])  # name -> [ops, device ns]
+    for a, b, nm in dev_iv:
+        by_name[nm][0] += 1
+        by_name[nm][1] += b - a
+    ours = {}
+    for k in LAUNCHES:
+        hits = [v for nm, v in by_name.items() if f"{k}_kernel" in nm]
+        if hits:
+            n_k, ns_k = sum(h[0] for h in hits), sum(h[1] for h in hits)
+            ours[k] = dict(launches=n_k, device_ms=ns_k / 1e6, device_ms_per_launch=ns_k / 1e6 / n_k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    busy_ms = union_ns([(a, b) for a, b, _ in dev_iv]) / 1e6
+    return out, dict(
+        ms_wall_traced=traced_ms, device_ops=len(dev_iv), port_kernels=ours,
+        top_device_ms=[dict(name=nm[:90], ops=v[0], device_ms=v[1] / 1e6) for nm, v in top],
+        runtime_calls=dict(api.most_common(6)), ms_device_busy=busy_ms if dev_iv else None,
+        device_idle_share=1 - busy_ms / traced_ms if dev_iv else None,
+        device_idle_share_untraced_est=1 - busy_ms / untraced_ms if dev_iv else None,
+        us_wall_per_device_op=traced_ms * 1e3 / len(dev_iv) if dev_iv else None,
+        us_untraced_wall_per_device_op=untraced_ms * 1e3 / len(dev_iv) if dev_iv else None,
+        note=None if dev_iv else "the trace holds no device events")
 
 
 def parse_ptxas(log):
@@ -127,7 +199,8 @@ def main():
     from zkarray_torch.kernels import _build
     from zkarray_torch.kernels import mont as km
     from zkarray_torch.kernels import sw as ksw
-    from zkarray_torch.testing import expected_msm, tiled_inputs
+    from zkarray_torch.poly import domain as tdm
+    from zkarray_torch.testing import ec_add, ec_mul, ec_neg, expected_msm, tiled_inputs
 
     dev = torch.device(DEVICE)
     G1 = B.G1
@@ -207,6 +280,24 @@ def main():
     def bound(nbytes, ops):
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / int_ops_per_s * 1e3
         return (max(tb, to), "bytes" if tb >= to else "operations")
+
+    def strided_field(spec, shape, strides):
+        """Random canonical limbs viewed with the given batch strides: limb k
+        of every element in row k of an (L, width) buffer."""
+        need = 1 + sum((s - 1) * st for s, st in zip(shape[1:], strides[1:]))
+        ld = max(strides[0], need)
+        return torch.as_strided(rand_field(spec, ld), shape, (ld,) + tuple(strides[1:]))
+
+    def per_launch_means(rows, shape):
+        """A kernel's path figures from its per-shape rows, weighted by launches."""
+        n_l = sum(r["launches"] for r in rows)
+        tb = sum(r["launches"] * r["bound_bytes_ms"] for r in rows)
+        to = sum(r["launches"] * r["bound_ops_ms"] for r in rows)
+        return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+                    ms=sum(r["launches"] * r["ms"] for r in rows) / n_l,
+                    plain_ms=sum(r["launches"] * r["plain_ms"] for r in rows) / n_l,
+                    bound_ms=max(tb, to) / n_l, bound_by="bytes" if tb >= to else "operations",
+                    ms_path_total=sum(r["launches"] * r["ms"] for r in rows), shape=shape)
 
     report = {}
 
@@ -347,7 +438,8 @@ def main():
     got_pt = tsw.affine_to_ints(G1, aff)[0]
     if got_pt != want_pt:
         raise AssertionError("msm 2^20: result differs from the host known answer")
-    missing = [k for k, v in launches.items() if v == 0]
+    msm_kernels = ("mont_mul", "mont_sqr", "xyzz_accum", "horner_windows")
+    missing = [k for k in msm_kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"msm 2^20: kernels never launched: {missing}")
     for name in ("mont_mul", "mont_sqr"):
@@ -378,20 +470,10 @@ def main():
                                    ms=ms, plain_ms=plain_ms, bound_bytes_ms=tb, bound_ops_ms=to))
     for name, rows in at_shape.items():
         emit("kernel_main_path_shapes", kernel=name, inputs="non-contiguous halves", rows=rows)
-        n_l = sum(r["launches"] for r in rows)
-        tb = sum(r["launches"] * r["bound_bytes_ms"] for r in rows)
-        to = sum(r["launches"] * r["bound_ops_ms"] for r in rows)
-        widest = rows[0]
-        report[name].update(
-            ms_2e20=report[name]["ms"],
-            max_abs_err=max([report[name]["max_abs_err"]] + [r["max_abs_err"] for r in rows]),
-            ms=sum(r["launches"] * r["ms"] for r in rows) / n_l,
-            plain_ms=sum(r["launches"] * r["plain_ms"] for r in rows) / n_l,
-            bound_ms=max(tb, to) / n_l, bound_by="bytes" if tb >= to else "operations",
-            ms_main_path_total=sum(r["launches"] * r["ms"] for r in rows),
-            ms_widest=widest["ms"], widest_shape=widest["shape"],
-            shape=f"mean per launch over the main path's {len(rows)} shapes",
-        )
+        means = per_launch_means(rows, f"mean per launch over the main path's {len(rows)} shapes")
+        means["max_abs_err"] = max(report[name]["max_abs_err"], means["max_abs_err"])
+        report[name].update(ms_2e20=report[name]["ms"], **means, ms_widest=rows[0]["ms"],
+                            widest_shape=rows[0]["shape"])
 
     W, half, _, _ = tmsm._window_geometry(c, bits)
     splits = []
@@ -410,48 +492,16 @@ def main():
          pts_per_s=n / (total / 1e3), peak_mem_bytes=torch.cuda.max_memory_allocated(),
          card=card)
 
-    # one msm_reduce under torch.profiler, CUDA activity only (kernels,
-    # copies and the runtime calls that launch them): how much of the
-    # reduce's wall time the device is busy, and on what. The untraced
-    # idle share is an estimate: device time under the trace over the
-    # untraced median wall time.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, supported_activities
-
-    if ProfilerActivity.CUDA not in supported_activities():
+    # one msm_reduce under torch.profiler: how much of the reduce's wall
+    # time the device is busy, and on what
+    res2, tr = device_trace(torch, lambda: tmsm.msm_reduce(G1, st, c, bits), t_red)
+    if tr is None:
         emit("reduce_trace", note="this torch build's profiler cannot trace CUDA activity")
     else:
-        sync()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            res2, t_traced = once_ms(lambda: tmsm.msm_reduce(G1, st, c, bits))
         if any(not torch.equal(a, b) for a, b in zip(res2, res)):
             raise AssertionError("msm_reduce under the profiler differs from the untraced run")
-        evs = prof.profiler.kineto_results.events()
-        dev_iv = [(e.start_ns(), e.end_ns(), e.name()) for e in evs
-                  if e.device_type() == DeviceType.CUDA]
-        api = collections.Counter(e.name() for e in evs if e.device_type() == DeviceType.CPU)
-        by_name = collections.defaultdict(lambda: [0, 0])  # name -> [ops, device ns]
-        for a, b, nm in dev_iv:
-            by_name[nm][0] += 1
-            by_name[nm][1] += b - a
-        ours = {}
-        for k in kernels.LAUNCHES:
-            hits = [v for nm, v in by_name.items() if f"{k}_kernel" in nm]
-            if hits:
-                n_k, ns_k = sum(h[0] for h in hits), sum(h[1] for h in hits)
-                ours[k] = dict(launches=n_k, device_ms=ns_k / 1e6, device_ms_per_launch=ns_k / 1e6 / n_k)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-        busy_ms = union_ns([(a, b) for a, b, _ in dev_iv]) / 1e6
-        emit("reduce_trace", ms_wall_traced=t_traced, ms_reduce_untraced_median=t_red,
-             device_ops=len(dev_iv), port_kernels=ours,
-             top_device_ms=[dict(name=nm[:90], ops=v[0], device_ms=v[1] / 1e6) for nm, v in top],
-             runtime_calls=dict(api.most_common(6)), ms_device_busy=busy_ms if dev_iv else None,
-             device_idle_share=1 - busy_ms / t_traced if dev_iv else None,
-             device_idle_share_untraced_est=1 - busy_ms / t_red if dev_iv else None,
-             us_wall_per_device_op=t_traced * 1e3 / len(dev_iv) if dev_iv else None,
-             us_untraced_wall_per_device_op=t_red * 1e3 / len(dev_iv) if dev_iv else None,
-             note=None if dev_iv else "the trace holds no device events")
-        for k, v in ours.items():
+        emit("reduce_trace", ms_reduce_untraced_median=t_red, **tr)
+        for k, v in tr["port_kernels"].items():
             report[k]["device_ms_per_launch_in_reduce_trace"] = v["device_ms_per_launch"]
     del A, s
 
@@ -469,20 +519,268 @@ def main():
     if got_pt != want_pt:
         raise AssertionError("ChunkedMSM 2^21: result differs from the host known answer")
     emit("chunked_msm", n=n2, chunk=n, correct=True, seconds_with_transfers=chunk_s)
+    del A, cm
 
-    # ---- 5. kernels line -----------------------------------------------------
+    # ---- 5. NTT path: Radix2Domain(Fr, 2^24) ------------------------------------
+    L = FR.num_limbs
+    p = FR.modulus
+    N = 1 << NTT_LOG_N
+    dom = tdm.Radix2Domain(FR, N)
+    krng = np.random.default_rng(5)
+    idx = np.unique(np.concatenate([[0, 1, N - 1], krng.integers(0, N, size=2 * KAT_POINTS)]))
+    idx = [int(i) for i in idx[: max(KAT_POINTS, 3)]] + [N - 1]
+
+    def rand_int():
+        return int.from_bytes(krng.bytes(32), "little") % p
+
+    def geometric(r_int, c_int, m):
+        """a_j = c r^j for j < m, built on the card (Montgomery form)."""
+        return fp.mont_mul(FR, tdm.power_table(FR, r_int, m, dev), fp.const_array(FR, c_int, (1,), dev))
+
+    def closed_form(d, r_int, c_int, m, ks):
+        """f(offset w^k) = c (1 - x^m) / (1 - x), x = r offset w^k, on the host."""
+        out = []
+        for k in ks:
+            x = r_int * d.offset_int * pow(d.group_gen_int, k, p) % p
+            out.append(c_int * (1 - pow(x, m, p)) * pow(1 - x, -1, p) % p)
+        return out
+
+    def check_closed_form(what, d, ev, r_int, c_int, m, ks):
+        if fp.to_ints(FR, ev[:, ks]) != closed_form(d, r_int, c_int, m, ks):
+            raise AssertionError(f"{what}: evaluations differ from the host closed form")
+
+    # the main-path run: every butterfly_dit launch's (shape, table length,
+    # stride) and every product launch's (shape, strides), recorded around
+    # the wrappers' own launch functions; the counts stay where they are
+    dit_shapes = collections.Counter()
+    ntt_mont = collections.Counter()
+    launch_dit = km._launch_dit
+
+    def recording_dit(spec, x, tw, stride):
+        dit_shapes[(tuple(x.shape), tw.shape[1], stride)] += 1
+        return launch_dit(spec, x, tw, stride)
+
+    def recording_mont(entry, kernel, spec, *ins):
+        ntt_mont[(kernel, spec.name, tuple(ins[0].shape), tuple(t.stride() for t in ins))] += 1
+        return launch(entry, kernel, spec, *ins)
+
+    r_int, c_int = rand_int(), rand_int()
+    a = geometric(r_int, c_int, N)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    km._launch_dit, km._launch = recording_dit, recording_mont
+    try:
+        kernels.reset_launches()
+        ev = dom.fft(a)
+        sync()
+        ntt_launches = dict(kernels.LAUNCHES)
+    finally:
+        km._launch_dit, km._launch = launch_dit, launch
+    ntt_peak = torch.cuda.max_memory_allocated()
+    check_closed_form("fft 2^24", dom, ev, r_int, c_int, N, idx)
+    ntt_kernels = ("butterfly_dit", "mont_mul", "mont_sqr")
+    missing = [k for k in ntt_kernels if ntt_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"fft 2^24: kernels never launched: {missing}")
+    if sum(dit_shapes.values()) != ntt_launches["butterfly_dit"] or any(
+            sum(v for (k, *_), v in ntt_mont.items() if k == name) != ntt_launches[name]
+            for name in ("mont_mul", "mont_sqr")):
+        raise AssertionError("fft 2^24: recorded launches differ from the counts")
+    del a, ev
+
+    # fft/ifft round trip of random coefficients; the input stays as it was
+    x = rand_field(FR, N)
+    x0 = x.clone()
+    ev_x = dom.fft(x)
+    if not torch.equal(dom.ifft(ev_x), x0) or not torch.equal(x, x0):
+        raise AssertionError("fft/ifft 2^24: the round trip does not return the input")
+    del x0
+
+    # coset (offset 7) round trip and closed form at 2^20: fft_fourstep_core
+    dc = tdm.Radix2Domain(FR, 1 << COSET_LOG_N, offset_int=FR.generator_int)
+    y = rand_field(FR, 1 << COSET_LOG_N)
+    if not torch.equal(dc.ifft(dc.fft(y)), y):
+        raise AssertionError("coset fft/ifft 2^20: the round trip does not return the input")
+    r2, c2 = rand_int(), rand_int()
+    check_closed_form("coset fft 2^20", dc, dc.fft(geometric(r2, c2, 1 << COSET_LOG_N)), r2, c2,
+                      1 << COSET_LOG_N, [k % (1 << COSET_LOG_N) for k in idx])
+    del y
+
+    # degree-aware fft: 2^22 coefficients on 2^24 points
+    M = 1 << DEG_LOG_M
+    r3, c3 = rand_int(), rand_int()
+    check_closed_form("degree-aware fft 2^22 -> 2^24", dom, dom.fft(geometric(r3, c3, M)), r3, c3, M,
+                      idx)
+
+    fft_runs = []
+    for _ in range(3):
+        out, ms = once_ms(lambda: dom.fft(x))
+        if not torch.equal(out, ev_x):
+            raise AssertionError("fft 2^24: a timed run differs from the first")
+        fft_runs.append(ms)
+        del out
+    ms_fft = sorted(fft_runs)[1]
+    emit("ntt", n=N, field=FR.name, correct=True, known_answer_indices=len(idx), round_trip=True,
+         coset_log_n=COSET_LOG_N, degree_aware_log_m=DEG_LOG_M, launches=ntt_launches,
+         ms_fft=ms_fft, ms_fft_runs=fft_runs, elems_per_s=N / (ms_fft / 1e3),
+         peak_mem_bytes=ntt_peak, card=card)
+    _, tr = device_trace(torch, lambda: dom.fft(x), ms_fft)
+    if tr is None:
+        emit("ntt_trace", note="this torch build's profiler cannot trace CUDA activity")
+    else:
+        emit("ntt_trace", ms_fft_untraced_median=ms_fft, **tr)
+    del x, ev_x
+
+    # butterfly_dit against its plain version at every recorded shape
+    dit_ops = mul_ops(FR) + 2 * add_ops(FR)
+    dit_rows = []
+    for (shape, T, stride), count in sorted(dit_shapes.items()):
+        _, C, _, H, R = shape
+        xb = rand_field(FR, C * 2 * H * R).reshape(shape)
+        twb = rand_field(FR, T)
+        got = km.butterfly_dit(FR, xb.clone(), twb, stride)
+        err = check_equal(f"butterfly_dit at {shape}", got, km.butterfly_dit_plain(FR, xb.clone(), twb, stride))
+        ms = time_ms(lambda: km.butterfly_dit(FR, xb, twb, stride), 20)
+        plain_ms = time_ms(lambda: km.butterfly_dit_plain(FR, xb, twb, stride), 2)
+        pairs = C * H * R
+        dit_rows.append(dict(shape=list(shape), stride=stride, launches=count, max_abs_err=err,
+                             ms=ms, plain_ms=plain_ms,
+                             bound_bytes_ms=(4 * pairs + H) * L * 4 / HBM_BYTES_PER_S * 1e3,
+                             bound_ops_ms=pairs * dit_ops / int_ops_per_s * 1e3))
+        del xb, twb, got
+    emit("kernel_main_path_shapes", kernel="butterfly_dit", path=f"fft 2^{NTT_LOG_N}", rows=dit_rows)
+    report["butterfly_dit"] = per_launch_means(dit_rows, f"mean per launch over the fft's {len(dit_rows)} shapes")
+    if tr is not None and "butterfly_dit" in tr["port_kernels"]:
+        report["butterfly_dit"]["device_ms_per_launch_in_ntt_trace"] = (
+            tr["port_kernels"]["butterfly_dit"]["device_ms_per_launch"])
+
+    # mont_mul / mont_sqr against their plain versions at every NTT shape
+    # and layout (slices along the first batch axis, broadcast constants)
+    ntt_rows = {"mont_mul": [], "mont_sqr": []}
+    for (name, fname, shape, strides), count in sorted(ntt_mont.items(), key=lambda kv: -math.prod(kv[0][2])):
+        spec = specs[fname]
+        kern, plain, _ = kerns[name]
+        ins = [strided_field(spec, shape, st) for st in strides]
+        got = kern(spec, *ins)
+        err = check_equal(f"{name} {fname} at {shape} {strides}", got, plain(spec, *ins))
+        ms = time_ms(lambda: kern(spec, *ins), 20)
+        plain_ms = time_ms(lambda: plain(spec, *ins), 2)
+        m = math.prod(shape[1:])
+        read = sum(km._operand(t)[2] for t in ins)
+        ntt_rows[name].append(dict(field=fname, shape=list(shape), strides=[list(s) for s in strides],
+                                   launches=count, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                   bound_bytes_ms=(read + m) * shape[0] * 4 / HBM_BYTES_PER_S * 1e3,
+                                   bound_ops_ms=m * mul_ops(spec) / int_ops_per_s * 1e3))
+    for name, rows in ntt_rows.items():
+        emit("kernel_main_path_shapes", kernel=name, path=f"fft 2^{NTT_LOG_N}", rows=rows)
+        ntt = per_launch_means(rows, f"mean per launch over the fft's {len(rows)} shapes")
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], ntt["max_abs_err"])
+        report[name]["ntt"] = dict(launches=ntt_launches[name], **ntt)
+
+    # ---- 6. butterfly_stage through its entry, 2^20 Fr elements ---------------
+    ne = 1 << ELEM_LOG_N
+    lo, hi, w = (rand_field(FR, ne) for _ in range(3))
+    sync()
+    kernels.reset_launches()
+    got = km.butterfly_stage(FR, lo, hi, w)
+    sync()
+    stage_launches = kernels.LAUNCHES["butterfly_stage"]
+    want = km.butterfly_stage_plain(FR, lo, hi, w)
+    err = max(check_equal("butterfly_stage a", got[0], want[0]), check_equal("butterfly_stage b", got[1], want[1]))
+    ms = time_ms(lambda: km.butterfly_stage(FR, lo, hi, w), 20)
+    plain_ms = time_ms(lambda: km.butterfly_stage_plain(FR, lo, hi, w), 2)
+    b_ms, b_by = bound(5 * L * ne * 4, ne * dit_ops)
+    emit("kernel", kernel="butterfly_stage", field=FR.name, n=ne, max_abs_err=err, ms=ms,
+         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    report["butterfly_stage"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                     bound_by=b_by, shape=f"Fr, {ne} elements")
+    del lo, hi, w, got, want
+
+    # ---- 7. xyzz_add_affine ------------------------------------------------------
+    f = FQ
+    mod = f.modulus
+    g1 = (G1.gen_x, G1.gen_y)
+    pool = [ec_mul(g1, int(k), 0, mod) for k in krng.integers(1, 1 << 30, size=MADD_KAT_BASE)]
+    nb = MADD_KAT_BASE
+    ps = [pool[i // nb] for i in range(nb * nb)]  # every pair, so 64 doublings
+    qs = [pool[i % nb] for i in range(nb * nb)]
+    for i in range(0, nb * nb, 97):
+        qs[i] = ec_neg(ps[i], mod)  # cancellation
+    for i in range(5, nb * nb, 101):
+        qs[i] = None
+    for i in range(7, nb * nb, 103):
+        ps[i] = None
+    Pk = tsw.xyzz_from_affine(G1, tsw.affine_from_ints(G1, ps, dev))
+    Ak = tsw.affine_from_ints(G1, qs, dev)
+    sync()
+    kernels.reset_launches()
+    Sk = tsw.xyzz_add_affine(G1, Pk, Ak)
+    sync()
+    madd_launches = kernels.LAUNCHES["xyzz_add_affine"]
+    if tsw.affine_to_ints(G1, tsw.xyzz_to_affine(G1, Sk)) != [ec_add(u, v, 0, mod) for u, v in zip(ps, qs)]:
+        raise AssertionError("xyzz_add_affine: sums of real points differ from the host oracle")
+
+    # edge-class feed on 2^20 points: random field elements (the formulas
+    # need no curve membership to be compared), per-point classes
+    Lq = f.num_limbs
+    one = fp.one(f, (ne,), dev).contiguous()
+    zero = fp.zero(f, (ne,), dev)
+    X, Y, ZZ, ZZZ, AX, AY = (rand_field(f, ne) for _ in range(6))
+    cls = torch.arange(ne, device=dev) % 7
+
+    def on(c):
+        return torch.isin(cls, torch.tensor(c, device=dev))
+
+    AY = torch.where(on([6])[None], zero, AY)  # doubling a y == 0 point
+    same = on([1, 2, 6])[None]  # P == A (1, 6) or P == -A (2)
+    X = torch.where(same, AX, X)
+    Y = torch.where(on([1, 6])[None], AY, torch.where(on([2])[None], fp.neg(f, AY), Y))
+    ZZ, ZZZ = torch.where(same, one, ZZ), torch.where(same, one, ZZZ)
+    p_inf = on([3, 5])[None]  # P at infinity
+    X, Y = torch.where(p_inf, one, X), torch.where(p_inf, one, Y)
+    ZZ, ZZZ = torch.where(p_inf, zero, ZZ), torch.where(p_inf, zero, ZZZ)
+    a_inf = on([4, 5])  # A at infinity (5: both)
+    P = (X, Y, ZZ, ZZZ)
+    got = ksw.xyzz_add_affine(G1, P, AX, AY, a_inf)
+    want, plain_ms = once_ms(lambda: ksw.xyzz_add_affine_plain(G1, P, AX, AY, a_inf))
+    err = max(check_equal(f"xyzz_add_affine edges, coordinate {i}", g, w_) for i, (g, w_) in
+              enumerate(zip(got, want)))
+    ms = time_ms(lambda: ksw.xyzz_add_affine(G1, P, AX, AY, a_inf), 20)
+    n_of = lambda cs: int(on(cs).sum())  # noqa: E731
+    madd_ops = 10 * mul_ops(f) + 7 * add_ops(f)
+    ops = (n_of([0]) * madd_ops + n_of([1]) * (8 * mul_ops(f) + 9 * add_ops(f))
+           + n_of([2, 6]) * (2 * mul_ops(f) + 2 * add_ops(f)))
+    b_ms, b_by = bound((10 * Lq * 4 + 1) * ne, ops)
+    emit("kernel", kernel="xyzz_add_affine", field=f.name, n=ne, feed="edge classes",
+         known_answer_pairs=len(ps), max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+         bound_by=b_by)
+    report["xyzz_add_affine"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                     bound_by=b_by, shape=f"{ne} points, 7 edge classes")
+    del X, Y, ZZ, ZZZ, AX, AY, P, got, want
+
+    # ---- 8. kernels line -----------------------------------------------------
     sources = {
         "mont_mul": ("zkarray_torch/kernels/csrc/mont.cu", "zkarray/kernels/mont.py:235"),
         "mont_sqr": ("zkarray_torch/kernels/csrc/mont.cu", "zkarray/kernels/mont.py:254"),
         "xyzz_accum": ("zkarray_torch/kernels/csrc/sw.cu",
                        "zkarray/kernels/sw.py:309 and zkarray/kernels/sw.py:213"),
         "horner_windows": ("zkarray_torch/kernels/csrc/sw.cu", "zkarray/kernels/sw.py:497"),
+        "butterfly_dit": ("zkarray_torch/kernels/csrc/ntt.cu", "zkarray/kernels/mont.py:266"),
+        "butterfly_stage": ("zkarray_torch/kernels/csrc/ntt.cu", "zkarray/kernels/mont.py:317"),
+        "xyzz_add_affine": ("zkarray_torch/kernels/csrc/madd.cu", "zkarray/kernels/sw.py:155"),
     }
+    paths = {k: (f"msm 2^{LOG_N}", launches[k]) for k in msm_kernels}
+    paths["butterfly_dit"] = (f"fft 2^{NTT_LOG_N}", ntt_launches["butterfly_dit"])
+    paths["butterfly_stage"] = ("kernels.mont.butterfly_stage", stage_launches)
+    paths["xyzz_add_affine"] = ("ec.sw.xyzz_add_affine", madd_launches)
+    idle = [k for k, (_, n_l) in paths.items() if n_l == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on their path: {idle}")
     rows = []
     for name, (src, repl) in sources.items():
         r = report[name]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
-                     "launches": launches[name], "library_ms": None, **r})
+                     "path": paths[name][0], "launches": paths[name][1], "library_ms": None, **r})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -50,6 +50,12 @@ def test_port_constants_equal_jax():
         assert interop.same_field(t, j.modulus, j.generator_int, j.r_int, j.r2_int, j.inv16)
         assert t.to_mont_int(12345) == j.to_mont_int(12345)
         assert t.from_mont_int(6789) == j.from_mont_int(6789)
+        assert (t.two_adicity, t.trace, t.two_adic_root_int) == (
+            j.two_adicity, j.trace, j.two_adic_root_int)
+        assert [t.root_of_unity(1 << k) for k in range(t.two_adicity + 1)] == [
+            j.root_of_unity(1 << k) for k in range(j.two_adicity + 1)]
+        with pytest.raises(ValueError):
+            t.root_of_unity(1 << (t.two_adicity + 1))
     jg, tg = jcurves.G1, tcurves.G1
     assert interop.same_curve(tg, jg.a_int, jg.b_int, jg.gen_x, jg.gen_y, jg.cofactor)
     assert not interop.same_curve(tg, jg.a_int, jg.b_int + 1, jg.gen_x, jg.gen_y, jg.cofactor)
@@ -58,7 +64,8 @@ def test_port_constants_equal_jax():
 def test_import_pulls_in_no_jax():
     code = (
         "import sys; import zkarray_torch.ec.msm, zkarray_torch.interop, "
-        "zkarray_torch.testing, zkarray_torch.kernels.sw; "
+        "zkarray_torch.testing, zkarray_torch.kernels.sw, zkarray_torch.poly.domain, "
+        "zkarray_torch.poly.evaluations; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'zkarray')]; "
         "assert not bad, bad"
     )

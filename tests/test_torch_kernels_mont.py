@@ -1,0 +1,101 @@
+"""Port parity: the plain versions of the butterfly kernels against the
+Pallas kernels of zkarray.kernels.mont in interpret mode, bit for bit, at the
+shapes tests/test_kernels.py runs them (BLS12-381 Fr, L = 16); the narrow
+DIT stages (H = 1, 2, 4) that the JAX package leaves to XLA against
+Python ints; and the operand map the mont_mul/mont_sqr kernels read strided
+inputs through. The CUDA kernels themselves are held against these plain
+versions on the card by chip_smoke.py."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from torch_parity import both, same  # noqa: E402
+from zkarray.curves import bls12_381 as jcurves  # noqa: E402
+from zkarray.kernels import mont as jkm  # noqa: E402
+from zkarray_torch.curves import bls12_381 as tcurves  # noqa: E402
+from zkarray_torch.ff import fp as tfp  # noqa: E402
+from zkarray_torch.kernels import mont as tkm  # noqa: E402
+
+JFR, TFR = jcurves.FR, tcurves.FR
+L = TFR.num_limbs
+P = TFR.modulus
+
+
+def rand_ints(n, rng):
+    return [int.from_bytes(rng.bytes(32), "little") % P for _ in range(n)]
+
+
+def test_butterfly_dit_plain_matches_jax_kernel():
+    # tests/test_kernels.py:test_butterfly_dit_inplace_matches_xla's shape
+    rng = np.random.default_rng(11)
+    C, H, R = 2, 8, 128
+    jx, tx = both(JFR, rand_ints(C * 2 * H * R, rng))
+    jw, tw = both(JFR, rand_ints(H, rng))
+    want = jkm.butterfly_dit_inplace(JFR, jx.reshape(L, C, 2, H, R),
+                                     jnp.broadcast_to(jw[:, :, None], (L, H, 128)), C, H, R)
+    x = tx.reshape(L, C, 2, H, R).clone()
+    # the port reads w_h = tw[:, h * stride]: spread the same twiddles at stride 3
+    spread = torch.zeros((L, 3 * H - 2), dtype=torch.int32)
+    spread[:, ::3] = tw
+    for fn in (tkm.butterfly_dit, tkm.butterfly_dit_plain):
+        y = x.clone()
+        assert fn(TFR, y, spread, 3) is y  # in place
+        assert same(want, y)
+    with pytest.raises(ValueError):  # in place needs a buffer the caller owns outright
+        tkm.butterfly_dit(TFR, x.transpose(3, 4), spread, 3)
+
+
+@pytest.mark.parametrize("H", [1, 2, 4])
+def test_butterfly_dit_narrow_stages_match_ints(H):
+    rng = np.random.default_rng(H)
+    C, R = 3, 2
+    xs = rand_ints(C * 2 * H * R, rng)
+    ws = rand_ints(H, rng)
+    x = tfp.from_ints(TFR, xs, device="cpu").reshape(L, C, 2, H, R)
+    tkm.butterfly_dit(TFR, x, tfp.from_ints(TFR, ws, device="cpu"), 1)
+    got = tfp.to_ints(TFR, x)
+    want = list(xs)
+    for c in range(C):
+        for h in range(H):
+            for r in range(R):
+                lo, hi = (c * 2 * H + h) * R + r, ((c * 2 + 1) * H + h) * R + r
+                t = xs[hi] * ws[h] % P
+                want[lo], want[hi] = (xs[lo] + t) % P, (xs[lo] - t) % P
+    assert got == want
+
+
+def test_butterfly_stage_plain_matches_jax_kernel():
+    # tests/test_kernels.py:test_pallas_butterfly_matches_fp's shape, n = 300
+    rng = np.random.default_rng(9)
+    los, his, ws = (rand_ints(300, rng) for _ in range(3))
+    (jl, tl), (jh, th), (jw, tw) = both(JFR, los), both(JFR, his), both(JFR, ws)
+    ja, jb = jkm.butterfly_stage(JFR, jl, jh, jw)
+    for fn in (tkm.butterfly_stage, tkm.butterfly_stage_plain):
+        a, b = fn(TFR, tl, th, tw)
+        assert same(ja, a) and same(jb, b)
+    assert tfp.to_ints(TFR, a) == [(x + y) % P for x, y in zip(los, his)]
+    assert tfp.to_ints(TFR, b) == [(x - y) * z % P for x, y, z in zip(los, his, ws)]
+
+
+def test_operand_map_reads_slices_and_broadcasts_in_place():
+    base = torch.arange(L * 6 * 10, dtype=torch.int32).reshape(L, 6, 10)
+    const = torch.arange(L * 10, dtype=torch.int32).reshape(L, 1, 10)
+    cases = {
+        "contiguous": (base, False),
+        "first-axis slice": (base[:, 1:4], False),
+        "last-axis slice": (base[:, :, 2:7], True),
+        "broadcast row": (const.expand(L, 6, 10), False),
+        "broadcast scalar": (base[:, :1, :1].expand(L, 6, 10), False),
+        "transpose": (base.transpose(1, 2), True),
+    }
+    for name, (t, copied) in cases.items():
+        op, ld, period = tkm._operand(t)
+        assert (op.data_ptr() != t.data_ptr()) == copied, name
+        n = t[0].numel()
+        flat = torch.as_strided(op, (L, period), (ld, 1))
+        assert torch.equal(flat[:, torch.arange(n) % period], t.reshape(L, n)), name

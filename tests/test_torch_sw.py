@@ -1,7 +1,8 @@
-"""Port parity: zkarray_torch.ec.sw XYZZ ops against zkarray.ec.sw, bit for
-bit, on the six edge classes of tests/test_kernels.py (generic, P == A,
-P == -A, P at infinity, A at infinity, both at infinity), plus the
-Python-int oracle. Batch width 8 is the one tests/test_sw.py compiles."""
+"""Port parity: zkarray_torch.ec.sw XYZZ ops (add, double, the mixed add
+and the affine doubling) against zkarray.ec.sw, bit for bit, on the six edge
+classes of tests/test_kernels.py (generic, P == A, P == -A, P at infinity,
+A at infinity, both at infinity), plus the Python-int oracle. Batch width 8
+is the one tests/test_sw.py compiles."""
 
 import numpy as np
 import pytest
@@ -13,6 +14,7 @@ from torch_parity import JC, TC, assert_same_points  # noqa: E402
 from zkarray.ec import sw as jsw  # noqa: E402
 from zkarray_torch.ec import sw as tsw  # noqa: E402
 from zkarray_torch.interop import affine_from_numpy, limbs_to_numpy  # noqa: E402
+from zkarray_torch.kernels import sw as ksw  # noqa: E402
 from zkarray_torch.testing import ec_add, ec_mul  # noqa: E402
 
 
@@ -68,6 +70,31 @@ def test_xyzz_ops_match_jax_and_oracle():
     assert tsw.affine_to_ints(TC, tsw.xyzz_to_affine(TC, tD)) == [
         ec_add(p, p, 0, mod) for p in ps
     ]
+
+
+def test_xyzz_add_affine_matches_jax_and_oracle():
+    """The mixed add (plain version of the xyzz_add_affine kernel on the CPU)
+    against the JAX package's XLA path at width 8, then the six edge classes
+    of tests/test_kernels.py at n = 64 and the doubling against the oracle."""
+    mod = JC.base.modulus
+    ps, qs = edge_pairs()
+    jA1, jA2 = JC.affine_from_ints(ps), JC.affine_from_ints(qs)
+    tA1, tA2 = port_affine(jA1), port_affine(jA2)
+    tP = tsw.xyzz_from_affine(TC, tA1)
+    got = tsw.xyzz_add_affine(TC, tP, tA2)
+    assert isinstance(got, tsw.XYZZPoints)
+    assert_same_points(jsw.xyzz_add_affine(JC, jsw.xyzz_from_affine(JC, jA1), jA2), got)
+    plain = ksw.xyzz_add_affine_plain(TC, tP, tA2.x, tA2.y, tA2.inf)
+    assert all(torch.equal(a, b) for a, b in zip(plain, got))
+
+    ps, qs = edge_pairs(n=64, seed=12)
+    tA1 = tsw.affine_from_ints(TC, ps, device="cpu")
+    tA2 = tsw.affine_from_ints(TC, qs, device="cpu")
+    got = tsw.xyzz_add_affine(TC, tsw.xyzz_from_affine(TC, tA1), tA2)
+    assert tsw.affine_to_ints(TC, tsw.xyzz_to_affine(TC, got)) == [
+        ec_add(p, q, 0, mod) for p, q in zip(ps, qs)]
+    dbl = tsw.xyzz_double_affine(TC, tA1)
+    assert tsw.affine_to_ints(TC, tsw.xyzz_to_affine(TC, dbl)) == [ec_add(p, p, 0, mod) for p in ps]
 
 
 def test_xyzz_zero_and_affine_round_trip():

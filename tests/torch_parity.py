@@ -7,6 +7,7 @@ import numpy as np
 
 from zkarray.curves import bls12_381 as jcurves
 from zkarray.ff import fp as jfp
+from zkarray_torch.core.fieldspec import FieldSpec
 from zkarray_torch.curves import bls12_381 as tcurves
 from zkarray_torch.interop import affine_from_numpy, limbs_from_numpy, limbs_to_numpy
 from zkarray_torch.testing import ec_mul
@@ -17,6 +18,12 @@ FIELD_IDS = ["Fq", "Fr"]
 JC, TC = jcurves.G1, tcurves.G1
 N, C = 64, 5  # tests/test_msm.py's MSM shape, so the JAX side hits the shared cache
 BITS = JC.scalar.bits
+
+
+def port_field(jspec):
+    """The port's FieldSpec of a JAX package field (any prime field: the port's
+    field code is generic; only BLS12-381 has a curve module there yet)."""
+    return FieldSpec(jspec.modulus, jspec.generator_int, name=jspec.name)
 
 
 def rand_ints(p, n, seed):

@@ -29,6 +29,15 @@ class FieldSpec:
         self.inv16 = (-pow(modulus, -1, 1 << 16)) % (1 << 16)
         self.inv32 = (-pow(modulus, -1, 1 << 32)) % (1 << 32)
         self._rinv = pow(self.r_int, -1, modulus)
+        # 2-adicity: p - 1 = 2^s * t with t odd
+        t = modulus - 1
+        s = 0
+        while t % 2 == 0:
+            t //= 2
+            s += 1
+        self.two_adicity = s
+        self.trace = t
+        self.two_adic_root_int = pow(self.generator_int, t, modulus)
 
     def __hash__(self):
         return hash((self.modulus, self.generator_int))
@@ -52,3 +61,16 @@ class FieldSpec:
 
     def from_mont_int(self, x: int) -> int:
         return (x * self._rinv) % self.modulus
+
+    def root_of_unity(self, n: int) -> int:
+        """Canonical n-th root of unity for a power of two n <= 2^s, or raise
+        (zkarray/core/fieldspec.py:root_of_unity, power-of-two branch)."""
+        if n <= 0 or n & (n - 1):
+            raise ValueError(f"n must be a power of two, got {n}")
+        k = n.bit_length() - 1
+        if k > self.two_adicity:
+            raise ValueError(f"no 2^{k}-th root of unity in {self.name}")
+        w = self.two_adic_root_int
+        for _ in range(self.two_adicity - k):
+            w = (w * w) % self.modulus
+        return w

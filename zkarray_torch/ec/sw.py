@@ -1,6 +1,7 @@
 """Short-Weierstrass XYZZ group law, batched over planar limb tensors.
 
-Counterpart of zkarray/ec/sw.py (the subset the MSM runs). Every op computes
+Counterpart of zkarray/ec/sw.py (the XYZZ subset: the MSM's ops and the
+mixed add with its fused kernel). Every op computes
 its candidates and selects with batch masks, in the JAX package's order, so
 results match it bit for bit. Points are NamedTuples of (L, *batch) int32
 limb tensors. Infinity: XYZZ zz == 0 (canonically (1, 1, 0, 0) in Montgomery
@@ -18,6 +19,7 @@ from zkarray_torch import DEFAULT_DEVICE
 from zkarray_torch.core import limbs as lb
 from zkarray_torch.core.fieldspec import FieldSpec
 from zkarray_torch.ff import fp
+from zkarray_torch.kernels import sw as ksw
 
 
 class AffinePoints(NamedTuple):
@@ -146,6 +148,34 @@ def xyzz_add(curve: SWCurveSpec, P: XYZZPoints, Q: XYZZPoints) -> XYZZPoints:
     out = select_xyzz(p_inf, Q, out)
     out = select_xyzz(q_inf, P, out)
     return out
+
+
+def xyzz_add_affine(curve: SWCurveSpec, P: XYZZPoints, A: AffinePoints) -> XYZZPoints:
+    """Bucket += affine point (mmadd-xyzz), edge-complete
+    (zkarray/ec/sw.py:xyzz_add_affine): the fused kernel
+    kernels/sw.py:xyzz_add_affine at every batch size on a CUDA device, its
+    plain version on the CPU."""
+    return XYZZPoints(*ksw.xyzz_add_affine(curve, P, A.x, A.y, A.inf))
+
+
+def xyzz_double_affine(curve: SWCurveSpec, A: AffinePoints) -> XYZZPoints:
+    """2·affine in XYZZ (mdbl-2008-s-1); infinity or y == 0 -> infinity
+    (zkarray/ec/sw.py:xyzz_double_affine)."""
+    f = curve.base
+    X1, Y1 = A.x, A.y
+    U = fp.double(f, Y1)
+    V = fp.mont_sqr(f, U)
+    W = fp.mont_mul(f, U, V)
+    S = fp.mont_mul(f, X1, V)
+    XX = fp.mont_sqr(f, X1)
+    M = fp.add(f, fp.double(f, XX), XX)
+    if not curve.a_is_zero:
+        M = fp.add(f, M, fp.const_array(f, curve.a_int, (), X1.device))
+    X3 = fp.sub(f, fp.mont_sqr(f, M), fp.double(f, S))
+    Y3 = fp.sub(f, fp.mont_mul(f, M, fp.sub(f, S, X3)), fp.mont_mul(f, W, Y1))
+    out = XYZZPoints(X3, Y3, V, W)
+    bad = A.inf | fp.is_zero(f, Y1)
+    return select_xyzz(bad, xyzz_zero(curve, X3.shape[1:], X3.device), out)
 
 
 def xyzz_double(curve: SWCurveSpec, P: XYZZPoints) -> XYZZPoints:

@@ -4,11 +4,14 @@ PyTorch version.
 Sources live in ``csrc/``; ``_build`` compiles them with nvcc at first use
 and binds them with ctypes. ``LAUNCHES`` counts each kernel's launches.
 
-    kernel          wrappers                               replaces (zkarray/kernels)
-    mont_mul        mont.mont_mul                          mont.py:mont_mul
-    mont_sqr        mont.mont_sqr                          mont.py:mont_sqr
-    xyzz_accum      sw.xyzz_accum_grid, sw.xyzz_accum_tiles sw.py:xyzz_accum_grid, :xyzz_accum_tiles
-    horner_windows  sw.horner_windows                      sw.py:horner_windows
+    kernel           source    wrappers                                replaces (zkarray/kernels)
+    mont_mul         mont.cu   mont.mont_mul                           mont.py:mont_mul
+    mont_sqr         mont.cu   mont.mont_sqr                           mont.py:mont_sqr
+    xyzz_accum       sw.cu     sw.xyzz_accum_grid, sw.xyzz_accum_tiles  sw.py:xyzz_accum_grid, :xyzz_accum_tiles
+    horner_windows   sw.cu     sw.horner_windows                       sw.py:horner_windows
+    butterfly_dit    ntt.cu    mont.butterfly_dit                      mont.py:butterfly_dit_inplace
+    butterfly_stage  ntt.cu    mont.butterfly_stage                    mont.py:butterfly_stage
+    xyzz_add_affine  madd.cu   sw.xyzz_add_affine                      sw.py:xyzz_add_affine
 """
 
 from zkarray_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401

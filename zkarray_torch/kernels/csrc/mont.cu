@@ -11,26 +11,41 @@
 // consecutive addresses, so each of the 2L loads and L stores of a warp is
 // one coalesced 128-byte line; limb pairs are packed into NW = L/2 32-bit
 // words in registers and the CIOS runs there.
+//
+// Operands: input element i, limb k, is read at base[k*ld + i % period]. A
+// contiguous tensor has ld = period = n; a slice along the first batch axis
+// keeps period = n with a wider ld; a constant broadcast over leading batch
+// axes has a smaller period. So neither a slice nor a broadcast constant is
+// copied before the launch. The output is contiguous, ld = n.
 #include "field.cuh"
+
+struct Operand {
+  const int32_t* base;
+  long long ld;
+  long long period;
+};
+
+template <int NW>
+__device__ __forceinline__ Fe<NW> load_operand(const Operand& o, long long i) {
+  return load16<NW>(o.base, (size_t)o.ld, (size_t)(i < o.period ? i : i % o.period));
+}
 
 template <int NW>
 __global__ void __launch_bounds__(256)
-mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-                int32_t* __restrict__ out, long long n, FieldConsts<NW> F) {
+mont_mul_kernel(Operand a, Operand b, int32_t* __restrict__ out, long long n, FieldConsts<NW> F) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Fe<NW> x = load16<NW>(a, (size_t)n, (size_t)i);
-  const Fe<NW> y = load16<NW>(b, (size_t)n, (size_t)i);
+  const Fe<NW> x = load_operand<NW>(a, i);
+  const Fe<NW> y = load_operand<NW>(b, i);
   store16<NW>(out, (size_t)n, (size_t)i, fmul<NW>(x, y, F));
 }
 
 template <int NW>
 __global__ void __launch_bounds__(256)
-mont_sqr_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out, long long n,
-                FieldConsts<NW> F) {
+mont_sqr_kernel(Operand a, int32_t* __restrict__ out, long long n, FieldConsts<NW> F) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Fe<NW> x = load16<NW>(a, (size_t)n, (size_t)i);
+  const Fe<NW> x = load_operand<NW>(a, i);
   store16<NW>(out, (size_t)n, (size_t)i, fmul<NW>(x, x, F));
 }
 
@@ -38,20 +53,26 @@ static inline unsigned blocks_for(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
-// a, b, out: int32[L, n] contiguous; consts: host words (see field.cuh).
-extern "C" int zk_mont_mul(const void* a, const void* b, void* out, long long n, int nw,
+// a, b: int32 limb operands (base, ld, period); out: int32[L, n] contiguous;
+// consts: host words (see field.cuh).
+extern "C" int zk_mont_mul(const void* a, long long lda, long long pa, const void* b,
+                           long long ldb, long long pb, void* out, long long n, int nw,
                            const uint32_t* consts, void* stream) {
   if (n <= 0) return 0;
+  if (pa <= 0 || pb <= 0) return (int)cudaErrorInvalidValue;
+  const Operand oa{(const int32_t*)a, lda, pa};
+  const Operand ob{(const int32_t*)b, ldb, pb};
   ZK_DISPATCH_NW(nw, mont_mul_kernel<NW><<<blocks_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
-                          (const int32_t*)a, (const int32_t*)b, (int32_t*)out, n,
-                          consts_from_host<NW>(consts)));
+                          oa, ob, (int32_t*)out, n, consts_from_host<NW>(consts)));
   return (int)cudaGetLastError();
 }
 
-extern "C" int zk_mont_sqr(const void* a, void* out, long long n, int nw,
-                           const uint32_t* consts, void* stream) {
+extern "C" int zk_mont_sqr(const void* a, long long lda, long long pa, void* out, long long n,
+                           int nw, const uint32_t* consts, void* stream) {
   if (n <= 0) return 0;
+  if (pa <= 0) return (int)cudaErrorInvalidValue;
+  const Operand oa{(const int32_t*)a, lda, pa};
   ZK_DISPATCH_NW(nw, mont_sqr_kernel<NW><<<blocks_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
-                          (const int32_t*)a, (int32_t*)out, n, consts_from_host<NW>(consts)));
+                          oa, (int32_t*)out, n, consts_from_host<NW>(consts)));
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,22 @@
-"""Montgomery product and square: CUDA kernel and plain PyTorch version.
+"""Montgomery product, square and NTT butterflies: CUDA kernels and plain
+PyTorch versions.
 
-Counterpart of zkarray/kernels/mont.py:mont_mul/mont_sqr. ``mont_mul`` and
-``mont_sqr`` take the plain version for tensors on the CPU and launch
-``csrc/mont.cu`` for tensors on a CUDA device (or raise); there is no other
-rule and no fallback. Both versions compute a*b*R^-1 mod p fully reduced, so
-they agree bit for bit with each other and with the JAX package.
+Counterpart of zkarray/kernels/mont.py:mont_mul, mont_sqr,
+butterfly_dit_inplace and butterfly_stage. Each wrapper takes the plain
+version for tensors on the CPU and launches its kernel (``csrc/mont.cu``,
+``csrc/ntt.cu``) for tensors on a CUDA device (or raises); there is no other
+rule and no fallback. Both versions compute every product a*b*R^-1 mod p and
+every sum and difference fully reduced, so they agree bit for bit with each
+other and with the JAX package.
+
+``butterfly_dit`` runs one DIT stage in place, as the TPU kernel does through
+input_output_aliases. The TPU kernel needed H % 8 == 0 and R % 128 == 0 (its
+(8, 128) tiling) and took lane-broadcast twiddles, so the JAX package runs
+the stages with half < 8 through XLA's slice/mul/add/concatenate instead.
+Here one kernel runs every stage, with the twiddles read from the power
+table at a stride. The results are identical either way, because the field
+arithmetic is exact: each stage computes the same fully reduced
+(lo + hi w, lo - hi w).
 
 The module also holds the plain field helpers (constants, add, sub) that
 ff/fp.py and the plain versions in kernels/sw.py share, so the kernel layer
@@ -89,13 +101,13 @@ def words_ptr(words: np.ndarray):
     return words.ctypes.data_as(ctypes.c_void_p)
 
 
-def check_cuda_int32(what: str, *ts: torch.Tensor):
+def check_cuda_int32(what: str, *ts: torch.Tensor, contiguous: bool = True):
     for t in ts:
         if t.device.type != "cuda":
             raise ValueError(f"{what}: expected CUDA tensors, got {t.device}")
         if t.dtype != torch.int32:
             raise TypeError(f"{what}: expected int32 tensors, got {t.dtype}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{what}: expected contiguous tensors")
         if t.device != ts[0].device:
             raise ValueError(f"{what}: tensors on different devices")
@@ -156,22 +168,61 @@ def mont_sqr_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     return mont_mul_plain(spec, a, a)
 
 
+def butterfly_dit_plain(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor,
+                        stride: int) -> torch.Tensor:
+    """One DIT stage in place on x (L, C, 2, H, R): (lo, hi) -> (lo + hi w_h,
+    lo - hi w_h) with w_h = tw[:, h * stride]; returns x."""
+    L, H = x.shape[0], x.shape[3]
+    w = tw[:, : (H - 1) * stride + 1 : stride].reshape(L, 1, H, 1)
+    lo, hi = x[:, :, 0], x[:, :, 1]
+    t = mont_mul_plain(spec, hi, w)
+    s, d = add(spec, lo, t), sub(spec, lo, t)
+    lo.copy_(s)
+    hi.copy_(d)
+    return x
+
+
+def butterfly_stage_plain(spec: FieldSpec, lo: torch.Tensor, hi: torch.Tensor,
+                          w: torch.Tensor):
+    """DIF butterfly (lo, hi, w) -> (lo + hi, (lo - hi) w)."""
+    return add(spec, lo, hi), mont_mul_plain(spec, sub(spec, lo, hi), w)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def _operand(t: torch.Tensor):
+    """(tensor, ld, period) such that batch element i (row-major), limb k, of
+    ``t`` sits at offset k*ld + i % period from its data pointer: true for a
+    contiguous tensor, a slice along the first batch axis and a constant
+    broadcast over leading batch axes. Anything else is copied first."""
+    dims = [(s, st) for s, st in zip(t.shape[1:], t.stride()[1:]) if s != 1]
+    period, j = 1, len(dims)
+    while j > 0 and dims[j - 1][1] == period:
+        period *= dims[j - 1][0]
+        j -= 1
+    if any(st != 0 for _, st in dims[:j]):
+        t = t.contiguous()
+        return t, t[0].numel(), t[0].numel()
+    return t, t.stride(0), period
+
+
 def _launch(entry: str, kernel: str, spec: FieldSpec, *ins: torch.Tensor) -> torch.Tensor:
-    """Run an element-wise kernel of csrc/mont.cu on (L, *batch) inputs."""
+    """Run an element-wise kernel of csrc/mont.cu on (L, *batch) inputs of
+    one shape (strided as ``_operand`` allows)."""
     L = spec.num_limbs
-    check_cuda_int32(kernel, *ins)
+    check_cuda_int32(kernel, *ins, contiguous=False)
     if ins[0].shape[0] != L or any(t.shape != ins[0].shape for t in ins):
         raise ValueError(f"{kernel}: expected equal (L={L}, *batch) shapes")
-    out = torch.empty_like(ins[0])
+    ops = [_operand(t) for t in ins]
+    out = torch.empty(ins[0].shape, dtype=torch.int32, device=ins[0].device)
     lib = _build.load("mont")
     with torch.cuda.device(out.device):
         err = getattr(lib, entry)(
-            *(t.data_ptr() for t in ins), out.data_ptr(), out.numel() // L, L // 2,
-            words_ptr(field_words(spec)), torch.cuda.current_stream().cuda_stream)
+            *(v for t, ld, per in ops for v in (t.data_ptr(), ld, per)), out.data_ptr(),
+            out.numel() // L, L // 2, words_ptr(field_words(spec)),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, kernel)
     _build.LAUNCHES[kernel] += 1
     return out
@@ -183,11 +234,67 @@ def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if on_cpu(a, b):
         return mont_mul_plain(spec, a, b)
     a, b = align2(spec.num_limbs, a, b)
-    return _launch("zk_mont_mul", "mont_mul", spec, a.contiguous(), b.contiguous())
+    return _launch("zk_mont_mul", "mont_mul", spec, a, b)
 
 
 def mont_sqr(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """Montgomery square; dispatch as ``mont_mul``."""
     if on_cpu(a):
         return mont_sqr_plain(spec, a)
-    return _launch("zk_mont_sqr", "mont_sqr", spec, a.contiguous())
+    return _launch("zk_mont_sqr", "mont_sqr", spec, a)
+
+
+def _launch_dit(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor, stride: int):
+    """Launch csrc/ntt.cu:butterfly_dit_kernel on x (L, C, 2, H, R) in place."""
+    L = spec.num_limbs
+    check_cuda_int32("butterfly_dit", x, tw)
+    _, C, two, H, R = x.shape
+    if x.shape[0] != L or two != 2 or tw.dim() != 2 or tw.shape[0] != L:
+        raise ValueError(f"butterfly_dit: x {tuple(x.shape)} is not (L={L}, C, 2, H, R) "
+                         f"or tw {tuple(tw.shape)} is not (L, T)")
+    if stride < 1 or (H - 1) * stride >= tw.shape[1] or C * H * R >= 1 << 31:
+        raise ValueError(f"butterfly_dit: stride {stride} over {tw.shape[1]} twiddles "
+                         f"for H = {H}, or {C * H * R} pairs, is out of range")
+    lib = _build.load("ntt")
+    with torch.cuda.device(x.device):
+        err = lib.zk_butterfly_dit(x.data_ptr(), tw.data_ptr(), C, H, R, tw.shape[1], stride,
+                                   L // 2, words_ptr(field_words(spec)),
+                                   torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "butterfly_dit")
+    _build.LAUNCHES["butterfly_dit"] += 1
+    return x
+
+
+def butterfly_dit(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor, stride: int):
+    """One radix-2 DIT stage, IN PLACE on x int32[L, C, 2, H, R] (contiguous):
+    pair (c, h, r) -> (lo + hi w_h, lo - hi w_h), w_h = tw[:, h * stride] of a
+    power table tw int32[L, T]. Returns x. The caller owns x: it must not be
+    anyone else's data. CPU tensors: plain version; CUDA tensors: the kernel."""
+    if not x.is_contiguous():
+        raise ValueError("butterfly_dit: x must be contiguous (it is written in place)")
+    if on_cpu(x, tw):
+        return butterfly_dit_plain(spec, x, tw, stride)
+    return _launch_dit(spec, x, tw, stride)
+
+
+def butterfly_stage(spec: FieldSpec, lo: torch.Tensor, hi: torch.Tensor, w: torch.Tensor):
+    """DIF butterfly (lo, hi, w) -> (lo + hi, (lo - hi) w) over (L, *batch)
+    tensors broadcast to one batch shape. Dispatch as ``mont_mul``."""
+    L = spec.num_limbs
+    if on_cpu(lo, hi, w):
+        return butterfly_stage_plain(spec, lo, hi, w)
+    lo, hi = align2(L, lo, hi)
+    lo, w = align2(L, lo, w)
+    hi, w = align2(L, hi, w)
+    lo, hi, w = lo.contiguous(), hi.contiguous(), w.contiguous()
+    check_cuda_int32("butterfly_stage", lo, hi, w)
+    out_a, out_b = torch.empty_like(lo), torch.empty_like(lo)
+    lib = _build.load("ntt")
+    with torch.cuda.device(lo.device):
+        err = lib.zk_butterfly_stage(lo.data_ptr(), hi.data_ptr(), w.data_ptr(), out_a.data_ptr(),
+                                     out_b.data_ptr(), lo.numel() // L, L // 2,
+                                     words_ptr(field_words(spec)),
+                                     torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "butterfly_stage")
+    _build.LAUNCHES["butterfly_stage"] += 1
+    return out_a, out_b

@@ -1,10 +1,12 @@
-"""MSM bucket accumulation and window Horner: CUDA kernels and plain versions.
+"""XYZZ mixed add, MSM bucket accumulation and window Horner: CUDA kernels
+and plain versions.
 
-Counterparts of zkarray/kernels/sw.py:xyzz_accum_grid, xyzz_accum_tiles and
-horner_windows. One CUDA kernel (``csrc/sw.cu:xyzz_accum_kernel``) serves
-both accumulation wrappers: the port drops the TPU's (8, 128) block tiling,
-so the grid sweep and the residual tiles share one flat layout over S bucket
-slots:
+Counterparts of zkarray/kernels/sw.py:xyzz_add_affine, xyzz_accum_grid,
+xyzz_accum_tiles and horner_windows. ``xyzz_add_affine`` is element-wise
+(``csrc/madd.cu``, one thread per point). One CUDA kernel
+(``csrc/sw.cu:xyzz_accum_kernel``) serves both accumulation wrappers: the
+port drops the TPU's (8, 128) block tiling, so the grid sweep and the
+residual tiles share one flat layout over S bucket slots:
 
     state  int32[2L, S]     packed 32-bit words, X | Y | ZZ | ZZZ (L/2 each)
     coords int32[L, R, S]   round r's affine x | y packed words per slot
@@ -229,6 +231,39 @@ def xyzz_accum_grid(curve, state, coords, valid):
 def xyzz_accum_tiles(curve, state, coords, valid):
     """T residual bucket rounds in one launch (msm's residual loop)."""
     return _accum(curve, state, coords, valid, "xyzz_accum_tiles")
+
+
+def xyzz_add_affine_plain(curve, P, AX, AY, a_inf):
+    """Element-wise XYZZ += affine: _madd_plain over one batch."""
+    return _madd_plain(curve, tuple(P), AX, AY, a_inf)
+
+
+def xyzz_add_affine(curve, P, AX, AY, a_inf):
+    """Element-wise XYZZ += affine (mmadd-xyzz with _madd_core's edges) over
+    (L, *batch) coordinates P = (X, Y, ZZ, ZZZ), AX, AY and a bool a_inf of
+    the batch shape; returns the four new coordinates. CPU tensors: plain
+    version; CUDA tensors: csrc/madd.cu."""
+    L = curve.base.num_limbs
+    if km.on_cpu(*P, AX, AY, a_inf):
+        return xyzz_add_affine_plain(curve, P, AX, AY, a_inf)
+    shape = AX.shape
+    coords = [t.contiguous() for t in (*P, AX, AY)]
+    km.check_cuda_int32("xyzz_add_affine", *coords)
+    if (shape[0] != L or any(t.shape != shape for t in coords) or a_inf.shape != shape[1:]
+            or a_inf.device != AX.device):
+        raise ValueError(f"xyzz_add_affine: coordinates must all be (L={L}, *batch) of one "
+                         f"shape and a_inf batch-shaped, on one device")
+    inf = a_inf.to(torch.bool).contiguous()
+    outs = [torch.empty_like(coords[0]) for _ in range(4)]
+    lib = _build.load("madd")
+    with torch.cuda.device(AX.device):
+        err = lib.zk_xyzz_add_affine(*(t.data_ptr() for t in coords), inf.data_ptr(),
+                                     *(t.data_ptr() for t in outs), AX.numel() // L, L // 2,
+                                     km.words_ptr(_curve_words(curve)),
+                                     torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "xyzz_add_affine")
+    _build.LAUNCHES["xyzz_add_affine"] += 1
+    return tuple(outs)
 
 
 def horner_windows(curve, win, c: int):
