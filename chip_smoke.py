@@ -15,12 +15,20 @@ Phases, each printing one JSON line and raising on any failure:
    path's band-1 shape; horner_windows at W = 20, c = 13.
 3. main path: BLS12-381 G1 msm at n = 2^20, 254-bit scalars, c = 13, on
    tiled inputs with a host known answer; launch counts from one run, with
-   the shape of every mont_mul/mont_sqr launch recorded. Then mont_mul and
-   mont_sqr against their plain versions at each of those shapes, the inputs
-   non-contiguous halves of a wider tensor as the tree sums slice them, with
-   both times; the median of 3 timed runs split into accumulate, reduce and
-   to-affine; and one msm_reduce under torch.profiler (CUDA activity only)
-   for the device's busy time, idle share and host time per device op.
+   the shape and operand map of every mont_mul/mont_sqr/mont_pow and
+   xyzz_add/xyzz_double launch recorded (and the inputs of the first launch
+   of each, views as the tree sums pass them). Then mont_mul against its
+   plain version at each of its shapes (inputs non-contiguous halves of a
+   wider tensor), and xyzz_add/xyzz_double against _fadd_plain/_dbl_plain
+   on the recorded inputs themselves, with both times and a bound from
+   those inputs' lane classes; the median of 3 timed runs split into
+   accumulate, reduce and to-affine; one msm_reduce under torch.profiler
+   (CUDA activity only) for the device's busy time, idle share and host
+   time per device op; mont_pow against its plain version at 2^20 Fq
+   elements (zeros included) and at the path's one element, for p - 2;
+   xyzz_accum on the run's own band-2 feed; xyzz_add and xyzz_double on an
+   edge-class feed of 2^20 Fq points (generic, P == Q, P == -Q, P = inf,
+   Q = inf, both inf, y = 0).
 4. ChunkedMSM at 2^21 as two 2^20 chunks, known-answer checked.
 5. NTT path: Radix2Domain(Fr, 2^24).fft of geometric coefficients
    a_j = c r^j, held at 256+ output indices against the host closed form
@@ -41,11 +49,12 @@ Phases, each printing one JSON line and raising on any failure:
    (generic, P == A, P == -A, P = inf, A = inf, both inf, doubling a y = 0
    point).
 8. the kernels line: per kernel its launches on its path (phase 3 for the
-   MSM kernels, 5 for butterfly_dit, 6 and 7 for the element-wise entries),
-   error against the plain version, times and bound. For mont_mul,
-   mont_sqr and butterfly_dit the times and bound are means per launch over
-   the path's launches, shape by shape; the products' NTT-path figures sit
-   under "ntt".
+   MSM kernels, 5 for butterfly_dit and mont_sqr, 6 and 7 for the
+   element-wise entries), error against the plain version, times and bound.
+   For mont_mul, mont_sqr, xyzz_add, xyzz_double and butterfly_dit the times
+   and bound are means per launch over the path's launches, shape by shape;
+   mont_mul's NTT-path figures sit under "ntt". One row per CUDA kernel:
+   xyzz_accum serves both xyzz_accum_grid and xyzz_accum_tiles.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
@@ -288,6 +297,12 @@ def main():
         ld = max(strides[0], need)
         return torch.as_strided(rand_field(spec, ld), shape, (ld,) + tuple(strides[1:]))
 
+    def distinct_elems(t):
+        """Batch elements a product kernel reads for operand ``t``: a
+        broadcast (outer = 0) reads its inner run only."""
+        _, _, inner, outer = km._operand(t)
+        return inner if outer == 0 else t[0].numel()
+
     def per_launch_means(rows, shape):
         """A kernel's path figures from its per-shape rows, weighted by launches."""
         n_l = sum(r["launches"] for r in rows)
@@ -397,8 +412,8 @@ def main():
     ms = time_ms(lambda: ksw.horner_windows(G1, win, ch), 3)
     want, plain_ms = once_ms(lambda: ksw.horner_windows_plain(G1, win, ch))
     err = check_equal("horner_windows", got, want)
-    dbl_ops = 9 * mul_ops(f) + 6 * add_ops(f)
-    fadd_ops = 14 * mul_ops(f) + 7 * add_ops(f) + dbl_ops
+    dbl_ops = 9 * mul_ops(f) + 7 * add_ops(f)
+    fadd_ops = 14 * mul_ops(f) + 7 * add_ops(f)  # random windows: no doubling branch
     b_ms, b_by = bound((win.numel() + got.numel()) * 4, (Wh - 1) * (ch * dbl_ops + fadd_ops))
     emit("kernel", kernel="horner_windows", W=Wh, c=ch, max_abs_err=err, ms=ms,
          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
@@ -412,49 +427,79 @@ def main():
     A = affine_from_numpy(px, py, np.zeros(n, dtype=bool), dev)
     s = limbs_from_numpy(sc, dev)
     c = tmsm.default_window_size(n)
+    W, half, _, _ = tmsm._window_geometry(c, bits)
+    _, r2b = tmsm._accum_bounds(c, n, tmsm.ACCUM_T)
 
     def to_affine(res):
         return tsw.xyzz_to_affine(G1, tsw.XYZZPoints(*(v[:, None] for v in res)))
 
-    # every mont_mul/mont_sqr launch's (kernel, field, shape), recorded
-    # around the wrappers' own launch function; the counts stay where they are
+    # every product-kernel launch's (kernel, field, shape) and every
+    # xyzz_add/xyzz_double launch's (kernel, shape, operand maps), recorded
+    # around the wrappers' own launch functions (the counts stay where they
+    # are), with the inputs of the first launch of each xyzz key as the run
+    # passed them; and the band-2 accumulation's arguments
     mont_shapes = collections.Counter()
-    launch = km._launch
+    xyzz_keys = collections.Counter()
+    xyzz_inputs = {}
+    band2 = []
+    launch, launch_xyzz, accum_grid = km._launch, ksw._launch_xyzz, ksw.xyzz_accum_grid
 
-    def recording_launch(entry, kernel, spec, *ins):
+    def recording_launch(kernel, spec, *ins, **kw):
         mont_shapes[(kernel, spec.name, tuple(ins[0].shape))] += 1
-        return launch(entry, kernel, spec, *ins)
+        return launch(kernel, spec, *ins, **kw)
+
+    def recording_xyzz(kernel, curve, *coords):
+        key = (kernel, tuple(coords[0].shape), tuple(tuple(km._operand(t)[1:]) for t in coords))
+        xyzz_keys[key] += 1
+        xyzz_inputs.setdefault(key, coords)
+        return launch_xyzz(kernel, curve, *coords)
+
+    def recording_accum(curve, state, coords, valid):
+        if coords.shape[1] == r2b:
+            band2.append((state, coords, valid))
+        return accum_grid(curve, state, coords, valid)
 
     torch.cuda.reset_peak_memory_stats()
     sync()
-    km._launch = recording_launch
+    km._launch, ksw._launch_xyzz, ksw.xyzz_accum_grid = recording_launch, recording_xyzz, recording_accum
     try:
         kernels.reset_launches()
         aff = to_affine(tmsm.msm(G1, A, s, c, bits))
         sync()
         launches = dict(kernels.LAUNCHES)
     finally:
-        km._launch = launch
+        km._launch, ksw._launch_xyzz, ksw.xyzz_accum_grid = launch, launch_xyzz, accum_grid
+    msm_peak = torch.cuda.max_memory_allocated()
     got_pt = tsw.affine_to_ints(G1, aff)[0]
     if got_pt != want_pt:
         raise AssertionError("msm 2^20: result differs from the host known answer")
-    msm_kernels = ("mont_mul", "mont_sqr", "xyzz_accum", "horner_windows")
+    msm_kernels = ("mont_mul", "mont_pow", "xyzz_add", "xyzz_double", "xyzz_accum", "horner_windows")
     missing = [k for k in msm_kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"msm 2^20: kernels never launched: {missing}")
-    for name in ("mont_mul", "mont_sqr"):
+    for name in ("mont_mul", "mont_sqr", "mont_pow"):
         recorded = sum(v for (k, _, _), v in mont_shapes.items() if k == name)
         if recorded != launches[name]:
             raise AssertionError(f"{name}: {recorded} launches recorded, {launches[name]} counted")
+    for name in ("xyzz_add", "xyzz_double"):
+        recorded = sum(v for (k, _, _), v in xyzz_keys.items() if k == name)
+        if recorded != launches[name]:
+            raise AssertionError(f"{name}: {recorded} launches recorded, {launches[name]} counted")
+    if launches["mont_mul"] + launches["mont_sqr"] >= 100:
+        raise AssertionError(f"msm 2^20: {launches['mont_mul'] + launches['mont_sqr']} product "
+                             "launches; the fused kernels should leave fewer than 100")
+    if not band2:
+        raise AssertionError("msm 2^20: no band-2 accumulation recorded")
 
-    # mont_mul / mont_sqr against their plain versions at every main-path
-    # shape, inputs the two halves of a tensor twice as wide in its last axis
-    # (non-contiguous, as _tree_sum_last's lo/hi slices)
+    # mont_mul against its plain version at every main-path shape, inputs the
+    # two halves of a tensor twice as wide in its last axis (non-contiguous)
     specs = {FQ.name: FQ, FR.name: FR}
     kerns = {"mont_mul": (km.mont_mul, km.mont_mul_plain, 2),
              "mont_sqr": (km.mont_sqr, km.mont_sqr_plain, 1)}
     at_shape = {"mont_mul": [], "mont_sqr": []}
     for (name, fname, shape), count in sorted(mont_shapes.items(), key=lambda kv: -math.prod(kv[0][2])):
+        if name not in kerns:
+            continue  # mont_pow: held against its plain version below
         spec = specs[fname]
         kern, plain, n_in = kerns[name]
         L, batch = shape[0], shape[1:]
@@ -469,13 +514,69 @@ def main():
         at_shape[name].append(dict(field=fname, shape=list(shape), launches=count, max_abs_err=err,
                                    ms=ms, plain_ms=plain_ms, bound_bytes_ms=tb, bound_ops_ms=to))
     for name, rows in at_shape.items():
+        if not rows:
+            continue  # off the MSM path: its path figures come from the fft
         emit("kernel_main_path_shapes", kernel=name, inputs="non-contiguous halves", rows=rows)
         means = per_launch_means(rows, f"mean per launch over the main path's {len(rows)} shapes")
         means["max_abs_err"] = max(report[name]["max_abs_err"], means["max_abs_err"])
         report[name].update(ms_2e20=report[name]["ms"], **means, ms_widest=rows[0]["ms"],
                             widest_shape=rows[0]["shape"])
 
-    W, half, _, _ = tmsm._window_geometry(c, bits)
+    # xyzz_add / xyzz_double against _fadd_plain / _dbl_plain on the inputs
+    # of the first launch of each recorded (shape, operand maps), strided as
+    # the tree sums and the bit-Horner passed them; the bound counts the
+    # operations those inputs need, lane by lane
+    f = FQ
+    Lq = f.num_limbs
+    dbl_ops = 9 * mul_ops(f) + 7 * add_ops(f)
+    find_ops = 4 * mul_ops(f) + 2 * add_ops(f)  # U1, U2, S1, S2, P', R
+
+    def add_lane_ops(P, Q):
+        """xyzz_add's operations on these inputs: none on a lane at
+        infinity; the generic formula; or finding P == +-Q, then the doubling
+        where P == Q and y != 0."""
+        fin = ~fp.is_zero(f, P[2]) & ~fp.is_zero(f, Q[2])
+        p0 = fp.eq(km.mont_mul(f, P[0], Q[2]), km.mont_mul(f, Q[0], P[2]))
+        r0 = fp.eq(km.mont_mul(f, P[1], Q[3]), km.mont_mul(f, Q[1], P[3]))
+        dbl = fin & p0 & r0 & ~fp.is_zero(f, P[1])
+        return (int((fin & ~p0).sum()) * fadd_ops + int((fin & p0).sum()) * find_ops
+                + int(dbl.sum()) * dbl_ops)
+
+    def dbl_lane_ops(P):
+        return int((~fp.is_zero(f, P[2]) & ~fp.is_zero(f, P[1])).sum()) * dbl_ops
+
+    xyzz_fns = {"xyzz_add": (ksw.xyzz_add, ksw._fadd_plain, add_lane_ops, 12),
+                "xyzz_double": (ksw.xyzz_double, ksw._dbl_plain, dbl_lane_ops, 8)}
+
+    def xyzz_row(name, pts, what):
+        """Kernel against plain on points ``pts``: (error, ms, plain ms,
+        byte-bound ms, operation-bound ms)."""
+        kern, plain, lane_ops, coords = xyzz_fns[name]
+        got, want = kern(G1, *pts), plain(G1, *pts)
+        err = max(check_equal(f"{name} {what}, coordinate {i}", g, w_)
+                  for i, (g, w_) in enumerate(zip(got, want)))
+        ms = time_ms(lambda: kern(G1, *pts), 20)
+        plain_ms = time_ms(lambda: plain(G1, *pts), 2)
+        m = pts[0][0][0].numel()
+        return (err, ms, plain_ms, coords * Lq * m * 4 / HBM_BYTES_PER_S * 1e3,
+                lane_ops(*pts) / int_ops_per_s * 1e3)
+
+    xyzz_rows = {"xyzz_add": [], "xyzz_double": []}
+    for key, count in sorted(xyzz_keys.items(), key=lambda kv: -math.prod(kv[0][1])):
+        name, shape, maps = key
+        coords = xyzz_inputs[key]
+        pts = (coords[:4], coords[4:]) if name == "xyzz_add" else (coords[:4],)
+        err, ms, plain_ms, tb, to = xyzz_row(name, pts, f"at {shape} {maps}")
+        xyzz_rows[name].append(dict(shape=list(shape), operand_maps=[list(mp) for mp in maps],
+                                    launches=count, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                    bound_bytes_ms=tb, bound_ops_ms=to))
+    del xyzz_inputs
+    for name, rows in xyzz_rows.items():
+        emit("kernel_main_path_shapes", kernel=name, inputs="the main path's own, as it passed them",
+             rows=rows)
+        report[name] = per_launch_means(
+            rows, f"mean per launch over the main path's {len(rows)} shapes and operand maps")
+
     splits = []
     for _ in range(3):
         st0 = tsw.xyzz_zero(G1, (W, half), dev)
@@ -489,8 +590,8 @@ def main():
     emit("msm", n=n, c=c, scalar_bits=bits, correct=True, launches=launches,
          ms_total=total, ms_accumulate=t_acc, ms_reduce=t_red, ms_to_affine=t_aff,
          ms_total_runs=[sp[0] for sp in splits], ms_reduce_runs=[sp[2] for sp in splits],
-         pts_per_s=n / (total / 1e3), peak_mem_bytes=torch.cuda.max_memory_allocated(),
-         card=card)
+         ms_to_affine_runs=[sp[3] for sp in splits], pts_per_s=n / (total / 1e3),
+         peak_mem_bytes=msm_peak, card=card)
 
     # one msm_reduce under torch.profiler: how much of the reduce's wall
     # time the device is busy, and on what
@@ -504,6 +605,87 @@ def main():
         for k, v in tr["port_kernels"].items():
             report[k]["device_ms_per_launch_in_reduce_trace"] = v["device_ms_per_launch"]
     del A, s
+
+    # mont_pow against its plain version for p - 2 (Fermat inversion): at
+    # 2^20 Fq elements, zeros included, and at the path's own shape
+    e = f.modulus - 2
+    n_prod = e.bit_length() - 1 + bin(e).count("1")  # squarings + multiplications
+    pow_shape = max((sh for (k, _, sh) in mont_shapes if k == "mont_pow"), key=math.prod)
+    m1 = math.prod(pow_shape[1:])
+    pow_rows = {}
+    for label, x in (("2^20", rand_field(f, n)), ("path", rand_field(f, m1).reshape(pow_shape))):
+        if label == "2^20":
+            x[:, ::1001] = 0
+        m = x[0].numel()
+        got = km.mont_pow(f, x, e)
+        want, plain_ms = once_ms(lambda: km.mont_pow_plain(f, x, e))
+        err = check_equal(f"mont_pow at {tuple(x.shape)}", got, want)
+        ms = time_ms(lambda: km.mont_pow(f, x, e), 3 if m > 1024 else 20)
+        b_ms, b_by = bound(2 * Lq * m * 4, m * n_prod * mul_ops(f))
+        pow_rows[label] = dict(shape=list(x.shape), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               bound_ms=b_ms, bound_by=b_by)
+        emit("kernel", kernel="mont_pow", field=f.name, exponent="p - 2", products=n_prod,
+             **pow_rows[label])
+    wide, path = pow_rows["2^20"], pow_rows["path"]
+    report["mont_pow"] = dict(
+        max_abs_err=max(wide["max_abs_err"], path["max_abs_err"]), ms=path["ms"],
+        plain_ms=path["plain_ms"], bound_ms=path["bound_ms"], bound_by=path["bound_by"],
+        shape=f"Fq {pow_shape}, e = p - 2 ({n_prod} products)", ms_2e20=wide["ms"],
+        plain_ms_2e20=wide["plain_ms"], bound_ms_2e20=wide["bound_ms"],
+        bound_by_2e20=wide["bound_by"], us_per_product_one_thread=path["ms"] * 1e3 / n_prod)
+
+    # xyzz_accum on the main path's own band-2 feed (the top-occupancy
+    # slots' rounds beyond band 1)
+    st2, c2, v2 = band2[-1]  # the last group's band 2
+    band2.clear()
+    got = ksw.xyzz_accum_grid(G1, st2, c2, v2)
+    ms = time_ms(lambda: ksw.xyzz_accum_grid(G1, st2, c2, v2), 3)
+    want, plain_ms = once_ms(lambda: ksw.xyzz_accum_plain(G1, st2, c2, v2))
+    err = check_equal("xyzz_accum band 2", got, want)
+    n_adds = int((v2 & 1).sum())
+    b_ms, b_by = bound((c2.numel() + v2.numel() + 2 * st2.numel()) * 4, n_adds * madd_ops)
+    band2_row = dict(slots=st2.shape[1], rounds=c2.shape[1], valid_adds=n_adds, max_abs_err=err,
+                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    emit("kernel", kernel="xyzz_accum", feed="main path band 2", **band2_row)
+    report["xyzz_accum"]["band2"] = band2_row
+    report["xyzz_accum"]["max_abs_err"] = max(report["xyzz_accum"]["max_abs_err"], err)
+    del st2, c2, v2, got, want
+
+    # xyzz_add / xyzz_double on an edge-class feed of 2^20 random Fq points
+    # (the formulas need no curve membership to be compared); Q is another
+    # representative of +-P (ZZ scaled by lam^2) where the class says so
+    ne = 1 << ELEM_LOG_N
+    one = fp.one(f, (ne,), dev).contiguous()
+    zero = fp.zero(f, (ne,), dev)
+    X, Y, ZZ, ZZZ, X2, Y2, ZZ2, ZZZ2, lam = (rand_field(f, ne) for _ in range(9))
+    l2 = km.mont_mul(f, lam, lam)
+    l3 = km.mont_mul(f, l2, lam)
+    cls = torch.arange(ne, device=dev) % 7
+
+    def on(cs):
+        return torch.isin(cls, torch.tensor(cs, device=dev))[None]
+
+    Y = torch.where(on([6]), zero, Y)  # P == Q with y = 0
+    same = on([1, 2, 6])  # P == Q (1, 6) or P == -Q (2)
+    X2 = torch.where(same, km.mont_mul(f, X, l2), X2)
+    Ys = km.mont_mul(f, Y, l3)
+    Y2 = torch.where(on([1, 6]), Ys, torch.where(on([2]), fp.neg(f, Ys), Y2))
+    ZZ2 = torch.where(same, km.mont_mul(f, ZZ, l2), ZZ2)
+    ZZZ2 = torch.where(same, km.mont_mul(f, ZZZ, l3), ZZZ2)
+    p_inf, q_inf = on([3, 5]), on([4, 5])  # 5: both at infinity
+    X, Y = torch.where(p_inf, one, X), torch.where(p_inf, one, Y)
+    ZZ, ZZZ = torch.where(p_inf, zero, ZZ), torch.where(p_inf, zero, ZZZ)
+    X2, Y2 = torch.where(q_inf, one, X2), torch.where(q_inf, one, Y2)
+    ZZ2, ZZZ2 = torch.where(q_inf, zero, ZZ2), torch.where(q_inf, zero, ZZZ2)
+    P, Q = (X, Y, ZZ, ZZZ), (X2, Y2, ZZ2, ZZZ2)
+    for name, pts in (("xyzz_add", (P, Q)), ("xyzz_double", (P,))):
+        err, ms, plain_ms, tb, to = xyzz_row(name, pts, "on the edge feed")
+        edge = dict(n=ne, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(tb, to),
+                    bound_by="bytes" if tb >= to else "operations")
+        emit("kernel", kernel=name, field=f.name, feed="edge classes", **edge)
+        report[name]["edge_feed"] = edge
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+    del X, Y, ZZ, ZZZ, X2, Y2, ZZ2, ZZZ2, lam, l2, l3, Ys, P, Q, one, zero, cls, coords, pts
 
     # ---- 4. ChunkedMSM at 2^21 ------------------------------------------------
     n2 = 2 * n
@@ -560,14 +742,15 @@ def main():
         dit_shapes[(tuple(x.shape), tw.shape[1], stride)] += 1
         return launch_dit(spec, x, tw, stride)
 
-    def recording_mont(entry, kernel, spec, *ins):
+    def recording_mont(kernel, spec, *ins, **kw):
         ntt_mont[(kernel, spec.name, tuple(ins[0].shape), tuple(t.stride() for t in ins))] += 1
-        return launch(entry, kernel, spec, *ins)
+        return launch(kernel, spec, *ins, **kw)
 
     r_int, c_int = rand_int(), rand_int()
     a = geometric(r_int, c_int, N)
     sync()
     torch.cuda.reset_peak_memory_stats()
+    ntt_mem_before = torch.cuda.memory_allocated()  # the input and what earlier phases hold
     km._launch_dit, km._launch = recording_dit, recording_mont
     try:
         kernels.reset_launches()
@@ -623,7 +806,7 @@ def main():
     emit("ntt", n=N, field=FR.name, correct=True, known_answer_indices=len(idx), round_trip=True,
          coset_log_n=COSET_LOG_N, degree_aware_log_m=DEG_LOG_M, launches=ntt_launches,
          ms_fft=ms_fft, ms_fft_runs=fft_runs, elems_per_s=N / (ms_fft / 1e3),
-         peak_mem_bytes=ntt_peak, card=card)
+         peak_mem_bytes=ntt_peak, mem_bytes_before_fft=ntt_mem_before, card=card)
     _, tr = device_trace(torch, lambda: dom.fft(x), ms_fft)
     if tr is None:
         emit("ntt_trace", note="this torch build's profiler cannot trace CUDA activity")
@@ -666,7 +849,7 @@ def main():
         ms = time_ms(lambda: kern(spec, *ins), 20)
         plain_ms = time_ms(lambda: plain(spec, *ins), 2)
         m = math.prod(shape[1:])
-        read = sum(km._operand(t)[2] for t in ins)
+        read = sum(distinct_elems(t) for t in ins)
         ntt_rows[name].append(dict(field=fname, shape=list(shape), strides=[list(s) for s in strides],
                                    launches=count, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                    bound_bytes_ms=(read + m) * shape[0] * 4 / HBM_BYTES_PER_S * 1e3,
@@ -674,8 +857,12 @@ def main():
     for name, rows in ntt_rows.items():
         emit("kernel_main_path_shapes", kernel=name, path=f"fft 2^{NTT_LOG_N}", rows=rows)
         ntt = per_launch_means(rows, f"mean per launch over the fft's {len(rows)} shapes")
-        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], ntt["max_abs_err"])
-        report[name]["ntt"] = dict(launches=ntt_launches[name], **ntt)
+        ntt["max_abs_err"] = max(report[name]["max_abs_err"], ntt["max_abs_err"])
+        if at_shape[name]:
+            report[name]["max_abs_err"] = ntt["max_abs_err"]
+            report[name]["ntt"] = dict(launches=ntt_launches[name], **ntt)
+        else:  # off the MSM path: the fft is its path
+            report[name].update(ms_2e20=report[name]["ms"], **ntt)
 
     # ---- 6. butterfly_stage through its entry, 2^20 Fr elements ---------------
     ne = 1 << ELEM_LOG_N
@@ -768,8 +955,19 @@ def main():
         "butterfly_dit": ("zkarray_torch/kernels/csrc/ntt.cu", "zkarray/kernels/mont.py:266"),
         "butterfly_stage": ("zkarray_torch/kernels/csrc/ntt.cu", "zkarray/kernels/mont.py:317"),
         "xyzz_add_affine": ("zkarray_torch/kernels/csrc/madd.cu", "zkarray/kernels/sw.py:155"),
+        # no Pallas counterpart: the product kernels' launch chains, fused
+        "xyzz_add": ("zkarray_torch/kernels/csrc/xyzz.cu",
+                     "zkarray/kernels/mont.py:235 and zkarray/kernels/mont.py:254, "
+                     "fused into zkarray/ec/sw.py:376 xyzz_add"),
+        "xyzz_double": ("zkarray_torch/kernels/csrc/xyzz.cu",
+                        "zkarray/kernels/mont.py:235 and zkarray/kernels/mont.py:254, "
+                        "fused into zkarray/ec/sw.py:408 xyzz_double"),
+        "mont_pow": ("zkarray_torch/kernels/csrc/mont.cu",
+                     "zkarray/kernels/mont.py:235 and zkarray/kernels/mont.py:254, "
+                     "fused into zkarray/ff/fp.py:321 pow_const"),
     }
     paths = {k: (f"msm 2^{LOG_N}", launches[k]) for k in msm_kernels}
+    paths["mont_sqr"] = (f"fft 2^{NTT_LOG_N}", ntt_launches["mont_sqr"])
     paths["butterfly_dit"] = (f"fft 2^{NTT_LOG_N}", ntt_launches["butterfly_dit"])
     paths["butterfly_stage"] = ("kernels.mont.butterfly_stage", stage_launches)
     paths["xyzz_add_affine"] = ("ec.sw.xyzz_add_affine", madd_launches)

@@ -8,6 +8,7 @@ for the element-wise ops, 16 for Fermat inv, 70 with zeros for batch_inv,
 700 and 513 at L = 16 for the kernels. The CUDA kernels themselves are held
 against these plain versions on the card by chip_smoke.py."""
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -54,6 +55,25 @@ def test_fp_inv_and_batch_inv_match_jax(pair):
     got = tfp.batch_inv(ts, tb)
     assert same(jfp.batch_inv(js, jb), got)
     assert tfp.to_ints(ts, got) == [pow(y, -1, p) if y else 0 for y in ys]
+
+
+@pytest.mark.parametrize("pair", FIELDS, ids=FIELD_IDS)
+def test_pow_const_matches_jax(pair):
+    """pow_const (on the CPU, the plain version of the mont_pow kernel) for
+    e = 0, 1, 2, p - 2 and a seeded 64-bit e, with a = 0 in the batch."""
+    js, ts = pair
+    p = js.modulus
+    xs = rand_ints(p, 16, 10)
+    assert 0 in xs
+    ja, ta = both(js, xs)
+    e64 = int.from_bytes(np.random.default_rng(11).bytes(8), "little")
+    for e in (0, 1, 2, p - 2, e64):
+        got = tfp.pow_const(ts, ta, e)
+        assert same(jfp.pow_const(js, ja, e), got), e
+        assert tfp.to_ints(ts, got) == [pow(x, e, p) for x in xs], e
+    assert same(jfp.inv(js, ja), tfp.inv(ts, ta))
+    with pytest.raises(ValueError):
+        tfp.pow_const(ts, ta, -1)
 
 
 def test_plain_mont_kernels_match_pallas_interpret():

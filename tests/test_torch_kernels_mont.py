@@ -82,20 +82,46 @@ def test_butterfly_stage_plain_matches_jax_kernel():
     assert tfp.to_ints(TFR, b) == [(x - y) * z % P for x, y, z in zip(los, his, ws)]
 
 
+def read_through_map(t):
+    """The (L, n) elements the kernels read for ``t``: _operand's descriptor
+    evaluated with csrc/field.cuh:load_operand's index arithmetic."""
+    op, ld, inner, outer = tkm._operand(t)
+    n = t[0].numel()
+    i = torch.arange(n)
+    off = torch.where(i < inner, i, (i // inner) * outer + i % inner)
+    flat = torch.as_strided(op, (L, int(off.max()) + 1), (ld, 1))
+    return op, flat[:, off]
+
+
 def test_operand_map_reads_slices_and_broadcasts_in_place():
     base = torch.arange(L * 6 * 10, dtype=torch.int32).reshape(L, 6, 10)
     const = torch.arange(L * 10, dtype=torch.int32).reshape(L, 1, 10)
     cases = {
         "contiguous": (base, False),
         "first-axis slice": (base[:, 1:4], False),
-        "last-axis slice": (base[:, :, 2:7], True),
+        "last-axis slice": (base[:, :, 2:7], False),
         "broadcast row": (const.expand(L, 6, 10), False),
         "broadcast scalar": (base[:, :1, :1].expand(L, 6, 10), False),
+        "strided last axis": (base[:, :, ::2], False),
         "transpose": (base.transpose(1, 2), True),
+        "broadcast column": (base[:, :, :1].expand(L, 6, 10), True),
     }
     for name, (t, copied) in cases.items():
-        op, ld, period = tkm._operand(t)
+        op, got = read_through_map(t)
         assert (op.data_ptr() != t.data_ptr()) == copied, name
-        n = t[0].numel()
-        flat = torch.as_strided(op, (L, period), (ld, 1))
-        assert torch.equal(flat[:, torch.arange(n) % period], t.reshape(L, n)), name
+        assert torch.equal(got, t.reshape(L, -1)), name
+
+
+@pytest.mark.parametrize("m", [8, 9])
+def test_operand_map_reads_tree_halves_in_place(m):
+    """ec/msm.py:_tree_sum_last's halves v[..., :h], v[..., h:2h] of a
+    (L, q, W, m) level (odd m leaves a tail), and _weighted_sum_bits' per-bit
+    rows v[:, i] of a (L, q, W) sum: all read in place."""
+    v = torch.arange(L * 4 * 3 * m, dtype=torch.int32).reshape(L, 4, 3, m)
+    h = m // 2
+    for t in (v[..., :h], v[..., h : 2 * h], v[..., h : 2 * h][:, 1:3], v[:, 2, :, 0]):
+        op, got = read_through_map(t)
+        assert op.data_ptr() == t.data_ptr()
+        assert torch.equal(got, t.reshape(L, -1))
+    lo, hi = tkm._operand(v[..., :h]), tkm._operand(v[..., h : 2 * h])
+    assert (lo[2], lo[3]) == (hi[2], hi[3]) == (h, m)

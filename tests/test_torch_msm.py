@@ -20,14 +20,16 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from torch_parity import BITS, JC, TC, C, N, assert_same_points, msm_inputs  # noqa: E402
+from torch_parity import (  # noqa: E402
+    BITS, JC, TC, C, N, assert_same_points, msm_inputs, xyzz_both, xyzz_coords)
 from zkarray.ec import msm as jmsm  # noqa: E402
 from zkarray.ec import sw as jsw  # noqa: E402
 from zkarray_torch.ec import msm as tmsm  # noqa: E402
 from zkarray_torch.ec import sw as tsw  # noqa: E402
 from zkarray_torch.interop import affine_from_numpy, limbs_from_numpy  # noqa: E402
 from zkarray_torch.kernels import sw as ksw  # noqa: E402
-from zkarray_torch.testing import ec_msm_oracle, expected_msm, tiled_inputs  # noqa: E402
+from zkarray_torch.testing import (  # noqa: E402
+    ec_msm_oracle, ec_mul, ec_neg, expected_msm, tiled_inputs)
 
 
 def test_signed_digits_and_window_geometry_match_jax():
@@ -70,6 +72,44 @@ def test_msm_infinity_points_match_jax_and_oracle():
     assert_same_points(jmsm.msm(JC, jA, js, C), got)
     aff = tsw.xyzz_to_affine(TC, tsw.XYZZPoints(*(v[:, None] for v in got)))
     assert tsw.affine_to_ints(TC, aff)[0] == ec_msm_oracle(pts, ks, 0, JC.base.modulus)
+
+
+def test_msm_reduce_matches_jax_on_edge_buckets():
+    """msm_reduce on a seeded (L, W, half) bucket state at c = 5: random XYZZ
+    representatives of real points, about a third of the buckets at infinity,
+    and in two of every three windows bucket j + 8 holding bucket j's point
+    (another representative) or its negation. Buckets j and j + 8 meet at the
+    first tree level of every weight bit below 3, so those levels take the
+    doubling and the cancel branches. Against zkarray.ec.msm.msm_reduce and
+    the host oracle."""
+    mod, r = JC.base.modulus, JC.scalar.modulus
+    W, half, _, _ = tmsm._window_geometry(C, BITS)
+    rng = np.random.default_rng(21)
+    gen = (JC.gen_x, JC.gen_y)
+    pool = [ec_mul(gen, int(k), 0, mod) for k in rng.integers(1, 1 << 40, size=24)]
+    idx = np.where(rng.random((W, half)) < 0.35, -1, rng.integers(0, len(pool), (W, half)))
+    neg = np.zeros((W, half), dtype=bool)
+    for w in range(W):
+        if w % 3:
+            idx[w, 8:16] = idx[w, :8]
+            neg[w, 8:16] = (w % 3 == 2) & (idx[w, :8] >= 0)
+    weights = tmsm._bucket_weights(C, BITS)
+    coef = [0] * len(pool)
+    coords = []
+    for w in range(W):
+        for j in range(half):
+            k = int(idx[w, j])
+            pt = None if k < 0 else (ec_neg(pool[k], mod) if neg[w, j] else pool[k])
+            lam = int.from_bytes(rng.bytes(48), "little") % (mod - 1) + 1
+            coords.append(xyzz_coords(pt, lam, mod))
+            if k >= 0:
+                sign = -1 if neg[w, j] else 1
+                coef[k] = (coef[k] + sign * int(weights[w, j]) * (1 << (C * w))) % r
+    jst, tst = xyzz_both(coords, (W, half))
+    got = tmsm.msm_reduce(TC, tst, C, BITS)
+    assert_same_points(jmsm.msm_reduce(JC, jst, C, BITS), got)
+    aff = tsw.xyzz_to_affine(TC, tsw.XYZZPoints(*(v[:, None] for v in got)))
+    assert tsw.affine_to_ints(TC, aff)[0] == ec_msm_oracle(pool, coef, 0, mod)
 
 
 def test_msm_all_equal_scalars_runs_residual_tiles(monkeypatch):

@@ -10,7 +10,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from torch_parity import JC, TC, assert_same_points  # noqa: E402
+from torch_parity import JC, TC, assert_same_points, xyzz_both, xyzz_coords  # noqa: E402
 from zkarray.ec import sw as jsw  # noqa: E402
 from zkarray_torch.ec import sw as tsw  # noqa: E402
 from zkarray_torch.interop import affine_from_numpy, limbs_to_numpy  # noqa: E402
@@ -95,6 +95,32 @@ def test_xyzz_add_affine_matches_jax_and_oracle():
         ec_add(p, q, 0, mod) for p, q in zip(ps, qs)]
     dbl = tsw.xyzz_double_affine(TC, tA1)
     assert tsw.affine_to_ints(TC, tsw.xyzz_to_affine(TC, dbl)) == [ec_add(p, p, 0, mod) for p in ps]
+
+
+def test_xyzz_add_and_double_on_tree_halves_match_jax():
+    """ec/sw.py:xyzz_add and xyzz_double (on the CPU, the plain versions of the
+    xyzz_add and xyzz_double kernels) against the JAX package at width 8. The
+    port's P and Q are the last-axis halves of one (L, 16) tensor, as the
+    MSM's tree sums hand them over; Q is another XYZZ representative than P
+    (random ZZ = lam^2), so P == Q and P == -Q take the doubling and cancel
+    branches on words that differ. Lane 6's P has y = 0 (not a curve point;
+    the formulas do not need one), so the doubling also takes its y = 0 edge."""
+    mod = JC.base.modulus
+    rng = np.random.default_rng(13)
+    ps, qs = edge_pairs(seed=13)
+    ps[6] = (ps[6][0], 0)
+    lams = [int.from_bytes(rng.bytes(48), "little") % (mod - 1) + 1 for _ in range(16)]
+    coords = [xyzz_coords(pt, lam, mod) for pt, lam in zip(ps + qs, lams)]
+    jW, tW = xyzz_both(coords, (16,))
+    jP, jQ = (type(jW)(*(v[:, lo : lo + 8] for v in jW)) for lo in (0, 8))
+    tP, tQ = (type(tW)(*(v[:, lo : lo + 8] for v in tW)) for lo in (0, 8))
+    assert not tQ.x.is_contiguous()
+    tS = tsw.xyzz_add(TC, tP, tQ)
+    assert_same_points(jsw.xyzz_add(JC, jP, jQ), tS)
+    assert_same_points(jsw.xyzz_double(JC, jP), tsw.xyzz_double(TC, tP))
+    got = tsw.affine_to_ints(TC, tsw.xyzz_to_affine(TC, tS))
+    assert [g for i, g in enumerate(got) if i != 6] == [
+        ec_add(p, q, 0, mod) for i, (p, q) in enumerate(zip(ps, qs)) if i != 6]
 
 
 def test_xyzz_zero_and_affine_round_trip():

@@ -47,6 +47,31 @@ def assert_same_points(jP, tP):
         assert np.array_equal(np.asarray(j), limbs_to_numpy(t))
 
 
+def xyzz_coords(pt, lam, mod):
+    """Canonical XYZZ coordinates (X, Y, ZZ, ZZZ) of an affine point pt
+    (None = infinity, (1, 1, 0, 0)) as the representative ZZ = lam^2,
+    ZZZ = lam^3."""
+    if pt is None:
+        return (1, 1, 0, 0)
+    l2 = lam * lam % mod
+    l3 = l2 * lam % mod
+    return (pt[0] * l2 % mod, pt[1] * l3 % mod, l2, l3)
+
+
+def xyzz_both(coords, shape):
+    """[(X, Y, ZZ, ZZZ) canonical ints] -> the same points as a JAX
+    XYZZPoints and a port CPU XYZZPoints of batch ``shape`` (Montgomery form)."""
+    from zkarray.ec import sw as jsw
+    from zkarray_torch.ec import sw as tsw
+
+    js, ts = [], []
+    for k in range(4):
+        j, t = both(JC.base, [c[k] for c in coords])
+        js.append(j.reshape((j.shape[0],) + tuple(shape)))
+        ts.append(t.reshape((t.shape[0],) + tuple(shape)))
+    return jsw.XYZZPoints(*js), tsw.XYZZPoints(*ts)
+
+
 def msm_inputs(seed, n=N, scalars=None, inf_at=()):
     """(points, scalars, JAX affine, JAX scalars, port affine, port scalars)
     for a BLS12-381 G1 MSM over random multiples of the generator."""

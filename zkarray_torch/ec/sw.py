@@ -1,10 +1,12 @@
 """Short-Weierstrass XYZZ group law, batched over planar limb tensors.
 
 Counterpart of zkarray/ec/sw.py (the XYZZ subset: the MSM's ops and the
-mixed add with its fused kernel). Every op computes
-its candidates and selects with batch masks, in the JAX package's order, so
-results match it bit for bit. Points are NamedTuples of (L, *batch) int32
-limb tensors. Infinity: XYZZ zz == 0 (canonically (1, 1, 0, 0) in Montgomery
+mixed add). The full add, the doubling and the mixed add are one fused
+kernel launch each on a CUDA device (kernels/sw.py, csrc/xyzz.cu and
+csrc/madd.cu); their plain versions, which the CPU takes, compute every
+candidate and select with batch masks. Both keep the JAX package's formulas
+and select order, so results match it bit for bit. Points are NamedTuples of
+(L, *batch) int32 limb tensors. Infinity: XYZZ zz == 0 (canonically (1, 1, 0, 0) in Montgomery
 form), affine an explicit bool mask.
 """
 
@@ -119,35 +121,10 @@ def xyzz_to_affine(curve: SWCurveSpec, P: XYZZPoints) -> AffinePoints:
 # ---------------------------------------------------------------------------
 
 def xyzz_add(curve: SWCurveSpec, P: XYZZPoints, Q: XYZZPoints) -> XYZZPoints:
-    """Full XYZZ + XYZZ, edge-complete (zkarray/ec/sw.py:xyzz_add)."""
-    f = curve.base
-    X1, Y1, ZZ1, ZZZ1 = P
-    X2, Y2, ZZ2, ZZZ2 = Q
-    U1 = fp.mont_mul(f, X1, ZZ2)
-    U2 = fp.mont_mul(f, X2, ZZ1)
-    S1 = fp.mont_mul(f, Y1, ZZZ2)
-    S2 = fp.mont_mul(f, Y2, ZZZ1)
-    Pp = fp.sub(f, U2, U1)
-    R = fp.sub(f, S2, S1)
-    PP = fp.mont_sqr(f, Pp)
-    PPP = fp.mont_mul(f, Pp, PP)
-    Q_ = fp.mont_mul(f, U1, PP)
-    X3 = fp.sub(f, fp.sub(f, fp.mont_sqr(f, R), PPP), fp.double(f, Q_))
-    Y3 = fp.sub(f, fp.mont_mul(f, R, fp.sub(f, Q_, X3)), fp.mont_mul(f, S1, PPP))
-    ZZ3 = fp.mont_mul(f, fp.mont_mul(f, ZZ1, ZZ2), PP)
-    ZZZ3 = fp.mont_mul(f, fp.mont_mul(f, ZZZ1, ZZZ2), PPP)
-    out = XYZZPoints(X3, Y3, ZZ3, ZZZ3)
-    p0 = fp.is_zero(f, Pp)
-    r0 = fp.is_zero(f, R)
-    p_inf = xyzz_is_inf(P)
-    q_inf = xyzz_is_inf(Q)
-    both = ~p_inf & ~q_inf
-    batch = X3.shape[1:]
-    out = select_xyzz(both & p0 & r0, xyzz_double(curve, P), out)
-    out = select_xyzz(both & p0 & ~r0, xyzz_zero(curve, batch, X3.device), out)
-    out = select_xyzz(p_inf, Q, out)
-    out = select_xyzz(q_inf, P, out)
-    return out
+    """Full XYZZ + XYZZ, edge-complete (zkarray/ec/sw.py:xyzz_add): the fused
+    kernel kernels/sw.py:xyzz_add, one launch on a CUDA device, its plain
+    version on the CPU."""
+    return XYZZPoints(*ksw.xyzz_add(curve, P, Q))
 
 
 def xyzz_add_affine(curve: SWCurveSpec, P: XYZZPoints, A: AffinePoints) -> XYZZPoints:
@@ -179,22 +156,7 @@ def xyzz_double_affine(curve: SWCurveSpec, A: AffinePoints) -> XYZZPoints:
 
 
 def xyzz_double(curve: SWCurveSpec, P: XYZZPoints) -> XYZZPoints:
-    """dbl-2008-s-1; infinity or y == 0 -> infinity (zkarray/ec/sw.py:xyzz_double)."""
-    f = curve.base
-    X1, Y1, ZZ1, ZZZ1 = P
-    U = fp.double(f, Y1)
-    V = fp.mont_sqr(f, U)
-    W = fp.mont_mul(f, U, V)
-    S = fp.mont_mul(f, X1, V)
-    XX = fp.mont_sqr(f, X1)
-    M = fp.add(f, fp.double(f, XX), XX)
-    if not curve.a_is_zero:
-        a_c = fp.const_array(f, curve.a_int, (), X1.device)
-        M = fp.add(f, M, fp.mont_mul(f, a_c, fp.mont_sqr(f, ZZ1)))
-    X3 = fp.sub(f, fp.mont_sqr(f, M), fp.double(f, S))
-    Y3 = fp.sub(f, fp.mont_mul(f, M, fp.sub(f, S, X3)), fp.mont_mul(f, W, Y1))
-    ZZ3 = fp.mont_mul(f, V, ZZ1)
-    ZZZ3 = fp.mont_mul(f, W, ZZZ1)
-    out = XYZZPoints(X3, Y3, ZZ3, ZZZ3)
-    bad = xyzz_is_inf(P) | fp.is_zero(f, Y1)
-    return select_xyzz(bad, xyzz_zero(curve, X3.shape[1:], X3.device), out)
+    """dbl-2008-s-1; infinity or y == 0 -> infinity (zkarray/ec/sw.py:xyzz_double):
+    the fused kernel kernels/sw.py:xyzz_double on a CUDA device, its plain
+    version on the CPU."""
+    return XYZZPoints(*ksw.xyzz_double(curve, P))

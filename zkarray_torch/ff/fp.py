@@ -2,9 +2,10 @@
 
 Counterpart of zkarray/ff/fp.py (main-path subset). Field tensors are
 ``int32[L, *batch]`` in Montgomery form unless stated otherwise, R = 2^(16 L).
-``mont_mul`` and ``mont_sqr`` go through zkarray_torch.kernels.mont, which
-launches the CUDA kernel for CUDA tensors; everything else here is plain
-PyTorch on the tensors' own device (in the JAX package it is XLA).
+``mont_mul``, ``mont_sqr`` and ``pow_const`` go through
+zkarray_torch.kernels.mont, which launches a CUDA kernel for CUDA tensors;
+everything else here is plain PyTorch on the tensors' own device (in the JAX
+package it is XLA).
 """
 
 from __future__ import annotations
@@ -62,12 +63,9 @@ def to_ints(spec: FieldSpec, a: torch.Tensor, mont: bool = True) -> list:
 # core arithmetic
 # ---------------------------------------------------------------------------
 
-_align2 = km.align2
-
-
 def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Montgomery product a*b*R^-1 mod p, broadcast as _align2 does (the
-    kernel on CUDA tensors)."""
+    """Montgomery product a*b*R^-1 mod p, broadcast as kernels.mont.align
+    does (the kernel on CUDA tensors)."""
     return km.mont_mul(spec, a, b)
 
 
@@ -129,16 +127,9 @@ def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 
 def pow_const(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
     """a^e for a Python-int exponent: square-and-multiply over the
-    exponent's bits, low bit first (zkarray/ff/fp.py:pow_const)."""
-    res = one(spec, a.shape[1:], a.device).contiguous()
-    base = a
-    while e:
-        if e & 1:
-            res = mont_mul(spec, res, base)
-        e >>= 1
-        if e:
-            base = mont_sqr(spec, base)
-    return res
+    exponent's bits, low bit first (zkarray/ff/fp.py:pow_const); one
+    csrc/mont.cu:mont_pow launch on a CUDA device."""
+    return km.mont_pow(spec, a, e)
 
 
 def inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:

@@ -7,11 +7,14 @@ and binds them with ctypes. ``LAUNCHES`` counts each kernel's launches.
     kernel           source    wrappers                                replaces (zkarray/kernels)
     mont_mul         mont.cu   mont.mont_mul                           mont.py:mont_mul
     mont_sqr         mont.cu   mont.mont_sqr                           mont.py:mont_sqr
+    mont_pow         mont.cu   mont.mont_pow                           (none: ff/fp.py:pow_const's launch chain)
     xyzz_accum       sw.cu     sw.xyzz_accum_grid, sw.xyzz_accum_tiles  sw.py:xyzz_accum_grid, :xyzz_accum_tiles
     horner_windows   sw.cu     sw.horner_windows                       sw.py:horner_windows
     butterfly_dit    ntt.cu    mont.butterfly_dit                      mont.py:butterfly_dit_inplace
     butterfly_stage  ntt.cu    mont.butterfly_stage                    mont.py:butterfly_stage
     xyzz_add_affine  madd.cu   sw.xyzz_add_affine                      sw.py:xyzz_add_affine
+    xyzz_add         xyzz.cu   sw.xyzz_add                             (none: ec/sw.py:xyzz_add's launch chain)
+    xyzz_double      xyzz.cu   sw.xyzz_double                          (none: ec/sw.py:xyzz_double's launch chain)
 """
 
 from zkarray_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401

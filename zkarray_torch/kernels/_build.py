@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("mont", "sw", "ntt", "madd")
+SOURCES = ("mont", "sw", "ntt", "madd", "xyzz")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -35,8 +35,9 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the stream included, as c_void_p so ctypes does not cut it to 32 bits).
 EXPORTS = {
     "mont": {
-        "zk_mont_mul": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _I, _P, _P],
-        "zk_mont_sqr": [_P, _LL, _LL, _P, _LL, _I, _P, _P],
+        "zk_mont_mul": [_P, _P, _LL, _I, _P, _P],
+        "zk_mont_sqr": [_P, _P, _LL, _I, _P, _P],
+        "zk_mont_pow": [_P, _P, _LL, _P, _I, _I, _P, _P],
     },
     "sw": {
         "zk_xyzz_accum": [_P, _P, _P, _P, _I, _LL, _I, _P, _P],
@@ -49,11 +50,16 @@ EXPORTS = {
     "madd": {
         "zk_xyzz_add_affine": [_P] * 11 + [_LL, _I, _P, _P],
     },
+    "xyzz": {
+        "zk_xyzz_add": [_P, _P, _LL, _I, _P, _P],
+        "zk_xyzz_double": [_P, _P, _LL, _I, _P, _P],
+    },
 }
 
 # Launches per kernel, counted by each wrapper where it launches its kernel.
 LAUNCHES = {"mont_mul": 0, "mont_sqr": 0, "xyzz_accum": 0, "horner_windows": 0,
-            "butterfly_dit": 0, "butterfly_stage": 0, "xyzz_add_affine": 0}
+            "butterfly_dit": 0, "butterfly_stage": 0, "xyzz_add_affine": 0,
+            "xyzz_add": 0, "xyzz_double": 0, "mont_pow": 0}
 
 _libs = {}
 

@@ -183,6 +183,37 @@ __device__ __forceinline__ void store16(int32_t* base, size_t stride, size_t i, 
   }
 }
 
+// A strided input of 16-bit limbs: batch element i (row-major), limb k, at
+// base[k*ld + (i / inner)*outer + i % inner]. A contiguous tensor has
+// inner = n; a slice along the first batch axis keeps inner = n with a wider
+// ld; a constant broadcast over leading batch axes has outer = 0; the last-axis
+// halves v[..., :h] and v[..., h:2h] of a (..., m) tensor have inner = h,
+// outer = m. So none of these is copied before a launch.
+struct Operand {
+  const int32_t* base;
+  long long ld;
+  long long inner;
+  long long outer;
+};
+
+// Host descriptor: (pointer, ld, inner, outer) as four 64-bit words.
+static inline Operand operand_from_host(const long long* d) {
+  return Operand{(const int32_t*)(uintptr_t)d[0], d[1], d[2], d[3]};
+}
+
+// True when each of k host descriptors has inner >= 1 and outer >= 0.
+static inline bool operands_ok(const long long* d, int k) {
+  for (int j = 0; j < k; ++j)
+    if (d[4 * j + 2] <= 0 || d[4 * j + 3] < 0) return false;
+  return true;
+}
+
+template <int NW>
+__device__ __forceinline__ Fe<NW> load_operand(const Operand& o, long long i) {
+  const long long off = i < o.inner ? i : (i / o.inner) * o.outer + i % o.inner;
+  return load16<NW>(o.base, (size_t)o.ld, (size_t)off);
+}
+
 // Packed 32-bit words (int32 bit patterns), word j of element i at base[j*stride + i].
 template <int NW>
 __device__ __forceinline__ Fe<NW> load32(const int32_t* base, size_t stride, size_t i) {

@@ -1,8 +1,10 @@
-"""Montgomery product, square and NTT butterflies: CUDA kernels and plain
-PyTorch versions.
+"""Montgomery product, square, power and NTT butterflies: CUDA kernels and
+plain PyTorch versions.
 
 Counterpart of zkarray/kernels/mont.py:mont_mul, mont_sqr,
-butterfly_dit_inplace and butterfly_stage. Each wrapper takes the plain
+butterfly_dit_inplace and butterfly_stage; ``mont_pow`` has no Pallas
+counterpart (it runs ff/fp.py:pow_const's square-and-multiply chain in one
+launch, where the JAX package leaves XLA to fuse a lax.scan). Each wrapper takes the plain
 version for tensors on the CPU and launches its kernel (``csrc/mont.cu``,
 ``csrc/ntt.cu``) for tensors on a CUDA device (or raises); there is no other
 rule and no fallback. Both versions compute every product a*b*R^-1 mod p and
@@ -40,13 +42,16 @@ from zkarray_torch.kernels import _build
 # shared helpers
 # ---------------------------------------------------------------------------
 
-def align2(L: int, a: torch.Tensor, b: torch.Tensor):
-    """Broadcast two (L, *batch) tensors to a common batch shape, padding
-    TRAILING batch dims (zkarray/ff/fp.py:_align2)."""
-    batch = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
-    a = a.reshape(a.shape + (1,) * (len(batch) - (a.dim() - 1))).expand((L,) + batch)
-    b = b.reshape(b.shape + (1,) * (len(batch) - (b.dim() - 1))).expand((L,) + batch)
-    return a, b
+def align(L: int, *ts: torch.Tensor):
+    """Broadcast (L, *batch) tensors to a common batch shape, padding
+    TRAILING batch dims (zkarray/ff/fp.py:_align2). Tensors of one shape are
+    returned as they are: the broadcast costs more host time than a launch."""
+    if all(t.shape == ts[0].shape for t in ts[1:]):
+        return ts
+    batch = torch.broadcast_shapes(*(t.shape[1:] for t in ts))
+    return tuple(t.reshape(t.shape + (1,) * (len(batch) - (t.dim() - 1))).expand((L,) + batch)
+                 for t in ts)
+
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,7 +87,7 @@ def const(spec: FieldSpec, value: int, batch_shape, device) -> torch.Tensor:
 
 def add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a + b) mod p, plain PyTorch on the tensors' device."""
-    a, b = align2(spec.num_limbs, a, b)
+    a, b = align(spec.num_limbs, a, b)
     s = normalize(a.to(torch.int64) + b.to(torch.int64), spec.num_limbs + 1)
     return cond_sub_p_plain(spec, s).to(torch.int32)
 
@@ -90,7 +95,7 @@ def add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def sub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a - b) mod p, plain PyTorch on the tensors' device."""
     L = spec.num_limbs
-    a, b = align2(L, a, b)
+    a, b = align(L, a, b)
     d, borrow = sub_with_borrow(a, b)
     p = limb_col(spec, spec.modulus, str(d.device), d.dim() - 1)
     d_fix = normalize(d + p, L)
@@ -154,7 +159,7 @@ def cond_sub_p_plain(spec: FieldSpec, r: torch.Tensor) -> torch.Tensor:
 def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a*b*R^-1 mod p on (L, *batch) limb tensors, in plain PyTorch."""
     L = spec.num_limbs
-    a, b = align2(L, a, b)
+    a, b = align(L, a, b)
     batch = tuple(a.shape[1:])
     a64 = a.to(torch.int64)
     b64 = b.to(torch.int64)
@@ -193,55 +198,118 @@ def butterfly_stage_plain(spec: FieldSpec, lo: torch.Tensor, hi: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _operand(t: torch.Tensor):
-    """(tensor, ld, period) such that batch element i (row-major), limb k, of
-    ``t`` sits at offset k*ld + i % period from its data pointer: true for a
-    contiguous tensor, a slice along the first batch axis and a constant
-    broadcast over leading batch axes. Anything else is copied first."""
+    """(tensor, ld, inner, outer) such that batch element i (row-major), limb
+    k, of ``t`` sits at offset k*ld + (i // inner)*outer + i % inner from its
+    data pointer (csrc/field.cuh:Operand). That holds for a contiguous tensor
+    (inner = n), a slice along the first batch axis, a constant broadcast over
+    leading batch axes (outer = 0) and the last-axis halves v[..., :h],
+    v[..., h:2h] of a (..., m) tensor (inner = h, outer = m): the innermost
+    contiguous run of batch axes is ``inner``, and the axes outside it must
+    step through memory as one axis of stride ``outer``. Anything else is
+    copied first."""
     dims = [(s, st) for s, st in zip(t.shape[1:], t.stride()[1:]) if s != 1]
-    period, j = 1, len(dims)
-    while j > 0 and dims[j - 1][1] == period:
-        period *= dims[j - 1][0]
+    inner, j = 1, len(dims)
+    while j > 0 and dims[j - 1][1] == inner:
+        inner *= dims[j - 1][0]
         j -= 1
-    if any(st != 0 for _, st in dims[:j]):
-        t = t.contiguous()
-        return t, t[0].numel(), t[0].numel()
-    return t, t.stride(0), period
+    outer = dims[j - 1][1] if j else 0
+    span = outer
+    for s, st in reversed(dims[:j]):
+        if st != span:
+            t = t.contiguous()
+            return t, t[0].numel(), t[0].numel(), 0
+        span *= s
+    return t, t.stride(0), inner, outer
 
 
-def _launch(entry: str, kernel: str, spec: FieldSpec, *ins: torch.Tensor) -> torch.Tensor:
-    """Run an element-wise kernel of csrc/mont.cu on (L, *batch) inputs of
-    one shape (strided as ``_operand`` allows)."""
-    L = spec.num_limbs
+def operand_words(ops) -> np.ndarray:
+    """Host descriptors (pointer, ld, inner, outer) of ``_operand`` results,
+    one row each, as the C entries read them."""
+    return np.asarray([(t.data_ptr(), ld, inner, outer) for t, ld, inner, outer in ops],
+                      dtype=np.int64)
+
+
+def launch_strided(source: str, kernel: str, L: int, consts: np.ndarray, ins, out_lead=(),
+                   extra=()) -> torch.Tensor:
+    """Run the element-wise kernel ``kernel`` of csrc/<source>.cu (C entry
+    zk_<kernel>(operand descriptors, out, n, *extra, NW, consts, stream)) on
+    (L, *batch) inputs of one shape, strided as ``_operand`` allows; returns
+    its contiguous output of shape out_lead + (L, *batch)."""
     check_cuda_int32(kernel, *ins, contiguous=False)
-    if ins[0].shape[0] != L or any(t.shape != ins[0].shape for t in ins):
-        raise ValueError(f"{kernel}: expected equal (L={L}, *batch) shapes")
-    ops = [_operand(t) for t in ins]
-    out = torch.empty(ins[0].shape, dtype=torch.int32, device=ins[0].device)
-    lib = _build.load("mont")
+    shape = ins[0].shape
+    if shape[0] != L or any(t.shape != shape for t in ins):
+        raise ValueError(f"{kernel}: expected inputs of one (L={L}, *batch) shape")
+    desc = operand_words([_operand(t) for t in ins])
+    out = torch.empty(tuple(out_lead) + tuple(shape), dtype=torch.int32, device=ins[0].device)
+    lib = _build.load(source)
     with torch.cuda.device(out.device):
-        err = getattr(lib, entry)(
-            *(v for t, ld, per in ops for v in (t.data_ptr(), ld, per)), out.data_ptr(),
-            out.numel() // L, L // 2, words_ptr(field_words(spec)),
-            torch.cuda.current_stream().cuda_stream)
+        err = getattr(lib, f"zk_{kernel}")(
+            words_ptr(desc), out.data_ptr(), ins[0].numel() // L, *extra, L // 2,
+            words_ptr(consts), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, kernel)
     _build.LAUNCHES[kernel] += 1
     return out
 
 
+def _launch(kernel: str, spec: FieldSpec, *ins: torch.Tensor,
+            exponent: int | None = None) -> torch.Tensor:
+    """Run the element-wise kernel ``kernel`` of csrc/mont.cu on (L, *batch)
+    inputs of one shape; ``exponent`` is mont_pow's."""
+    extra = ()
+    if exponent is not None:
+        nbits = exponent.bit_length()
+        words = np.asarray([(exponent >> (32 * i)) & 0xFFFFFFFF for i in range(-(-nbits // 32))]
+                           or [0], dtype=np.uint32)
+        extra = (words_ptr(words), nbits)
+    return launch_strided("mont", kernel, spec.num_limbs, field_words(spec), ins, extra=extra)
+
+
 def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery product of (L, *batch) int32 limb tensors (broadcast as
-    _align2 does). CPU tensors: plain version; CUDA tensors: the kernel."""
+    align does). CPU tensors: plain version; CUDA tensors: the kernel."""
     if on_cpu(a, b):
         return mont_mul_plain(spec, a, b)
-    a, b = align2(spec.num_limbs, a, b)
-    return _launch("zk_mont_mul", "mont_mul", spec, a, b)
+    a, b = align(spec.num_limbs, a, b)
+    return _launch("mont_mul", spec, a, b)
 
 
 def mont_sqr(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """Montgomery square; dispatch as ``mont_mul``."""
     if on_cpu(a):
         return mont_sqr_plain(spec, a)
-    return _launch("zk_mont_sqr", "mont_sqr", spec, a)
+    return _launch("mont_sqr", spec, a)
+
+
+# csrc/mont.cu:MAX_EXP_WORDS 32-bit words
+MAX_EXP_BITS = 64 * 32
+
+
+def mont_pow_plain(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e for a host exponent e >= 0: square-and-multiply over e's bits, low
+    bit first (zkarray/ff/fp.py:pow_const), in plain PyTorch."""
+    res = const(spec, spec.r_int, a.shape[1:], a.device).contiguous()
+    base = a
+    while e:
+        if e & 1:
+            res = mont_mul_plain(spec, res, base)
+        e >>= 1
+        if e:
+            base = mont_sqr_plain(spec, base)
+    return res
+
+
+def mont_pow(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e element-wise for a host exponent 0 <= e < 2^MAX_EXP_BITS (e = 0
+    gives one; a = 0 gives 0 for e > 0). CPU tensors: plain version; CUDA
+    tensors: csrc/mont.cu:mont_pow_kernel, the whole chain in one launch."""
+    e = int(e)
+    if e < 0:
+        raise ValueError("mont_pow: the exponent must be >= 0")
+    if on_cpu(a):
+        return mont_pow_plain(spec, a, e)
+    if e.bit_length() > MAX_EXP_BITS:
+        raise ValueError(f"mont_pow: exponents are limited to {MAX_EXP_BITS} bits on CUDA")
+    return _launch("mont_pow", spec, a, exponent=e)
 
 
 def _launch_dit(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor, stride: int):
@@ -283,9 +351,7 @@ def butterfly_stage(spec: FieldSpec, lo: torch.Tensor, hi: torch.Tensor, w: torc
     L = spec.num_limbs
     if on_cpu(lo, hi, w):
         return butterfly_stage_plain(spec, lo, hi, w)
-    lo, hi = align2(L, lo, hi)
-    lo, w = align2(L, lo, w)
-    hi, w = align2(L, hi, w)
+    lo, hi, w = align(L, lo, hi, w)
     lo, hi, w = lo.contiguous(), hi.contiguous(), w.contiguous()
     check_cuda_int32("butterfly_stage", lo, hi, w)
     out_a, out_b = torch.empty_like(lo), torch.empty_like(lo)

@@ -1,9 +1,12 @@
-"""XYZZ mixed add, MSM bucket accumulation and window Horner: CUDA kernels
-and plain versions.
+"""XYZZ mixed add, full add and doubling, MSM bucket accumulation and window
+Horner: CUDA kernels and plain versions.
 
 Counterparts of zkarray/kernels/sw.py:xyzz_add_affine, xyzz_accum_grid,
 xyzz_accum_tiles and horner_windows. ``xyzz_add_affine`` is element-wise
-(``csrc/madd.cu``, one thread per point). One CUDA kernel
+(``csrc/madd.cu``, one thread per point), and so are ``xyzz_add`` and
+``xyzz_double`` (``csrc/xyzz.cu``), which have no Pallas counterpart: they
+run ec/sw.py's full add and doubling in one launch each, where the JAX
+package leaves XLA to fuse the jitted formulas around its product kernels. One CUDA kernel
 (``csrc/sw.cu:xyzz_accum_kernel``) serves both accumulation wrappers: the
 port drops the TPU's (8, 128) block tiling, so the grid sweep and the
 residual tiles share one flat layout over S bucket slots:
@@ -264,6 +267,35 @@ def xyzz_add_affine(curve, P, AX, AY, a_inf):
     _build.check(lib, err, "xyzz_add_affine")
     _build.LAUNCHES["xyzz_add_affine"] += 1
     return tuple(outs)
+
+
+def _launch_xyzz(kernel: str, curve, *coords: torch.Tensor):
+    """Run the element-wise kernel ``kernel`` of csrc/xyzz.cu on XYZZ points
+    given as their (L, *batch) coordinates, X, Y, ZZ, ZZZ per point, all of
+    one shape; returns the four output coordinates (views of one contiguous
+    (4, L, *batch) tensor)."""
+    out = km.launch_strided("xyzz", kernel, curve.base.num_limbs, _curve_words(curve), coords,
+                            out_lead=(4,))
+    return tuple(out.unbind(0))
+
+
+def xyzz_add(curve, P, Q):
+    """Full XYZZ + XYZZ with _fadd_core's edges over (L, *batch) coordinates
+    P = (X, Y, ZZ, ZZZ) and Q, broadcast to one batch shape; returns the four
+    sum coordinates. CPU tensors: ``_fadd_plain``; CUDA tensors:
+    csrc/xyzz.cu:xyzz_add_kernel."""
+    if km.on_cpu(*P, *Q):
+        return _fadd_plain(curve, tuple(P), tuple(Q))
+    return _launch_xyzz("xyzz_add", curve, *km.align(curve.base.num_limbs, *P, *Q))
+
+
+def xyzz_double(curve, P):
+    """XYZZ doubling (inf or y = 0 -> inf) over (L, *batch) coordinates of one
+    shape. CPU tensors: ``_dbl_plain``; CUDA tensors:
+    csrc/xyzz.cu:xyzz_double_kernel."""
+    if km.on_cpu(*P):
+        return _dbl_plain(curve, tuple(P))
+    return _launch_xyzz("xyzz_double", curve, *km.align(curve.base.num_limbs, *P))
 
 
 def horner_windows(curve, win, c: int):
