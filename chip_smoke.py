@@ -6,13 +6,24 @@
 Phases, each printing one JSON line and raising on any failure:
 
 1. header: the card (nvidia-smi name and power limit), torch and CUDA
-   versions; the nvcc build of every kernel source, started in parallel,
-   with its time and each kernel's registers and spills (-Xptxas -v).
+   versions; the nvcc build of every kernel source, started in parallel
+   with a SASS probe (one field operation per kernel, NW = 12), with its
+   time and each kernel's registers and spills (-Xptxas -v); from
+   cuobjdump -sass, the instructions (and IMADs) of one product and one
+   addition in each of field.cuh's routines, and the code size of the two
+   sw.cu kernels and of a one-thread window Horner with xyzz_dbl/xyzz_add
+   inlined (the earlier design of horner_windows).
 2. kernel vs plain: each CUDA kernel against its plain PyTorch version on
    the same device inputs, bit for bit (tolerance zero), with both times:
    mont_mul and mont_sqr on 2^20 Fq and Fr elements; xyzz_accum through both
-   wrappers on an edge-class feed (16384 slots x 32 rounds) and at the main
-   path's band-1 shape; horner_windows at W = 20, c = 13.
+   wrappers on two edge-class feeds (random field elements, 16421 slots x 32
+   rounds; testing.accum_edge_rounds' real points, 4099 x 8) and on a random
+   feed at the main path's band-1 shape; horner_windows at W = 20, c = 13 on
+   random windows and on testing.horner_edge_windows (its total also held
+   against the host oracle). Each xyzz_accum row has the wrapper's wall ms,
+   device ms (CUDA events), ns per add, share of the operation bound,
+   registers, spills, resident blocks per SM and waves; each
+   horner_windows row its ms per product and per critical-path product.
 3. main path: BLS12-381 G1 msm at n = 2^20, 254-bit scalars, c = 13, on
    tiled inputs with a host known answer; launch counts from one run, with
    the shape and operand map of every mont_mul/mont_sqr/mont_pow and
@@ -26,9 +37,12 @@ Phases, each printing one JSON line and raising on any failure:
    (CUDA activity only) for the device's busy time, idle share and host
    time per device op; mont_pow against its plain version at 2^20 Fq
    elements (zeros included) and at the path's one element, for p - 2;
-   xyzz_accum on the run's own band-2 feed; xyzz_add and xyzz_double on an
-   edge-class feed of 2^20 Fq points (generic, P == Q, P == -Q, P = inf,
-   Q = inf, both inf, y = 0).
+   xyzz_accum on the path's own band-1 feed (recorded from one more
+   accumulate) and band-2 feed; horner_windows on the path's own window
+   rows, and every horner_windows row's chain bound: its critical-path
+   products x mont_pow's time per product in one thread; xyzz_add and
+   xyzz_double on an edge-class feed of 2^20 Fq points (generic, P == Q,
+   P == -Q, P = inf, Q = inf, both inf, y = 0).
 4. ChunkedMSM at 2^21 as two 2^20 chunks, known-answer checked.
 5. NTT path: Radix2Domain(Fr, 2^24).fft of geometric coefficients
    a_j = c r^j, held at 256+ output indices against the host closed form
@@ -62,11 +76,13 @@ before printing any result.
 """
 
 import collections
+import ctypes
 import json
 import math
 import os
 import platform
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -77,7 +93,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM = 64  # 32-bit integer multiply-add per SM per clock, compute capability 9.0
 DEVICE = "cuda"
 LOG_N = 20  # main-path MSM size; ChunkedMSM runs two chunks of this size
-EDGE_SLOTS, EDGE_ROUNDS = 16384, 32
+EDGE_SLOTS, EDGE_ROUNDS = 16421, 32  # xyzz_accum edge classes: not a multiple of 32
+ORACLE_SLOTS, ORACLE_ROUNDS = 4099, 8  # xyzz_accum on testing.accum_edge_rounds
 NTT_LOG_N = 24  # the NTT path: Radix2Domain(Fr, 2^24), fft_fourstep_big
 COSET_LOG_N = 20  # coset round trip through fft_fourstep_core
 DEG_LOG_M = 22  # coefficients of the degree-aware fft at 2^NTT_LOG_N
@@ -191,6 +208,102 @@ def parse_ptxas(log):
     return out
 
 
+# One product (or addition) per probe kernel, NW = 12, for instruction counts
+# from cuobjdump -sass: a routine's count is its probe's minus probe_none's
+# (the same loads and stores around an XOR). fmul_madcc is a CIOS written as
+# PTX mad.lo.cc/madc.hi.cc chains, the carry-chain form field.cuh's
+# fmul_wide was measured against; probe_horner_serial is the earlier design
+# of horner_windows (one thread, xyzz_dbl/xyzz_add inlined), for its code
+# size.
+SASS_PROBE = r"""
+#include "field.cuh"
+#define MADCC(op, r, a, b, c) asm volatile(op " %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c))
+__device__ __forceinline__ Fe<12> fmul_madcc(const Fe<12>& a, const Fe<12>& b,
+                                             const FieldConsts<12>& F) {
+  uint32_t t[13] = {0};
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    const uint32_t bi = b.w[i];
+    MADCC("mad.lo.cc.u32", t[0], a.w[0], bi, t[0]);
+#pragma unroll
+    for (int j = 1; j < 12; ++j) MADCC("madc.lo.cc.u32", t[j], a.w[j], bi, t[j]);
+    t[12] = ptx::addc(0, 0);
+    MADCC("mad.hi.cc.u32", t[1], a.w[0], bi, t[1]);
+#pragma unroll
+    for (int j = 1; j < 11; ++j) MADCC("madc.hi.cc.u32", t[j + 1], a.w[j], bi, t[j + 1]);
+    MADCC("madc.hi.u32", t[12], a.w[11], bi, t[12]);
+    const uint32_t m = t[0] * F.inv;
+    MADCC("mad.lo.cc.u32", t[0], F.p[0], m, t[0]);
+#pragma unroll
+    for (int j = 1; j < 12; ++j) MADCC("madc.lo.cc.u32", t[j], F.p[j], m, t[j]);
+    t[12] = ptx::addc(t[12], 0);
+    MADCC("mad.hi.cc.u32", t[0], F.p[0], m, t[1]);
+#pragma unroll
+    for (int j = 1; j < 11; ++j) MADCC("madc.hi.cc.u32", t[j], F.p[j], m, t[j + 1]);
+    MADCC("madc.hi.u32", t[11], F.p[11], m, t[12]);
+    t[12] = 0;
+  }
+  return cond_sub_p_cc<12>(t, F);
+}
+__device__ Fe<12> fxor(const Fe<12>& x, const Fe<12>& y) {
+  Fe<12> r;
+#pragma unroll
+  for (int j = 0; j < 12; ++j) r.w[j] = x.w[j] ^ y.w[j];
+  return r;
+}
+#define PROBE(name, expr)                                                              \
+  extern "C" __global__ void name(const Fe<12>* a, const Fe<12>* b, Fe<12>* o,        \
+                                  FieldConsts<12> F) {                               \
+    const int i = threadIdx.x;                                                        \
+    const Fe<12> x = a[i], y = b[i];                                                  \
+    o[i] = expr;                                                                      \
+  }
+PROBE(probe_none, fxor(x, y))
+PROBE(probe_fmul, fmul<12>(x, y, F))
+PROBE(probe_fmul_wide, fmul_wide<12>(x, y, F))
+PROBE(probe_fmul_madcc, fmul_madcc(x, y, F))
+PROBE(probe_fadd, fadd<12>(x, y, F))
+PROBE(probe_fadd_cc, fadd_cc<12>(x, y, F))
+PROBE(probe_fsub, fsub<12>(x, y, F))
+PROBE(probe_fsub_cc, fsub_cc<12>(x, y, F))
+extern "C" __global__ void probe_horner_serial(const Xyzz<12>* win, Xyzz<12>* out, int W, int c,
+                                               FieldConsts<12> F) {
+  Xyzz<12> st = win[W - 1];
+  for (int wi = W - 2; wi >= 0; --wi) {
+    for (int k = 0; k < c; ++k) st = xyzz_dbl<12>(st, F);
+    st = xyzz_add<12>(st, win[wi], F);
+  }
+  *out = st;
+}
+"""
+
+
+def cuobjdump():
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    return str(os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump"))
+
+
+def sass_functions(path):
+    """{function: {"instructions": n, "imad": n, "opcodes": {op: n}}} from
+    cuobjdump -sass (NOPs not counted)."""
+    text = subprocess.run([cuobjdump(), "-sass", str(path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), collections.Counter())
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and cur is not None and m.group(1) != "NOP":
+            cur[m.group(1)] += 1
+    return {k: dict(instructions=sum(v.values()),
+                    imad=sum(n for op, n in v.items() if op.startswith("IMAD")),
+                    opcodes=dict(v.most_common(10))) for k, v in out.items()}
+
+
 def main():
     import torch
 
@@ -209,7 +322,8 @@ def main():
     from zkarray_torch.kernels import mont as km
     from zkarray_torch.kernels import sw as ksw
     from zkarray_torch.poly import domain as tdm
-    from zkarray_torch.testing import ec_add, ec_mul, ec_neg, expected_msm, tiled_inputs
+    from zkarray_torch.testing import (accum_edge_rounds, accum_feed, ec_add, ec_mul, ec_neg,
+                                       expected_msm, horner_edge_windows, tiled_inputs)
 
     dev = torch.device(DEVICE)
     G1 = B.G1
@@ -229,14 +343,45 @@ def main():
          host_cpu=host_cpu_model(), host_arch=platform.machine(),
          host_cpus_usable=len(os.sched_getaffinity(0)))
     t0 = time.perf_counter()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    probe_src = _build.BUILD_DIR / "sass_probe.cu"
+    probe_src.write_text(SASS_PROBE)
+    probe_bin = probe_src.with_suffix(".cubin")
+    probe = subprocess.Popen(  # built beside the sources, at the same time
+        [_build._nvcc(), *_build.NVCC_FLAGS[:4], "-cubin", "-I", str(_build.CSRC), "-o",
+         str(probe_bin), str(probe_src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     built = _build.build()
     build_s = time.perf_counter() - t0
+    probe_log, _ = probe.communicate()
+    if probe.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the SASS probe:\n{probe_log}")
     ptxas = {}
     for name in _build.SOURCES:
         log_path = _build.lib_path(name).with_suffix(".ptxas.txt")
         ptxas.update(parse_ptxas(log_path.read_text()))
     emit("build", seconds=build_s, per_source={k: v["seconds"] for k, v in built.items()},
          ptxas=ptxas)
+
+    # instructions per field operation (probe minus probe_none) and the code
+    # size of the two sw.cu kernels, NW = 12
+    probes = sass_functions(probe_bin)
+    base = probes["probe_none"]
+    per_op = {k[len("probe_"):]: dict(instructions=v["instructions"] - base["instructions"],
+                                      imad=v["imad"] - base["imad"], opcodes=v["opcodes"])
+              for k, v in probes.items() if k not in ("probe_none", "probe_horner_serial")}
+    sw_sass = sass_functions(_build.lib_path("sw"))
+
+    def sw_kernel(stem):
+        hits = [(k, v) for k, v in sw_sass.items() if f"{stem}ILi12E" in k]
+        return dict(function=hits[0][0], **hits[0][1]) if hits else None
+
+    sass = dict(per_op_nw12=per_op, horner_serial_code=probes["probe_horner_serial"],
+                horner_windows_code=sw_kernel("horner_windows_kernel"),
+                chain_mul_code=sw_kernel("chain_mul"), xyzz_accum_code=sw_kernel("xyzz_accum_kernel"))
+    emit("sass", **sass)
+
+    def ptxas_of(stem):
+        return next((v for k, v in ptxas.items() if f"{stem}ILi12E" in k), {})
 
     # ---- helpers -------------------------------------------------------------
     def sync():
@@ -338,17 +483,76 @@ def main():
                                     bound_by=b_by, shape=f"Fq, {n} elements")
         del a, b
 
-    # xyzz_accum on an edge-class feed: random field elements (the formulas
-    # need no curve membership to be compared), with per-slot classes
+    # xyzz_accum and horner_windows: each feed checked bit for bit against
+    # the plain version, with the wrapper's wall ms (host clock, median of
+    # 3), device ms (CUDA events), the bound, and the kernel's registers,
+    # resident blocks per SM and waves
     f = FQ
     L = f.num_limbs
+    madd_ops = 10 * mul_ops(f) + 7 * add_ops(f)
+    dbl_ops = 9 * mul_ops(f) + 7 * add_ops(f)
+    fadd_ops = 14 * mul_ops(f) + 7 * add_ops(f)  # generic windows: no doubling branch
+    sw_lib = _build.load("sw")
+    occ_blocks, occ_threads = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(sw_lib, sw_lib.zk_xyzz_accum_occupancy(nw(f), ctypes.addressof(occ_blocks),
+                                                        ctypes.addressof(occ_threads)),
+                 "xyzz_accum occupancy")
+    resident = occ_blocks.value * occ_threads.value * props.multi_processor_count
+    accum_ptxas = ptxas_of("xyzz_accum_kernel")
+
+    def wrapper_ms(fn):
+        return sorted(once_ms(fn)[1] for _ in range(3))[1]
+
+    def accum_row(label, state, coords, vwords, tiles_too=False):
+        got = ksw.xyzz_accum_grid(G1, state, coords, vwords)
+        want, plain_ms = once_ms(lambda: ksw.xyzz_accum_plain(G1, state, coords, vwords))
+        err = check_equal(f"xyzz_accum {label}", got, want)
+        if tiles_too:
+            err = max(err, check_equal(f"xyzz_accum {label} via xyzz_accum_tiles",
+                                       ksw.xyzz_accum_tiles(G1, state, coords, vwords), want))
+        del got, want
+        run = lambda: ksw.xyzz_accum_grid(G1, state, coords, vwords)  # noqa: E731
+        w_ms, ms = wrapper_ms(run), time_ms(run, 3)
+        n_adds = int((vwords & 1).sum())
+        b_ms, b_by = bound((coords.numel() + vwords.numel() + 2 * state.numel()) * 4,
+                           n_adds * madd_ops)
+        S = state.shape[1]
+        row = dict(feed=label, slots=S, rounds=coords.shape[1], valid_adds=n_adds,
+                   max_abs_err=err, ms=ms, wrapper_ms=w_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, share_of_bound=b_ms / ms, ns_per_add=ms * 1e6 / max(n_adds, 1),
+                   registers=accum_ptxas.get("registers"),
+                   spill_stores=accum_ptxas.get("spill_stores"),
+                   spill_loads=accum_ptxas.get("spill_loads"), blocks_per_sm=occ_blocks.value,
+                   threads_per_block=occ_threads.value, waves=S / resident)
+        emit("kernel", kernel="xyzz_accum", **row)
+        return row
+
+    def horner_row(label, win, c):
+        got = ksw.horner_windows(G1, win, c)
+        want, plain_ms = once_ms(lambda: ksw.horner_windows_plain(G1, win, c))
+        err = check_equal(f"horner_windows {label}", got, want)
+        run = lambda: ksw.horner_windows(G1, win, c)  # noqa: E731
+        w_ms, ms = wrapper_ms(run), time_ms(run, 5)
+        Wn = win.shape[0]
+        b_ms, b_by = bound((win.numel() + got.numel()) * 4, (Wn - 1) * (c * dbl_ops + fadd_ops))
+        products, depth = (Wn - 1) * (9 * c + 14), (Wn - 1) * (3 * c + 4)
+        row = dict(feed=label, W=Wn, c=c, max_abs_err=err, ms=ms, wrapper_ms=w_ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, products=products,
+                   critical_path_products=depth, us_per_product=ms * 1e3 / products,
+                   us_per_critical_product=ms * 1e3 / depth)
+        emit("kernel", kernel="horner_windows", **row)
+        return row, got
+
+    # edge classes on random field elements (the formulas need no curve
+    # membership to be compared), per slot s % 11, over a slot count that is
+    # not a multiple of 32 or of the block
     S, R = EDGE_SLOTS, EDGE_ROUNDS
     one = fp.one(f, (S,), dev).contiguous()
     zero = fp.zero(f, (S,), dev)
     AX = [rand_field(f, S) for _ in range(R)]
     AY = [rand_field(f, S) for _ in range(R)]
     X, Y, ZZ, ZZZ = (rand_field(f, S) for _ in range(4))
-    cls = torch.arange(S, device=dev) % 9
+    cls = torch.arange(S, device=dev) % 11
     valid = (torch.rand((R, S), generator=gen, device=dev) < 0.75).to(torch.int32)
     sign = torch.randint(0, 2, (R, S), generator=gen, device=dev, dtype=torch.int32)
 
@@ -359,27 +563,32 @@ def main():
     same = on([1, 2, 8])  # P == A (sign 0) or P == -A (sign 1) in round 0
     X = torch.where(same, AX[0], X)
     Y = torch.where(same, AY[0], Y)
-    ZZ = torch.where(same, one, ZZ)
-    ZZZ = torch.where(same, one, ZZZ)
+    X = torch.where(on([9]), AX[1], X)  # 9: P == A in round 1, round 0 skipped
+    Y = torch.where(on([9]), AY[1], Y)
+    ZZ = torch.where(same | on([9]), one, ZZ)
+    ZZZ = torch.where(same | on([9]), one, ZZZ)
     p_inf = on([3, 5])  # bucket at infinity
     X, Y = torch.where(p_inf, one, X), torch.where(p_inf, one, Y)
     ZZ, ZZZ = torch.where(p_inf, zero, ZZ), torch.where(p_inf, zero, ZZZ)
-    valid[0] = torch.where(on([4, 5])[0], 0, 1)  # A at infinity in round 0
+    valid[0] = torch.where(on([4, 5, 9])[0], 0, 1)  # A at infinity in round 0
+    valid[1] = torch.where(on([9])[0], 1, valid[1])
     sign[0] = torch.where(on([2, 6])[0], 1, torch.where(on([1, 8])[0], 0, sign[0]))
+    sign[1] = torch.where(on([9])[0], 0, sign[1])
     valid[:, cls == 7] = 0  # a slot with no point in any round
+    valid[R // 2 :, cls == 10] = 0  # a slot whose last rounds are all empty
     state = torch.cat([pack_pairs(v) for v in (X, Y, ZZ, ZZZ)]).contiguous()
     coords = torch.stack([pack_pairs(torch.cat([x, y])) for x, y in zip(AX, AY)], dim=1).contiguous()
     vwords = (valid | (sign << 1)).contiguous()
-    want = ksw.xyzz_accum_plain(G1, state, coords, vwords)
-    edge_err = 0
-    for wrapper in (ksw.xyzz_accum_grid, ksw.xyzz_accum_tiles):
-        edge_err = max(edge_err, check_equal(f"xyzz_accum edges via {wrapper.__name__}",
-                                             wrapper(G1, state, coords, vwords), want))
-    emit("kernel", kernel="xyzz_accum", feed="edge classes", slots=S, rounds=R,
-         max_abs_err=edge_err)
-    del AX, AY, coords, want
+    accum_rows = {"edge classes": accum_row("edge classes", state, coords, vwords, tiles_too=True)}
+    del AX, AY, X, Y, ZZ, ZZZ, coords, state
 
-    # xyzz_accum at the main path's band-1 shape (c = 13 at 2^20 points)
+    # testing.accum_edge_rounds: real points, doubling and cancel with ZZ != 1
+    P0, rounds = accum_edge_rounds(G1, ORACLE_SLOTS, ORACLE_ROUNDS, np.random.default_rng(3))
+    accum_rows["oracle edge rounds"] = accum_row("oracle edge rounds", *accum_feed(G1, P0, rounds, dev),
+                                                 tiles_too=True)
+    del P0, rounds
+
+    # the main path's band-1 shape (c = 13 at 2^20 points), random feed
     cw = tmsm.default_window_size(n)
     Wb, halfb, _, _ = tmsm._window_geometry(cw, 16 * FR.num_limbs - 2)
     R1, _ = tmsm._accum_bounds(cw, n, tmsm.ACCUM_T)
@@ -389,36 +598,34 @@ def main():
     valid = (torch.rand((R1, S1), generator=gen, device=dev) < 0.9).to(torch.int32)
     vwords = (valid | (torch.randint(0, 2, (R1, S1), generator=gen, device=dev,
                                      dtype=torch.int32) << 1)).contiguous()
-    n_adds = int(valid.sum())
-    got = ksw.xyzz_accum_grid(G1, state, coords, vwords)
-    ms = time_ms(lambda: ksw.xyzz_accum_grid(G1, state, coords, vwords), 3)
-    want, plain_ms = once_ms(lambda: ksw.xyzz_accum_plain(G1, state, coords, vwords))
-    err = max(edge_err, check_equal("xyzz_accum band-1 shape", got, want))
-    madd_ops = 10 * mul_ops(f) + 7 * add_ops(f)
-    b_ms, b_by = bound((coords.numel() + vwords.numel() + 2 * state.numel()) * 4,
-                       n_adds * madd_ops)
-    emit("kernel", kernel="xyzz_accum", feed="band-1 shape", slots=S1, rounds=R1,
-         valid_adds=n_adds, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-         bound_by=b_by, ns_per_add=ms * 1e6 / n_adds)
-    report["xyzz_accum"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                bound_by=b_by, shape=f"{S1} slots x {R1} rounds")
-    del state, coords, valid, vwords, got, want
+    band1 = accum_rows["band-1 shape"] = accum_row("band-1 shape", state, coords, vwords)
+    report["xyzz_accum"] = dict(
+        max_abs_err=max(r["max_abs_err"] for r in accum_rows.values()), ms=band1["ms"],
+        plain_ms=band1["plain_ms"], bound_ms=band1["bound_ms"], bound_by=band1["bound_by"],
+        shape=f"{S1} slots x {R1} rounds (band-1 shape, random feed)",
+        wrapper_ms=band1["wrapper_ms"], ns_per_add=band1["ns_per_add"],
+        share_of_bound=band1["share_of_bound"], registers=band1["registers"],
+        spill_stores=band1["spill_stores"], blocks_per_sm=band1["blocks_per_sm"],
+        threads_per_block=band1["threads_per_block"], waves=band1["waves"])
+    del state, coords, valid, vwords
 
-    # horner_windows at W = 20, c = 13; window 5 at infinity
+    # horner_windows at W = 20, c = 13: random windows with window 5 at
+    # infinity, and testing.horner_edge_windows (checked against the oracle)
     Wh, ch = 20, 13
     win = torch.cat([rand_field(f, Wh) for _ in range(4)]).T.contiguous()  # (W, 4L)
     win[5, 2 * L :] = 0
-    got = ksw.horner_windows(G1, win, ch)
-    ms = time_ms(lambda: ksw.horner_windows(G1, win, ch), 3)
-    want, plain_ms = once_ms(lambda: ksw.horner_windows_plain(G1, win, ch))
-    err = check_equal("horner_windows", got, want)
-    dbl_ops = 9 * mul_ops(f) + 7 * add_ops(f)
-    fadd_ops = 14 * mul_ops(f) + 7 * add_ops(f)  # random windows: no doubling branch
-    b_ms, b_by = bound((win.numel() + got.numel()) * 4, (Wh - 1) * (ch * dbl_ops + fadd_ops))
-    emit("kernel", kernel="horner_windows", W=Wh, c=ch, max_abs_err=err, ms=ms,
-         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-    report["horner_windows"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                    bound_by=b_by, shape=f"W={Wh}, c={ch}")
+    horner_rows = {"random windows": horner_row("random windows", win, ch)[0]}
+    win, total = horner_edge_windows(G1, Wh, ch, np.random.default_rng(4), dev)
+    horner_rows["oracle edge windows"], got = horner_row("oracle edge windows", win, ch)
+    res = tsw.XYZZPoints(*(got[i * L : (i + 1) * L, None] for i in range(4)))
+    if tsw.affine_to_ints(G1, tsw.xyzz_to_affine(G1, res)) != [total]:
+        raise AssertionError("horner_windows edge windows: total differs from the host oracle")
+    rnd = horner_rows["random windows"]
+    report["horner_windows"] = dict(
+        max_abs_err=max(r["max_abs_err"] for r in horner_rows.values()), ms=rnd["ms"],
+        plain_ms=rnd["plain_ms"], bound_ms=rnd["bound_ms"], bound_by=rnd["bound_by"],
+        shape=f"W={Wh}, c={ch}, random windows", wrapper_ms=rnd["wrapper_ms"],
+        us_per_product=rnd["us_per_product"], registers=ptxas_of("horner_windows_kernel").get("registers"))
 
     # ---- 3. main path: msm at 2^20 --------------------------------------------
     rng = np.random.default_rng(0)
@@ -428,7 +635,7 @@ def main():
     s = limbs_from_numpy(sc, dev)
     c = tmsm.default_window_size(n)
     W, half, _, _ = tmsm._window_geometry(c, bits)
-    _, r2b = tmsm._accum_bounds(c, n, tmsm.ACCUM_T)
+    r1b, r2b = tmsm._accum_bounds(c, n, tmsm.ACCUM_T)
 
     def to_affine(res):
         return tsw.xyzz_to_affine(G1, tsw.XYZZPoints(*(v[:, None] for v in res)))
@@ -437,12 +644,13 @@ def main():
     # xyzz_add/xyzz_double launch's (kernel, shape, operand maps), recorded
     # around the wrappers' own launch functions (the counts stay where they
     # are), with the inputs of the first launch of each xyzz key as the run
-    # passed them; and the band-2 accumulation's arguments
+    # passed them; the band-2 accumulation's arguments and the window rows
     mont_shapes = collections.Counter()
     xyzz_keys = collections.Counter()
     xyzz_inputs = {}
-    band2 = []
+    band2, path_win = [], []
     launch, launch_xyzz, accum_grid = km._launch, ksw._launch_xyzz, ksw.xyzz_accum_grid
+    horner = ksw.horner_windows
 
     def recording_launch(kernel, spec, *ins, **kw):
         mont_shapes[(kernel, spec.name, tuple(ins[0].shape))] += 1
@@ -459,9 +667,14 @@ def main():
             band2.append((state, coords, valid))
         return accum_grid(curve, state, coords, valid)
 
+    def recording_horner(curve, win, c):
+        path_win.append(win)
+        return horner(curve, win, c)
+
     torch.cuda.reset_peak_memory_stats()
     sync()
     km._launch, ksw._launch_xyzz, ksw.xyzz_accum_grid = recording_launch, recording_xyzz, recording_accum
+    ksw.horner_windows = recording_horner
     try:
         kernels.reset_launches()
         aff = to_affine(tmsm.msm(G1, A, s, c, bits))
@@ -469,6 +682,7 @@ def main():
         launches = dict(kernels.LAUNCHES)
     finally:
         km._launch, ksw._launch_xyzz, ksw.xyzz_accum_grid = launch, launch_xyzz, accum_grid
+        ksw.horner_windows = horner
     msm_peak = torch.cuda.max_memory_allocated()
     got_pt = tsw.affine_to_ints(G1, aff)[0]
     if got_pt != want_pt:
@@ -488,8 +702,8 @@ def main():
     if launches["mont_mul"] + launches["mont_sqr"] >= 100:
         raise AssertionError(f"msm 2^20: {launches['mont_mul'] + launches['mont_sqr']} product "
                              "launches; the fused kernels should leave fewer than 100")
-    if not band2:
-        raise AssertionError("msm 2^20: no band-2 accumulation recorded")
+    if not band2 or len(path_win) != 1:
+        raise AssertionError("msm 2^20: no band-2 accumulation or window Horner recorded")
 
     # mont_mul against its plain version at every main-path shape, inputs the
     # two halves of a tensor twice as wide in its last axis (non-contiguous)
@@ -587,6 +801,23 @@ def main():
             raise AssertionError("msm 2^20: timed run differs from the known answer")
         splits.append((t_acc + t_red + t_aff, t_acc, t_red, t_aff))
     total, t_acc, t_red, t_aff = sorted(splits)[1]
+
+    # the main path's own band-1 feed (the occupancy-sorted slots), recorded
+    # from one more accumulate (not in the run above, to keep its peak
+    # memory); held against the plain version below
+    band1 = []
+
+    def recording_band1(curve, state, coords, valid):
+        if coords.shape[1] == r1b:
+            band1.append((state, coords, valid))
+        return accum_grid(curve, state, coords, valid)
+
+    ksw.xyzz_accum_grid = recording_band1
+    try:
+        tmsm.msm_accumulate(G1, A, s, c, bits, tsw.xyzz_zero(G1, (W, half), dev))
+        sync()
+    finally:
+        ksw.xyzz_accum_grid = accum_grid
     emit("msm", n=n, c=c, scalar_bits=bits, correct=True, launches=launches,
          ms_total=total, ms_accumulate=t_acc, ms_reduce=t_red, ms_to_affine=t_aff,
          ms_total_runs=[sp[0] for sp in splits], ms_reduce_runs=[sp[2] for sp in splits],
@@ -634,22 +865,31 @@ def main():
         plain_ms_2e20=wide["plain_ms"], bound_ms_2e20=wide["bound_ms"],
         bound_by_2e20=wide["bound_by"], us_per_product_one_thread=path["ms"] * 1e3 / n_prod)
 
-    # xyzz_accum on the main path's own band-2 feed (the top-occupancy
-    # slots' rounds beyond band 1)
-    st2, c2, v2 = band2[-1]  # the last group's band 2
+    # xyzz_accum on the main path's own feeds: band 1 (every slot, sorted by
+    # occupancy) and band 2 (the top-occupancy slots' rounds beyond band 1)
+    accum_rows["main path band 1"] = accum_row("main path band 1", *band1[0])
+    band1.clear()
+    accum_rows["main path band 2"] = accum_row("main path band 2", *band2[-1])  # the last group's
     band2.clear()
-    got = ksw.xyzz_accum_grid(G1, st2, c2, v2)
-    ms = time_ms(lambda: ksw.xyzz_accum_grid(G1, st2, c2, v2), 3)
-    want, plain_ms = once_ms(lambda: ksw.xyzz_accum_plain(G1, st2, c2, v2))
-    err = check_equal("xyzz_accum band 2", got, want)
-    n_adds = int((v2 & 1).sum())
-    b_ms, b_by = bound((c2.numel() + v2.numel() + 2 * st2.numel()) * 4, n_adds * madd_ops)
-    band2_row = dict(slots=st2.shape[1], rounds=c2.shape[1], valid_adds=n_adds, max_abs_err=err,
-                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-    emit("kernel", kernel="xyzz_accum", feed="main path band 2", **band2_row)
-    report["xyzz_accum"]["band2"] = band2_row
-    report["xyzz_accum"]["max_abs_err"] = max(report["xyzz_accum"]["max_abs_err"], err)
-    del st2, c2, v2, got, want
+    report["xyzz_accum"]["band1_path"] = accum_rows["main path band 1"]
+    report["xyzz_accum"]["band2"] = accum_rows["main path band 2"]
+    report["xyzz_accum"]["edge_feeds"] = {k: accum_rows[k] for k in ("edge classes", "oracle edge rounds")}
+    report["xyzz_accum"]["max_abs_err"] = max(r["max_abs_err"] for r in accum_rows.values())
+
+    # horner_windows on the path's own window rows; every row's chain bound:
+    # its critical-path products x mont_pow's time per product in one thread
+    horner_rows["main path windows"] = horner_row("main path windows", path_win[0], c)[0]
+    us_prod = report["mont_pow"]["us_per_product_one_thread"]
+    for row in horner_rows.values():
+        row["chain_bound_ms"] = row["critical_path_products"] * us_prod / 1e3
+        row["share_of_chain_bound"] = row["chain_bound_ms"] / row["ms"]
+    emit("horner_chain", us_per_product_one_thread=us_prod, rows=horner_rows)
+    rnd = horner_rows["random windows"]
+    report["horner_windows"].update(
+        max_abs_err=max(r["max_abs_err"] for r in horner_rows.values()),
+        chain_bound_ms=rnd["chain_bound_ms"], share_of_chain_bound=rnd["share_of_chain_bound"],
+        path_windows=horner_rows["main path windows"], edge_windows=horner_rows["oracle edge windows"])
+    del path_win
 
     # xyzz_add / xyzz_double on an edge-class feed of 2^20 random Fq points
     # (the formulas need no curve membership to be compared); Q is another

@@ -8,6 +8,9 @@ kernels against the JAX package, bit for bit.
 * horner_windows (plain) against zkarray.ec.msm.msm_reduce, whose CPU path
   runs the window Horner with sw.xyzz_double / sw.xyzz_add, on the window
   points of the same bucket state (n = 64, c = 5 geometry, as test_msm.py).
+* both again on the edge-class inputs of zkarray_torch/testing.py
+  (accum_edge_rounds, horner_edge_windows), which chip_smoke.py also feeds
+  the CUDA kernels.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by chip_smoke.py.
@@ -30,7 +33,7 @@ from zkarray_torch.ec import msm as tmsm  # noqa: E402
 from zkarray_torch.ec import sw as tsw  # noqa: E402
 from zkarray_torch.interop import limbs_from_numpy, limbs_to_numpy  # noqa: E402
 from zkarray_torch.kernels import sw as ksw  # noqa: E402
-from zkarray_torch.testing import ec_mul  # noqa: E402
+from zkarray_torch.testing import accum_edge_rounds, accum_feed, ec_mul, horner_edge_windows  # noqa: E402
 
 L = JC.base.num_limbs
 MOD = JC.base.modulus
@@ -97,3 +100,44 @@ def test_horner_plain_matches_jax_msm_reduce():
     got = ksw.horner_windows_plain(TC, torch.cat(list(win)).T.contiguous(), c)
     for i, w in enumerate(want):
         assert np.array_equal(np.asarray(w), limbs_to_numpy(got[i * L : (i + 1) * L]))
+
+
+def test_accum_plain_matches_sequential_jax_on_edge_rounds():
+    """45 slots (not a multiple of 32 or of the kernel's block) x 3 rounds
+    from testing.accum_edge_rounds: doubling and cancel in round 0 and, with
+    ZZ != 1, in round 1; buckets at infinity; skipped rounds; slots whose
+    last rounds are all skipped."""
+    S, R = 45, 3
+    P0, rounds = accum_edge_rounds(TC, S, R, np.random.default_rng(23))
+    want = jsw.xyzz_from_affine(JC, JC.affine_from_ints(P0))
+    for pts, sign, skip in rounds:
+        A = JC.affine_from_ints([p if p is not None else (0, 0) for p in pts])
+        y = jfp.select(jnp.asarray(sign), jfp.neg(JC.base, A.y), A.y)
+        want = jsw.xyzz_add_affine(JC, want, jsw.AffinePoints(A.x, y, jnp.asarray(skip)))
+    state, coords, valid = accum_feed(TC, P0, rounds)
+    got = ksw.xyzz_accum_plain(TC, state, coords, valid)
+    Lp = L // 2
+    for i, w in enumerate(want):
+        assert np.array_equal(np.asarray(w), limbs_to_numpy(unpack_pairs(got[i * Lp : (i + 1) * Lp])))
+
+
+def test_horner_plain_matches_jax_window_chain_on_edge_windows():
+    """horner_windows_plain against zkarray/ec/msm.py's window Horner order
+    (c sw.xyzz_double, then sw.xyzz_add, high window to low) on windows from
+    testing.horner_edge_windows: the top window at infinity, one at infinity
+    mid-chain, one equal to the running sum in another Z, one equal to its
+    negation; the total also equals the host oracle's."""
+    W, c = 7, 2
+    win, total = horner_edge_windows(TC, W, c, np.random.default_rng(24))
+    rows = limbs_to_numpy(win.T.contiguous())  # (4L, W)
+    pt = lambda w: jsw.XYZZPoints(*(jnp.asarray(rows[i * L : (i + 1) * L, w]) for i in range(4)))  # noqa: E731
+    want = pt(W - 1)
+    for wi in range(W - 2, -1, -1):
+        for _ in range(c):
+            want = jsw.xyzz_double(JC, want)
+        want = jsw.xyzz_add(JC, want, pt(wi))
+    got = ksw.horner_windows_plain(TC, win, c)
+    for i, w in enumerate(want):
+        assert np.array_equal(np.asarray(w), limbs_to_numpy(got[i * L : (i + 1) * L]))
+    res = tsw.XYZZPoints(*(got[i * L : (i + 1) * L, None] for i in range(4)))
+    assert tsw.affine_to_ints(TC, tsw.xyzz_to_affine(TC, res)) == [total]

@@ -42,6 +42,7 @@ EXPORTS = {
     "sw": {
         "zk_xyzz_accum": [_P, _P, _P, _P, _I, _LL, _I, _P, _P],
         "zk_horner_windows": [_P, _P, _I, _I, _I, _P, _P],
+        "zk_xyzz_accum_occupancy": [_I, _P, _P],
     },
     "ntt": {
         "zk_butterfly_dit": [_P, _P, _LL, _LL, _LL, _LL, _LL, _I, _P, _P],

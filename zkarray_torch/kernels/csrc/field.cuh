@@ -161,6 +161,175 @@ __device__ __forceinline__ Fe<NW> fsub(const Fe<NW>& a, const Fe<NW>& b,
   return d;
 }
 
+// ---- carry-chain arithmetic ------------------------------------------------
+//
+// The same field operations with the carries on the carry flag (PTX
+// add.cc/addc/sub.cc/subc) and no branch: the add-back of p after a borrow
+// and the final subtract are masked. They need p < R/2 (p's top bit clear),
+// which keeps the CIOS accumulator to NW + 1 words and every sum of two
+// reduced values below R; the C entries that use them check it
+// (p_fits_cc). Every result is fully reduced to [0, p), so it is the same
+// word for word as fmul/fadd/fsub's. The statements are volatile so that the
+// compiler keeps each chain in order: the carry flag is invisible to it.
+namespace ptx {
+__device__ __forceinline__ uint32_t add_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t addc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t addc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t sub_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t subc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t subc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+}  // namespace ptx
+
+// Host words p[NW]: true when p < R/2, as the carry-chain routines need.
+static inline bool p_fits_cc(const uint32_t* consts, int nw) { return (consts[nw - 1] >> 31) == 0; }
+
+// t (< 2p) minus p if that does not borrow, else t: the select is a mask.
+template <int NW>
+__device__ __forceinline__ Fe<NW> cond_sub_p_cc(const uint32_t* t, const FieldConsts<NW>& F) {
+  uint32_t d[NW];
+  d[0] = ptx::sub_cc(t[0], F.p[0]);
+#pragma unroll
+  for (int j = 1; j < NW; ++j) d[j] = ptx::subc_cc(t[j], F.p[j]);
+  const uint32_t keep_t = ptx::subc(0, 0);  // all ones when t < p
+  Fe<NW> r;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) r.w[j] = (t[j] & keep_t) | (d[j] & ~keep_t);
+  return r;
+}
+
+// One CIOS row: t = (t + a*bi + m*p) / 2^32 with m = (t + a*bi)[0] * inv.
+// Each 32x32-bit product is made whole by one 64-bit multiply-add
+// (IMAD.WIDE.U32, which adds t[j] for free), and only the column sums ride
+// the carry flag: lo(a_j bi + t_j) + hi(a_{j-1} bi + t_{j-1}). A CIOS written
+// as mad.lo.cc/madc.hi.cc chains is longer on sm_90, which has no
+// multiply-add with a carry out and splits each of those into a multiply and
+// an add (chip_smoke.py's SASS probe counts both). t[NW] is 0 on entry and
+// on exit (t < 2p < R); the sums stay below 2^(32 (NW + 1)) because
+// a < p < R/2.
+template <int NW>
+__device__ __forceinline__ void mont_row_wide(uint32_t* t, const Fe<NW>& a, uint32_t bi,
+                                              const FieldConsts<NW>& F) {
+  uint64_t q = (uint64_t)a.w[0] * bi + t[0];
+  t[0] = (uint32_t)q;
+  uint32_t c = (uint32_t)(q >> 32);
+  q = (uint64_t)a.w[1] * bi + t[1];
+  t[1] = ptx::add_cc((uint32_t)q, c);
+  c = (uint32_t)(q >> 32);
+#pragma unroll
+  for (int j = 2; j < NW; ++j) {
+    q = (uint64_t)a.w[j] * bi + t[j];
+    t[j] = ptx::addc_cc((uint32_t)q, c);
+    c = (uint32_t)(q >> 32);
+  }
+  t[NW] = ptx::addc(c, 0);
+  const uint32_t m = t[0] * F.inv;
+  q = (uint64_t)F.p[0] * m + t[0];  // low word 0 by the choice of m
+  c = (uint32_t)(q >> 32);
+  q = (uint64_t)F.p[1] * m + t[1];
+  t[0] = ptx::add_cc((uint32_t)q, c);  // shifted down one word
+  c = (uint32_t)(q >> 32);
+#pragma unroll
+  for (int j = 2; j < NW; ++j) {
+    q = (uint64_t)F.p[j] * m + t[j];
+    t[j - 1] = ptx::addc_cc((uint32_t)q, c);
+    c = (uint32_t)(q >> 32);
+  }
+  t[NW - 1] = ptx::addc(c, t[NW]);
+  t[NW] = 0;
+}
+
+template <int NW>
+__device__ __forceinline__ Fe<NW> fmul_wide(const Fe<NW>& a, const Fe<NW>& b,
+                                            const FieldConsts<NW>& F) {
+  uint32_t t[NW + 1];
+#pragma unroll
+  for (int j = 0; j <= NW; ++j) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) mont_row_wide<NW>(t, a, b.w[i], F);
+  return cond_sub_p_cc<NW>(t, F);
+}
+
+template <int NW>
+__device__ __forceinline__ Fe<NW> fadd_cc(const Fe<NW>& a, const Fe<NW>& b,
+                                          const FieldConsts<NW>& F) {
+  uint32_t t[NW];
+  t[0] = ptx::add_cc(a.w[0], b.w[0]);
+#pragma unroll
+  for (int j = 1; j < NW; ++j) t[j] = ptx::addc_cc(a.w[j], b.w[j]);
+  return cond_sub_p_cc<NW>(t, F);  // a + b < 2p < R: no carry out
+}
+
+template <int NW>
+__device__ __forceinline__ Fe<NW> fsub_cc(const Fe<NW>& a, const Fe<NW>& b,
+                                          const FieldConsts<NW>& F) {
+  Fe<NW> d;
+  d.w[0] = ptx::sub_cc(a.w[0], b.w[0]);
+#pragma unroll
+  for (int j = 1; j < NW; ++j) d.w[j] = ptx::subc_cc(a.w[j], b.w[j]);
+  const uint32_t add_p = ptx::subc(0, 0);  // all ones when a < b
+  d.w[0] = ptx::add_cc(d.w[0], F.p[0] & add_p);
+#pragma unroll
+  for (int j = 1; j < NW; ++j) d.w[j] = ptx::addc_cc(d.w[j], F.p[j] & add_p);
+  return d;
+}
+
+// The two sets of field operations xyzz_madd is written over.
+template <int NW>
+struct PlainOps {
+  static __device__ __forceinline__ Fe<NW> mul(const Fe<NW>& a, const Fe<NW>& b,
+                                               const FieldConsts<NW>& F) {
+    return fmul<NW>(a, b, F);
+  }
+  static __device__ __forceinline__ Fe<NW> add(const Fe<NW>& a, const Fe<NW>& b,
+                                               const FieldConsts<NW>& F) {
+    return fadd<NW>(a, b, F);
+  }
+  static __device__ __forceinline__ Fe<NW> sub(const Fe<NW>& a, const Fe<NW>& b,
+                                               const FieldConsts<NW>& F) {
+    return fsub<NW>(a, b, F);
+  }
+};
+
+template <int NW>
+struct WideOps {
+  static __device__ __forceinline__ Fe<NW> mul(const Fe<NW>& a, const Fe<NW>& b,
+                                               const FieldConsts<NW>& F) {
+    return fmul_wide<NW>(a, b, F);
+  }
+  static __device__ __forceinline__ Fe<NW> add(const Fe<NW>& a, const Fe<NW>& b,
+                                               const FieldConsts<NW>& F) {
+    return fadd_cc<NW>(a, b, F);
+  }
+  static __device__ __forceinline__ Fe<NW> sub(const Fe<NW>& a, const Fe<NW>& b,
+                                               const FieldConsts<NW>& F) {
+    return fsub_cc<NW>(a, b, F);
+  }
+};
+
 // ---- loads and stores ------------------------------------------------------
 
 // 16-bit limbs, limb k of element i at base[k*stride + i].
@@ -240,48 +409,49 @@ __device__ __forceinline__ Xyzz<NW> xyzz_inf(const FieldConsts<NW>& F) {
 // A = inf select there returns P unchanged, so the caller skips the call).
 // Selects, in _madd_core's order: doubling (P == A), cancel (P == -A),
 // P = inf. The doubling candidate is computed only on the doubling branch.
-template <int NW>
+// Ops: PlainOps (fmul/fadd/fsub) or WideOps (fmul_wide, fadd_cc, fsub_cc).
+template <int NW, class Ops = PlainOps<NW>>
 __device__ __forceinline__ void xyzz_madd(Xyzz<NW>& P, const Fe<NW>& AX, const Fe<NW>& AY,
                                           const FieldConsts<NW>& F) {
   if (fe_is_zero<NW>(P.zz)) {
     P = Xyzz<NW>{AX, AY, fe_one<NW>(F), fe_one<NW>(F)};
     return;
   }
-  const Fe<NW> U2 = fmul<NW>(AX, P.zz, F);
-  const Fe<NW> S2 = fmul<NW>(AY, P.zzz, F);
-  const Fe<NW> Pp = fsub<NW>(U2, P.x, F);
-  const Fe<NW> R = fsub<NW>(S2, P.y, F);
+  const Fe<NW> U2 = Ops::mul(AX, P.zz, F);
+  const Fe<NW> S2 = Ops::mul(AY, P.zzz, F);
+  const Fe<NW> Pp = Ops::sub(U2, P.x, F);
+  const Fe<NW> R = Ops::sub(S2, P.y, F);
   if (fe_is_zero<NW>(Pp)) {
     if (!fe_is_zero<NW>(R) || fe_is_zero<NW>(AY)) {
       P = xyzz_inf<NW>(F);  // cancel, or doubling a 2-torsion point
       return;
     }
     // mdbl-2008-s-1
-    const Fe<NW> U = fadd<NW>(AY, AY, F);
-    const Fe<NW> V = fmul<NW>(U, U, F);
-    const Fe<NW> Wr = fmul<NW>(U, V, F);
-    const Fe<NW> S = fmul<NW>(AX, V, F);
-    const Fe<NW> XX = fmul<NW>(AX, AX, F);
-    Fe<NW> M = fadd<NW>(fadd<NW>(XX, XX, F), XX, F);
+    const Fe<NW> U = Ops::add(AY, AY, F);
+    const Fe<NW> V = Ops::mul(U, U, F);
+    const Fe<NW> Wr = Ops::mul(U, V, F);
+    const Fe<NW> S = Ops::mul(AX, V, F);
+    const Fe<NW> XX = Ops::mul(AX, AX, F);
+    Fe<NW> M = Ops::add(Ops::add(XX, XX, F), XX, F);
     if (!F.a_is_zero) {
       Fe<NW> a;
 #pragma unroll
       for (int j = 0; j < NW; ++j) a.w[j] = F.a[j];
-      M = fadd<NW>(M, a, F);
+      M = Ops::add(M, a, F);
     }
-    const Fe<NW> X3 = fsub<NW>(fmul<NW>(M, M, F), fadd<NW>(S, S, F), F);
-    const Fe<NW> Y3 = fsub<NW>(fmul<NW>(M, fsub<NW>(S, X3, F), F), fmul<NW>(Wr, AY, F), F);
+    const Fe<NW> X3 = Ops::sub(Ops::mul(M, M, F), Ops::add(S, S, F), F);
+    const Fe<NW> Y3 = Ops::sub(Ops::mul(M, Ops::sub(S, X3, F), F), Ops::mul(Wr, AY, F), F);
     P = Xyzz<NW>{X3, Y3, V, Wr};
     return;
   }
   // mmadd-xyzz
-  const Fe<NW> PP = fmul<NW>(Pp, Pp, F);
-  const Fe<NW> PPP = fmul<NW>(Pp, PP, F);
-  const Fe<NW> Q = fmul<NW>(P.x, PP, F);
-  const Fe<NW> X3 = fsub<NW>(fsub<NW>(fmul<NW>(R, R, F), PPP, F), fadd<NW>(Q, Q, F), F);
-  const Fe<NW> Y3 = fsub<NW>(fmul<NW>(R, fsub<NW>(Q, X3, F), F), fmul<NW>(P.y, PPP, F), F);
-  P.zz = fmul<NW>(P.zz, PP, F);
-  P.zzz = fmul<NW>(P.zzz, PPP, F);
+  const Fe<NW> PP = Ops::mul(Pp, Pp, F);
+  const Fe<NW> PPP = Ops::mul(Pp, PP, F);
+  const Fe<NW> Q = Ops::mul(P.x, PP, F);
+  const Fe<NW> X3 = Ops::sub(Ops::sub(Ops::mul(R, R, F), PPP, F), Ops::add(Q, Q, F), F);
+  const Fe<NW> Y3 = Ops::sub(Ops::mul(R, Ops::sub(Q, X3, F), F), Ops::mul(P.y, PPP, F), F);
+  P.zz = Ops::mul(P.zz, PP, F);
+  P.zzz = Ops::mul(P.zzz, PPP, F);
   P.x = X3;
   P.y = Y3;
 }

@@ -2,14 +2,19 @@
 
 The port's own copies of tests/ec_oracle.py (textbook affine arithmetic on
 Python ints) and of bench.py's tiled MSM inputs with their O(1)-host-work
-known answer.
+known answer; and edge-class inputs for the bucket accumulation and the
+window Horner, built with the oracle, that the CPU tests and chip_smoke.py
+share.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from zkarray_torch.ec.sw import SWCurveSpec, affine_from_ints
+from zkarray_torch.core.limbs import pack_pairs
+from zkarray_torch.ec.sw import SWCurveSpec, affine_from_ints, xyzz_from_affine
+from zkarray_torch.ff import fp
 
 
 def ec_neg(p, mod):
@@ -83,3 +88,100 @@ def expected_msm(curve: SWCurveSpec, ks, sc: np.ndarray):
         agg = sum(int(limb_sums[l]) << (16 * l) for l in range(Ls)) % r
         total = (total + ks[j] * agg) % r
     return ec_mul((curve.gen_x, curve.gen_y), total, curve.a_int, curve.base.modulus)
+
+
+def _rand_point(curve: SWCurveSpec, rng: np.random.Generator):
+    k = int(rng.integers(1, 1 << 62))
+    return ec_mul((curve.gen_x, curve.gen_y), k, curve.a_int, curve.base.modulus)
+
+
+def accum_edge_rounds(curve: SWCurveSpec, S: int, R: int, rng: np.random.Generator):
+    """Bucket slots and rounds for xyzz_accum whose mixed adds take every edge
+    branch of _madd_core. Slot class s % 8: 0 generic; 1 round 0 adds P
+    itself (doubling); 2 round 0 adds -P (cancel, by the sign bit); 3 the
+    bucket at infinity; 4 round 0 skipped; 5 round 1 adds the round-0 sum
+    (doubling with ZZ != 1); 6 round 1 adds its negation (cancel); 7 every
+    round after round 0 skipped. Other rounds: random points, random signs,
+    a quarter skipped. Returns (P0, rounds): S affine points (None =
+    infinity) and R tuples (points, sign, skip) of per-slot lists, where a
+    point is what the feed holds and sign negates its y."""
+    if R < 2:
+        raise ValueError("accum_edge_rounds needs R >= 2")
+    mod, a = curve.base.modulus, curve.a_int
+    pool = [_rand_point(curve, rng) for _ in range(64)]
+    pick = lambda: pool[int(rng.integers(0, len(pool)))]  # noqa: E731
+    cls = [s % 8 for s in range(S)]
+    P0 = [None if c == 3 else pick() for c in cls]
+    rounds = []
+    for r in range(R):
+        pts = [pick() for _ in range(S)]
+        sign = [bool(rng.integers(0, 2)) for _ in range(S)]
+        skip = [int(rng.integers(0, 4)) == 0 for _ in range(S)]
+        rounds.append((pts, sign, skip))
+    pts0, sign0, skip0 = rounds[0]
+    pts1, sign1, skip1 = rounds[1]
+    for s, c in enumerate(cls):
+        if c in (1, 2):
+            pts0[s], sign0[s], skip0[s] = P0[s], c == 2, False
+        elif c == 4:
+            skip0[s] = True
+        elif c in (5, 6):
+            sign0[s] = skip0[s] = False
+            pts1[s] = ec_add(P0[s], pts0[s], a, mod)
+            sign1[s], skip1[s] = c == 6, False
+        elif c == 7:
+            for _, _, skip in rounds[1:]:
+                skip[s] = True
+    return P0, rounds
+
+
+def accum_feed(curve: SWCurveSpec, P0, rounds, device="cpu"):
+    """(state int32[2L, S], coords int32[L, R, S], valid int32[R, S]) in
+    kernels/sw.py's layout for accum_edge_rounds' slots and rounds."""
+    P = xyzz_from_affine(curve, affine_from_ints(curve, P0, device=device))
+    state = torch.cat([pack_pairs(v) for v in P]).contiguous()
+    coords, valid = [], []
+    for pts, sign, skip in rounds:
+        A = affine_from_ints(curve, [p if p is not None else (0, 0) for p in pts], device=device)
+        coords.append(pack_pairs(torch.cat([A.x, A.y])))
+        v = [(not k) | (int(g) << 1) for g, k in zip(sign, skip)]
+        valid.append(torch.tensor(v, dtype=torch.int32, device=device))
+    return state, torch.stack(coords, dim=1).contiguous(), torch.stack(valid).contiguous()
+
+
+def horner_edge_windows(curve: SWCurveSpec, W: int, c: int, rng: np.random.Generator,
+                        device="cpu"):
+    """Window points for the window Horner (total = sum_w 2^(c w) win_w,
+    high to low) that take every edge branch of the chain: the top window at
+    infinity (so the first add takes P = inf), window W-3 at infinity while
+    the running sum is finite, window W-4 equal to the running sum in another
+    Z (P == Q: the doubling branch), window W-5 its negation (the sum cancels
+    to infinity), and finite windows below it. Every window is k_w G, so the
+    total is one host scalar-mul. Returns (win int32[W, 4L] of 16-bit
+    Montgomery limbs, X | Y | ZZ | ZZZ per window; the total as an affine int
+    pair, or None)."""
+    if W < 6:
+        raise ValueError("horner_edge_windows needs W >= 6")
+    r, mod, a = curve.scalar.modulus, curve.base.modulus, curve.a_int
+    ks = [int(x) for x in rng.integers(1, 1 << 62, size=W)]
+    ks[W - 1] = ks[W - 3] = 0
+
+    def running(w):  # the sum when window w is added: sum_{v > w} k_v 2^(c (v - w))
+        return sum(ks[v] << (c * (v - w)) for v in range(w + 1, W)) % r
+
+    ks[W - 4] = running(W - 4)
+    ks[W - 5] = -running(W - 5) % r
+    gen = (curve.gen_x, curve.gen_y)
+    coords = []
+    for k in ks:
+        pt = ec_mul(gen, k, a, mod) if k else None
+        if pt is None:
+            coords.append((1, 1, 0, 0))
+            continue
+        lam = int.from_bytes(rng.bytes(48), "little") % (mod - 1) + 1
+        l2 = lam * lam % mod
+        coords.append((pt[0] * l2 % mod, pt[1] * l2 * lam % mod, l2, l2 * lam % mod))
+    win = torch.cat([fp.from_ints(curve.base, [cd[i] for cd in coords], device=device)
+                     for i in range(4)])
+    total = sum(k << (c * w) for w, k in enumerate(ks)) % r
+    return win.T.contiguous(), ec_mul(gen, total, a, mod)
