@@ -46,29 +46,36 @@ Phases, each printing one JSON line and raising on any failure:
 4. ChunkedMSM at 2^21 as two 2^20 chunks, known-answer checked.
 5. NTT path: Radix2Domain(Fr, 2^24).fft of geometric coefficients
    a_j = c r^j, held at 256+ output indices against the host closed form
-   c (1 - r^n) / (1 - r w^k); launch counts from that run, with every
-   butterfly_dit launch's (C, H, R, stride) and every mont_mul/mont_sqr
-   launch's shape and strides recorded. fft/ifft round trip of seeded random
-   coefficients at 2^24 (bit for bit, input unchanged); a coset (offset 7)
-   round trip and closed-form check at 2^20 (fft_fourstep_core); the
-   degree-aware fft of 2^22 coefficients at 2^24, closed-form checked; the
-   median of 3 timed ffts at 2^24 (ms, elems/s, peak memory); one fft under
-   torch.profiler. Then butterfly_dit and mont_mul/mont_sqr against their
-   plain versions at every recorded shape and layout, with both times.
+   c (1 - r^n) / (1 - r w^k); launch counts from that run (no mont_mul or
+   mont_sqr launch, one twiddle_mul per pass-1 block, at most 3 pow_table),
+   with every butterfly_dit launch's (C, H, R, stride) and every pow_table
+   and twiddle_mul call's arguments recorded. fft/ifft round trip of seeded
+   random coefficients at 2^24 (bit for bit, input unchanged); a coset
+   (offset 7) round trip and closed-form check at 2^20 (fft_fourstep_core);
+   the degree-aware fft of 2^22 coefficients at 2^24, closed-form checked,
+   with its peak memory; the median of 3 timed ffts at 2^24 (ms, elems/s,
+   peak memory); one fft under torch.profiler. Then butterfly_dit against
+   its plain version at every recorded shape, and pow_table and twiddle_mul
+   at every argument set of phase 5's runs (the fft's, the round trip's,
+   the coset's and the degree-aware's), with both times; pow_table also
+   with its device time from a trace of its own calls.
 6. butterfly_stage through its entry (kernels.mont.butterfly_stage) on 2^20
    Fr elements against its plain version.
 7. xyzz_add_affine through its entry (ec.sw.xyzz_add_affine) on 4096 real
    BLS12-381 G1 point pairs against the host oracle; then the kernel
    against its plain version on 2^20 Fq points with the edge classes
    (generic, P == A, P == -A, P = inf, A = inf, both inf, doubling a y = 0
-   point).
+   point). mont_sqr's path: ec.sw.xyzz_double_affine on 2^20 points (64
+   real points and infinity, tiled) against the host oracle, its mont_sqr
+   launches at phase 2's shape.
 8. the kernels line: per kernel its launches on its path (phase 3 for the
-   MSM kernels, 5 for butterfly_dit and mont_sqr, 6 and 7 for the
-   element-wise entries), error against the plain version, times and bound.
-   For mont_mul, mont_sqr, xyzz_add, xyzz_double and butterfly_dit the times
-   and bound are means per launch over the path's launches, shape by shape;
-   mont_mul's NTT-path figures sit under "ntt". One row per CUDA kernel:
-   xyzz_accum serves both xyzz_accum_grid and xyzz_accum_tiles.
+   MSM kernels, 5 for butterfly_dit, twiddle_mul and pow_table, 6 and 7 for
+   the entries of butterfly_stage, xyzz_add_affine and mont_sqr), error
+   against the plain version, times and bound. For mont_mul, xyzz_add,
+   xyzz_double, butterfly_dit, pow_table and twiddle_mul the times and bound
+   are means per launch over the path's launches, shape by shape; mont_mul's
+   fft launches (none) sit under "ntt". One row per CUDA kernel: xyzz_accum
+   serves both xyzz_accum_grid and xyzz_accum_tiles.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
@@ -184,6 +191,24 @@ def device_trace(torch, fn, untraced_ms):
         us_wall_per_device_op=traced_ms * 1e3 / len(dev_iv) if dev_iv else None,
         us_untraced_wall_per_device_op=untraced_ms * 1e3 / len(dev_iv) if dev_iv else None,
         note=None if dev_iv else "the trace holds no device events")
+
+
+def traced_device_ms(torch, kernel, fn, reps, device):
+    """(device ms per launch, launches recorded) of ``kernel`` over ``reps``
+    calls of fn() traced on their own, after eight launches of another
+    kernel inside the trace (the profiler can drop a trace's first few
+    device ops); (None, 0) when the trace records none of its launches."""
+    warm = torch.zeros(1, device=device)
+
+    def body():
+        for _ in range(8):
+            warm.add_(1)
+        for _ in range(reps):
+            fn()
+
+    _, tr = device_trace(torch, body, 1.0)
+    k = None if tr is None else tr["port_kernels"].get(kernel)
+    return (None, 0) if k is None else (k["device_ms_per_launch"], k["launches"])
 
 
 def parse_ptxas(log):
@@ -972,68 +997,113 @@ def main():
             raise AssertionError(f"{what}: evaluations differ from the host closed form")
 
     # the main-path run: every butterfly_dit launch's (shape, table length,
-    # stride) and every product launch's (shape, strides), recorded around
-    # the wrappers' own launch functions; the counts stay where they are
+    # stride), recorded around the wrapper's own launch function, and every
+    # pow_table and twiddle_mul call's arguments (the twiddle tables kept),
+    # recorded around the wrappers, by run: the forward fft, then the other
+    # phase-5 runs below; the counts stay where they are
     dit_shapes = collections.Counter()
-    ntt_mont = collections.Counter()
-    launch_dit = km._launch_dit
+    pow_keys, tw_keys, tw_tables = collections.Counter(), collections.Counter(), {}
+    launch_dit, pow_table, twiddle_mul = km._launch_dit, km.pow_table, km.twiddle_mul
+    run = ["fft"]
 
     def recording_dit(spec, x, tw, stride):
-        dit_shapes[(tuple(x.shape), tw.shape[1], stride)] += 1
+        dit_shapes[(run[0], tuple(x.shape), tw.shape[1], stride)] += 1
         return launch_dit(spec, x, tw, stride)
 
-    def recording_mont(kernel, spec, *ins, **kw):
-        ntt_mont[(kernel, spec.name, tuple(ins[0].shape), tuple(t.stride() for t in ins))] += 1
-        return launch(kernel, spec, *ins, **kw)
+    def recording_pow(spec, w_int, n, device, scale_int=None, packed=False):
+        pow_keys[(run[0], w_int, n, scale_int, packed)] += 1
+        return pow_table(spec, w_int, n, device, scale_int, packed)
+
+    def recording_twiddle(spec, x, tw, r0=0, c0=0, out=None):
+        layout = None if out is None else (tuple(out.stride()), out.data_ptr() == x.data_ptr())
+        key = (run[0], tuple(x.shape), tuple(x.stride()), r0, c0, layout)
+        tw_keys[key] += 1
+        tw_tables.setdefault(key, tw)
+        return twiddle_mul(spec, x, tw, r0, c0, out)
+
+    def recording(on):
+        km._launch_dit = recording_dit if on else launch_dit
+        km.pow_table, km.twiddle_mul = (recording_pow, recording_twiddle) if on else (pow_table, twiddle_mul)
 
     r_int, c_int = rand_int(), rand_int()
     a = geometric(r_int, c_int, N)
     sync()
     torch.cuda.reset_peak_memory_stats()
     ntt_mem_before = torch.cuda.memory_allocated()  # the input and what earlier phases hold
-    km._launch_dit, km._launch = recording_dit, recording_mont
+    recording(True)
     try:
         kernels.reset_launches()
         ev = dom.fft(a)
         sync()
         ntt_launches = dict(kernels.LAUNCHES)
     finally:
-        km._launch_dit, km._launch = launch_dit, launch
+        recording(False)
     ntt_peak = torch.cuda.max_memory_allocated()
     check_closed_form("fft 2^24", dom, ev, r_int, c_int, N, idx)
-    ntt_kernels = ("butterfly_dit", "mont_mul", "mont_sqr")
+    ntt_kernels = ("butterfly_dit", "twiddle_mul", "pow_table")
     missing = [k for k in ntt_kernels if ntt_launches[k] == 0]
     if missing:
         raise AssertionError(f"fft 2^24: kernels never launched: {missing}")
-    if sum(dit_shapes.values()) != ntt_launches["butterfly_dit"] or any(
-            sum(v for (k, *_), v in ntt_mont.items() if k == name) != ntt_launches[name]
-            for name in ("mont_mul", "mont_sqr")):
+    if ntt_launches["mont_mul"] or ntt_launches["mont_sqr"]:
+        raise AssertionError(f"fft 2^24: {ntt_launches['mont_mul']} mont_mul and "
+                             f"{ntt_launches['mont_sqr']} mont_sqr launches; its tables and "
+                             "twiddles should be pow_table and twiddle_mul launches")
+    if ntt_launches["twiddle_mul"] != tdm.BIG_CHUNKS or ntt_launches["pow_table"] > 3:
+        raise AssertionError(f"fft 2^24: {ntt_launches['twiddle_mul']} twiddle_mul launches (one "
+                             f"per pass-1 block: {tdm.BIG_CHUNKS}) and {ntt_launches['pow_table']} "
+                             "pow_table launches (at most 3)")
+    if (sum(dit_shapes.values()) != ntt_launches["butterfly_dit"]
+            or sum(pow_keys.values()) != ntt_launches["pow_table"]
+            or sum(tw_keys.values()) != ntt_launches["twiddle_mul"]):
         raise AssertionError("fft 2^24: recorded launches differ from the counts")
     del a, ev
 
     # fft/ifft round trip of random coefficients; the input stays as it was
     x = rand_field(FR, N)
     x0 = x.clone()
-    ev_x = dom.fft(x)
-    if not torch.equal(dom.ifft(ev_x), x0) or not torch.equal(x, x0):
+    run[0] = "fft/ifft 2^24"
+    recording(True)
+    try:
+        ev_x = dom.fft(x)
+        back = dom.ifft(ev_x)
+    finally:
+        recording(False)
+    if not torch.equal(back, x0) or not torch.equal(x, x0):
         raise AssertionError("fft/ifft 2^24: the round trip does not return the input")
-    del x0
+    del x0, back
 
     # coset (offset 7) round trip and closed form at 2^20: fft_fourstep_core
     dc = tdm.Radix2Domain(FR, 1 << COSET_LOG_N, offset_int=FR.generator_int)
     y = rand_field(FR, 1 << COSET_LOG_N)
-    if not torch.equal(dc.ifft(dc.fft(y)), y):
-        raise AssertionError("coset fft/ifft 2^20: the round trip does not return the input")
     r2, c2 = rand_int(), rand_int()
-    check_closed_form("coset fft 2^20", dc, dc.fft(geometric(r2, c2, 1 << COSET_LOG_N)), r2, c2,
-                      1 << COSET_LOG_N, [k % (1 << COSET_LOG_N) for k in idx])
+    run[0] = "coset 2^20"
+    recording(True)
+    try:
+        if not torch.equal(dc.ifft(dc.fft(y)), y):
+            raise AssertionError("coset fft/ifft 2^20: the round trip does not return the input")
+        check_closed_form("coset fft 2^20", dc, dc.fft(geometric(r2, c2, 1 << COSET_LOG_N)), r2, c2,
+                          1 << COSET_LOG_N, [k % (1 << COSET_LOG_N) for k in idx])
+    finally:
+        recording(False)
     del y
 
-    # degree-aware fft: 2^22 coefficients on 2^24 points
+    # degree-aware fft: 2^22 coefficients on 2^24 points, with its peak memory
     M = 1 << DEG_LOG_M
     r3, c3 = rand_int(), rand_int()
-    check_closed_form("degree-aware fft 2^22 -> 2^24", dom, dom.fft(geometric(r3, c3, M)), r3, c3, M,
-                      idx)
+    coeffs = geometric(r3, c3, M)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    deg_mem_before = torch.cuda.memory_allocated()
+    run[0] = "degree-aware 2^22 -> 2^24"
+    recording(True)
+    try:
+        ev_d = dom.fft(coeffs)
+        sync()
+    finally:
+        recording(False)
+    deg_peak = torch.cuda.max_memory_allocated()
+    check_closed_form("degree-aware fft 2^22 -> 2^24", dom, ev_d, r3, c3, M, idx)
+    del coeffs, ev_d
 
     fft_runs = []
     for _ in range(3):
@@ -1046,7 +1116,9 @@ def main():
     emit("ntt", n=N, field=FR.name, correct=True, known_answer_indices=len(idx), round_trip=True,
          coset_log_n=COSET_LOG_N, degree_aware_log_m=DEG_LOG_M, launches=ntt_launches,
          ms_fft=ms_fft, ms_fft_runs=fft_runs, elems_per_s=N / (ms_fft / 1e3),
-         peak_mem_bytes=ntt_peak, mem_bytes_before_fft=ntt_mem_before, card=card)
+         peak_mem_bytes=ntt_peak, mem_bytes_before_fft=ntt_mem_before,
+         degree_aware_peak_mem_bytes=deg_peak, mem_bytes_before_degree_aware=deg_mem_before,
+         card=card)
     _, tr = device_trace(torch, lambda: dom.fft(x), ms_fft)
     if tr is None:
         emit("ntt_trace", note="this torch build's profiler cannot trace CUDA activity")
@@ -1054,10 +1126,20 @@ def main():
         emit("ntt_trace", ms_fft_untraced_median=ms_fft, **tr)
     del x, ev_x
 
-    # butterfly_dit against its plain version at every recorded shape
+    def split_rows(kernel, rows, what="argument sets"):
+        fft = [r for r in rows if r["run"] == "fft"]
+        means = per_launch_means(fft, f"mean per launch over the fft's {len(fft)} {what}")
+        means["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+        means["other_runs"] = [r for r in rows if r["run"] != "fft"]
+        emit("kernel_main_path_shapes", kernel=kernel, path=f"phase 5 (fft 2^{NTT_LOG_N} and the "
+             "other NTT runs)", rows=rows)
+        return means
+
+    # butterfly_dit against its plain version at every shape of the fft (its
+    # launches weight the path means) and of the other phase-5 runs
     dit_ops = mul_ops(FR) + 2 * add_ops(FR)
     dit_rows = []
-    for (shape, T, stride), count in sorted(dit_shapes.items()):
+    for (label, shape, T, stride), count in sorted(dit_shapes.items()):
         _, C, _, H, R = shape
         xb = rand_field(FR, C * 2 * H * R).reshape(shape)
         twb = rand_field(FR, T)
@@ -1066,43 +1148,90 @@ def main():
         ms = time_ms(lambda: km.butterfly_dit(FR, xb, twb, stride), 20)
         plain_ms = time_ms(lambda: km.butterfly_dit_plain(FR, xb, twb, stride), 2)
         pairs = C * H * R
-        dit_rows.append(dict(shape=list(shape), stride=stride, launches=count, max_abs_err=err,
-                             ms=ms, plain_ms=plain_ms,
+        dit_rows.append(dict(run=label, shape=list(shape), stride=stride,
+                             launches=count if label == "fft" else 0, calls=count,
+                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_bytes_ms=(4 * pairs + H) * L * 4 / HBM_BYTES_PER_S * 1e3,
                              bound_ops_ms=pairs * dit_ops / int_ops_per_s * 1e3))
         del xb, twb, got
-    emit("kernel_main_path_shapes", kernel="butterfly_dit", path=f"fft 2^{NTT_LOG_N}", rows=dit_rows)
-    report["butterfly_dit"] = per_launch_means(dit_rows, f"mean per launch over the fft's {len(dit_rows)} shapes")
-    if tr is not None and "butterfly_dit" in tr["port_kernels"]:
-        report["butterfly_dit"]["device_ms_per_launch_in_ntt_trace"] = (
-            tr["port_kernels"]["butterfly_dit"]["device_ms_per_launch"])
+    report["butterfly_dit"] = split_rows("butterfly_dit", dit_rows, "shapes")
 
-    # mont_mul / mont_sqr against their plain versions at every NTT shape
-    # and layout (slices along the first batch axis, broadcast constants)
-    ntt_rows = {"mont_mul": [], "mont_sqr": []}
-    for (name, fname, shape, strides), count in sorted(ntt_mont.items(), key=lambda kv: -math.prod(kv[0][2])):
-        spec = specs[fname]
-        kern, plain, _ = kerns[name]
-        ins = [strided_field(spec, shape, st) for st in strides]
-        got = kern(spec, *ins)
-        err = check_equal(f"{name} {fname} at {shape} {strides}", got, plain(spec, *ins))
-        ms = time_ms(lambda: kern(spec, *ins), 20)
-        plain_ms = time_ms(lambda: plain(spec, *ins), 2)
+    # pow_table and twiddle_mul against their plain versions (run on the card)
+    # with every set of arguments phase 5 gave them: the forward fft's (its
+    # launches weight the path means) and the other runs'; twiddle_mul on
+    # random inputs with the call's own layout, output layout and tables.
+    # Bounds count what these arguments need: a table of n entries needs
+    # n - 1 products (the chain s·w^j = s·w^(j-1)·w; the kernel does one per
+    # set bit of j instead) and writes n entries of L·4 bytes planar, L·2
+    # packed; twiddle_mul reads x's distinct elements and the two tables
+    # once and writes R x C elements, two products each. pow_table's device
+    # time comes from a trace of its own calls, since the fft's trace drops
+    # its first few device ops, these launches among them.
+    pow_rows = []
+    for (label, w_int, n_t, scale, packed), count in pow_keys.items():
+        got = km.pow_table(FR, w_int, n_t, dev, scale, packed)
+        err = check_equal(f"pow_table {label} n={n_t}", got,
+                          km.pow_table_plain(FR, w_int, n_t, dev, scale, packed))
+        ms = time_ms(lambda: km.pow_table(FR, w_int, n_t, dev, scale, packed), 20)
+        plain_ms = time_ms(lambda: km.pow_table_plain(FR, w_int, n_t, dev, scale, packed), 2)
+        dev_ms, dev_seen = traced_device_ms(
+            torch, "pow_table", lambda: km.pow_table(FR, w_int, n_t, dev, scale, packed), 20, dev)
+        products = max(n_t - 1, 0)
+        pow_rows.append(dict(run=label, n=n_t, packed=packed, scaled=scale is not None,
+                             launches=count if label == "fft" else 0, calls=count, max_abs_err=err,
+                             ms=ms, plain_ms=plain_ms, device_ms=dev_ms, device_launches_traced=dev_seen,
+                             products=products,
+                             bound_bytes_ms=n_t * L * (2 if packed else 4) / HBM_BYTES_PER_S * 1e3,
+                             bound_ops_ms=products * mul_ops(FR) / int_ops_per_s * 1e3))
+    report["pow_table"] = split_rows("pow_table", pow_rows)
+    fft_pow = [r for r in pow_rows if r["run"] == "fft"]
+    if all(r["device_ms"] is not None for r in fft_pow):
+        report["pow_table"]["device_ms_per_launch_traced"] = (
+            sum(r["launches"] * r["device_ms"] for r in fft_pow) / sum(r["launches"] for r in fft_pow))
+
+    def strided_empty(shape, strides):
+        span = 1 + sum((n_ - 1) * st for n_, st in zip(shape, strides))
+        return torch.as_strided(torch.empty(span, dtype=torch.int32, device=dev), shape, strides)
+
+    tw_rows = []
+    for key, count in tw_keys.items():
+        label, shape, strides, r0, c0, layout = key
+        tw = tw_tables[key]
+        x = strided_field(FR, shape, strides)
+
+        def args():
+            """(x, out) for one call with the recorded layout, x's values fixed."""
+            if layout is None:
+                return x, torch.empty(shape, dtype=torch.int32, device=dev)
+            out_strides, in_place = layout
+            if in_place:
+                y = x.clone()
+                return y, y
+            return x, strided_empty(shape, out_strides)
+
+        xk, ok = args()
+        xp, op = args()
+        err = check_equal(f"twiddle_mul {label} at {shape} r0={r0} c0={c0}",
+                          km.twiddle_mul(FR, xk, tw, r0, c0, ok), km.twiddle_mul_plain(FR, xp, tw, r0, c0, op))
+        ms = time_ms(lambda: km.twiddle_mul(FR, xk, tw, r0, c0, ok), 20)
+        plain_ms = time_ms(lambda: km.twiddle_mul_plain(FR, xp, tw, r0, c0, op), 2)
         m = math.prod(shape[1:])
-        read = sum(distinct_elems(t) for t in ins)
-        ntt_rows[name].append(dict(field=fname, shape=list(shape), strides=[list(s) for s in strides],
-                                   launches=count, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                   bound_bytes_ms=(read + m) * shape[0] * 4 / HBM_BYTES_PER_S * 1e3,
-                                   bound_ops_ms=m * mul_ops(spec) / int_ops_per_s * 1e3))
-    for name, rows in ntt_rows.items():
-        emit("kernel_main_path_shapes", kernel=name, path=f"fft 2^{NTT_LOG_N}", rows=rows)
-        ntt = per_launch_means(rows, f"mean per launch over the fft's {len(rows)} shapes")
-        ntt["max_abs_err"] = max(report[name]["max_abs_err"], ntt["max_abs_err"])
-        if at_shape[name]:
-            report[name]["max_abs_err"] = ntt["max_abs_err"]
-            report[name]["ntt"] = dict(launches=ntt_launches[name], **ntt)
-        else:  # off the MSM path: the fft is its path
-            report[name].update(ms_2e20=report[name]["ms"], **ntt)
+        read = (distinct_elems(x) + m) * L + tw.lo.numel() + tw.hi.numel()
+        tw_rows.append(dict(run=label, shape=list(shape), x_strides=list(strides), r0=r0, c0=c0,
+                            out=None if layout is None else ("in place" if layout[1] else list(layout[0])),
+                            h=tw.h, table_entries=[tw.lo.shape[0], tw.hi.shape[0]],
+                            launches=count if label == "fft" else 0, calls=count, max_abs_err=err,
+                            ms=ms, plain_ms=plain_ms, bound_bytes_ms=read * 4 / HBM_BYTES_PER_S * 1e3,
+                            bound_ops_ms=2 * m * mul_ops(FR) / int_ops_per_s * 1e3))
+        del x, xk, ok, xp, op
+    report["twiddle_mul"] = split_rows("twiddle_mul", tw_rows)
+    del tw_tables
+    if tr is not None:
+        for k in ntt_kernels:
+            if k in tr["port_kernels"]:
+                report[k]["device_ms_per_launch_in_ntt_trace"] = tr["port_kernels"][k]["device_ms_per_launch"]
+    # mont_mul keeps its MSM path; the fft launches it no more
+    report["mont_mul"]["ntt"] = dict(launches=ntt_launches["mont_mul"])
 
     # ---- 6. butterfly_stage through its entry, 2^20 Fr elements ---------------
     ne = 1 << ELEM_LOG_N
@@ -1185,6 +1314,43 @@ def main():
                                      bound_by=b_by, shape=f"{ne} points, 7 edge classes")
     del X, Y, ZZ, ZZZ, AX, AY, P, got, want
 
+    # mont_sqr's path: ec.sw.xyzz_double_affine (three squares and four
+    # products a call) on 2^20 points, the 64 pool points and infinity
+    # tiled, held against the host oracle; the shape of every mont_sqr
+    # launch recorded around the launch function (the counts stay where
+    # they are). Its kernel-vs-plain row is phase 2's, at the same shape.
+    dbl_pts = pool + [None]
+    tile = torch.arange(ne, device=dev) % len(dbl_pts)
+    A64 = tsw.affine_from_ints(G1, dbl_pts, dev)
+    Ad = tsw.AffinePoints(A64.x[:, tile], A64.y[:, tile], A64.inf[tile])
+    sqr_shapes = collections.Counter()
+
+    def recording_sqr(kernel, spec, *ins, **kw):
+        if kernel == "mont_sqr":
+            sqr_shapes[(spec.name, tuple(ins[0].shape), ins[0].is_contiguous())] += 1
+        return launch(kernel, spec, *ins, **kw)
+
+    sync()
+    km._launch = recording_sqr
+    try:
+        kernels.reset_launches()
+        Dd = tsw.xyzz_double_affine(G1, Ad)
+        sync()
+        sqr_launches = kernels.LAUNCHES["mont_sqr"]
+    finally:
+        km._launch = launch
+    Da = tsw.xyzz_to_affine(G1, Dd)
+    head = tsw.AffinePoints(Da.x[:, : len(dbl_pts)], Da.y[:, : len(dbl_pts)], Da.inf[: len(dbl_pts)])
+    if (tsw.affine_to_ints(G1, head) != [ec_add(u, u, 0, mod) for u in dbl_pts]
+            or not all(torch.equal(v, v[..., tile]) for v in Da)):
+        raise AssertionError("xyzz_double_affine 2^20: doublings differ from the host oracle")
+    if set(sqr_shapes) != {(FQ.name, (Lq, ne), True)} or sum(sqr_shapes.values()) != sqr_launches:
+        raise AssertionError(f"xyzz_double_affine 2^20: mont_sqr launches {dict(sqr_shapes)}, "
+                             f"{sqr_launches} counted; phase 2's row is at ({Lq}, {ne})")
+    emit("double_affine", n=ne, correct=True, launches_mont_sqr=sqr_launches,
+         mont_sqr_shapes=[[k[0], list(k[1]), v] for k, v in sqr_shapes.items()])
+    del A64, Ad, Dd, Da, head
+
     # ---- 8. kernels line -----------------------------------------------------
     sources = {
         "mont_mul": ("zkarray_torch/kernels/csrc/mont.cu", "zkarray/kernels/mont.py:235"),
@@ -1205,10 +1371,17 @@ def main():
         "mont_pow": ("zkarray_torch/kernels/csrc/mont.cu",
                      "zkarray/kernels/mont.py:235 and zkarray/kernels/mont.py:254, "
                      "fused into zkarray/ff/fp.py:321 pow_const"),
+        "pow_table": ("zkarray_torch/kernels/csrc/twiddle.cu",
+                      "zkarray/kernels/mont.py:235, fused into zkarray/poly/domain.py:39 power_table"),
+        "twiddle_mul": ("zkarray_torch/kernels/csrc/twiddle.cu",
+                        "zkarray/kernels/mont.py:235 and zkarray/kernels/mont.py:254, fused into "
+                        "zkarray/poly/domain.py:64 twiddle_table, :160 fft_fourstep_big's body1 "
+                        "and :314 the degree-aware twist"),
     }
     paths = {k: (f"msm 2^{LOG_N}", launches[k]) for k in msm_kernels}
-    paths["mont_sqr"] = (f"fft 2^{NTT_LOG_N}", ntt_launches["mont_sqr"])
-    paths["butterfly_dit"] = (f"fft 2^{NTT_LOG_N}", ntt_launches["butterfly_dit"])
+    paths["mont_sqr"] = ("ec.sw.xyzz_double_affine", sqr_launches)
+    for k in ntt_kernels:
+        paths[k] = (f"fft 2^{NTT_LOG_N}", ntt_launches[k])
     paths["butterfly_stage"] = ("kernels.mont.butterfly_stage", stage_launches)
     paths["xyzz_add_affine"] = ("ec.sw.xyzz_add_affine", madd_launches)
     idle = [k for k, (_, n_l) in paths.items() if n_l == 0]

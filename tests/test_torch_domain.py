@@ -9,8 +9,10 @@ tests/test_domain_extras.py, test_domain.py and test_poly.py (the port's
 field code is generic, so it runs BN254 Fr from the same constants). The
 four-step transforms are held against the port's own flat ladder, which the
 JAX package pins to its four-step the same way. On the CPU every
-butterfly stage runs the plain version of the butterfly_dit kernel; the
-kernel itself is held against it on the card by chip_smoke.py."""
+butterfly stage runs the plain version of the butterfly_dit kernel, and
+every table and twiddle multiply the plain versions of pow_table and
+twiddle_mul; the kernels themselves are held against them on the card by
+chip_smoke.py."""
 
 import random
 
@@ -27,6 +29,7 @@ from zkarray.poly import domain as jdm  # noqa: E402
 from zkarray.poly.evaluations import Evaluations as JEvaluations  # noqa: E402
 from zkarray_torch.curves import bls12_381 as tcurves  # noqa: E402
 from zkarray_torch.ff import fp as tfp  # noqa: E402
+from zkarray_torch.kernels import mont as tkm  # noqa: E402
 from zkarray_torch.poly import domain as tdm  # noqa: E402
 from zkarray_torch.poly.evaluations import Evaluations  # noqa: E402
 
@@ -160,6 +163,9 @@ def test_tables_and_constants_match_oracles():
         assert np.array_equal(tdm._bitrev_perm(log_n, "cpu").numpy(), jdm._bitrev_perm(log_n))
     w = TFR.root_of_unity(64)
     assert tfp.to_ints(TFR, tdm.power_table(TFR, w, 13, "cpu")) == [pow(w, j, p) for j in range(13)]
+    with pytest.MonkeyPatch.context() as mp:  # a table past one pow_table: twiddle_mul over two
+        mp.setattr(tkm, "POW_TABLE_MAX", 8)
+        assert tfp.to_ints(TFR, tdm.power_table(TFR, w, 13, "cpu")) == [pow(w, j, p) for j in range(13)]
     T = tdm.twiddle_table(TFR, w, 5, 6, "cpu")
     assert tfp.to_ints(TFR, T) == [pow(w, k1 * i2, p) for k1 in range(5) for i2 in range(6)]
     d = tdm.Radix2Domain(TFR, 8, offset_int=7)
@@ -172,3 +178,25 @@ def test_tables_and_constants_match_oracles():
         tdm.Radix2Domain(TFR, 1 << 33)
     with pytest.raises(ValueError):
         tdm.Radix2Domain(TFR, 8).ifft(tfp.zero(TFR, (4,), "cpu"))
+
+
+@pytest.mark.parametrize("which", ["big", "core", "degree-aware"])
+def test_forward_ffts_make_no_product_call(which, monkeypatch):
+    """The tables and twiddles of a forward fft are pow_table and twiddle_mul
+    launches: no mont_mul or mont_sqr call, through ff/fp.py or the kernel
+    layer (on the card each would be a launch)."""
+    calls = []
+    for mod in (tfp, tkm):
+        for name in ("mont_mul", "mont_sqr"):
+            fn = getattr(mod, name)
+            monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _name=name: calls.append(_name) or _fn(*a))
+    n1 = n2 = 64
+    g = TFR.root_of_unity(n1 * n2)
+    a = _rand_limbs(TFR, n1 * n2, 13)
+    if which == "degree-aware":  # 2^10 coefficients on 2^12 points, coset offset 7
+        d = tdm.Radix2Domain(TFR, n1 * n2, offset_int=7)
+        ev = d.fft(a[:, : n1 * n2 // 4])
+    else:
+        ev = {"core": tdm.fft_fourstep_core, "big": tdm.fft_fourstep_big}[which](TFR, a, n1, n2, g)
+    assert calls == []
+    assert ev.shape == (TFR.num_limbs, n1 * n2)

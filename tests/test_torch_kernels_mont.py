@@ -2,9 +2,12 @@
 Pallas kernels of zkarray.kernels.mont in interpret mode, bit for bit, at the
 shapes tests/test_kernels.py runs them (BLS12-381 Fr, L = 16); the narrow
 DIT stages (H = 1, 2, 4) that the JAX package leaves to XLA against
-Python ints; and the operand map the mont_mul/mont_sqr kernels read strided
-inputs through. The CUDA kernels themselves are held against these plain
-versions on the card by chip_smoke.py."""
+Python ints; the operand map the mont_mul/mont_sqr kernels read strided
+inputs through; and the plain versions of pow_table and twiddle_mul (no
+Pallas counterpart) against the JAX package's power_table, twiddle_table
+and distribute_powers, which build the same tables by doubling. The CUDA
+kernels themselves are held against these plain versions on the card by
+chip_smoke.py."""
 
 import numpy as np
 import pytest
@@ -16,9 +19,13 @@ import jax.numpy as jnp  # noqa: E402
 
 from torch_parity import both, same  # noqa: E402
 from zkarray.curves import bls12_381 as jcurves  # noqa: E402
+from zkarray.ff import fp as jfp  # noqa: E402
 from zkarray.kernels import mont as jkm  # noqa: E402
+from zkarray.poly import domain as jdm  # noqa: E402
+from zkarray_torch.core.limbs import unpack_pairs  # noqa: E402
 from zkarray_torch.curves import bls12_381 as tcurves  # noqa: E402
 from zkarray_torch.ff import fp as tfp  # noqa: E402
+from zkarray_torch.interop import limbs_to_numpy  # noqa: E402
 from zkarray_torch.kernels import mont as tkm  # noqa: E402
 
 JFR, TFR = jcurves.FR, tcurves.FR
@@ -125,3 +132,52 @@ def test_operand_map_reads_tree_halves_in_place(m):
         assert torch.equal(got, t.reshape(L, -1))
     lo, hi = tkm._operand(v[..., :h]), tkm._operand(v[..., h : 2 * h])
     assert (lo[2], lo[3]) == (hi[2], hi[3]) == (h, m)
+
+
+@pytest.mark.parametrize("n", [1, 2, 13, 64])
+def test_pow_table_plain_matches_jax_power_table(n):
+    w = TFR.root_of_unity(64)
+    want = jdm.power_table(JFR, w, n)
+    for fn in (tkm.pow_table, tkm.pow_table_plain):
+        assert same(want, fn(TFR, w, n, "cpu"))
+    # n^-1 folded in, packed entry-major as twiddle_mul reads its tables
+    s = pow(n, -1, P)
+    got = tkm.pow_table_plain(TFR, w, n, "cpu", scale_int=s, packed=True)
+    assert got.shape == (n, L // 2)
+    assert tfp.to_ints(TFR, unpack_pairs(got.T)) == [s * pow(w, j, P) % P for j in range(n)]
+
+
+@pytest.mark.parametrize("case", ["whole", "column-block", "coset-row"])
+def test_twiddle_mul_plain_matches_jax_twiddle_table(case):
+    """x · w^((r0 + r)(c0 + c)): a whole 64 x 64 table (fft_fourstep_core),
+    pass 1's column block c = 3 written into a strided block of a wider
+    output (fft_fourstep_big), and one row with r0 = 1 for the coset
+    offset 7, not a root of unity (distribute_powers)."""
+    n1 = n2 = 64
+    w = TFR.root_of_unity(n1 * n2)
+    rng = np.random.default_rng({"whole": 21, "column-block": 22, "coset-row": 23}[case])
+    if case == "coset-row":
+        jx, tx = both(JFR, rand_ints(n2, rng))
+        want = np.asarray(jdm.distribute_powers(JFR, jx, 7))[:, None, :]
+        tw = tkm.twiddle_tables(TFR, 7, n2 - 1, "cpu")
+        x, r0, c0, cols = tx[:, None, :], 1, 0, slice(0, n2)
+    else:
+        jx, tx = both(JFR, rand_ints(n1 * n2, rng))
+        jx, x = jx.reshape(L, n1, n2), tx.reshape(L, n1, n2)
+        want = np.asarray(jfp.mont_mul(JFR, jx, jdm.twiddle_table(JFR, w, n1, n2)))
+        tw = tkm.twiddle_tables(TFR, w, (n1 - 1) * (n2 - 1), "cpu")
+        r0, c0, cols = 0, 0, slice(0, n2)
+        if case == "column-block":
+            m2 = n2 // 8
+            c0, cols = 3 * m2, slice(3 * m2, 4 * m2)
+            x = x[:, :, cols].contiguous()
+    for fn in (tkm.twiddle_mul, tkm.twiddle_mul_plain):
+        wide = torch.zeros((L, x.shape[1], n2), dtype=torch.int32)
+        out = wide[:, :, cols]
+        assert fn(TFR, x, tw, r0, c0, out) is out
+        assert np.array_equal(want[:, :, cols], limbs_to_numpy(out))
+        rest = torch.ones(n2, dtype=torch.bool)
+        rest[cols] = False
+        assert not wide[:, :, rest].any()  # nothing outside the block is written
+    with pytest.raises(ValueError):  # exponents beyond the tables
+        tkm.twiddle_mul(TFR, x, tw, r0, c0 + n2)

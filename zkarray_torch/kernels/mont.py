@@ -4,10 +4,13 @@ plain PyTorch versions.
 Counterpart of zkarray/kernels/mont.py:mont_mul, mont_sqr,
 butterfly_dit_inplace and butterfly_stage; ``mont_pow`` has no Pallas
 counterpart (it runs ff/fp.py:pow_const's square-and-multiply chain in one
-launch, where the JAX package leaves XLA to fuse a lax.scan). Each wrapper takes the plain
-version for tensors on the CPU and launches its kernel (``csrc/mont.cu``,
-``csrc/ntt.cu``) for tensors on a CUDA device (or raises); there is no other
-rule and no fallback. Both versions compute every product a*b*R^-1 mod p and
+launch, where the JAX package leaves XLA to fuse a lax.scan), nor have
+``pow_table`` and ``twiddle_mul`` (one launch each for a power table and for
+a block's k1-twiddle multiply, where poly/domain.py ran chains of mont_mul
+and mont_sqr launches). Each wrapper takes the plain version for tensors on
+the CPU and launches its kernel (``csrc/mont.cu``, ``csrc/ntt.cu``,
+``csrc/twiddle.cu``) for tensors on a CUDA device (or raises); there is no
+other rule and no fallback. Both versions compute every product a*b*R^-1 mod p and
 every sum and difference fully reduced, so they agree bit for bit with each
 other and with the JAX package.
 
@@ -29,12 +32,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from zkarray_torch.core.fieldspec import LIMB_BITS, LIMB_MASK, FieldSpec
-from zkarray_torch.core.limbs import normalize, sub_with_borrow
+from zkarray_torch.core.limbs import normalize, pack_pairs, sub_with_borrow, unpack_pairs
 from zkarray_torch.kernels import _build
 
 
@@ -364,3 +368,134 @@ def butterfly_stage(spec: FieldSpec, lo: torch.Tensor, hi: torch.Tensor, w: torc
     _build.check(lib, err, "butterfly_stage")
     _build.LAUNCHES["butterfly_stage"] += 1
     return out_a, out_b
+
+
+# ---------------------------------------------------------------------------
+# power tables and the twiddle multiply (csrc/twiddle.cu)
+# ---------------------------------------------------------------------------
+
+# csrc/twiddle.cu:POW_TABLE_BITS: a pow_table has at most 2^16 entries
+POW_TABLE_MAX = 1 << 16
+
+
+def _pow_words(spec: FieldSpec, w_int: int, n: int, scale_int) -> tuple:
+    """(words, nbits): host words s | w^(2^b) for b < nbits, Montgomery form,
+    NW = L/2 32-bit words each (csrc/twiddle.cu:zk_pow_table), nbits the
+    bits of the largest index n - 1."""
+    p = spec.modulus
+    nbits = max(n - 1, 0).bit_length()
+    vals = [1 if scale_int is None else scale_int] + [pow(w_int, 1 << b, p) for b in range(nbits)]
+    nw = spec.num_limbs // 2
+    return np.asarray([(spec.to_mont_int(v % p) >> (32 * i)) & 0xFFFFFFFF
+                       for v in vals for i in range(nw)], dtype=np.uint32), nbits
+
+
+def pow_table_plain(spec: FieldSpec, w_int: int, n: int, device, scale_int=None,
+                    packed: bool = False) -> torch.Tensor:
+    """pow_table in plain PyTorch: entry j is s times w^(2^b) for each set
+    bit b of j, multiplied in bit by bit as the kernel does."""
+    words, nbits = _pow_words(spec, w_int, n, scale_int)
+    nw = spec.num_limbs // 2
+    consts = unpack_pairs(torch.from_numpy(words.view(np.int32).copy()).reshape(nbits + 1, nw).T)
+    consts = consts.to(device)
+    j = torch.arange(n, device=device)
+    t = consts[:, :1].expand(spec.num_limbs, n)
+    for b in range(nbits):
+        t = torch.where(((j >> b) & 1).bool()[None], mont_mul_plain(spec, t, consts[:, b + 1 : b + 2]), t)
+    t = t.contiguous()
+    return pack_pairs(t).T.contiguous() if packed else t
+
+
+def pow_table(spec: FieldSpec, w_int: int, n: int, device, scale_int=None,
+              packed: bool = False) -> torch.Tensor:
+    """[s·w^0, ..., s·w^(n-1)] in Montgomery form (s = scale_int, canonical;
+    default 1) for n <= POW_TABLE_MAX, built on ``device``: (L, n) planar
+    limbs, or (n, L/2) packed words when ``packed`` (twiddle_mul's tables).
+    The CPU: plain version; a CUDA device: csrc/twiddle.cu:pow_table_kernel,
+    one launch."""
+    if not 0 <= n <= POW_TABLE_MAX:
+        raise ValueError(f"pow_table: {n} entries; at most {POW_TABLE_MAX}")
+    device = torch.device(device)
+    if device.type == "cpu":
+        return pow_table_plain(spec, w_int, n, device, scale_int, packed)
+    L = spec.num_limbs
+    words, nbits = _pow_words(spec, w_int, n, scale_int)
+    out = torch.empty((n, L // 2) if packed else (L, n), dtype=torch.int32, device=device)
+    check_cuda_int32("pow_table", out)
+    lib = _build.load("twiddle")
+    with torch.cuda.device(device):
+        err = lib.zk_pow_table(out.data_ptr(), n, int(packed), words_ptr(words), nbits, L // 2,
+                               words_ptr(field_words(spec)), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "pow_table")
+    _build.LAUNCHES["pow_table"] += 1
+    return out
+
+
+class Twiddles(NamedTuple):
+    """twiddle_mul's tables for exponents up to ``e_max`` of a base w: ``lo``
+    = [s·w^j, j < 2^h] and ``hi`` = [(w^(2^h))^j], packed words, so that
+    s·w^e = hi[e >> h] · lo[e & (2^h - 1)]."""
+    h: int
+    lo: torch.Tensor
+    hi: torch.Tensor
+    e_max: int
+
+
+def twiddle_tables(spec: FieldSpec, w_int: int, e_max: int, device, scale_int=None) -> Twiddles:
+    """The two pow_tables that cover every exponent 0 <= e <= e_max < 2^32,
+    with h = ceil(bits(e_max) / 2), so neither has more than 2^16 entries;
+    ``scale_int`` (canonical), when given, is folded into ``lo``."""
+    if not 0 <= e_max < 1 << 32:
+        raise ValueError(f"twiddle_tables: exponents up to {e_max}; at most 2^32 - 1")
+    h = (e_max.bit_length() + 1) // 2
+    lo = pow_table(spec, w_int, min(1 << h, e_max + 1), device, scale_int, packed=True)
+    hi = pow_table(spec, pow(w_int, 1 << h, spec.modulus), (e_max >> h) + 1, device, packed=True)
+    return Twiddles(h, lo, hi, e_max)
+
+
+def twiddle_mul_plain(spec: FieldSpec, x: torch.Tensor, tw: Twiddles, r0: int, c0: int,
+                      out: torch.Tensor) -> torch.Tensor:
+    """twiddle_mul in plain PyTorch: the same two products per element."""
+    _, R, C = x.shape
+    dev = x.device
+    e = (r0 + torch.arange(R, device=dev))[:, None] * (c0 + torch.arange(C, device=dev))[None, :]
+    lo = unpack_pairs(tw.lo.T)[:, e & ((1 << tw.h) - 1)]
+    hi = unpack_pairs(tw.hi.T)[:, e >> tw.h]
+    out.copy_(mont_mul_plain(spec, x, mont_mul_plain(spec, hi, lo)))
+    return out
+
+
+def twiddle_mul(spec: FieldSpec, x: torch.Tensor, tw: Twiddles, r0: int = 0, c0: int = 0,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+    """out[:, r, c] = x[:, r, c] · s·w^((r0 + r)(c0 + c)) for an (L, R, C)
+    input x, read in place as ``_operand`` allows (slices, broadcasts), with
+    the tables ``tw`` of twiddle_tables(w, e_max, scale s). ``out``: None for
+    a new contiguous tensor, or an (L, R, C) int32 tensor with a contiguous
+    last axis (a column block of a wider one, or x itself), written and
+    returned. CPU tensors: plain version; CUDA tensors:
+    csrc/twiddle.cu:twiddle_mul_kernel, one launch."""
+    L = spec.num_limbs
+    if x.dim() != 3 or x.shape[0] != L:
+        raise ValueError(f"twiddle_mul: x {tuple(x.shape)} is not (L={L}, R, C)")
+    _, R, C = x.shape
+    if r0 < 0 or c0 < 0 or (R and C and (r0 + R - 1) * (c0 + C - 1) > tw.e_max):
+        raise ValueError(f"twiddle_mul: rows {r0}+{R}, columns {c0}+{C} exceed the tables' "
+                         f"exponents (up to {tw.e_max})")
+    if out is None:
+        out = torch.empty((L, R, C), dtype=torch.int32, device=x.device)
+    elif out.shape != x.shape or (C > 1 and out.stride(2) != 1):
+        raise ValueError(f"twiddle_mul: out {tuple(out.shape)} is not {tuple(x.shape)} with a "
+                         "contiguous last axis")
+    if on_cpu(x, out, tw.lo, tw.hi):
+        return twiddle_mul_plain(spec, x, tw, r0, c0, out)
+    check_cuda_int32("twiddle_mul", x, out, tw.lo, tw.hi, contiguous=False)
+    desc = operand_words([_operand(x)])
+    lib = _build.load("twiddle")
+    with torch.cuda.device(out.device):
+        err = lib.zk_twiddle_mul(words_ptr(desc), out.data_ptr(), out.stride(0), out.stride(1),
+                                 tw.lo.data_ptr(), tw.lo.shape[0], tw.hi.data_ptr(), tw.hi.shape[0],
+                                 tw.h, R, C, r0, c0, L // 2, words_ptr(field_words(spec)),
+                                 torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "twiddle_mul")
+    _build.LAUNCHES["twiddle_mul"] += 1
+    return out

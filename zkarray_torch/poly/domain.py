@@ -7,11 +7,15 @@ size-n root of unity, natural order.
 Every stage of every transform is one launch of the ``butterfly_dit`` kernel
 (kernels/mont.py), in place. The buffer it writes is always one the
 transform owns, the output of its bit-reversal gather: never the caller's
-coefficients and never a broadcast constant. Power and twiddle tables, the
-k1-twiddle multiply, the coset twist and the ifft scale go through
-``mont_mul``/``mont_sqr``, whose kernels read slices along the first batch
-axis and broadcast constants without copying them. Tables are built on the
-device of the tensor they serve.
+coefficients and never a broadcast constant. A power table of up to
+km.POW_TABLE_MAX (2^16) entries is one ``pow_table`` launch. Every multiply by
+powers of a base, the four-step k1-twiddles, the degree-aware twist, the
+coset twist and larger power tables, is one ``twiddle_mul`` launch that forms
+w^e from two small tables, with the four-step ifft's n^-1 folded into them;
+it reads slices and broadcasts in place and writes a column block of its
+output in place. The JAX package builds the same tables by doubling chains
+of products; every product is fully reduced, so the words are the same.
+Tables are built on the device of the tensor they serve.
 
 Not ported yet: ``vanishing_polynomial``, ``filter_polynomial`` and
 ``evaluate_filter_polynomial`` (they need poly/sparse.py) and
@@ -52,68 +56,36 @@ def _bitrev_perm(log_n: int, device=DEFAULT_DEVICE) -> torch.Tensor:
 
 
 def power_table(spec: FieldSpec, w_int: int, n: int, device=DEFAULT_DEVICE) -> torch.Tensor:
-    """(L, n) Montgomery-form table [w^0, w^1, ..., w^(n-1)], by doubling:
-    T_2m = [T_m, T_m · w^m] with w^m a host constant."""
-    p = spec.modulus
-    t = torch.empty((spec.num_limbs, n), dtype=torch.int32, device=device)
-    t[:, :1] = fp.one(spec, (1,), device)
-    m = 1
-    while m < n:
-        k = min(m, n - m)
-        t[:, m : m + k] = fp.mont_mul(spec, t[:, :k], fp.const_array(spec, pow(w_int, m, p), (k,), device))
-        m *= 2
-    return t
+    """(L, n) Montgomery-form table [w^0, w^1, ..., w^(n-1)]."""
+    if n <= km.POW_TABLE_MAX:
+        return km.pow_table(spec, w_int, n, device)
+    tw = km.twiddle_tables(spec, w_int, n - 1, device)
+    return km.twiddle_mul(spec, fp.one(spec, (1, n), device), tw, 1, 0).reshape(spec.num_limbs, n)
 
 
 def distribute_powers(spec: FieldSpec, arr: torch.Tensor, c_int: int) -> torch.Tensor:
     """arr[j] * c^j (the coset twist)."""
-    return fp.mont_mul(spec, arr, power_table(spec, c_int, arr.shape[1], arr.device))
-
-
-def _twiddle_rows(spec: FieldSpec, base: torch.Tensor, n1: int) -> torch.Tensor:
-    """(L, n1, n2) table T[k1, i2] = base[i2]^k1, by doubling over k1 with a
-    vector base: T_2m = [T_m, T_m · base^m]."""
-    L, n2 = base.shape
-    T = torch.empty((L, n1, n2), dtype=torch.int32, device=base.device)
-    T[:, :1] = fp.one(spec, (1, n2), base.device)
-    bpow = base[:, None, :]
-    m = 1
-    while m < n1:
-        k = min(m, n1 - m)
-        T[:, m : m + k] = fp.mont_mul(spec, T[:, :k], bpow)
-        m *= 2
-        if m < n1:
-            bpow = fp.mont_sqr(spec, bpow)
-    return T
+    tw = km.twiddle_tables(spec, c_int, arr.shape[1] - 1, arr.device)
+    return km.twiddle_mul(spec, arr[:, None, :], tw, 1, 0).reshape(arr.shape)
 
 
 def twiddle_table(spec: FieldSpec, w_int: int, n1: int, n2: int, device=DEFAULT_DEVICE) -> torch.Tensor:
-    """(L, n1, n2) table T[k1, i2] = w^(k1·i2) in n1·n2 field products."""
-    return _twiddle_rows(spec, power_table(spec, w_int, n2, device), n1)
+    """(L, n1, n2) table T[k1, i2] = w^(k1·i2)."""
+    tw = km.twiddle_tables(spec, w_int, (n1 - 1) * (n2 - 1), device)
+    return km.twiddle_mul(spec, fp.one(spec, (n1, n2), device), tw)
 
 
 def fft_fourstep_core(spec: FieldSpec, x: torch.Tensor, n1: int, n2: int, w_int: int,
                       scale_int: Optional[int] = None) -> torch.Tensor:
     """Four-step (Bailey) NTT: (L, n) flat, i = i1·n2 + i2 -> (L, n) natural
-    order. The k1-twiddle multiply runs in CH chunks over k1, in place in the
-    first pass's output, with the chunk's table advanced by w^(m·i2)."""
+    order. The k1-twiddle multiply (with ``scale_int`` folded in) runs in
+    place in the first pass's output."""
     L = x.shape[0]
     p = spec.modulus
-    dev = x.device
     B = _fft_core(spec, x.reshape(L, n1, n2), n1, pow(w_int, n2, p), None)  # owned
-    CH = 8 if n1 % 8 == 0 and n1 >= 64 else 1
-    m = n1 // CH
-    if CH == 1:
-        B = fp.mont_mul(spec, B, twiddle_table(spec, w_int, n1, n2, dev))
-    else:
-        T = twiddle_table(spec, w_int, m, n2, dev)
-        step = power_table(spec, pow(w_int, m, p), n2, dev)[:, None, :]
-        for c in range(CH):
-            blk = B[:, c * m : (c + 1) * m]
-            blk.copy_(fp.mont_mul(spec, blk, T))
-            if c + 1 < CH:
-                T = fp.mont_mul(spec, T, step)
-    E = _fft_core(spec, B.transpose(1, 2), n2, pow(w_int, n1, p), scale_int)  # [k2, k1]
+    tw = km.twiddle_tables(spec, w_int, (n1 - 1) * (n2 - 1), x.device, scale_int)
+    km.twiddle_mul(spec, B, tw, out=B)
+    E = _fft_core(spec, B.transpose(1, 2), n2, pow(w_int, n1, p), None)  # [k2, k1]
     return E.reshape(L, n1 * n2)
 
 
@@ -121,8 +93,10 @@ def fft_fourstep_big(spec: FieldSpec, x: torch.Tensor, n1: int, n2: int, w_int: 
                      scale_int: Optional[int] = None) -> torch.Tensor:
     """Four-step NTT with both sub-transform passes run column block by
     column block (BIG_CHUNKS blocks), written into preallocated outputs, so
-    the peak is input + two outputs + one block's working set. The pass-2
-    transpose is a view: each block's bit-reversal gather reads it."""
+    the peak is input + two outputs + one block's working set. Pass 1's
+    k1-twiddle multiply (with ``scale_int`` folded in) writes each block of
+    its output; the pass-2 transpose is a view: each block's bit-reversal
+    gather reads it."""
     L = x.shape[0]
     p = spec.modulus
     dev = x.device
@@ -132,25 +106,25 @@ def fft_fourstep_big(spec: FieldSpec, x: torch.Tensor, n1: int, n2: int, w_int: 
     m1, m2 = n1 // CH, n2 // CH
     w1, w2 = pow(w_int, n2, p), pow(w_int, n1, p)
     A = x.reshape(L, n1, n2)
+    tw1 = power_table(spec, w1, max(n1 // 2, 1), dev)
+    tw2 = tw1 if (w2, n2) == (w1, n1) else power_table(spec, w2, max(n2 // 2, 1), dev)
 
     # pass 1: size-n1 NTT over axis 1 of each i2-block, then the k1-twiddle
-    # T[k1, i2] = w^(k1·i2), built per block from w^i2
-    full_base = power_table(spec, w_int, n2, dev)
-    tw1 = power_table(spec, w1, max(n1 // 2, 1), dev)
+    # w^(k1·i2) written into the block of C
+    tw = km.twiddle_tables(spec, w_int, (n1 - 1) * (n2 - 1), dev, scale_int)
     C = torch.empty((L, n1, n2), dtype=torch.int32, device=dev)
     for c in range(CH):
         cols = slice(c * m2, (c + 1) * m2)
         blk = _fft_core(spec, A[:, :, cols], n1, w1, None, tw=tw1)
-        C[:, :, cols] = fp.mont_mul(spec, blk, _twiddle_rows(spec, full_base[:, cols], n1))
+        km.twiddle_mul(spec, blk, tw, 0, c * m2, out=C[:, :, cols])
         del blk
 
     # pass 2: size-n2 NTT over axis 1 of each k1-block of the transpose
     Ct = C.transpose(1, 2)  # (L, n2, n1), a view
-    tw2 = power_table(spec, w2, max(n2 // 2, 1), dev)
     E = torch.empty((L, n2, n1), dtype=torch.int32, device=dev)
     for c in range(CH):
         cols = slice(c * m1, (c + 1) * m1)
-        E[:, :, cols] = _fft_core(spec, Ct[:, :, cols], n2, w2, scale_int, tw=tw2)
+        E[:, :, cols] = _fft_core(spec, Ct[:, :, cols], n2, w2, None, tw=tw2)
     return E.reshape(L, n1 * n2)
 
 
@@ -245,18 +219,14 @@ class Radix2Domain:
         if self.offset_int != 1:
             coeffs = distribute_powers(spec, coeffs, self.offset_int)
         k = n // m2
-        # twist table T[j, i] = w_n^(j·i), j < k, i < m2, gathered from the
-        # full power table
-        full = power_table(spec, self.group_gen_int, n, dev)
-        ji = (torch.arange(k, device=dev)[:, None] * torch.arange(m2, device=dev)[None, :]) % n
-        T = full[:, ji]  # (L, k, m2)
-        del full, ji
-        tw = fp.mont_mul(spec, T, coeffs[:, None, :])
-        del T
+        # twist tw[j, i] = coeffs[i] · w_n^(j·i), j < k, i < m2
+        L = spec.num_limbs
+        tables = km.twiddle_tables(spec, self.group_gen_int, (k - 1) * (m2 - 1), dev)
+        tw = km.twiddle_mul(spec, coeffs[:, None, :].expand(L, k, m2), tables)
         # size-m2 transforms along axis 1, rest axis k:
         # evals[:, t, j] = f(w^j · w_m2^t) = f(w^(t·k + j))
         evals = _fft_core(spec, tw.transpose(1, 2), m2, pow(self.group_gen_int, k, p), None)
-        return evals.reshape(spec.num_limbs, n)
+        return evals.reshape(L, n)
 
     def ifft(self, evals: torch.Tensor) -> torch.Tensor:
         """Evaluations on the coset -> coefficients (L, n)."""
