@@ -12,7 +12,8 @@ Phases, each printing one JSON line and raising on any failure:
    cuobjdump -sass, the instructions (and IMADs) of one product and one
    addition in each of field.cuh's routines, and the code size of the two
    sw.cu kernels and of a one-thread window Horner with xyzz_dbl/xyzz_add
-   inlined (the earlier design of horner_windows).
+   inlined (the earlier design of horner_windows); registers, spills and
+   SASS instructions of the xyzz.cu and madd.cu kernels.
 2. kernel vs plain: each CUDA kernel against its plain PyTorch version on
    the same device inputs, bit for bit (tolerance zero), with both times:
    mont_mul and mont_sqr on 2^20 Fq and Fr elements; xyzz_accum through both
@@ -25,24 +26,34 @@ Phases, each printing one JSON line and raising on any failure:
    registers, spills, resident blocks per SM and waves; each
    horner_windows row its ms per product and per critical-path product.
 3. main path: BLS12-381 G1 msm at n = 2^20, 254-bit scalars, c = 13, on
-   tiled inputs with a host known answer; launch counts from one run, with
-   the shape and operand map of every mont_mul/mont_sqr/mont_pow and
-   xyzz_add/xyzz_double launch recorded (and the inputs of the first launch
-   of each, views as the tree sums pass them). Then mont_mul against its
-   plain version at each of its shapes (inputs non-contiguous halves of a
-   wider tensor), and xyzz_add/xyzz_double against _fadd_plain/_dbl_plain
-   on the recorded inputs themselves, with both times and a bound from
-   those inputs' lane classes; the median of 3 timed runs split into
-   accumulate, reduce and to-affine; one msm_reduce under torch.profiler
-   (CUDA activity only) for the device's busy time, idle share and host
-   time per device op; mont_pow against its plain version at 2^20 Fq
+   tiled inputs with a host known answer; launch counts from one run
+   (xyzz_add 14, xyzz_tree_sum 1, xyzz_double 12: the 13 weight bits in
+   one group, two tree levels wider than TREE_SUM_MAX), with
+   the shape and operand map of every mont_mul/mont_sqr/mont_pow,
+   xyzz_add/xyzz_double and xyzz_tree_sum launch recorded (and the inputs
+   of the first launch of each, views as the tree sums pass them). Then
+   mont_mul against its plain version at each of its shapes (inputs
+   non-contiguous halves of a wider tensor), and xyzz_add/xyzz_double
+   against _fadd_plain/_dbl_plain and xyzz_tree_sum against its plain
+   version on the recorded inputs themselves, with both times and a bound
+   from those inputs' lane classes (xyzz_add's rows split into tree levels
+   and bit-Horner adds); the median of 3 timed runs split into accumulate,
+   reduce and to-affine; one msm_reduce under torch.profiler (CUDA
+   activity only) for its launches, the device's busy time, idle share and
+   host time per device op; mont_pow against its plain version at 2^20 Fq
    elements (zeros included) and at the path's one element, for p - 2;
    xyzz_accum on the path's own band-1 feed (recorded from one more
    accumulate) and band-2 feed; horner_windows on the path's own window
    rows, and every horner_windows row's chain bound: its critical-path
-   products x mont_pow's time per product in one thread; xyzz_add and
+   products x mont_pow's time per product in one thread, and the same chain
+   bound for xyzz_add's element-wise launches (one add, 4 products deep)
+   and every xyzz_tree_sum row (its longest thread's adds); xyzz_add and
    xyzz_double on an edge-class feed of 2^20 Fq points (generic, P == Q,
-   P == -Q, P = inf, Q = inf, both inf, y = 0).
+   P == -Q, P = inf, Q = inf, both inf, y = 0); xyzz_tree_sum on rows made
+   from that feed (element i of a row meets element i + m // 2 in one of
+   those classes) at odd, even and full widths, and ec/msm.py's tree route
+   at widths beyond TREE_SUM_MAX (element-wise levels, then the tree sum),
+   each against the plain tree sum.
 4. ChunkedMSM at 2^21 as two 2^20 chunks, known-answer checked.
 5. NTT path: Radix2Domain(Fr, 2^24).fft of geometric coefficients
    a_j = c r^j, held at 256+ output indices against the host closed form
@@ -65,15 +76,17 @@ Phases, each printing one JSON line and raising on any failure:
    BLS12-381 G1 point pairs against the host oracle; then the kernel
    against its plain version on 2^20 Fq points with the edge classes
    (generic, P == A, P == -A, P = inf, A = inf, both inf, doubling a y = 0
-   point). mont_sqr's path: ec.sw.xyzz_double_affine on 2^20 points (64
+   point), and on 2^20 generic pairs (random finite P and A), each with
+   its own bound. mont_sqr's path: ec.sw.xyzz_double_affine on 2^20 points (64
    real points and infinity, tiled) against the host oracle, its mont_sqr
    launches at phase 2's shape.
 8. the kernels line: per kernel its launches on its path (phase 3 for the
    MSM kernels, 5 for butterfly_dit, twiddle_mul and pow_table, 6 and 7 for
    the entries of butterfly_stage, xyzz_add_affine and mont_sqr), error
    against the plain version, times and bound. For mont_mul, xyzz_add,
-   xyzz_double, butterfly_dit, pow_table and twiddle_mul the times and bound
-   are means per launch over the path's launches, shape by shape; mont_mul's
+   xyzz_double, xyzz_tree_sum, butterfly_dit, pow_table and twiddle_mul the
+   times and bound are means per launch over the path's launches, shape by
+   shape (xyzz_add and xyzz_tree_sum also with their chain bound); mont_mul's
    fft launches (none) sit under "ntt". One row per CUDA kernel: xyzz_accum
    serves both xyzz_accum_grid and xyzz_accum_tiles.
 
@@ -108,6 +121,11 @@ DEG_LOG_M = 22  # coefficients of the degree-aware fft at 2^NTT_LOG_N
 KAT_POINTS = 256  # output indices held against the host closed form
 ELEM_LOG_N = 20  # butterfly_stage and the xyzz_add_affine edge feed
 MADD_KAT_BASE = 64  # xyzz_add_affine known answer: all pairs of 64 points
+TREE_THREADS = 256  # csrc/xyzz.cu: threads of an xyzz_tree_sum block
+ADD_DEPTH = 4  # products on a generic full XYZZ add's critical path
+TREE_EDGE_ROWS = 80  # rows of each xyzz_tree_sum edge feed (the reduce's q x W)
+TREE_EDGE_WIDTHS = (1, 2, 3, 13, 255, 1023, 1024)
+TREE_ROUTE_WIDTHS = (1025, 2049, 3001)  # through ec/msm.py:_tree_sum_last
 
 
 def emit(phase, **kw):
@@ -296,7 +314,7 @@ extern "C" __global__ void probe_horner_serial(const Xyzz<12>* win, Xyzz<12>* ou
   Xyzz<12> st = win[W - 1];
   for (int wi = W - 2; wi >= 0; --wi) {
     for (int k = 0; k < c; ++k) st = xyzz_dbl<12>(st, F);
-    st = xyzz_add<12>(st, win[wi], F);
+    st = xyzz_add<12>(RegPoint<12>{st}, RegPoint<12>{win[wi]}, F);
   }
   *out = st;
 }
@@ -400,13 +418,23 @@ def main():
         hits = [(k, v) for k, v in sw_sass.items() if f"{stem}ILi12E" in k]
         return dict(function=hits[0][0], **hits[0][1]) if hits else None
 
-    sass = dict(per_op_nw12=per_op, horner_serial_code=probes["probe_horner_serial"],
-                horner_windows_code=sw_kernel("horner_windows_kernel"),
-                chain_mul_code=sw_kernel("chain_mul"), xyzz_accum_code=sw_kernel("xyzz_accum_kernel"))
-    emit("sass", **sass)
-
     def ptxas_of(stem):
         return next((v for k, v in ptxas.items() if f"{stem}ILi12E" in k), {})
+
+    # the xyzz.cu and madd.cu kernels, NW = 12: registers, spills, SASS size
+    xyzz_kernels = {}
+    for src, stems in (("xyzz", ("xyzz_add_kernel", "xyzz_tree_sum_kernel", "xyzz_double_kernel")),
+                       ("madd", ("xyzz_add_affine_kernel",))):
+        code = sass_functions(_build.lib_path(src))
+        for stem in stems:
+            hit = next((v for k, v in code.items() if f"{stem}ILi12E" in k), {})
+            xyzz_kernels[stem] = dict(ptxas_of(stem), sass_instructions=hit.get("instructions"),
+                                      imad=hit.get("imad"))
+    sass = dict(per_op_nw12=per_op, horner_serial_code=probes["probe_horner_serial"],
+                horner_windows_code=sw_kernel("horner_windows_kernel"),
+                chain_mul_code=sw_kernel("chain_mul"), xyzz_accum_code=sw_kernel("xyzz_accum_kernel"),
+                xyzz_kernels_nw12=xyzz_kernels)
+    emit("sass", **sass)
 
     # ---- helpers -------------------------------------------------------------
     def sync():
@@ -673,9 +701,11 @@ def main():
     mont_shapes = collections.Counter()
     xyzz_keys = collections.Counter()
     xyzz_inputs = {}
+    tree_keys = collections.Counter()
+    tree_inputs = {}
     band2, path_win = [], []
     launch, launch_xyzz, accum_grid = km._launch, ksw._launch_xyzz, ksw.xyzz_accum_grid
-    horner = ksw.horner_windows
+    horner, tree_sum = ksw.horner_windows, ksw.xyzz_tree_sum
 
     def recording_launch(kernel, spec, *ins, **kw):
         mont_shapes[(kernel, spec.name, tuple(ins[0].shape))] += 1
@@ -686,6 +716,12 @@ def main():
         xyzz_keys[key] += 1
         xyzz_inputs.setdefault(key, coords)
         return launch_xyzz(kernel, curve, *coords)
+
+    def recording_tree(curve, P):
+        key = (tuple(P[0].shape), tuple(tuple(km._operand(t)[1:]) for t in P))
+        tree_keys[key] += 1
+        tree_inputs.setdefault(key, tuple(P))
+        return tree_sum(curve, P)
 
     def recording_accum(curve, state, coords, valid):
         if coords.shape[1] == r2b:
@@ -699,7 +735,7 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     sync()
     km._launch, ksw._launch_xyzz, ksw.xyzz_accum_grid = recording_launch, recording_xyzz, recording_accum
-    ksw.horner_windows = recording_horner
+    ksw.horner_windows, ksw.xyzz_tree_sum = recording_horner, recording_tree
     try:
         kernels.reset_launches()
         aff = to_affine(tmsm.msm(G1, A, s, c, bits))
@@ -707,12 +743,13 @@ def main():
         launches = dict(kernels.LAUNCHES)
     finally:
         km._launch, ksw._launch_xyzz, ksw.xyzz_accum_grid = launch, launch_xyzz, accum_grid
-        ksw.horner_windows = horner
+        ksw.horner_windows, ksw.xyzz_tree_sum = horner, tree_sum
     msm_peak = torch.cuda.max_memory_allocated()
     got_pt = tsw.affine_to_ints(G1, aff)[0]
     if got_pt != want_pt:
         raise AssertionError("msm 2^20: result differs from the host known answer")
-    msm_kernels = ("mont_mul", "mont_pow", "xyzz_add", "xyzz_double", "xyzz_accum", "horner_windows")
+    msm_kernels = ("mont_mul", "mont_pow", "xyzz_add", "xyzz_double", "xyzz_tree_sum", "xyzz_accum",
+                   "horner_windows")
     missing = [k for k in msm_kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"msm 2^20: kernels never launched: {missing}")
@@ -724,6 +761,22 @@ def main():
         recorded = sum(v for (k, _, _), v in xyzz_keys.items() if k == name)
         if recorded != launches[name]:
             raise AssertionError(f"{name}: {recorded} launches recorded, {launches[name]} counted")
+    if sum(tree_keys.values()) != launches["xyzz_tree_sum"]:
+        raise AssertionError(f"xyzz_tree_sum: {sum(tree_keys.values())} launches recorded, "
+                             f"{launches['xyzz_tree_sum']} counted")
+    # the reduce's launches by its route: per group of weight bits, one
+    # xyzz_add per tree level wider than TREE_SUM_MAX and one xyzz_tree_sum;
+    # per bit-Horner step one xyzz_double and one xyzz_add
+    nbits = int(tmsm._bucket_weights(c, bits).max()).bit_length()
+    groups = -(-nbits // tmsm._bits_per_group(G1.base.num_limbs, W, half, nbits))
+    wide, m_ = 0, half
+    while m_ > ksw.TREE_SUM_MAX:
+        wide, m_ = wide + 1, m_ - m_ // 2
+    reduce_want = {"xyzz_add": groups * wide + nbits - 1, "xyzz_tree_sum": groups,
+                   "xyzz_double": nbits - 1}
+    if any(launches[k] != v for k, v in reduce_want.items()):
+        raise AssertionError(f"msm 2^{LOG_N}: reduce launches "
+                             f"{ {k: launches[k] for k in reduce_want} }, expected {reduce_want}")
     if launches["mont_mul"] + launches["mont_sqr"] >= 100:
         raise AssertionError(f"msm 2^20: {launches['mont_mul'] + launches['mont_sqr']} product "
                              "launches; the fused kernels should leave fewer than 100")
@@ -806,7 +859,8 @@ def main():
         coords = xyzz_inputs[key]
         pts = (coords[:4], coords[4:]) if name == "xyzz_add" else (coords[:4],)
         err, ms, plain_ms, tb, to = xyzz_row(name, pts, f"at {shape} {maps}")
-        xyzz_rows[name].append(dict(shape=list(shape), operand_maps=[list(mp) for mp in maps],
+        xyzz_rows[name].append(dict(role="tree level" if len(shape) > 2 else "bit-Horner",
+                                    shape=list(shape), operand_maps=[list(mp) for mp in maps],
                                     launches=count, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                     bound_bytes_ms=tb, bound_ops_ms=to))
     del xyzz_inputs
@@ -815,6 +869,52 @@ def main():
              rows=rows)
         report[name] = per_launch_means(
             rows, f"mean per launch over the main path's {len(rows)} shapes and operand maps")
+    for role in ("tree level", "bit-Horner"):
+        rows = [r for r in xyzz_rows["xyzz_add"] if r["role"] == role]
+        if rows:
+            report["xyzz_add"][role.replace(" ", "_").replace("-", "_")] = per_launch_means(
+                rows, f"mean per launch over its {len(rows)} shapes")
+
+    # xyzz_tree_sum against its plain version on the recorded inputs, with
+    # a bound from the operations its levels need on them (each level's
+    # lane classes, counted level by level with the element-wise kernel) and
+    # the longest thread's dependent adds for the chain bound
+    def tree_levels(m):
+        hs = []
+        while m > 1:
+            hs.append(m // 2)
+            m -= m // 2
+        return hs
+
+    def tree_ops(P):
+        ops, m = 0, P[0].shape[-1]
+        while m > 1:
+            h = m // 2
+            lo, hi = tuple(v[..., :h] for v in P), tuple(v[..., h : 2 * h] for v in P)
+            ops += add_lane_ops(lo, hi)
+            red = ksw.xyzz_add(G1, lo, hi)
+            if m % 2:
+                red = tuple(torch.cat([a, v[..., 2 * h :]], dim=-1) for a, v in zip(red, P))
+            m -= h
+            P = red
+        return ops
+
+    def tree_row(P, what, launches_=0):
+        got, want = ksw.xyzz_tree_sum(G1, P), ksw.xyzz_tree_sum_plain(G1, P)
+        err = max(check_equal(f"xyzz_tree_sum {what}, coordinate {i}", g, w_)
+                  for i, (g, w_) in enumerate(zip(got, want)))
+        ms = time_ms(lambda: ksw.xyzz_tree_sum(G1, P), 20)
+        plain_ms = time_ms(lambda: ksw.xyzz_tree_sum_plain(G1, P), 2)
+        m = P[0].shape[-1]
+        rows_ = P[0][0].numel() // m
+        return dict(shape=list(P[0].shape), operand_maps=[list(km._operand(t)[1:]) for t in P],
+                    rows=rows_, m=m, launches=launches_, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_bytes_ms=4 * Lq * rows_ * (m + 1) * 4 / HBM_BYTES_PER_S * 1e3,
+                    bound_ops_ms=tree_ops(P) / int_ops_per_s * 1e3, levels=len(tree_levels(m)),
+                    chain_products=ADD_DEPTH * sum(-(-h // TREE_THREADS) for h in tree_levels(m)))
+
+    tree_rows = [tree_row(tree_inputs[key], f"at {key}", count) for key, count in tree_keys.items()]
+    del tree_inputs
 
     splits = []
     for _ in range(3):
@@ -851,15 +951,18 @@ def main():
 
     # one msm_reduce under torch.profiler: how much of the reduce's wall
     # time the device is busy, and on what
+    kernels.reset_launches()
     res2, tr = device_trace(torch, lambda: tmsm.msm_reduce(G1, st, c, bits), t_red)
+    reduce_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
     if tr is None:
-        emit("reduce_trace", note="this torch build's profiler cannot trace CUDA activity")
+        emit("reduce_trace", launches=reduce_launches,
+             note="this torch build's profiler cannot trace CUDA activity")
     else:
         if any(not torch.equal(a, b) for a, b in zip(res2, res)):
             raise AssertionError("msm_reduce under the profiler differs from the untraced run")
-        emit("reduce_trace", ms_reduce_untraced_median=t_red, **tr)
+        emit("reduce_trace", ms_reduce_untraced_median=t_red, launches=reduce_launches, **tr)
         for k, v in tr["port_kernels"].items():
-            report[k]["device_ms_per_launch_in_reduce_trace"] = v["device_ms_per_launch"]
+            report.setdefault(k, {})["device_ms_per_launch_in_reduce_trace"] = v["device_ms_per_launch"]
     del A, s
 
     # mont_pow against its plain version for p - 2 (Fermat inversion): at
@@ -909,6 +1012,7 @@ def main():
         row["chain_bound_ms"] = row["critical_path_products"] * us_prod / 1e3
         row["share_of_chain_bound"] = row["chain_bound_ms"] / row["ms"]
     emit("horner_chain", us_per_product_one_thread=us_prod, rows=horner_rows)
+    report["xyzz_add"]["chain_bound_ms"] = ADD_DEPTH * us_prod / 1e3  # one add a thread
     rnd = horner_rows["random windows"]
     report["horner_windows"].update(
         max_abs_err=max(r["max_abs_err"] for r in horner_rows.values()),
@@ -950,6 +1054,44 @@ def main():
         emit("kernel", kernel=name, field=f.name, feed="edge classes", **edge)
         report[name]["edge_feed"] = edge
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+
+    # xyzz_tree_sum on rows built from that feed: row k of width m is P's and
+    # Q's points k h .. k h + h - 1 side by side (h = m // 2), then P's point
+    # k for an odd width, so the first level meets every class; directly at
+    # odd, even and full widths, and through ec/msm.py:_tree_sum_last at
+    # widths beyond TREE_SUM_MAX (element-wise levels, then the tree sum)
+    def edge_rows(rows_, m):
+        h = m // 2
+        parts = [[v[:, : rows_ * h].reshape(Lq, rows_, h) for v in pts] for pts in (P, Q)]
+        if m % 2:
+            parts.append([v[:, ne - rows_ :].reshape(Lq, rows_, 1) for v in P])
+        return tuple(torch.cat(cs, dim=-1) for cs in zip(*parts))
+
+    for m in TREE_EDGE_WIDTHS:
+        row = tree_row(edge_rows(TREE_EDGE_ROWS, m), f"edge rows of width {m}")
+        tree_rows.append(dict(row, feed="edge classes"))
+    for m in TREE_ROUTE_WIDTHS:
+        E = edge_rows(8, m)
+        got = tmsm._tree_sum_last(G1, tsw.XYZZPoints(*E))
+        err = max(check_equal(f"ec/msm.py tree route at width {m}, coordinate {i}", g, w_)
+                  for i, (g, w_) in enumerate(zip(got, ksw.xyzz_tree_sum_plain(G1, E))))
+        tree_rows.append(dict(feed="edge classes, ec/msm.py tree route", rows=8, m=m, launches=0,
+                              max_abs_err=err))
+    del E, got
+    for row in tree_rows:
+        if "chain_products" in row:
+            row["chain_bound_ms"] = row["chain_products"] * us_prod / 1e3
+            row["share_of_chain_bound"] = row["chain_bound_ms"] / row["ms"]
+    emit("kernel_main_path_shapes", kernel="xyzz_tree_sum",
+         inputs="the main path's own (launches > 0), then edge rows", rows=tree_rows)
+    path_tree = [r for r in tree_rows if r["launches"]]
+    report.setdefault("xyzz_tree_sum", {}).update(per_launch_means(
+        path_tree, f"mean per launch over the main path's {len(path_tree)} shapes"))
+    report["xyzz_tree_sum"].update(
+        max_abs_err=max(r["max_abs_err"] for r in tree_rows),
+        chain_bound_ms=sum(r["launches"] * r["chain_bound_ms"] for r in path_tree)
+        / sum(r["launches"] for r in path_tree),
+        edge_rows=[r for r in tree_rows if not r["launches"]])
     del X, Y, ZZ, ZZZ, X2, Y2, ZZ2, ZZZ2, lam, l2, l3, Ys, P, Q, one, zero, cls, coords, pts
 
     # ---- 4. ChunkedMSM at 2^21 ------------------------------------------------
@@ -1309,10 +1451,31 @@ def main():
     b_ms, b_by = bound((10 * Lq * 4 + 1) * ne, ops)
     emit("kernel", kernel="xyzz_add_affine", field=f.name, n=ne, feed="edge classes",
          known_answer_pairs=len(ps), max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-         bound_by=b_by)
-    report["xyzz_add_affine"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                     bound_by=b_by, shape=f"{ne} points, 7 edge classes")
+         bound_by=b_by, share_of_bound=b_ms / ms)
+    edge = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                share_of_bound=b_ms / ms)
     del X, Y, ZZ, ZZZ, AX, AY, P, got, want
+
+    # generic feed: 2^20 random finite (P, A) pairs, the traffic of the JAX
+    # package's XLA accumulate route (buckets += distinct points)
+    X, Y, ZZ, ZZZ, AX, AY = (rand_field(f, ne) for _ in range(6))
+    a_inf = torch.zeros(ne, dtype=torch.bool, device=dev)
+    P = (X, Y, ZZ, ZZZ)
+    got = ksw.xyzz_add_affine(G1, P, AX, AY, a_inf)
+    want, plain_ms = once_ms(lambda: ksw.xyzz_add_affine_plain(G1, P, AX, AY, a_inf))
+    err = max(check_equal(f"xyzz_add_affine generic, coordinate {i}", g, w_) for i, (g, w_) in
+              enumerate(zip(got, want)))
+    ms = time_ms(lambda: ksw.xyzz_add_affine(G1, P, AX, AY, a_inf), 20)
+    b_ms, b_by = bound((10 * Lq * 4 + 1) * ne, ne * madd_ops)
+    emit("kernel", kernel="xyzz_add_affine", field=f.name, n=ne, feed="generic", max_abs_err=err,
+         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms)
+    report["xyzz_add_affine"] = dict(
+        max_abs_err=max(err, edge["max_abs_err"]), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, share_of_bound=b_ms / ms, shape=f"{ne} generic pairs",
+        registers=ptxas_of("xyzz_add_affine_kernel").get("registers"),
+        spill_stores=ptxas_of("xyzz_add_affine_kernel").get("spill_stores"),
+        edge_feed=dict(edge, shape=f"{ne} points, 7 edge classes"))
+    del X, Y, ZZ, ZZZ, AX, AY, P, got, want, a_inf
 
     # mont_sqr's path: ec.sw.xyzz_double_affine (three squares and four
     # products a call) on 2^20 points, the 64 pool points and infinity
@@ -1368,6 +1531,9 @@ def main():
         "xyzz_double": ("zkarray_torch/kernels/csrc/xyzz.cu",
                         "zkarray/kernels/mont.py:235 and zkarray/kernels/mont.py:254, "
                         "fused into zkarray/ec/sw.py:408 xyzz_double"),
+        "xyzz_tree_sum": ("zkarray_torch/kernels/csrc/xyzz.cu",
+                          "zkarray/ec/msm.py:495 _tree_sum_last's per-level zkarray/ec/sw.py:376 "
+                          "xyzz_add calls (zkarray/kernels/mont.py:235 and :254 inside), fused"),
         "mont_pow": ("zkarray_torch/kernels/csrc/mont.cu",
                      "zkarray/kernels/mont.py:235 and zkarray/kernels/mont.py:254, "
                      "fused into zkarray/ff/fp.py:321 pow_const"),

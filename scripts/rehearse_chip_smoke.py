@@ -1,0 +1,133 @@
+#!/usr/bin/env python3
+"""Rehearse chip_smoke.py's control flow on the CPU at small sizes, with no
+GPU and no nvcc: every kernel launch is replaced by a counted call of its
+plain version, torch.cuda and nvidia-smi by stubs, and the build by empty
+ptxas reports. It finds wrong paths, shapes, counts and control flow before
+a chip call; it says nothing about the CUDA sources. About 8 minutes:
+
+    python3 scripts/rehearse_chip_smoke.py > rehearsal.out
+"""
+
+import ctypes
+import pathlib
+import sys
+import tempfile
+import types
+
+import torch
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+import chip_smoke as cs  # noqa: E402
+from zkarray_torch import kernels  # noqa: E402
+from zkarray_torch.kernels import _build  # noqa: E402
+from zkarray_torch.kernels import mont as km  # noqa: E402
+from zkarray_torch.kernels import sw as ksw  # noqa: E402
+from zkarray_torch.poly import domain as dm  # noqa: E402
+
+LAUNCHES = kernels.LAUNCHES
+
+
+class StubEvent:
+    def __init__(self, **kw):
+        pass
+
+    def record(self):
+        pass
+
+    def elapsed_time(self, other):
+        return 1.0
+
+
+class StubSwLib:
+    def zk_xyzz_accum_occupancy(self, nw, blocks, threads):
+        ctypes.c_int.from_address(blocks).value = 6
+        ctypes.c_int.from_address(threads).value = 64
+        return 0
+
+
+def counted(name, fn):
+    def call(*args, **kw):
+        LAUNCHES[name] += 1
+        return fn(*args, **kw)
+    return call
+
+
+def launch_mont(kernel, spec, *ins, exponent=None):
+    LAUNCHES[kernel] += 1
+    if kernel == "mont_pow":
+        return km.mont_pow_plain(spec, ins[0], exponent)
+    return km.mont_mul_plain(spec, ins[0], ins[-1])
+
+
+def launch_xyzz(kernel, curve, *coords):
+    LAUNCHES[kernel] += 1
+    if kernel == "xyzz_add":
+        return ksw._fadd_plain(curve, coords[:4], coords[4:])
+    return ksw._dbl_plain(curve, coords)
+
+
+def accum(curve, state, coords, valid, what):
+    LAUNCHES["xyzz_accum"] += 1
+    return ksw.xyzz_accum_plain(curve, state, coords, valid)
+
+
+def main():
+    cs.DEVICE = "cpu"
+    cs.LOG_N, cs.NTT_LOG_N, cs.COSET_LOG_N, cs.DEG_LOG_M = 8, 12, 10, 9
+    cs.KAT_POINTS, cs.ELEM_LOG_N, cs.MADD_KAT_BASE = 20, 8, 8
+    cs.EDGE_SLOTS, cs.EDGE_ROUNDS, cs.ORACLE_SLOTS, cs.ORACLE_ROUNDS = 421, 4, 99, 3
+    cs.TREE_EDGE_ROWS, cs.TREE_EDGE_WIDTHS, cs.TREE_ROUTE_WIDTHS = 4, (1, 2, 3, 13, 16), (17, 33)
+    dm.FOURSTEP_BIG, dm.FOURSTEP_MIN = 1 << 12, 1 << 9
+    ksw.TREE_SUM_MAX = 16  # c = 7 at 2^8 points: trees of 64, two element-wise levels
+
+    cu = torch.cuda
+    cu.is_available = lambda: True
+    cu.Event = StubEvent
+    cu.synchronize = lambda *a: None
+    cu.reset_peak_memory_stats = lambda *a: None
+    cu.max_memory_allocated = lambda *a: 0
+    cu.memory_allocated = lambda *a: 0
+    cu.get_device_properties = lambda *a: types.SimpleNamespace(multi_processor_count=132)
+    cu.get_device_name = lambda *a: "stub"
+    cu.device_count = lambda: 1
+    cs.nvidia_smi = lambda fields: "1980 MHz" if "clocks" in fields else "stub card, 700.00 W"
+    cs.sass_functions = lambda path: {
+        k: dict(instructions=10, imad=5, opcodes={})
+        for k in ("probe_none", "probe_fmul", "probe_fmul_wide", "probe_horner_serial")}
+
+    fake = pathlib.Path(tempfile.mkdtemp(prefix="rehearse_build_"))
+    for name in _build.SOURCES:
+        (fake / f"lib{name}.ptxas.txt").write_text("")
+    _build.build = lambda *a, **kw: {}
+    _build.lib_path = lambda name: fake / f"lib{name}.so"
+    _build._nvcc = lambda: "true"  # the SASS probe's build is a no-op
+    _build.load = lambda name: StubSwLib()
+    _build.check = lambda *a: None
+
+    # every wrapper takes its kernel route, which now runs the plain version
+    km.on_cpu = lambda *ts: False
+    km._launch = launch_mont
+    km._launch_dit = lambda spec, x, tw, stride: counted("butterfly_dit", km.butterfly_dit_plain)(
+        spec, x, tw, stride)
+    km.butterfly_stage = counted("butterfly_stage", km.butterfly_stage_plain)
+    ksw._accum = accum
+    ksw._launch_xyzz = launch_xyzz
+    ksw.horner_windows = counted("horner_windows", ksw.horner_windows_plain)
+    ksw.xyzz_add_affine = counted("xyzz_add_affine", ksw.xyzz_add_affine_plain)
+    ksw.xyzz_tree_sum = counted("xyzz_tree_sum", ksw.xyzz_tree_sum_plain)
+    km.pow_table = counted("pow_table", km.pow_table)  # a CPU device takes the plain version
+    twiddle_mul = km.twiddle_mul
+
+    def twiddle_on_cpu(*args, **kw):
+        km.on_cpu = lambda *ts: True
+        try:
+            return twiddle_mul(*args, **kw)
+        finally:
+            km.on_cpu = lambda *ts: False
+
+    km.twiddle_mul = counted("twiddle_mul", twiddle_on_cpu)
+    return cs.main()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

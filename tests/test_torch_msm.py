@@ -9,7 +9,9 @@ compiles), bit for bit:
 * msm's XYZZ result, also with points at infinity and with all-equal
   scalars, which overflow both static bands so the residual loop must
   finish the bucket;
-* ChunkedMSM against the O(1) host known answer on tiled inputs.
+* ChunkedMSM against the O(1) host known answer on tiled inputs;
+* msm_reduce's weighted bucket sums with the tree route split at a small
+  width against the unsplit route.
 
 The port runs its one accumulate path, the grid-structured feed with the
 plain kernels, so these tests cover the production feed building."""
@@ -110,6 +112,39 @@ def test_msm_reduce_matches_jax_on_edge_buckets():
     assert_same_points(jmsm.msm_reduce(JC, jst, C, BITS), got)
     aff = tsw.xyzz_to_affine(TC, tsw.XYZZPoints(*(v[:, None] for v in got)))
     assert tsw.affine_to_ints(TC, aff)[0] == ec_msm_oracle(pool, coef, 0, mod)
+
+
+@pytest.mark.parametrize("tail, quad", [(1, None), (4, 2)])
+def test_msm_reduce_split_tree_route_matches_unsplit(tail, quad, monkeypatch):
+    """msm_reduce's weighted bucket sums at c = 5 (trees of half = 16
+    buckets; the weights of windows 0-2 and of the last two, split, windows)
+    with the tree route split at TREE_SUM_MAX = tail: element-wise levels
+    down to the tail width, then the tree sum (tail 4, the 5 weight bits in
+    groups of 2), or element-wise to the end (tail 1, one group), against the
+    unsplit route (one tree sum from 16, one group). The
+    buckets hold points at infinity, and bucket j + 8 holds bucket j's point
+    (another representative) or its negation, so the first level doubles and
+    cancels."""
+    mod = JC.base.modulus
+    W, half, _, _ = tmsm._window_geometry(C, BITS)
+    wins = [0, 1, 2, W - 2, W - 1]
+    weights = tmsm._bucket_weights(C, BITS)[wins]
+    rng = np.random.default_rng(22 + tail)
+    gen = (JC.gen_x, JC.gen_y)
+    pool = [ec_mul(gen, int(k), 0, mod) for k in rng.integers(1, 1 << 40, size=6)]
+    pts = [[None if rng.random() < 0.3 else pool[rng.integers(len(pool))] for _ in range(half)]
+           for _ in wins]
+    for w, row in enumerate(pts):
+        for j in range(8):
+            if row[j] is not None and w % 3:
+                row[j + 8] = row[j] if w % 3 == 1 else ec_neg(row[j], mod)
+    lams = rng.integers(1, 1 << 62, size=len(wins) * half)
+    coords = [xyzz_coords(p, int(lam), mod) for p, lam in zip((p for row in pts for p in row), lams)]
+    _, tst = xyzz_both(coords, (len(wins), half))
+    want = tmsm._weighted_sum_bits(TC, tst, weights)
+    monkeypatch.setattr(ksw, "TREE_SUM_MAX", tail)
+    got = tmsm._weighted_sum_bits(TC, tst, weights, quad)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_msm_all_equal_scalars_runs_residual_tiles(monkeypatch):

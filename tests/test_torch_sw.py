@@ -2,7 +2,9 @@
 and the affine doubling) against zkarray.ec.sw, bit for bit, on the six edge
 classes of tests/test_kernels.py (generic, P == A, P == -A, P at infinity,
 A at infinity, both at infinity), plus the Python-int oracle. Batch width 8
-is the one tests/test_sw.py compiles."""
+is the one tests/test_sw.py compiles. The tree sum (the plain version of the
+xyzz_tree_sum kernel) against zkarray.ec.msm._tree_sum_last at an odd width
+with edge-class pairs, and against the port's per-level route at others."""
 
 import numpy as np
 import pytest
@@ -11,7 +13,9 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from torch_parity import JC, TC, assert_same_points, xyzz_both, xyzz_coords  # noqa: E402
+from zkarray.ec import msm as jmsm  # noqa: E402
 from zkarray.ec import sw as jsw  # noqa: E402
+from zkarray_torch.ec import msm as tmsm  # noqa: E402
 from zkarray_torch.ec import sw as tsw  # noqa: E402
 from zkarray_torch.interop import affine_from_numpy, limbs_to_numpy  # noqa: E402
 from zkarray_torch.kernels import sw as ksw  # noqa: E402
@@ -129,3 +133,53 @@ def test_xyzz_zero_and_affine_round_trip():
     assert tsw.affine_to_ints(TC, tA) == ps
     assert_same_points(jsw.xyzz_zero(JC, (3, 2)), tsw.xyzz_zero(TC, (3, 2), "cpu"))
     assert bool(tsw.xyzz_is_inf(tsw.xyzz_zero(TC, (4,), "cpu")).all())
+
+
+def tree_rows(m, seed):
+    """(2, m) XYZZ points, random representatives (ZZ = lam^2). Row 0 pairs
+    element i with i + m // 2 (the first level's pairs) as P == Q, P == -Q,
+    P at infinity, Q at infinity, both at infinity, then generic; row 1 is
+    generic but for a P == Q pair with y = 0 (not a curve point; the formulas
+    do not need one) and a point at infinity carried by an odd width."""
+    mod = JC.base.modulus
+    rng = np.random.default_rng(seed)
+    gen = (JC.gen_x, JC.gen_y)
+    rows = [[ec_mul(gen, int(k), 0, mod) for k in rng.integers(1, 1 << 20, size=m)] for _ in range(2)]
+    h = m // 2
+    edges = [lambda p: p, lambda p: (p[0], (-p[1]) % mod), None, "q_inf", "both"]
+    for i, e in enumerate(edges[:h]):
+        p = rows[0][i]
+        if e is None:
+            rows[0][i] = None
+        elif e == "q_inf":
+            rows[0][i + h] = None
+        elif e == "both":
+            rows[0][i] = rows[0][i + h] = None
+        else:
+            rows[0][i + h] = e(p)
+    if h:
+        rows[1][0] = (rows[1][0][0], 0)
+        rows[1][h] = rows[1][0]
+    if m % 2:
+        rows[1][m - 1] = None
+    lams = rng.integers(1, 1 << 62, size=2 * m)
+    coords = [xyzz_coords(pt, int(lam), mod) for pt, lam in zip(rows[0] + rows[1], lams)]
+    return xyzz_both(coords, (2, m))
+
+
+def test_xyzz_tree_sum_plain_matches_jax_tree_sum():
+    """m = 13: levels of 13, 7, 4 and 2 points, two of them odd."""
+    jP, tP = tree_rows(13, seed=31)
+    got = ksw.xyzz_tree_sum_plain(TC, tP)
+    assert got[0].shape == (TC.base.num_limbs, 2, 1)
+    assert_same_points(jmsm._tree_sum_last(JC, jP), got)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 16])
+def test_xyzz_tree_sum_plain_matches_per_level_route(m, monkeypatch):
+    """Against ec/msm.py:_tree_sum_last with every level an element-wise
+    xyzz_add (TREE_SUM_MAX = 1), the route the JAX comparison pins."""
+    _, tP = tree_rows(m, seed=40 + m)
+    monkeypatch.setattr(ksw, "TREE_SUM_MAX", 1)
+    want = tmsm._tree_sum_last(TC, tP)
+    assert all(torch.equal(a, b) for a, b in zip(ksw.xyzz_tree_sum_plain(TC, tP), want))

@@ -13,7 +13,9 @@ building blocks. The design is the JAX package's "aligned bucket rounds":
     tiles finishes any bucket beyond both bands. The bands are performance
     choices, never correctness assumptions.
 4.  Buckets reduce to window sums by weight bits (tree sums + bit-Horner),
-    and one Horner launch combines the windows.
+    and one Horner launch combines the windows. A tree's levels wider than
+    kernels/sw.py:TREE_SUM_MAX are element-wise xyzz_add launches; the rest
+    of the tree is one xyzz_tree_sum launch.
 
 There is one accumulate path on every device: the feeds are built here in
 plain PyTorch and consumed by kernels/sw.py:xyzz_accum_grid and
@@ -48,6 +50,10 @@ R2_SIG = 5.0
 # BLS12-381 MSM of 2^20 points at c = 13 needs ~2.3 GB for all 20 windows,
 # so on an 80 GB card one group takes them all.
 GROUP_BYTES = 16 << 30
+# Device-memory budget for the bucket reduction's masked copies of the
+# bucket state, one per weight bit of a group: the 13 bits of c = 13 take
+# 0.4 GB and share one group, so each tree level is one launch for them all.
+REDUCE_BYTES = 2 << 30
 IDX_MASK = (1 << 29) - 1
 
 
@@ -236,31 +242,45 @@ def msm_accumulate(curve: SWCurveSpec, points: AffinePoints, scalars: torch.Tens
 
 
 def _tree_sum_last(curve, P: XYZZPoints) -> XYZZPoints:
-    """Pairwise tree-sum over the last axis."""
+    """Pairwise tree-sum over the last axis: element i meets i + m // 2, an
+    odd last element is carried. The route is the width's: each level wider
+    than kernels.sw.TREE_SUM_MAX is one element-wise xyzz_add, and the levels
+    from there down to one point are one xyzz_tree_sum."""
     m = P.x.shape[-1]
-    while m > 1:
+    while m > ksw.TREE_SUM_MAX:
         h = m // 2
         lo = XYZZPoints(*(v[..., :h] for v in P))
         hi = XYZZPoints(*(v[..., h : 2 * h] for v in P))
         red = sw.xyzz_add(curve, lo, hi)
         if m % 2:
             red = XYZZPoints(*(torch.cat([a, v[..., 2 * h :]], dim=-1) for a, v in zip(red, P)))
-            m = h + 1
-        else:
-            m = h
+        m -= h
         P = red
+    if m > 1:
+        P = XYZZPoints(*ksw.xyzz_tree_sum(curve, P))
     return P
 
 
+def _bits_per_group(L: int, W: int, B: int, nbits: int) -> int:
+    """Weight bits whose masked (L, q, W, B) bucket copies are tree-summed
+    together within REDUCE_BYTES (the JAX package takes 4)."""
+    return max(1, min(nbits, REDUCE_BYTES // (4 * L * W * B * 4)))
+
+
 def _weighted_sum_bits(curve: SWCurveSpec, state: XYZZPoints, weights: np.ndarray,
-                       quad: int = 4) -> XYZZPoints:
+                       quad: Optional[int] = None) -> XYZZPoints:
     """win_w = sum_j weights[w, j] * state[:, w, j] for a host-constant
-    weight matrix: per weight bit a masked tree-sum, then bit-Horner."""
+    weight matrix: per weight bit a masked tree-sum, then bit-Horner. The
+    bits go through the tree sums ``quad`` at a time (by default as many as
+    REDUCE_BYTES allows); every (bit, window) row is summed on its own, so
+    the grouping does not change the result."""
     f = curve.base
     L = f.num_limbs
     W, B = weights.shape
     dev = state.x.device
     nbits = int(weights.max()).bit_length()
+    if quad is None:
+        quad = _bits_per_group(L, W, B, nbits)
     parts = []
     for k0 in range(0, nbits, quad):
         ks = list(range(k0, min(k0 + quad, nbits)))

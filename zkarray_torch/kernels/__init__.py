@@ -15,6 +15,7 @@ and binds them with ctypes. ``LAUNCHES`` counts each kernel's launches.
     xyzz_add_affine  madd.cu   sw.xyzz_add_affine                      sw.py:xyzz_add_affine
     xyzz_add         xyzz.cu   sw.xyzz_add                             (none: ec/sw.py:xyzz_add's launch chain)
     xyzz_double      xyzz.cu   sw.xyzz_double                          (none: ec/sw.py:xyzz_double's launch chain)
+    xyzz_tree_sum    xyzz.cu   sw.xyzz_tree_sum                        (none: ec/msm.py:_tree_sum_last's per-level launches)
     pow_table        twiddle.cu  mont.pow_table                        (none: poly/domain.py's table launch chains)
     twiddle_mul      twiddle.cu  mont.twiddle_mul                      (none: poly/domain.py's table launch chains)
 """

@@ -54,6 +54,7 @@ EXPORTS = {
     "xyzz": {
         "zk_xyzz_add": [_P, _P, _LL, _I, _P, _P],
         "zk_xyzz_double": [_P, _P, _LL, _I, _P, _P],
+        "zk_xyzz_tree_sum": [_P, _P, _LL, _I, _I, _P, _P],
     },
     "twiddle": {
         "zk_pow_table": [_P, _LL, _I, _P, _I, _I, _P, _P],
@@ -64,7 +65,8 @@ EXPORTS = {
 # Launches per kernel, counted by each wrapper where it launches its kernel.
 LAUNCHES = {"mont_mul": 0, "mont_sqr": 0, "xyzz_accum": 0, "horner_windows": 0,
             "butterfly_dit": 0, "butterfly_stage": 0, "xyzz_add_affine": 0,
-            "xyzz_add": 0, "xyzz_double": 0, "mont_pow": 0, "pow_table": 0, "twiddle_mul": 0}
+            "xyzz_add": 0, "xyzz_double": 0, "xyzz_tree_sum": 0, "mont_pow": 0, "pow_table": 0,
+            "twiddle_mul": 0}
 
 _libs = {}
 

@@ -297,7 +297,7 @@ __device__ __forceinline__ Fe<NW> fsub_cc(const Fe<NW>& a, const Fe<NW>& b,
   return d;
 }
 
-// The two sets of field operations xyzz_madd is written over.
+// The sets of field operations the XYZZ formulas below are written over.
 template <int NW>
 struct PlainOps {
   static __device__ __forceinline__ Fe<NW> mul(const Fe<NW>& a, const Fe<NW>& b,
@@ -327,6 +327,28 @@ struct WideOps {
   static __device__ __forceinline__ Fe<NW> sub(const Fe<NW>& a, const Fe<NW>& b,
                                                const FieldConsts<NW>& F) {
     return fsub_cc<NW>(a, b, F);
+  }
+};
+
+// WideOps with every product through one non-inlined copy of fmul_wide. A
+// formula inlined on WideOps is tens of thousands of instructions (an XYZZ
+// add ~25,000 at NW = 12), more than the instruction cache holds, so each
+// warp fetches its code from L2 as it goes; through the call every product
+// runs the same ~900 instructions (sw.cu's horner_windows found the same for
+// one warp). On the H100 this more than doubled the element-wise XYZZ
+// kernels' throughput (PERF.md). F must be a __grid_constant__ kernel
+// parameter, or memory that outlives the call: its address is passed.
+template <int NW>
+__device__ __noinline__ Fe<NW> fmul_wide_call(const Fe<NW> a, const Fe<NW> b,
+                                              const FieldConsts<NW>* F) {
+  return fmul_wide<NW>(a, b, *F);
+}
+
+template <int NW>
+struct CallOps : WideOps<NW> {
+  static __device__ __forceinline__ Fe<NW> mul(const Fe<NW>& a, const Fe<NW>& b,
+                                               const FieldConsts<NW>& F) {
+    return fmul_wide_call<NW>(a, b, &F);
   }
 };
 
@@ -409,7 +431,8 @@ __device__ __forceinline__ Xyzz<NW> xyzz_inf(const FieldConsts<NW>& F) {
 // A = inf select there returns P unchanged, so the caller skips the call).
 // Selects, in _madd_core's order: doubling (P == A), cancel (P == -A),
 // P = inf. The doubling candidate is computed only on the doubling branch.
-// Ops: PlainOps (fmul/fadd/fsub) or WideOps (fmul_wide, fadd_cc, fsub_cc).
+// Ops: PlainOps (fmul/fadd/fsub), WideOps (fmul_wide, fadd_cc, fsub_cc) or
+// CallOps (WideOps, the product not inlined).
 template <int NW, class Ops = PlainOps<NW>>
 __device__ __forceinline__ void xyzz_madd(Xyzz<NW>& P, const Fe<NW>& AX, const Fe<NW>& AY,
                                           const FieldConsts<NW>& F) {
@@ -457,50 +480,73 @@ __device__ __forceinline__ void xyzz_madd(Xyzz<NW>& P, const Fe<NW>& AX, const F
 }
 
 // dbl-2008-s-1, edge-complete: inf or y == 0 -> inf (_dbl_core).
-template <int NW>
+template <int NW, class Ops = PlainOps<NW>>
 __device__ __forceinline__ Xyzz<NW> xyzz_dbl(const Xyzz<NW>& P, const FieldConsts<NW>& F) {
   if (fe_is_zero<NW>(P.zz) || fe_is_zero<NW>(P.y)) return xyzz_inf<NW>(F);
-  const Fe<NW> U = fadd<NW>(P.y, P.y, F);
-  const Fe<NW> V = fmul<NW>(U, U, F);
-  const Fe<NW> Wr = fmul<NW>(U, V, F);
-  const Fe<NW> S = fmul<NW>(P.x, V, F);
-  const Fe<NW> XX = fmul<NW>(P.x, P.x, F);
-  Fe<NW> M = fadd<NW>(fadd<NW>(XX, XX, F), XX, F);
+  const Fe<NW> U = Ops::add(P.y, P.y, F);
+  const Fe<NW> V = Ops::mul(U, U, F);
+  const Fe<NW> Wr = Ops::mul(U, V, F);
+  const Fe<NW> S = Ops::mul(P.x, V, F);
+  const Fe<NW> XX = Ops::mul(P.x, P.x, F);
+  Fe<NW> M = Ops::add(Ops::add(XX, XX, F), XX, F);
   if (!F.a_is_zero) {
     Fe<NW> a;
 #pragma unroll
     for (int j = 0; j < NW; ++j) a.w[j] = F.a[j];
-    M = fadd<NW>(M, fmul<NW>(a, fmul<NW>(P.zz, P.zz, F), F), F);
+    M = Ops::add(M, Ops::mul(a, Ops::mul(P.zz, P.zz, F), F), F);
   }
-  const Fe<NW> X3 = fsub<NW>(fmul<NW>(M, M, F), fadd<NW>(S, S, F), F);
-  const Fe<NW> Y3 = fsub<NW>(fmul<NW>(M, fsub<NW>(S, X3, F), F), fmul<NW>(Wr, P.y, F), F);
-  return Xyzz<NW>{X3, Y3, fmul<NW>(V, P.zz, F), fmul<NW>(Wr, P.zzz, F)};
+  const Fe<NW> X3 = Ops::sub(Ops::mul(M, M, F), Ops::add(S, S, F), F);
+  const Fe<NW> Y3 = Ops::sub(Ops::mul(M, Ops::sub(S, X3, F), F), Ops::mul(Wr, P.y, F), F);
+  return Xyzz<NW>{X3, Y3, Ops::mul(V, P.zz, F), Ops::mul(Wr, P.zzz, F)};
+}
+
+// A point held in registers, read through the interface xyzz_add takes: a
+// point type with get<NW>(c), c = 0..3 for X, Y, ZZ, ZZZ (xyzz.cu adds points
+// read from device memory and from shared memory where the formula needs
+// each coordinate, so fewer values are live at once).
+template <int NW>
+struct RegPoint {
+  const Xyzz<NW>& P;
+  template <int N>
+  __device__ __forceinline__ Fe<N> get(int c) const {
+    return c == 0 ? P.x : c == 1 ? P.y : c == 2 ? P.zz : P.zzz;
+  }
+};
+
+template <int NW, class Pt>
+__device__ __forceinline__ Xyzz<NW> get_point(const Pt& P) {
+  return Xyzz<NW>{P.template get<NW>(0), P.template get<NW>(1), P.template get<NW>(2),
+                  P.template get<NW>(3)};
 }
 
 // add-2008-s, edge-complete (_fadd_core): Q = inf -> P; P = inf -> Q;
-// P == Q -> double; P == -Q -> inf.
-template <int NW>
-__device__ __forceinline__ Xyzz<NW> xyzz_add(const Xyzz<NW>& P, const Xyzz<NW>& Q,
-                                             const FieldConsts<NW>& F) {
-  if (fe_is_zero<NW>(Q.zz)) return P;
-  if (fe_is_zero<NW>(P.zz)) return Q;
-  const Fe<NW> U1 = fmul<NW>(P.x, Q.zz, F);
-  const Fe<NW> U2 = fmul<NW>(Q.x, P.zz, F);
-  const Fe<NW> S1 = fmul<NW>(P.y, Q.zzz, F);
-  const Fe<NW> S2 = fmul<NW>(Q.y, P.zzz, F);
-  const Fe<NW> Pp = fsub<NW>(U2, U1, F);
-  const Fe<NW> R = fsub<NW>(S2, S1, F);
+// P == Q -> double; P == -Q -> inf. Each coordinate is read where it is
+// first needed (ZZ1, ZZ2, ZZZ1 and ZZZ2 twice).
+template <int NW, class Ops = PlainOps<NW>, class PA, class PB>
+__device__ __forceinline__ Xyzz<NW> xyzz_add(const PA& P, const PB& Q, const FieldConsts<NW>& F) {
+  const Fe<NW> ZZ2 = Q.template get<NW>(2);
+  if (fe_is_zero<NW>(ZZ2)) return get_point<NW>(P);
+  const Fe<NW> ZZ1 = P.template get<NW>(2);
+  if (fe_is_zero<NW>(ZZ1)) return get_point<NW>(Q);
+  const Fe<NW> U1 = Ops::mul(P.template get<NW>(0), ZZ2, F);
+  const Fe<NW> U2 = Ops::mul(Q.template get<NW>(0), ZZ1, F);
+  const Fe<NW> S1 = Ops::mul(P.template get<NW>(1), Q.template get<NW>(3), F);
+  const Fe<NW> S2 = Ops::mul(Q.template get<NW>(1), P.template get<NW>(3), F);
+  const Fe<NW> Pp = Ops::sub(U2, U1, F);
+  const Fe<NW> R = Ops::sub(S2, S1, F);
   if (fe_is_zero<NW>(Pp)) {
-    if (fe_is_zero<NW>(R)) return xyzz_dbl<NW>(P, F);
+    if (fe_is_zero<NW>(R)) return xyzz_dbl<NW, Ops>(get_point<NW>(P), F);
     return xyzz_inf<NW>(F);
   }
-  const Fe<NW> PP = fmul<NW>(Pp, Pp, F);
-  const Fe<NW> PPP = fmul<NW>(Pp, PP, F);
-  const Fe<NW> Qv = fmul<NW>(U1, PP, F);
-  const Fe<NW> X3 = fsub<NW>(fsub<NW>(fmul<NW>(R, R, F), PPP, F), fadd<NW>(Qv, Qv, F), F);
-  const Fe<NW> Y3 = fsub<NW>(fmul<NW>(R, fsub<NW>(Qv, X3, F), F), fmul<NW>(S1, PPP, F), F);
-  return Xyzz<NW>{X3, Y3, fmul<NW>(fmul<NW>(P.zz, Q.zz, F), PP, F),
-                  fmul<NW>(fmul<NW>(P.zzz, Q.zzz, F), PPP, F)};
+  const Fe<NW> PP = Ops::mul(Pp, Pp, F);
+  const Fe<NW> PPP = Ops::mul(Pp, PP, F);
+  const Fe<NW> ZZ3 = Ops::mul(Ops::mul(ZZ1, ZZ2, F), PP, F);
+  const Fe<NW> ZZZ3 =
+      Ops::mul(Ops::mul(P.template get<NW>(3), Q.template get<NW>(3), F), PPP, F);
+  const Fe<NW> Qv = Ops::mul(U1, PP, F);
+  const Fe<NW> X3 = Ops::sub(Ops::sub(Ops::mul(R, R, F), PPP, F), Ops::add(Qv, Qv, F), F);
+  const Fe<NW> Y3 = Ops::sub(Ops::mul(R, Ops::sub(Qv, X3, F), F), Ops::mul(S1, PPP, F), F);
+  return Xyzz<NW>{X3, Y3, ZZ3, ZZZ3};
 }
 
 // Dispatch a templated launcher on the word count; unsupported widths are

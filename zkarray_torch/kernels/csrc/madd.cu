@@ -2,34 +2,51 @@
 //
 // Replaces zkarray/kernels/sw.py:xyzz_add_affine (Pallas, _madd_core over
 // (L, 8, 128) blocks): one thread per point. Select order as _madd_core's:
-// A = inf leaves P unchanged and is tested first (xyzz_madd assumes a finite
-// A); then, inside xyzz_madd, P = inf gives (AX, AY, 1, 1), P == -A gives
-// infinity and P == A the doubling (infinity when AY = 0). The doubling
-// candidate is computed only on that branch, per thread, where the TPU
-// kernel computed it for every lane.
+// A = inf leaves P unchanged (tested here; xyzz_madd takes a finite A); then,
+// inside field.cuh:xyzz_madd, P = inf gives (AX, AY, 1, 1), P == -A gives
+// infinity and P == A the doubling (infinity when AY = 0). The doubling is
+// computed only by the lanes that take that branch.
 //
-// Bound on an H100: operations. A BLS12-381 mixed add is 10 Montgomery
-// products of 4 NW^2 + 3 NW = 612 32-bit operations plus 7 additions,
-// ~6,400 operations, against 6 x 96 B read and 4 x 96 B written per point:
-// ~7 operations per byte, above the card's ~5. Design: the point stays in
-// registers; limb k of neighbouring threads sits at neighbouring addresses,
-// so every load and store coalesces.
+// Bound on an H100: operations. A generic BLS12-381 mixed add is 10
+// Montgomery products of 4 NW^2 + 3 NW = 612 32-bit operations plus 7
+// additions, ~6,400 operations, against 6 x 96 B read and 4 x 96 B written
+// per point: ~7 operations per byte, above the card's ~5. Design:
+// - The arithmetic is field.cuh's CallOps: fmul_wide and the carry-chain
+//   additions of sw.cu's bucket accumulation, with every product through one
+//   non-inlined copy of fmul_wide. Inlined, the kernel was ~20,000
+//   instructions, more than the instruction cache holds, and ran at a
+//   quarter of its operation bound on an H100; through the call its code
+//   (~3,200 instructions) stays cached.
+// - A lane that doubles (P == A) runs the doubling beside its warp's
+//   generic lanes. Collecting a block's doubling lanes in shared memory and
+//   finishing them after a barrier, compacted onto its first threads, was
+//   slower on the edge-class feed (1.70 against 1.10 ms for 2^20 points on
+//   an H100), so the rare classes stay in place.
+// - The kernel is latency-bound, so it wants the most warps its registers
+//   allow: 64-thread blocks, 8 resident per SM (16 warps, at most 128
+//   registers a thread, which the product's call needs without a spill).
+// - Limb k of neighbouring threads sits at neighbouring addresses, so every
+//   load and store coalesces.
 #include "field.cuh"
 
+#define MADD_THREADS 64
+#define MADD_MIN_BLOCKS 8
+
 template <int NW>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(MADD_THREADS, MADD_MIN_BLOCKS)
 xyzz_add_affine_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ py,
                        const int32_t* __restrict__ pzz, const int32_t* __restrict__ pzzz,
                        const int32_t* __restrict__ ax, const int32_t* __restrict__ ay,
                        const uint8_t* __restrict__ a_inf, int32_t* __restrict__ ox,
                        int32_t* __restrict__ oy, int32_t* __restrict__ ozz,
-                       int32_t* __restrict__ ozzz, long long n, FieldConsts<NW> F) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+                       int32_t* __restrict__ ozzz, long long n,
+                       const __grid_constant__ FieldConsts<NW> F) {
+  const long long i = (long long)blockIdx.x * MADD_THREADS + threadIdx.x;
   if (i >= n) return;
   const size_t s = (size_t)n, k = (size_t)i;
   Xyzz<NW> P{load16<NW>(px, s, k), load16<NW>(py, s, k), load16<NW>(pzz, s, k),
              load16<NW>(pzzz, s, k)};
-  if (!a_inf[i]) xyzz_madd<NW>(P, load16<NW>(ax, s, k), load16<NW>(ay, s, k), F);
+  if (!a_inf[i]) xyzz_madd<NW, CallOps<NW>>(P, load16<NW>(ax, s, k), load16<NW>(ay, s, k), F);
   store16<NW>(ox, s, k, P.x);
   store16<NW>(oy, s, k, P.y);
   store16<NW>(ozz, s, k, P.zz);
@@ -42,8 +59,9 @@ extern "C" int zk_xyzz_add_affine(const void* px, const void* py, const void* pz
                                   const void* a_inf, void* ox, void* oy, void* ozz, void* ozzz,
                                   long long n, int nw, const uint32_t* consts, void* stream) {
   if (n <= 0) return 0;
-  const unsigned blocks = (unsigned)((n + 127) / 128);
-  ZK_DISPATCH_NW(nw, xyzz_add_affine_kernel<NW><<<blocks, 128, 0, (cudaStream_t)stream>>>(
+  if (!p_fits_cc(consts, nw)) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((n + MADD_THREADS - 1) / MADD_THREADS);
+  ZK_DISPATCH_NW(nw, xyzz_add_affine_kernel<NW><<<blocks, MADD_THREADS, 0, (cudaStream_t)stream>>>(
                           (const int32_t*)px, (const int32_t*)py, (const int32_t*)pzz,
                           (const int32_t*)pzzz, (const int32_t*)ax, (const int32_t*)ay,
                           (const uint8_t*)a_inf, (int32_t*)ox, (int32_t*)oy, (int32_t*)ozz,

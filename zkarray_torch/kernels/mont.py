@@ -243,7 +243,8 @@ def launch_strided(source: str, kernel: str, L: int, consts: np.ndarray, ins, ou
     shape = ins[0].shape
     if shape[0] != L or any(t.shape != shape for t in ins):
         raise ValueError(f"{kernel}: expected inputs of one (L={L}, *batch) shape")
-    desc = operand_words([_operand(t) for t in ins])
+    ops = [_operand(t) for t in ins]  # held until the launch: a copy may be among them
+    desc = operand_words(ops)
     out = torch.empty(tuple(out_lead) + tuple(shape), dtype=torch.int32, device=ins[0].device)
     lib = _build.load(source)
     with torch.cuda.device(out.device):

@@ -6,7 +6,10 @@ xyzz_accum_tiles and horner_windows. ``xyzz_add_affine`` is element-wise
 (``csrc/madd.cu``, one thread per point), and so are ``xyzz_add`` and
 ``xyzz_double`` (``csrc/xyzz.cu``), which have no Pallas counterpart: they
 run ec/sw.py's full add and doubling in one launch each, where the JAX
-package leaves XLA to fuse the jitted formulas around its product kernels. One CUDA kernel
+package leaves XLA to fuse the jitted formulas around its product kernels.
+``xyzz_tree_sum`` (``csrc/xyzz.cu``, no Pallas counterpart either) runs the
+levels of ec/msm.py's last-axis tree sum over rows of at most
+``TREE_SUM_MAX`` points in one launch, one block per row. One CUDA kernel
 (``csrc/sw.cu:xyzz_accum_kernel``) serves both accumulation wrappers: the
 port drops the TPU's (8, 128) block tiling, so the grid sweep and the
 residual tiles share one flat layout over S bucket slots:
@@ -296,6 +299,55 @@ def xyzz_double(curve, P):
     if km.on_cpu(*P):
         return _dbl_plain(curve, tuple(P))
     return _launch_xyzz("xyzz_double", curve, *km.align(curve.base.num_limbs, *P))
+
+
+# csrc/xyzz.cu:TREE_MAX_WIDTH, the widest row xyzz_tree_sum takes (its
+# shared memory holds half a row: 96 KB of BLS12-381 points at 1,024).
+TREE_SUM_MAX = 1024
+
+
+def xyzz_tree_sum_plain(curve, P):
+    """Pairwise tree sum over the last axis of (L, *batch, m) coordinates
+    P = (X, Y, ZZ, ZZZ), as zkarray/ec/msm.py:_tree_sum_last pairs it:
+    element i meets i + m // 2, and an odd last element is carried to the
+    next level unchanged. Returns (L, *batch, 1) coordinates."""
+    P = tuple(P)
+    m = P[0].shape[-1]
+    while m > 1:
+        h = m // 2
+        red = _fadd_plain(curve, tuple(v[..., :h] for v in P), tuple(v[..., h : 2 * h] for v in P))
+        if m % 2:
+            red = tuple(torch.cat([a, v[..., 2 * h :]], dim=-1) for a, v in zip(red, P))
+        m -= h
+        P = red
+    return P
+
+
+def xyzz_tree_sum(curve, P):
+    """The tree sum of ``xyzz_tree_sum_plain`` in one launch for rows of
+    1 <= m <= TREE_SUM_MAX points; inputs strided as kernels.mont._operand
+    allows. CPU tensors: the plain version; CUDA tensors:
+    csrc/xyzz.cu:xyzz_tree_sum_kernel."""
+    if km.on_cpu(*P):
+        return xyzz_tree_sum_plain(curve, P)
+    L = curve.base.num_limbs
+    km.check_cuda_int32("xyzz_tree_sum", *P, contiguous=False)
+    shape = P[0].shape
+    m = shape[-1] if len(shape) > 1 else 0
+    if shape[0] != L or any(t.shape != shape for t in P) or not 1 <= m <= TREE_SUM_MAX:
+        raise ValueError(f"xyzz_tree_sum: coordinates must be of one (L={L}, *batch, m) shape "
+                         f"with 1 <= m <= {TREE_SUM_MAX}, got {tuple(shape)}")
+    ops = [km._operand(t) for t in P]  # held until the launch: a copy may be among them
+    desc = km.operand_words(ops)
+    out = torch.empty((4,) + tuple(shape[:-1]) + (1,), dtype=torch.int32, device=P[0].device)
+    lib = _build.load("xyzz")
+    with torch.cuda.device(out.device):
+        err = lib.zk_xyzz_tree_sum(km.words_ptr(desc), out.data_ptr(), P[0][0].numel() // m, m,
+                                   L // 2, km.words_ptr(_curve_words(curve)),
+                                   torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "xyzz_tree_sum")
+    _build.LAUNCHES["xyzz_tree_sum"] += 1
+    return tuple(out.unbind(0))
 
 
 def horner_windows(curve, win, c: int):
