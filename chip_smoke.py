@@ -13,7 +13,9 @@ Phases, each printing one JSON line and raising on any failure:
    addition in each of field.cuh's routines, and the code size of the two
    sw.cu kernels and of a one-thread window Horner with xyzz_dbl/xyzz_add
    inlined (the earlier design of horner_windows); registers, spills and
-   SASS instructions of the xyzz.cu and madd.cu kernels.
+   SASS instructions of the xyzz.cu and madd.cu kernels; one dependent
+   carried add's latency in SM cycles (a one-thread chain between two
+   clock64() reads), for mont_inv's chain bound.
 2. kernel vs plain: each CUDA kernel against its plain PyTorch version on
    the same device inputs, bit for bit (tolerance zero), with both times:
    mont_mul and mont_sqr on 2^20 Fq and Fr elements; xyzz_accum through both
@@ -27,29 +29,43 @@ Phases, each printing one JSON line and raising on any failure:
    horner_windows row its ms per product and per critical-path product.
 3. main path: BLS12-381 G1 msm at n = 2^20, 254-bit scalars, c = 13, on
    tiled inputs with a host known answer; launch counts from one run
-   (xyzz_add 14, xyzz_tree_sum 1, xyzz_double 12: the 13 weight bits in
-   one group, two tree levels wider than TREE_SUM_MAX), with
-   the shape and operand map of every mont_mul/mont_sqr/mont_pow,
+   (xyzz_add 2, xyzz_tree_sum 1, xyzz_bit_horner 1, xyzz_double 0: the 13
+   weight bits in one group, two tree levels wider than TREE_SUM_MAX;
+   mont_inv 2, mont_pow 0), with
+   the shape and operand map of every mont_mul/mont_sqr/mont_pow/mont_inv,
    xyzz_add/xyzz_double and xyzz_tree_sum launch recorded (and the inputs
-   of the first launch of each, views as the tree sums pass them). Then
+   of the first launch of each, views as the tree sums pass them; the
+   inverted elements; the bit-Horner's partials). Then
    mont_mul against its plain version at each of its shapes (inputs
    non-contiguous halves of a wider tensor), and xyzz_add/xyzz_double
    against _fadd_plain/_dbl_plain and xyzz_tree_sum against its plain
    version on the recorded inputs themselves, with both times and a bound
    from those inputs' lane classes (xyzz_add's rows split into tree levels
-   and bit-Horner adds); the median of 3 timed runs split into accumulate,
+   and bit-Horner adds before xyzz_bit_horner), xyzz_double on the
+   bit-Horner's top partials, its old path shape; the median of 3 timed
+   runs split into accumulate,
    reduce and to-affine; one msm_reduce under torch.profiler (CUDA
    activity only) for its launches, the device's busy time, idle share and
    host time per device op; mont_pow against its plain version at 2^20 Fq
-   elements (zeros included) and at the path's one element, for p - 2;
+   elements (zeros and mont_inv's edge words included) and at one element,
+   for p - 2, and once through ff.fp.pow_const; mont_inv against its plain
+   version (Fermat) on testing.mont_inv_edge_words (0, 1, R mod p, p - 1,
+   powers of two, random; also against Python's pow), each alone and in one
+   launch, on the path's two inputs and at 2^20 elements, with its chain
+   bound (the host word model's iterations x dependent instructions x the
+   latency from phase 1) and its operation bound;
    xyzz_accum on the path's own band-1 feed (recorded from one more
    accumulate) and band-2 feed; horner_windows on the path's own window
    rows, and every horner_windows row's chain bound: its critical-path
    products x mont_pow's time per product in one thread, and the same chain
    bound for xyzz_add's element-wise launches (one add, 4 products deep)
-   and every xyzz_tree_sum row (its longest thread's adds); xyzz_add and
+   and every xyzz_tree_sum row (its longest thread's adds);
+   xyzz_bit_horner against its plain version on the path's partials
+   (L, 13, 20) and on testing.bit_horner_edge_parts, with its chain bound
+   (12 doublings and adds, 84 products deep); xyzz_add and
    xyzz_double on an edge-class feed of 2^20 Fq points (generic, P == Q,
-   P == -Q, P = inf, Q = inf, both inf, y = 0); xyzz_tree_sum on rows made
+   P == -Q, P = inf, Q = inf, both inf, y = 0), xyzz_double also through
+   ec.sw.xyzz_double (its path now); xyzz_tree_sum on rows made
    from that feed (element i of a row meets element i + m // 2 in one of
    those classes) at odd, even and full widths, and ec/msm.py's tree route
    at widths beyond TREE_SUM_MAX (element-wise levels, then the tree sum),
@@ -82,7 +98,8 @@ Phases, each printing one JSON line and raising on any failure:
    launches at phase 2's shape.
 8. the kernels line: per kernel its launches on its path (phase 3 for the
    MSM kernels, 5 for butterfly_dit, twiddle_mul and pow_table, 6 and 7 for
-   the entries of butterfly_stage, xyzz_add_affine and mont_sqr), error
+   the entries of butterfly_stage, xyzz_add_affine and mont_sqr, 3 for the
+   entries of mont_pow and xyzz_double, which left the MSM path), error
    against the plain version, times and bound. For mont_mul, xyzz_add,
    xyzz_double, xyzz_tree_sum, butterfly_dit, pow_table and twiddle_mul the
    times and bound are means per launch over the path's launches, shape by
@@ -126,6 +143,7 @@ ADD_DEPTH = 4  # products on a generic full XYZZ add's critical path
 TREE_EDGE_ROWS = 80  # rows of each xyzz_tree_sum edge feed (the reduce's q x W)
 TREE_EDGE_WIDTHS = (1, 2, 3, 13, 255, 1023, 1024)
 TREE_ROUTE_WIDTHS = (1025, 2049, 3001)  # through ec/msm.py:_tree_sum_last
+INV_SAMPLE = 256  # inputs of the 2^20 mont_inv run whose loop iterations the host model counts
 
 
 def emit(phase, **kw):
@@ -321,6 +339,52 @@ extern "C" __global__ void probe_horner_serial(const Xyzz<12>* win, Xyzz<12>* ou
 """
 
 
+# The latency of one dependent carried add on the card: one thread runs
+# rounds of 32 add.cc/addc pairs, each instruction waiting on the one
+# before, between two clock64() reads. mont_inv's chain bound counts its
+# critical path in such instructions.
+LATENCY_PROBE = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+__global__ void add_chain(uint32_t* out, long long* cycles, int rounds, uint32_t seed) {
+  uint32_t x = seed, y = seed ^ 0x9e3779b9u;
+  const long long t0 = clock64();
+  for (int i = 0; i < rounds; ++i) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      asm volatile("add.cc.u32 %0, %0, %1;\n\taddc.u32 %1, %1, %0;" : "+r"(x), "+r"(y));
+  }
+  const long long t1 = clock64();
+  out[0] = x ^ y;
+  cycles[0] = t1 - t0;
+}
+extern "C" int zk_add_chain(void* out, void* cycles, int rounds, void* stream) {
+  add_chain<<<1, 1, 0, (cudaStream_t)stream>>>((uint32_t*)out, (long long*)cycles, rounds, 12345u);
+  return (int)cudaGetLastError();
+}
+"""
+ADD_CHAIN_ROUNDS = 4096
+
+
+def add_latency_cycles(torch, lib_path):
+    """SM cycles per dependent carried add, from LATENCY_PROBE's library."""
+    lib = ctypes.CDLL(str(lib_path))
+    lib.zk_add_chain.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.zk_add_chain.restype = ctypes.c_int
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    best = None
+    for _ in range(3):  # the first call also loads the module
+        err = lib.zk_add_chain(out.data_ptr(), cycles.data_ptr(), ADD_CHAIN_ROUNDS,
+                               torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"latency probe: CUDA launch failed ({err})")
+        torch.cuda.synchronize()
+        per = int(cycles.item()) / (ADD_CHAIN_ROUNDS * 64)
+        best = per if best is None else min(best, per)
+    return best
+
+
 def cuobjdump():
     found = shutil.which("cuobjdump")
     if found:
@@ -365,8 +429,9 @@ def main():
     from zkarray_torch.kernels import mont as km
     from zkarray_torch.kernels import sw as ksw
     from zkarray_torch.poly import domain as tdm
-    from zkarray_torch.testing import (accum_edge_rounds, accum_feed, ec_add, ec_mul, ec_neg,
-                                       expected_msm, horner_edge_windows, tiled_inputs)
+    from zkarray_torch.testing import (accum_edge_rounds, accum_feed, bit_horner_edge_parts, ec_add,
+                                       ec_mul, ec_neg, expected_msm, horner_edge_windows,
+                                       mont_inv_edge_words, mont_inv_model, tiled_inputs)
 
     dev = torch.device(DEVICE)
     G1 = B.G1
@@ -393,11 +458,19 @@ def main():
     probe = subprocess.Popen(  # built beside the sources, at the same time
         [_build._nvcc(), *_build.NVCC_FLAGS[:4], "-cubin", "-I", str(_build.CSRC), "-o",
          str(probe_bin), str(probe_src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lat_src = _build.BUILD_DIR / "latency_probe.cu"
+    lat_src.write_text(LATENCY_PROBE)
+    lat_lib = lat_src.with_suffix(".so")
+    lat = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lat_lib), str(lat_src)],
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     built = _build.build()
     build_s = time.perf_counter() - t0
     probe_log, _ = probe.communicate()
     if probe.returncode != 0:
         raise RuntimeError(f"nvcc failed for the SASS probe:\n{probe_log}")
+    lat_log, _ = lat.communicate()
+    if lat.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the latency probe:\n{lat_log}")
     ptxas = {}
     for name in _build.SOURCES:
         log_path = _build.lib_path(name).with_suffix(".ptxas.txt")
@@ -435,6 +508,9 @@ def main():
                 chain_mul_code=sw_kernel("chain_mul"), xyzz_accum_code=sw_kernel("xyzz_accum_kernel"),
                 xyzz_kernels_nw12=xyzz_kernels)
     emit("sass", **sass)
+    add_cycles = add_latency_cycles(torch, lat_lib)
+    emit("latency", cycles_per_dependent_carried_add=add_cycles, max_sm_clock_mhz=clock_mhz,
+         ns_per_dependent_carried_add=add_cycles / clock_mhz * 1e3)
 
     # ---- helpers -------------------------------------------------------------
     def sync():
@@ -703,12 +779,14 @@ def main():
     xyzz_inputs = {}
     tree_keys = collections.Counter()
     tree_inputs = {}
-    band2, path_win = [], []
+    band2, path_win, inv_inputs, bit_horner_inputs = [], [], [], []
     launch, launch_xyzz, accum_grid = km._launch, ksw._launch_xyzz, ksw.xyzz_accum_grid
-    horner, tree_sum = ksw.horner_windows, ksw.xyzz_tree_sum
+    horner, tree_sum, bit_horner = ksw.horner_windows, ksw.xyzz_tree_sum, ksw.xyzz_bit_horner
 
     def recording_launch(kernel, spec, *ins, **kw):
         mont_shapes[(kernel, spec.name, tuple(ins[0].shape))] += 1
+        if kernel == "mont_inv":
+            inv_inputs.append(ins[0])
         return launch(kernel, spec, *ins, **kw)
 
     def recording_xyzz(kernel, curve, *coords):
@@ -732,10 +810,15 @@ def main():
         path_win.append(win)
         return horner(curve, win, c)
 
+    def recording_bit_horner(curve, parts):
+        bit_horner_inputs.append(tuple(parts))
+        return bit_horner(curve, parts)
+
     torch.cuda.reset_peak_memory_stats()
     sync()
     km._launch, ksw._launch_xyzz, ksw.xyzz_accum_grid = recording_launch, recording_xyzz, recording_accum
     ksw.horner_windows, ksw.xyzz_tree_sum = recording_horner, recording_tree
+    ksw.xyzz_bit_horner = recording_bit_horner
     try:
         kernels.reset_launches()
         aff = to_affine(tmsm.msm(G1, A, s, c, bits))
@@ -744,16 +827,17 @@ def main():
     finally:
         km._launch, ksw._launch_xyzz, ksw.xyzz_accum_grid = launch, launch_xyzz, accum_grid
         ksw.horner_windows, ksw.xyzz_tree_sum = horner, tree_sum
+        ksw.xyzz_bit_horner = bit_horner
     msm_peak = torch.cuda.max_memory_allocated()
     got_pt = tsw.affine_to_ints(G1, aff)[0]
     if got_pt != want_pt:
         raise AssertionError("msm 2^20: result differs from the host known answer")
-    msm_kernels = ("mont_mul", "mont_pow", "xyzz_add", "xyzz_double", "xyzz_tree_sum", "xyzz_accum",
-                   "horner_windows")
+    msm_kernels = ("mont_mul", "mont_inv", "xyzz_add", "xyzz_bit_horner", "xyzz_tree_sum",
+                   "xyzz_accum", "horner_windows")
     missing = [k for k in msm_kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"msm 2^20: kernels never launched: {missing}")
-    for name in ("mont_mul", "mont_sqr", "mont_pow"):
+    for name in ("mont_mul", "mont_sqr", "mont_pow", "mont_inv"):
         recorded = sum(v for (k, _, _), v in mont_shapes.items() if k == name)
         if recorded != launches[name]:
             raise AssertionError(f"{name}: {recorded} launches recorded, {launches[name]} counted")
@@ -766,22 +850,24 @@ def main():
                              f"{launches['xyzz_tree_sum']} counted")
     # the reduce's launches by its route: per group of weight bits, one
     # xyzz_add per tree level wider than TREE_SUM_MAX and one xyzz_tree_sum;
-    # per bit-Horner step one xyzz_double and one xyzz_add
+    # one xyzz_bit_horner for all the bits and windows. The to-affine's two
+    # inversions are mont_inv launches
     nbits = int(tmsm._bucket_weights(c, bits).max()).bit_length()
     groups = -(-nbits // tmsm._bits_per_group(G1.base.num_limbs, W, half, nbits))
     wide, m_ = 0, half
     while m_ > ksw.TREE_SUM_MAX:
         wide, m_ = wide + 1, m_ - m_ // 2
-    reduce_want = {"xyzz_add": groups * wide + nbits - 1, "xyzz_tree_sum": groups,
-                   "xyzz_double": nbits - 1}
+    reduce_want = {"xyzz_add": groups * wide, "xyzz_tree_sum": groups, "xyzz_bit_horner": 1,
+                   "xyzz_double": 0, "mont_inv": 2, "mont_pow": 0}
     if any(launches[k] != v for k, v in reduce_want.items()):
-        raise AssertionError(f"msm 2^{LOG_N}: reduce launches "
+        raise AssertionError(f"msm 2^{LOG_N}: reduce and to-affine launches "
                              f"{ {k: launches[k] for k in reduce_want} }, expected {reduce_want}")
     if launches["mont_mul"] + launches["mont_sqr"] >= 100:
         raise AssertionError(f"msm 2^20: {launches['mont_mul'] + launches['mont_sqr']} product "
                              "launches; the fused kernels should leave fewer than 100")
-    if not band2 or len(path_win) != 1:
-        raise AssertionError("msm 2^20: no band-2 accumulation or window Horner recorded")
+    if not band2 or len(path_win) != 1 or len(bit_horner_inputs) != 1 or len(inv_inputs) != 2:
+        raise AssertionError("msm 2^20: no band-2 accumulation, window Horner, bit-Horner or "
+                             "inversion recorded")
 
     # mont_mul against its plain version at every main-path shape, inputs the
     # two halves of a tensor twice as wide in its last axis (non-contiguous)
@@ -791,7 +877,7 @@ def main():
     at_shape = {"mont_mul": [], "mont_sqr": []}
     for (name, fname, shape), count in sorted(mont_shapes.items(), key=lambda kv: -math.prod(kv[0][2])):
         if name not in kerns:
-            continue  # mont_pow: held against its plain version below
+            continue  # mont_pow, mont_inv: held against their plain versions below
         spec = specs[fname]
         kern, plain, n_in = kerns[name]
         L, batch = shape[0], shape[1:]
@@ -865,10 +951,23 @@ def main():
                                     bound_bytes_ms=tb, bound_ops_ms=to))
     del xyzz_inputs
     for name, rows in xyzz_rows.items():
+        if not rows:
+            continue  # xyzz_double: off the path, timed below
         emit("kernel_main_path_shapes", kernel=name, inputs="the main path's own, as it passed them",
              rows=rows)
         report[name] = per_launch_means(
             rows, f"mean per launch over the main path's {len(rows)} shapes and operand maps")
+    # xyzz_double left the path with the bit-Horner's 12 launches: timed at
+    # their (L, W) shape on the path's top partials, as the first of them
+    # was launched (a strided view)
+    top = tuple(v[:, -1] for v in bit_horner_inputs[0])
+    err, ms, plain_ms, tb, to = xyzz_row("xyzz_double", (top,), "on the bit-Horner's top partials")
+    report["xyzz_double"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(tb, to),
+        bound_by="bytes" if tb >= to else "operations",
+        shape=f"{list(top[0].shape)}, the bit-Horner's top partials (its launches before "
+              "xyzz_bit_horner)")
+    del top
     for role in ("tree level", "bit-Horner"):
         rows = [r for r in xyzz_rows["xyzz_add"] if r["role"] == role]
         if rows:
@@ -966,15 +1065,19 @@ def main():
     del A, s
 
     # mont_pow against its plain version for p - 2 (Fermat inversion): at
-    # 2^20 Fq elements, zeros included, and at the path's own shape
+    # 2^20 Fq elements, zeros and mont_inv's edge words included, and at
+    # one element, the to-affine's shape before mont_inv took its place;
+    # then once through its entry, ff.fp.pow_const
     e = f.modulus - 2
     n_prod = e.bit_length() - 1 + bin(e).count("1")  # squarings + multiplications
-    pow_shape = max((sh for (k, _, sh) in mont_shapes if k == "mont_pow"), key=math.prod)
-    m1 = math.prod(pow_shape[1:])
-    pow_rows = {}
-    for label, x in (("2^20", rand_field(f, n)), ("path", rand_field(f, m1).reshape(pow_shape))):
+    pow_shape = (Lq, 1)
+    edge = mont_inv_edge_words(f, np.random.default_rng(6), n_random=8)
+    xe = fp.from_ints(f, edge, mont=False, device=dev)  # the words themselves
+    pow_rows, pow_in = {}, {}
+    for label, x in (("2^20", rand_field(f, n)), ("one element", rand_field(f, 1))):
         if label == "2^20":
             x[:, ::1001] = 0
+            x[:, 1 : 1 + len(edge)] = xe
         m = x[0].numel()
         got = km.mont_pow(f, x, e)
         want, plain_ms = once_ms(lambda: km.mont_pow_plain(f, x, e))
@@ -983,15 +1086,76 @@ def main():
         b_ms, b_by = bound(2 * Lq * m * 4, m * n_prod * mul_ops(f))
         pow_rows[label] = dict(shape=list(x.shape), max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                bound_ms=b_ms, bound_by=b_by)
+        pow_in[label] = (x, want)
         emit("kernel", kernel="mont_pow", field=f.name, exponent="p - 2", products=n_prod,
              **pow_rows[label])
-    wide, path = pow_rows["2^20"], pow_rows["path"]
+    wide, path = pow_rows["2^20"], pow_rows["one element"]
+    sync()
+    kernels.reset_launches()
+    got = fp.pow_const(f, pow_in["one element"][0], e)
+    sync()
+    pow_launches = kernels.LAUNCHES["mont_pow"]
+    check_equal("ff.fp.pow_const, one element", got, pow_in["one element"][1])
     report["mont_pow"] = dict(
         max_abs_err=max(wide["max_abs_err"], path["max_abs_err"]), ms=path["ms"],
         plain_ms=path["plain_ms"], bound_ms=path["bound_ms"], bound_by=path["bound_by"],
-        shape=f"Fq {pow_shape}, e = p - 2 ({n_prod} products)", ms_2e20=wide["ms"],
+        shape=f"Fq {list(pow_shape)}, e = p - 2 ({n_prod} products)", ms_2e20=wide["ms"],
         plain_ms_2e20=wide["plain_ms"], bound_ms_2e20=wide["bound_ms"],
-        bound_by_2e20=wide["bound_by"], us_per_product_one_thread=path["ms"] * 1e3 / n_prod)
+        bound_by_2e20=wide["bound_by"], us_per_product_one_thread=path["ms"] * 1e3 / n_prod,
+        launches_main_path=launches["mont_pow"])
+
+    # mont_inv, the to-affine's inversions, against its plain version (the
+    # Fermat power), bit for bit: the edge words (mont_inv_edge_words) in
+    # one launch and each alone, also against Python's pow; the path's two
+    # recorded inputs; 2^20 elements (mont_pow's, the edge words among
+    # them). ms per launch at one element by CUDA events and through the
+    # wrapper. Its chain bound: the word model's loop iterations on the
+    # path's inputs x the 3 NW + 5 dependent instructions of an iteration
+    # (csrc/mont.cu:mont_inv_kernel) x one dependent carried add's latency
+    # (phase 1); its operation bound: those iterations x 18 NW + 7 32-bit
+    # operations (two NW-word subtractions, two fsub_cc, 4 NW selects, the
+    # halving's shifts and multiply-adds, the test for 1), at 2^20 with the
+    # iterations of the first INV_SAMPLE inputs scaled
+    R, p_ = f.r_int, f.modulus
+    got = km.mont_inv(f, xe)
+    want = km.mont_inv_plain(f, xe)
+    err = check_equal("mont_inv on the edge words", got, want)
+    for j in range(len(edge)):
+        err = max(err, check_equal(f"mont_inv on edge word {j} alone", km.mont_inv(f, xe[:, j : j + 1]),
+                                   want[:, j : j + 1]))
+    if fp.to_ints(f, got, mont=False) != [pow(w * pow(R, -1, p_), -1, p_) * R % p_ if w else 0
+                                          for w in edge]:
+        raise AssertionError("mont_inv: edge words differ from Python's pow")
+    want, plain_ms = once_ms(lambda: km.mont_inv_plain(f, inv_inputs[0]))
+    err = max(err, check_equal("mont_inv on the path's first input", km.mont_inv(f, inv_inputs[0]), want))
+    err = max(err, check_equal("mont_inv on the path's second input", km.mont_inv(f, inv_inputs[1]),
+                               km.mont_inv_plain(f, inv_inputs[1])))
+    xw, want_w = pow_in["2^20"]
+    err = max(err, check_equal("mont_inv at 2^20", km.mont_inv(f, xw), want_w))
+    x1 = inv_inputs[0]
+    ms = time_ms(lambda: km.mont_inv(f, x1), 20)
+    w_ms = wrapper_ms(lambda: km.mont_inv(f, x1))
+    ms_w = time_ms(lambda: km.mont_inv(f, xw), 3)
+    iters_path = [mont_inv_model(f, fp.to_ints(f, t, mont=False)[0])[1] for t in inv_inputs]
+    iters_w = [mont_inv_model(f, v)[1] for v in fp.to_ints(f, xw[:, :INV_SAMPLE], mont=False)]
+    dep = 3 * nw(f) + 5
+    inv_ops = 18 * nw(f) + 7
+    it_path = sum(iters_path) / len(iters_path)
+    chain_ms = it_path * dep * add_cycles / (clock_mhz * 1e3)
+    b_ms, b_by = bound(2 * Lq * 4, it_path * inv_ops)
+    it_w = sum(iters_w) / len(iters_w)
+    b_ms_w, b_by_w = bound(2 * Lq * 4 * n, n * it_w * inv_ops)
+    report["mont_inv"] = dict(
+        max_abs_err=err, ms=ms, wrapper_ms=w_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        chain_bound_ms=chain_ms, share_of_chain_bound=chain_ms / ms, iterations_path=iters_path,
+        dependent_instructions_per_iteration=dep, cycles_per_dependent_add=add_cycles,
+        shape=f"Fq {list(inv_inputs[0].shape)} (the to-affine's one element)", ms_2e20=ms_w,
+        plain_ms_2e20=wide["plain_ms"], bound_ms_2e20=b_ms_w, bound_by_2e20=b_by_w,
+        share_of_bound_2e20=b_ms_w / ms_w, mean_iterations_2e20_sample=it_w,
+        iterations_sampled=len(iters_w), edge_words=len(edge),
+        mont_pow_ms_one_element=report["mont_pow"]["ms"])
+    emit("kernel", kernel="mont_inv", field=f.name, **report["mont_inv"])
+    del xw, want_w, pow_in, got, want
 
     # xyzz_accum on the main path's own feeds: band 1 (every slot, sorted by
     # occupancy) and band 2 (the top-occupancy slots' rounds beyond band 1)
@@ -1019,6 +1183,40 @@ def main():
         chain_bound_ms=rnd["chain_bound_ms"], share_of_chain_bound=rnd["share_of_chain_bound"],
         path_windows=horner_rows["main path windows"], edge_windows=horner_rows["oracle edge windows"])
     del path_win
+
+    # xyzz_bit_horner against its plain version on the path's recorded
+    # partials (L, nbits, W) and on testing.bit_horner_edge_parts at their
+    # shape; device ms by CUDA events and the wrapper's ms. Its chain bound:
+    # (nbits - 1) doublings 3 products deep and adds 4 deep x mont_pow's time
+    # per product in one thread, beside the share horner_windows reaches of
+    # its own; its operation bound counts the path's generic steps (the edge
+    # feed's row has none)
+    hb = bit_horner_inputs[0]
+    Lb, nb, Wb_ = hb[0].shape
+    depth = (nb - 1) * (3 + ADD_DEPTH)
+    bh_rows = {}
+    for label, parts in (("main path partials", hb),
+                         ("edge classes", bit_horner_edge_parts(G1, nb, Wb_, np.random.default_rng(7),
+                                                                dev))):
+        got = ksw.xyzz_bit_horner(G1, parts)
+        want, plain_ms = once_ms(lambda: ksw.xyzz_bit_horner_plain(G1, parts))
+        err = max(check_equal(f"xyzz_bit_horner {label}, coordinate {i}", g, w_)
+                  for i, (g, w_) in enumerate(zip(got, want)))
+        run = lambda: ksw.xyzz_bit_horner(G1, parts)  # noqa: E731
+        ms, w_ms = time_ms(run, 20), wrapper_ms(run)
+        b_ms, b_by = bound(4 * Lq * (nb + 1) * Wb_ * 4, (nb - 1) * Wb_ * (dbl_ops + fadd_ops))
+        chain = depth * us_prod / 1e3
+        bh_rows[label] = dict(shape=[Lb, nb, Wb_], max_abs_err=err, ms=ms, wrapper_ms=w_ms,
+                              plain_ms=plain_ms, critical_path_products=depth, chain_bound_ms=chain,
+                              share_of_chain_bound=chain / ms)
+        if label == "main path partials":
+            bh_rows[label].update(bound_ms=b_ms, bound_by=b_by)
+        emit("kernel", kernel="xyzz_bit_horner", feed=label, **bh_rows[label])
+    report.setdefault("xyzz_bit_horner", {}).update(
+        bh_rows["main path partials"], max_abs_err=max(r["max_abs_err"] for r in bh_rows.values()),
+        horner_windows_share_of_chain_bound=rnd["share_of_chain_bound"],
+        edge_feed=bh_rows["edge classes"])
+    del hb, parts, got, want
 
     # xyzz_add / xyzz_double on an edge-class feed of 2^20 random Fq points
     # (the formulas need no curve membership to be compared); Q is another
@@ -1054,6 +1252,17 @@ def main():
         emit("kernel", kernel=name, field=f.name, feed="edge classes", **edge)
         report[name]["edge_feed"] = edge
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+    # xyzz_double's path since the bit-Horner left it: its entry,
+    # ec.sw.xyzz_double, once on that feed (the kernel's words, held above)
+    sync()
+    kernels.reset_launches()
+    D = tsw.xyzz_double(G1, tsw.XYZZPoints(*P))
+    sync()
+    dbl_launches = kernels.LAUNCHES["xyzz_double"]
+    for i, (g, w_) in enumerate(zip(D, ksw.xyzz_double(G1, P))):
+        check_equal(f"ec.sw.xyzz_double on the edge feed, coordinate {i}", g, w_)
+    report["xyzz_double"]["launches_main_path"] = launches["xyzz_double"]
+    del D, g, w_
 
     # xyzz_tree_sum on rows built from that feed: row k of width m is P's and
     # Q's points k h .. k h + h - 1 side by side (h = m // 2), then P's point
@@ -1537,6 +1746,13 @@ def main():
         "mont_pow": ("zkarray_torch/kernels/csrc/mont.cu",
                      "zkarray/kernels/mont.py:235 and zkarray/kernels/mont.py:254, "
                      "fused into zkarray/ff/fp.py:321 pow_const"),
+        "mont_inv": ("zkarray_torch/kernels/csrc/mont.cu",
+                     "zkarray/kernels/mont.py:235 and zkarray/kernels/mont.py:254 in "
+                     "zkarray/ff/fp.py:370 inv's Fermat chain (pow_const), by binary GCD"),
+        "xyzz_bit_horner": ("zkarray_torch/kernels/csrc/sw.cu",
+                            "zkarray/ec/msm.py:550 the bit-Horner's zkarray/ec/sw.py:408 "
+                            "xyzz_double and :376 xyzz_add calls (zkarray/kernels/mont.py:235 "
+                            "and :254 inside), fused"),
         "pow_table": ("zkarray_torch/kernels/csrc/twiddle.cu",
                       "zkarray/kernels/mont.py:235, fused into zkarray/poly/domain.py:39 power_table"),
         "twiddle_mul": ("zkarray_torch/kernels/csrc/twiddle.cu",
@@ -1546,6 +1762,8 @@ def main():
     }
     paths = {k: (f"msm 2^{LOG_N}", launches[k]) for k in msm_kernels}
     paths["mont_sqr"] = ("ec.sw.xyzz_double_affine", sqr_launches)
+    paths["mont_pow"] = ("ff.fp.pow_const (Fq, one element, e = p - 2)", pow_launches)
+    paths["xyzz_double"] = (f"ec.sw.xyzz_double ({ne} edge-class points)", dbl_launches)
     for k in ntt_kernels:
         paths[k] = (f"fft 2^{NTT_LOG_N}", ntt_launches[k])
     paths["butterfly_stage"] = ("kernels.mont.butterfly_stage", stage_launches)

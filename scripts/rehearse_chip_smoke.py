@@ -56,6 +56,8 @@ def launch_mont(kernel, spec, *ins, exponent=None):
     LAUNCHES[kernel] += 1
     if kernel == "mont_pow":
         return km.mont_pow_plain(spec, ins[0], exponent)
+    if kernel == "mont_inv":
+        return km.mont_inv_plain(spec, ins[0])
     return km.mont_mul_plain(spec, ins[0], ins[-1])
 
 
@@ -91,6 +93,7 @@ def main():
     cu.get_device_name = lambda *a: "stub"
     cu.device_count = lambda: 1
     cs.nvidia_smi = lambda fields: "1980 MHz" if "clocks" in fields else "stub card, 700.00 W"
+    cs.add_latency_cycles = lambda torch, lib: 4.0
     cs.sass_functions = lambda path: {
         k: dict(instructions=10, imad=5, opcodes={})
         for k in ("probe_none", "probe_fmul", "probe_fmul_wide", "probe_horner_serial")}
@@ -115,6 +118,7 @@ def main():
     ksw.horner_windows = counted("horner_windows", ksw.horner_windows_plain)
     ksw.xyzz_add_affine = counted("xyzz_add_affine", ksw.xyzz_add_affine_plain)
     ksw.xyzz_tree_sum = counted("xyzz_tree_sum", ksw.xyzz_tree_sum_plain)
+    ksw.xyzz_bit_horner = counted("xyzz_bit_horner", ksw.xyzz_bit_horner_plain)
     km.pow_table = counted("pow_table", km.pow_table)  # a CPU device takes the plain version
     twiddle_mul = km.twiddle_mul
 

@@ -11,7 +11,11 @@ compiles), bit for bit:
   finish the bucket;
 * ChunkedMSM against the O(1) host known answer on tiled inputs;
 * msm_reduce's weighted bucket sums with the tree route split at a small
-  width against the unsplit route.
+  width against the unsplit route, and against the JAX package's with the
+  weight bits in one group and in several;
+* the bit-Horner's plain version (kernels/sw.py:xyzz_bit_horner_plain, what
+  the xyzz_bit_horner kernel computes) against the JAX package's loop of
+  xyzz_double and xyzz_add, on partials that take every edge branch.
 
 The port runs its one accumulate path, the grid-structured feed with the
 plain kernels, so these tests cover the production feed building."""
@@ -20,6 +24,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+jnp = jax.numpy
 torch.set_num_threads(1)
 
 from torch_parity import (  # noqa: E402
@@ -28,10 +34,10 @@ from zkarray.ec import msm as jmsm  # noqa: E402
 from zkarray.ec import sw as jsw  # noqa: E402
 from zkarray_torch.ec import msm as tmsm  # noqa: E402
 from zkarray_torch.ec import sw as tsw  # noqa: E402
-from zkarray_torch.interop import affine_from_numpy, limbs_from_numpy  # noqa: E402
+from zkarray_torch.interop import affine_from_numpy, limbs_from_numpy, limbs_to_numpy  # noqa: E402
 from zkarray_torch.kernels import sw as ksw  # noqa: E402
 from zkarray_torch.testing import (  # noqa: E402
-    ec_msm_oracle, ec_mul, ec_neg, expected_msm, tiled_inputs)
+    bit_horner_edge_parts, ec_msm_oracle, ec_mul, ec_neg, expected_msm, tiled_inputs)
 
 
 def test_signed_digits_and_window_geometry_match_jax():
@@ -179,3 +185,64 @@ def test_chunked_msm_matches_known_answer():
     res = cm.result()
     aff = tsw.xyzz_to_affine(TC, tsw.XYZZPoints(*(v[:, None] for v in res)))
     assert tsw.affine_to_ints(TC, aff)[0] == expected_msm(TC, ks, sc)
+
+
+@pytest.mark.parametrize("nbits", [1, 2, 13])
+def test_xyzz_bit_horner_plain_matches_jax_loop(nbits):
+    """kernels/sw.py:xyzz_bit_horner_plain (and the wrapper, which takes it on
+    the CPU) against zkarray/ec/msm.py:_weighted_sum_bits' bit-Horner (acc =
+    parts[nbits - 1]; acc = xyzz_double(acc); acc = xyzz_add(acc, parts[k])
+    for k = nbits - 2 .. 0) at W = 3, on testing.bit_horner_edge_parts'
+    partials: at 13 bits every lane meets a partial at infinity, acc == part,
+    acc == -part and a y = 0 doubling."""
+    parts = bit_horner_edge_parts(TC, nbits, 3, np.random.default_rng(30 + nbits))
+    jp = [jnp.asarray(limbs_to_numpy(v)) for v in parts]
+    acc = jsw.XYZZPoints(*(v[:, nbits - 1] for v in jp))
+    for k in range(nbits - 2, -1, -1):
+        acc = jsw.xyzz_double(JC, acc)
+        acc = jsw.xyzz_add(JC, acc, jsw.XYZZPoints(*(v[:, k] for v in jp)))
+    got = ksw.xyzz_bit_horner_plain(TC, parts)
+    assert_same_points(acc, got)
+    assert all(torch.equal(a, b) for a, b in zip(ksw.xyzz_bit_horner(TC, parts), got))
+
+
+def test_weighted_sum_bits_matches_jax_one_and_several_groups(monkeypatch):
+    """ec/msm.py:_weighted_sum_bits on a seeded (L, 5, 16) bucket state (the
+    weights of windows 0-2 and of the last two, split, windows at c = 5;
+    points at infinity, and bucket j + 8 holding bucket j's point or its
+    negation) with the 5 weight bits in one group and in groups of 2,
+    against zkarray.ec.msm._weighted_sum_bits; each run makes one
+    xyzz_bit_horner call and no xyzz_double or per-bit xyzz_add call."""
+    mod = JC.base.modulus
+    W, half, _, _ = tmsm._window_geometry(C, BITS)
+    wins = [0, 1, 2, W - 2, W - 1]
+    weights = tmsm._bucket_weights(C, BITS)[wins]
+    rng = np.random.default_rng(40)
+    gen = (JC.gen_x, JC.gen_y)
+    pool = [ec_mul(gen, int(k), 0, mod) for k in rng.integers(1, 1 << 40, size=6)]
+    pts = [[None if rng.random() < 0.3 else pool[rng.integers(len(pool))] for _ in range(half)]
+           for _ in wins]
+    for w, row in enumerate(pts):
+        for j in range(8):
+            if row[j] is not None and w % 3:
+                row[j + 8] = row[j] if w % 3 == 1 else ec_neg(row[j], mod)
+    lams = rng.integers(1, 1 << 62, size=len(wins) * half)
+    coords = [xyzz_coords(p, int(lam), mod) for p, lam in zip((p for row in pts for p in row), lams)]
+    jst, tst = xyzz_both(coords, (len(wins), half))
+    want = jax.jit(lambda st: jmsm._weighted_sum_bits(JC, st, weights))(jst)
+    calls = []
+    horner = ksw.xyzz_bit_horner
+
+    def counting_horner(curve, parts):
+        calls.append(tuple(parts[0].shape))
+        return horner(curve, parts)
+
+    def no_call(*args):
+        raise AssertionError("the bit-Horner runs in xyzz_bit_horner only")
+
+    monkeypatch.setattr(ksw, "xyzz_bit_horner", counting_horner)
+    monkeypatch.setattr(ksw, "xyzz_double", no_call)
+    monkeypatch.setattr(ksw, "xyzz_add", no_call)  # half = 16: no element-wise tree level
+    for quad in (None, 2):
+        assert_same_points(want, tmsm._weighted_sum_bits(TC, tst, weights, quad))
+    assert calls == [(TC.base.num_limbs, 5, len(wins))] * 2

@@ -15,7 +15,8 @@ building blocks. The design is the JAX package's "aligned bucket rounds":
 4.  Buckets reduce to window sums by weight bits (tree sums + bit-Horner),
     and one Horner launch combines the windows. A tree's levels wider than
     kernels/sw.py:TREE_SUM_MAX are element-wise xyzz_add launches; the rest
-    of the tree is one xyzz_tree_sum launch.
+    of the tree is one xyzz_tree_sum launch, and the bit-Horner over all
+    windows one xyzz_bit_horner launch.
 
 There is one accumulate path on every device: the feeds are built here in
 plain PyTorch and consumed by kernels/sw.py:xyzz_accum_grid and
@@ -26,6 +27,7 @@ its TPU build and has no counterpart here.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -273,7 +275,12 @@ def _weighted_sum_bits(curve: SWCurveSpec, state: XYZZPoints, weights: np.ndarra
     weight matrix: per weight bit a masked tree-sum, then bit-Horner. The
     bits go through the tree sums ``quad`` at a time (by default as many as
     REDUCE_BYTES allows); every (bit, window) row is summed on its own, so
-    the grouping does not change the result."""
+    the grouping does not change the result. The bit masks are made on the
+    tensors' device from one copy of the weights (host temporaries of the
+    mask size cost more than the reduce's kernels on a host whose page
+    faults are slow). The bit-Horner over the (L, nbits, W) partials is one
+    kernels.sw.xyzz_bit_horner call; with one group it reads the tree sums'
+    output in place."""
     f = curve.base
     L = f.num_limbs
     W, B = weights.shape
@@ -281,12 +288,12 @@ def _weighted_sum_bits(curve: SWCurveSpec, state: XYZZPoints, weights: np.ndarra
     nbits = int(weights.max()).bit_length()
     if quad is None:
         quad = _bits_per_group(L, W, B, nbits)
-    parts = []
+    wdev = torch.from_numpy(weights.astype(np.int32)).to(dev)[None]  # weights < 2^31
+    parts = ([], [], [], [])  # per coordinate, each group's (L, q, W) partials
     for k0 in range(0, nbits, quad):
-        ks = list(range(k0, min(k0 + quad, nbits)))
-        q = len(ks)
-        m = np.stack([(weights >> k) & 1 for k in ks]).astype(bool)  # (q, W, B)
-        mj = torch.from_numpy(m).to(dev)
+        q = min(quad, nbits - k0)
+        ks = torch.arange(k0, k0 + q, dtype=torch.int32, device=dev)[:, None, None]
+        mj = ((wdev >> ks) & 1).bool()  # (q, W, B)
         one = fp.one(f, (q, W, B), dev)
         zero = fp.zero(f, (q, W, B), dev)
         sel = XYZZPoints(
@@ -295,18 +302,17 @@ def _weighted_sum_bits(curve: SWCurveSpec, state: XYZZPoints, weights: np.ndarra
             fp.select(mj, state.zz[:, None], zero),
             fp.select(mj, state.zzz[:, None], zero),
         )
-        summed = XYZZPoints(*(v.reshape(L, q, W) for v in _tree_sum_last(curve, sel)))
-        parts.extend(XYZZPoints(*(v[:, i] for v in summed)) for i in range(q))
-    acc = parts[-1]
-    for k in range(nbits - 2, -1, -1):
-        acc = sw.xyzz_double(curve, acc)
-        acc = sw.xyzz_add(curve, acc, parts[k])
-    return acc  # coords (L, W)
+        for cs, v in zip(parts, _tree_sum_last(curve, sel)):
+            cs.append(v.reshape(L, q, W))
+    stacked = [cs[0] if len(cs) == 1 else torch.cat(cs, dim=1) for cs in parts]
+    return XYZZPoints(*ksw.xyzz_bit_horner(curve, stacked))  # coords (L, W)
 
 
+@functools.lru_cache(maxsize=None)
 def _bucket_weights(c: int, scalar_bits: int) -> np.ndarray:
     """(W, half) bucket weights: 1..half, restarting every v_w slots in a
-    split window (slot d + v_w k holds digit d + 1)."""
+    split window (slot d + v_w k holds digit d + 1). Cached per (c, bits),
+    so the array is read-only."""
     W, half, splits, _ = _window_geometry(c, scalar_bits)
     weights = np.zeros((W, half), dtype=np.uint32)
     weights[:] = np.arange(1, half + 1, dtype=np.uint32)[None, :]
@@ -315,6 +321,7 @@ def _bucket_weights(c: int, scalar_bits: int) -> np.ndarray:
         used = K_w * v_w
         row[:used] = (np.arange(used, dtype=np.uint32) % v_w) + 1
         weights[w] = row
+    weights.setflags(write=False)
     return weights
 
 

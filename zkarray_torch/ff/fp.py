@@ -2,7 +2,7 @@
 
 Counterpart of zkarray/ff/fp.py (main-path subset). Field tensors are
 ``int32[L, *batch]`` in Montgomery form unless stated otherwise, R = 2^(16 L).
-``mont_mul``, ``mont_sqr`` and ``pow_const`` go through
+``mont_mul``, ``mont_sqr``, ``pow_const`` and ``inv`` go through
 zkarray_torch.kernels.mont, which launches a CUDA kernel for CUDA tensors;
 everything else here is plain PyTorch on the tensors' own device (in the JAX
 package it is XLA).
@@ -133,8 +133,11 @@ def pow_const(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
 
 
 def inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
-    """a^-1 via Fermat (a^(p-2)); inv(0) = 0."""
-    return pow_const(spec, a, spec.modulus - 2)
+    """a^-1; inv(0) = 0. On a CUDA device one csrc/mont.cu:mont_inv launch,
+    a binary extended GCD per element (the reference's inverse); on the CPU
+    Fermat's a^(p-2), as zkarray/ff/fp.py:inv computes it. The inverse is
+    unique, so both give the same words."""
+    return km.mont_inv(spec, a)
 
 
 def _scan_mul(spec: FieldSpec, x: torch.Tensor, reverse: bool) -> torch.Tensor:

@@ -8,6 +8,7 @@ and binds them with ctypes. ``LAUNCHES`` counts each kernel's launches.
     mont_mul         mont.cu   mont.mont_mul                           mont.py:mont_mul
     mont_sqr         mont.cu   mont.mont_sqr                           mont.py:mont_sqr
     mont_pow         mont.cu   mont.mont_pow                           (none: ff/fp.py:pow_const's launch chain)
+    mont_inv         mont.cu   mont.mont_inv                           (none: ff/fp.py:inv's Fermat chain, by binary GCD)
     xyzz_accum       sw.cu     sw.xyzz_accum_grid, sw.xyzz_accum_tiles  sw.py:xyzz_accum_grid, :xyzz_accum_tiles
     horner_windows   sw.cu     sw.horner_windows                       sw.py:horner_windows
     butterfly_dit    ntt.cu    mont.butterfly_dit                      mont.py:butterfly_dit_inplace
@@ -16,6 +17,7 @@ and binds them with ctypes. ``LAUNCHES`` counts each kernel's launches.
     xyzz_add         xyzz.cu   sw.xyzz_add                             (none: ec/sw.py:xyzz_add's launch chain)
     xyzz_double      xyzz.cu   sw.xyzz_double                          (none: ec/sw.py:xyzz_double's launch chain)
     xyzz_tree_sum    xyzz.cu   sw.xyzz_tree_sum                        (none: ec/msm.py:_tree_sum_last's per-level launches)
+    xyzz_bit_horner  sw.cu     sw.xyzz_bit_horner                      (none: ec/msm.py:_weighted_sum_bits' bit-Horner launches)
     pow_table        twiddle.cu  mont.pow_table                        (none: poly/domain.py's table launch chains)
     twiddle_mul      twiddle.cu  mont.twiddle_mul                      (none: poly/domain.py's table launch chains)
 """

@@ -38,11 +38,13 @@ EXPORTS = {
         "zk_mont_mul": [_P, _P, _LL, _I, _P, _P],
         "zk_mont_sqr": [_P, _P, _LL, _I, _P, _P],
         "zk_mont_pow": [_P, _P, _LL, _P, _I, _I, _P, _P],
+        "zk_mont_inv": [_P, _P, _LL, _P, _I, _P, _P],
     },
     "sw": {
         "zk_xyzz_accum": [_P, _P, _P, _P, _I, _LL, _I, _P, _P],
         "zk_horner_windows": [_P, _P, _I, _I, _I, _P, _P],
         "zk_xyzz_accum_occupancy": [_I, _P, _P],
+        "zk_xyzz_bit_horner": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     },
     "ntt": {
         "zk_butterfly_dit": [_P, _P, _LL, _LL, _LL, _LL, _LL, _I, _P, _P],
@@ -66,7 +68,7 @@ EXPORTS = {
 LAUNCHES = {"mont_mul": 0, "mont_sqr": 0, "xyzz_accum": 0, "horner_windows": 0,
             "butterfly_dit": 0, "butterfly_stage": 0, "xyzz_add_affine": 0,
             "xyzz_add": 0, "xyzz_double": 0, "xyzz_tree_sum": 0, "mont_pow": 0, "pow_table": 0,
-            "twiddle_mul": 0}
+            "twiddle_mul": 0, "mont_inv": 0, "xyzz_bit_horner": 0}
 
 _libs = {}
 

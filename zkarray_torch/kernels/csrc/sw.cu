@@ -38,6 +38,19 @@
 // of thousands. (A rolled product loop, tried for the same reason, had a
 // longer latency than the unrolled product.) The edge branches (infinity,
 // P == Q, P == -Q) read shared values and are uniform across the warp.
+//
+// xyzz_bit_horner has no Pallas counterpart: it replaces the bit-Horner of
+// ec/msm.py:_weighted_sum_bits (zkarray/ec/msm.py:_weighted_sum_bits, the
+// loop over xyzz_double and xyzz_add), which the port ran as one
+// xyzz_double and one xyzz_add launch per weight bit (24 launches at
+// 13 bits), each 20 threads wide and bound by the host's launch time. Per
+// window w it computes acc = parts[nbits - 1], then acc = 2 acc + parts[k]
+// for k = nbits - 2 .. 0, with _dbl_core's and _fadd_core's edges. Each
+// window is a serial chain of (nbits - 1) doublings (3 products deep) and
+// full adds (4 deep): 84 products at 13 bits, bound by their latency, as
+// horner_windows is. Design: horner_windows' chain, unchanged, one warp
+// (one block) per window, so the W chains run side by side on W SMs in
+// one launch.
 #include "field.cuh"
 
 #define ACCUM_THREADS 64
@@ -281,6 +294,20 @@ __device__ __forceinline__ void chain_add(ChainSmem<NW>* sh, const FieldConsts<N
   set_point<NW>(sh, PX, AX3, AY3, AZZ3, AZZZ3);
 }
 
+// The chain's constants: p and inv for chain_mul, one, zero and the curve's a.
+// The load that follows ends with the warp meeting.
+template <int NW>
+__device__ __forceinline__ void chain_init(ChainSmem<NW>* sh, const FieldConsts<NW>& F) {
+  const int lane = threadIdx.x;
+  if (lane < NW) {
+    sh->p[lane] = F.p[lane];
+    sh->v[ONE][lane] = F.one[lane];
+    sh->v[ZERO][lane] = 0;
+    sh->v[ACOEF][lane] = F.a[lane];
+  }
+  if (lane == 0) sh->inv = F.inv;
+}
+
 // win: int32[W, 4L] 16-bit limbs (X | Y | ZZ | ZZZ per window); slots
 // dst..dst+3 = window w (word-parallel over the warp).
 template <int NW>
@@ -297,13 +324,7 @@ horner_windows_kernel(const int32_t* __restrict__ win, int32_t* __restrict__ out
                       FieldConsts<NW> F) {
   __shared__ ChainSmem<NW> sh;
   const int lane = threadIdx.x;
-  if (lane < NW) {
-    sh.p[lane] = F.p[lane];
-    sh.v[ONE][lane] = F.one[lane];
-    sh.v[ZERO][lane] = 0;
-    sh.v[ACOEF][lane] = F.a[lane];
-  }
-  if (lane == 0) sh.inv = F.inv;
+  chain_init<NW>(&sh, F);
   load_window<NW>(&sh, win, W - 1, PX);
   for (int wi = W - 2; wi >= 0; --wi) {
     for (int k = 0; k < c; ++k) chain_dbl<NW>(&sh, F);
@@ -314,6 +335,50 @@ horner_windows_kernel(const int32_t* __restrict__ win, int32_t* __restrict__ out
     const uint32_t w = sh.v[PX + k / NW][k % NW];
     out[2 * k] = (int32_t)(w & 0xFFFFu);
     out[2 * k + 1] = (int32_t)(w >> 16);
+  }
+}
+
+// ---- the reduce's bit-Horner, one chain per window ---------------------------
+
+// The four coordinates of the per-bit partials, each int32[L, nbits, W] of
+// 16-bit limbs.
+struct PartCoords {
+  const int32_t* c[4];
+};
+
+// Slots dst..dst+3 = window w's partial of weight bit k (word-parallel over
+// the warp).
+template <int NW>
+__device__ __forceinline__ void load_part(ChainSmem<NW>* sh, const PartCoords& P, int k, int nbits,
+                                          int W, int w, int dst) {
+  const size_t limb = (size_t)nbits * W;
+  for (int i = threadIdx.x; i < 4 * NW; i += 32) {
+    const int j = i % NW;
+    const int32_t* b = P.c[i / NW] + 2 * j * limb + (size_t)k * W + w;
+    sh->v[dst + i / NW][j] = ((uint32_t)b[0] & 0xFFFFu) | ((uint32_t)b[limb] << 16);
+  }
+  __syncwarp();
+}
+
+// out: int32[4, L, W], X | Y | ZZ | ZZZ of every window.
+template <int NW>
+__global__ void __launch_bounds__(32)
+xyzz_bit_horner_kernel(PartCoords P, int32_t* __restrict__ out, int nbits, int W,
+                       FieldConsts<NW> F) {
+  __shared__ ChainSmem<NW> sh;
+  const int lane = threadIdx.x, w = blockIdx.x;
+  chain_init<NW>(&sh, F);
+  load_part<NW>(&sh, P, nbits - 1, nbits, W, w, PX);
+  for (int k = nbits - 2; k >= 0; --k) {
+    chain_dbl<NW>(&sh, F);
+    load_part<NW>(&sh, P, k, nbits, W, w, QX);
+    chain_add<NW>(&sh, F);
+  }
+  for (int i = lane; i < 4 * NW; i += 32) {
+    const uint32_t x = sh.v[PX + i / NW][i % NW];
+    int32_t* o = out + ((size_t)(i / NW) * 2 * NW + 2 * (i % NW)) * W + w;
+    o[0] = (int32_t)(x & 0xFFFFu);
+    o[W] = (int32_t)(x >> 16);
   }
 }
 
@@ -344,5 +409,17 @@ extern "C" int zk_horner_windows(const void* win, void* out, int W, int c, int n
   ZK_DISPATCH_NW(nw, horner_windows_kernel<NW><<<1, 32, 0, (cudaStream_t)stream>>>(
                          (const int32_t*)win, (int32_t*)out, W, c,
                          consts_from_host<NW>(consts)));
+  return (int)cudaGetLastError();
+}
+
+// x, y, zz, zzz: int32[L, nbits, W] each; out: int32[4, L, W].
+extern "C" int zk_xyzz_bit_horner(const void* x, const void* y, const void* zz, const void* zzz,
+                                  void* out, int nbits, int W, int nw, const uint32_t* consts,
+                                  void* stream) {
+  if (nbits <= 0 || W <= 0 || !p_fits_cc(consts, nw)) return (int)cudaErrorInvalidValue;
+  const PartCoords P{{(const int32_t*)x, (const int32_t*)y, (const int32_t*)zz,
+                      (const int32_t*)zzz}};
+  ZK_DISPATCH_NW(nw, xyzz_bit_horner_kernel<NW><<<W, 32, 0, (cudaStream_t)stream>>>(
+                         P, (int32_t*)out, nbits, W, consts_from_host<NW>(consts)));
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,9 @@ plain PyTorch versions.
 Counterpart of zkarray/kernels/mont.py:mont_mul, mont_sqr,
 butterfly_dit_inplace and butterfly_stage; ``mont_pow`` has no Pallas
 counterpart (it runs ff/fp.py:pow_const's square-and-multiply chain in one
-launch, where the JAX package leaves XLA to fuse a lax.scan), nor have
+launch, where the JAX package leaves XLA to fuse a lax.scan), nor has
+``mont_inv`` (the field inverse by binary GCD, ff/fp.py:inv's route on a
+CUDA device; its plain version is the JAX package's Fermat power), nor have
 ``pow_table`` and ``twiddle_mul`` (one launch each for a power table and for
 a block's k1-twiddle multiply, where poly/domain.py ran chains of mont_mul
 and mont_sqr launches). Each wrapper takes the plain version for tensors on
@@ -256,11 +258,20 @@ def launch_strided(source: str, kernel: str, L: int, consts: np.ndarray, ins, ou
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _r2_words(spec: FieldSpec) -> np.ndarray:
+    """R^2 mod p as NW = L/2 host words: mont_inv's starting coefficient."""
+    return np.asarray([(spec.r2_int >> (32 * i)) & 0xFFFFFFFF for i in range(spec.num_limbs // 2)],
+                      dtype=np.uint32)
+
+
 def _launch(kernel: str, spec: FieldSpec, *ins: torch.Tensor,
             exponent: int | None = None) -> torch.Tensor:
     """Run the element-wise kernel ``kernel`` of csrc/mont.cu on (L, *batch)
     inputs of one shape; ``exponent`` is mont_pow's."""
     extra = ()
+    if kernel == "mont_inv":
+        extra = (words_ptr(_r2_words(spec)),)
     if exponent is not None:
         nbits = exponent.bit_length()
         words = np.asarray([(exponent >> (32 * i)) & 0xFFFFFFFF for i in range(-(-nbits // 32))]
@@ -315,6 +326,22 @@ def mont_pow(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
     if e.bit_length() > MAX_EXP_BITS:
         raise ValueError(f"mont_pow: exponents are limited to {MAX_EXP_BITS} bits on CUDA")
     return _launch("mont_pow", spec, a, exponent=e)
+
+
+def mont_inv_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """a^-1 element-wise (0 -> 0) by Fermat, a^(p - 2) through
+    ``mont_pow_plain``: the JAX package's route (zkarray/ff/fp.py:inv). The
+    inverse is unique, so its words are the kernel's."""
+    return mont_pow_plain(spec, a, spec.modulus - 2)
+
+
+def mont_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """a^-1 element-wise (0 -> 0) for Montgomery words a < p in (L, *batch).
+    CPU tensors: plain version; CUDA tensors: csrc/mont.cu:mont_inv_kernel,
+    a binary GCD per element in one launch."""
+    if on_cpu(a):
+        return mont_inv_plain(spec, a)
+    return _launch("mont_inv", spec, a)
 
 
 def _launch_dit(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor, stride: int):

@@ -9,7 +9,10 @@ run ec/sw.py's full add and doubling in one launch each, where the JAX
 package leaves XLA to fuse the jitted formulas around its product kernels.
 ``xyzz_tree_sum`` (``csrc/xyzz.cu``, no Pallas counterpart either) runs the
 levels of ec/msm.py's last-axis tree sum over rows of at most
-``TREE_SUM_MAX`` points in one launch, one block per row. One CUDA kernel
+``TREE_SUM_MAX`` points in one launch, one block per row, and
+``xyzz_bit_horner`` (``csrc/sw.cu``, none either) runs ec/msm.py's
+bit-Horner over the per-bit partials in one launch, one warp per window,
+on horner_windows' chain. One CUDA kernel
 (``csrc/sw.cu:xyzz_accum_kernel``) serves both accumulation wrappers: the
 port drops the TPU's (8, 128) block tiling, so the grid sweep and the
 residual tiles share one flat layout over S bucket slots:
@@ -347,6 +350,43 @@ def xyzz_tree_sum(curve, P):
                                    torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "xyzz_tree_sum")
     _build.LAUNCHES["xyzz_tree_sum"] += 1
+    return tuple(out.unbind(0))
+
+
+def xyzz_bit_horner_plain(curve, parts):
+    """The bit-Horner of zkarray/ec/msm.py:_weighted_sum_bits over per-bit
+    partials ``parts`` = (X, Y, ZZ, ZZZ), each (L, nbits, W): acc =
+    parts[:, nbits - 1], then for k = nbits - 2 .. 0 acc = 2 acc (_dbl_plain)
+    and acc = acc + parts[:, k] (_fadd_plain). Returns (L, W) coordinates."""
+    nbits = parts[0].shape[1]
+    acc = tuple(v[:, nbits - 1] for v in parts)
+    for k in range(nbits - 2, -1, -1):
+        acc = _fadd_plain(curve, _dbl_plain(curve, acc), tuple(v[:, k] for v in parts))
+    return acc
+
+
+def xyzz_bit_horner(curve, parts):
+    """The bit-Horner of ``xyzz_bit_horner_plain`` in one launch. CPU
+    tensors: the plain version; CUDA tensors: csrc/sw.cu:xyzz_bit_horner_kernel
+    (contiguous inputs are read in place)."""
+    if km.on_cpu(*parts):
+        return xyzz_bit_horner_plain(curve, parts)
+    L = curve.base.num_limbs
+    parts = [t.contiguous() for t in parts]
+    km.check_cuda_int32("xyzz_bit_horner", *parts)
+    shape = parts[0].shape
+    if len(shape) != 3 or shape[0] != L or any(t.shape != shape for t in parts) or 0 in shape:
+        raise ValueError(f"xyzz_bit_horner: coordinates must be of one (L={L}, nbits, W) shape, "
+                         f"got {tuple(shape)}")
+    _, nbits, W = shape
+    out = torch.empty((4, L, W), dtype=torch.int32, device=parts[0].device)
+    lib = _build.load("sw")
+    with torch.cuda.device(out.device):
+        err = lib.zk_xyzz_bit_horner(*(t.data_ptr() for t in parts), out.data_ptr(), nbits, W,
+                                     L // 2, km.words_ptr(_curve_words(curve)),
+                                     torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "xyzz_bit_horner")
+    _build.LAUNCHES["xyzz_bit_horner"] += 1
     return tuple(out.unbind(0))
 
 

@@ -185,3 +185,154 @@ def horner_edge_windows(curve: SWCurveSpec, W: int, c: int, rng: np.random.Gener
                      for i in range(4)])
     total = sum(k << (c * w) for w, k in enumerate(ks)) % r
     return win.T.contiguous(), ec_mul(gen, total, a, mod)
+
+
+# ---------------------------------------------------------------------------
+# the field inverse's loop (csrc/mont.cu:mont_inv_kernel), word by word
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _words(x: int, nw: int) -> list:
+    return [(x >> (32 * j)) & _M32 for j in range(nw)]
+
+
+def _sub_words(a, b):
+    """a - b over 32-bit words with the borrow chain: (words, borrow)."""
+    out, borrow = [], 0
+    for x, y in zip(a, b):
+        s = x - y - borrow
+        out.append(s & _M32)
+        borrow = int(s < 0)
+    return out, borrow
+
+
+def _fsub_words(a, b, p):
+    """csrc/field.cuh:fsub_cc: a - b, then p added under the borrow's mask,
+    the carry out dropped."""
+    d, borrow = _sub_words(a, b)
+    out, c = [], 0
+    for x, y in zip(d, p):
+        s = x + (y if borrow else 0) + c
+        out.append(s & _M32)
+        c = s >> 32
+    return out
+
+
+def _halve_words(u, b, p, inv32):
+    """csrc/mont.cu:halve: k = trailing zeros of u's low word (31 when it is
+    0); u >>= k; b = (b + m p) >> k with m = b inv32 mod 2^k, over NW + 1
+    words."""
+    nw = len(u)
+    w0 = u[0]
+    k = (w0 & -w0).bit_length() - 1 if w0 else 31
+    u = [((u[j] >> k) | (u[j + 1] << (32 - k))) & _M32 for j in range(nw - 1)] + [u[-1] >> k]
+    m = (b[0] * inv32) & ((1 << k) - 1)
+    t, c = [], 0
+    for j in range(nw):
+        s = m * p[j] + b[j] + c
+        t.append(s & _M32)
+        c = s >> 32
+    t.append(c)
+    return u, [((t[j] >> k) | (t[j + 1] << (32 - k))) & _M32 for j in range(nw)]
+
+
+def mont_inv_model(spec, x: int):
+    """csrc/mont.cu:mont_inv_kernel on one Montgomery word x < p, in its
+    order of work and with its carries: returns (x^-1's Montgomery word, the
+    loop's iterations). u v at least halves each iteration, so the
+    iterations stay below mont_inv_iteration_bound(spec, x)."""
+    nw = spec.num_limbs // 2
+    if x == 0:
+        return 0, 0
+    p = _words(spec.modulus, nw)
+    u, v, b, c = _words(x, nw), p, _words(spec.r2_int, nw), [0] * nw
+    one = [1] + [0] * (nw - 1)
+
+    def strip(u, b):
+        for _ in range(nw + 1):
+            if u[0] & 1:
+                break
+            u, b = _halve_words(u, b, p, spec.inv32)
+        return u, b
+
+    u, b = strip(u, b)
+    it = 0
+    while it < 64 * nw and u != one:
+        d, lt = _sub_words(u, v)
+        e, _ = _sub_words(v, u)
+        bc, cb = _fsub_words(b, c, p), _fsub_words(c, b, p)
+        if lt:
+            u, b, v, c = e, cb, u, b
+        else:
+            u, b = d, bc
+        u, b = strip(u, b)
+        it += 1
+    return sum(w << (32 * j) for j, w in enumerate(b)), it
+
+
+def mont_inv_iteration_bound(spec, x: int) -> int:
+    """Iterations of mont_inv's loop on x are fewer than this: log2(u v)
+    starts below bits(x) + bits(p) and falls by at least 1 each time."""
+    return x.bit_length() + spec.modulus.bit_length()
+
+
+def mont_inv_edge_words(spec, rng: np.random.Generator, n_random: int = 8) -> list:
+    """Montgomery words for the field inverse's edge cases: 0, 1, R mod p
+    (the element 1), p - 1, the words 2^k (a long first run of halvings),
+    the elements 2^k (2^k R mod p) for k up to 380, then ``n_random``
+    random words below p."""
+    p, bits = spec.modulus, spec.modulus.bit_length()
+    out = [0, 1, spec.r_int % p, p - 1]
+    out += [1 << k for k in (1, 31, 32, 33, 64, 200, bits - 2) if k < bits - 1]
+    out += [spec.to_mont_int(pow(2, k, p)) for k in (1, 63, 64, 255, 380)]
+    out += [int.from_bytes(rng.bytes(48), "little") % p for _ in range(n_random)]
+    return out
+
+
+def bit_horner_edge_parts(curve: SWCurveSpec, nbits: int, W: int, rng: np.random.Generator,
+                          device="cpu"):
+    """Per-bit partials (X, Y, ZZ, ZZZ), each int32[L, nbits, W] of random
+    field elements (the formulas need no curve membership to be compared),
+    for the reduce's bit-Horner (acc = parts[nbits - 1]; acc = 2 acc +
+    parts[k], k = nbits - 2 .. 0) that take every edge branch. Window w's
+    partial of bit k is of class (w - k) % 6: 0 and 5 generic; 1 at
+    infinity; 2 equal to 2 acc in another representative (the add doubles);
+    3 its negation (the sum cancels to infinity); 4 with y = 0. Down one
+    window the classes follow in that order, so a sum that cancelled (3) is
+    infinity when a y = 0 partial (4) is added to it, and the next doubling
+    (5) doubles a y = 0 point. The top partial takes classes 1 and 4 too."""
+    from zkarray_torch.kernels import sw as ksw
+
+    f = curve.base
+    p = f.modulus
+    one, zero = fp.one(f, (W,), device), fp.zero(f, (W,), device)
+
+    def rand():
+        return fp.from_ints(f, [int.from_bytes(rng.bytes(48), "little") % p for _ in range(W)],
+                            device=device)
+
+    def cls(k):
+        return torch.tensor([(w - k) % 6 for w in range(W)], device=device)[None]
+
+    def classes(k, part, dbl=None):
+        c = cls(k)
+        part = tuple(torch.where(c == 1, i, v) for i, v in zip((one, one, zero, zero), part))
+        if dbl is not None:
+            lam = rand()
+            l2 = fp.mont_mul(f, lam, lam)
+            l3 = fp.mont_mul(f, l2, lam)
+            same = tuple(fp.mont_mul(f, v, s) for v, s in zip(dbl, (l2, l3, l2, l3)))
+            neg = (same[0], fp.neg(f, same[1]), same[2], same[3])
+            part = tuple(torch.where(c == 2, s, torch.where(c == 3, g, v))
+                         for s, g, v in zip(same, neg, part))
+        return (part[0], torch.where(c == 4, zero, part[1]), part[2], part[3])
+
+    parts = [None] * nbits
+    parts[nbits - 1] = acc = classes(nbits - 1, tuple(rand() for _ in range(4)))
+    for k in range(nbits - 2, -1, -1):
+        acc2 = ksw._dbl_plain(curve, acc)
+        parts[k] = classes(k, tuple(rand() for _ in range(4)), acc2)
+        acc = ksw._fadd_plain(curve, acc2, parts[k])
+    return tuple(torch.stack([pt[i] for pt in parts], dim=1).contiguous() for i in range(4))
