@@ -96,7 +96,32 @@ Phases, each printing one JSON line and raising on any failure:
    its own bound. mont_sqr's path: ec.sw.xyzz_double_affine on 2^20 points (64
    real points and infinity, tiled) against the host oracle, its mont_sqr
    launches at phase 2's shape.
-8. the kernels line: per kernel its launches on its path (phase 3 for the
+8. the field and G1 group path (BASELINE configs 1-2), each result held
+   against host known answers: BN254 Fr mont_mul, mont_sqr, add, sub,
+   batch_inv, legendre and sqrt (Tonelli-Shanks) on 2^16 elements, 256
+   sampled indices against Python ints (the roots against
+   testing.sqrt_reference), with ms and elements/s; BLS12-381 G1
+   scalar_mul of 2^16 points by seeded 255-bit scalars and to_affine, 64
+   sampled points against the host's ec_mul, its launches per scalar_mul
+   and one more scalar_mul under torch.profiler (device ops, busy time,
+   idle share); jac_add, jac_add_mixed and jac_double on the six edge
+   classes with random Z, tiled to 2^16; clear_cofactor on points outside
+   the subgroup; the generic and the fast subgroup check on 2^16 lanes of
+   points in and outside the subgroup and infinity, every lane's mask
+   exact; the 1,000 zcash G1 vectors tiled to 2^16, compressed and
+   uncompressed, deserialized with validate=True (all accepted, with
+   encodings of points outside the subgroup after them, all rejected) and
+   serialized back byte-exact, with deserializations/s; BN254 and
+   BLS12-377 G1 scalar_mul and generic subgroup_check at 2^12. Every
+   mont_mul/mont_sqr/mont_pow/mont_inv launch of those runs is counted and
+   recorded by (field, shape, exponent) with its first inputs; then each
+   of the four kernels against its plain version at BN254 Fr and Fq,
+   BLS12-381 Fr and Fq and BLS12-377 Fq on mont_inv_edge_words (all pairs
+   for mont_mul; exponents 0, 1, 2, 3, p - 2, (p - 1)/2, the trace, 2^(s-1)
+   and the square-root exponent for mont_pow) and on every recorded input,
+   with times and bounds at 2^16 (mont_mul and mont_sqr at NW = 8 and 12,
+   mont_pow at each field's widest launch, mont_inv at its launches).
+9. the kernels line: per kernel its launches on its path (phase 3 for the
    MSM kernels, 5 for butterfly_dit, twiddle_mul and pow_table, 6 and 7 for
    the entries of butterfly_stage, xyzz_add_affine and mont_sqr, 3 for the
    entries of mont_pow and xyzz_double, which left the MSM path), error
@@ -105,7 +130,9 @@ Phases, each printing one JSON line and raising on any failure:
    times and bound are means per launch over the path's launches, shape by
    shape (xyzz_add and xyzz_tree_sum also with their chain bound); mont_mul's
    fft launches (none) sit under "ntt". One row per CUDA kernel: xyzz_accum
-   serves both xyzz_accum_grid and xyzz_accum_tiles.
+   serves both xyzz_accum_grid and xyzz_accum_tiles. mont_mul, mont_sqr,
+   mont_pow and mont_inv also carry phase 8's launches, rows and error
+   under "group".
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
@@ -123,6 +150,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -144,6 +172,13 @@ TREE_EDGE_ROWS = 80  # rows of each xyzz_tree_sum edge feed (the reduce's q x W)
 TREE_EDGE_WIDTHS = (1, 2, 3, 13, 255, 1023, 1024)
 TREE_ROUTE_WIDTHS = (1025, 2049, 3001)  # through ec/msm.py:_tree_sum_last
 INV_SAMPLE = 256  # inputs of the 2^20 mont_inv run whose loop iterations the host model counts
+GROUP_LOG_N = 16  # BASELINE configs 1-2: 2^16 BN254 Fr elements, 2^16 BLS12-381 G1 points
+SMALL_LOG_N = 12  # BN254 and BLS12-377 G1: one scalar_mul and one subgroup_check each
+FIELD_KAT = 256  # field results held against Python ints at this many sampled indices
+GROUP_KAT = 64  # group results held against the host's ec_mul at this many sampled points
+OFF_POOL = 16  # distinct curve points outside the subgroup, tiled
+ZCASH_VECTORS = 1000  # tests/vectors/g1_*_valid_test_vectors.dat: k G for k < 1000
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def emit(phase, **kw):
@@ -409,6 +444,359 @@ def sass_functions(path):
     return {k: dict(instructions=sum(v.values()),
                     imad=sum(n for op, n in v.items() if op.startswith("IMAD")),
                     opcodes=dict(v.most_common(10))) for k, v in out.items()}
+
+
+# ---- 8. the field and G1 group path --------------------------------------------
+
+def field_group_phase(torch, h):
+    """Phase 8: BN254 Fr element operations (config 1) and the BLS12-381 G1
+    group path (config 2) at 2^GROUP_LOG_N, BN254 and BLS12-377 G1 at
+    2^SMALL_LOG_N, each result against host known answers; every product
+    kernel launch recorded by (kernel, field, shape, exponent) with its
+    first inputs; then mont_mul, mont_sqr, mont_pow and mont_inv against
+    their plain versions at the five moduli, on edge words and on those
+    inputs. ``h`` carries main()'s helpers. Returns {kernel: its path
+    launches, rows and error} for the kernels line."""
+    from zkarray_torch import kernels
+    from zkarray_torch.curves import bls12_377, bn254
+    from zkarray_torch.curves import bls12_381 as B
+    from zkarray_torch.curves import bls12_381_zcash as zc
+    from zkarray_torch.ec import fast_checks
+    from zkarray_torch.ec import sw as tsw
+    from zkarray_torch.ff import fp
+    from zkarray_torch.interop import affine_from_numpy, limbs_from_numpy
+    from zkarray_torch.kernels import mont as km
+    from zkarray_torch.testing import (ec_add, ec_mul, group_inputs, jac_edge_pairs,
+                                       jacobian_coords, mont_inv_edge_words, mont_inv_model,
+                                       off_subgroup_points, scalar_of, sqrt_reference)
+
+    dev, sync = h.dev, h.sync
+    rng = np.random.default_rng(8)
+    n = 1 << GROUP_LOG_N
+    path = collections.Counter()  # product-kernel launches over the whole path
+    keys, first = collections.Counter(), {}
+    launch = km._launch
+    on_path = [False]
+
+    def recording(kernel, spec, *ins, exponent=None):
+        if on_path[0]:
+            key = (kernel, spec.name, tuple(ins[0].shape), exponent)
+            keys[key] += 1
+            if key not in first:
+                first[key] = (spec, tuple(t.clone() for t in ins))
+        return launch(kernel, spec, *ins, exponent=exponent)
+
+    def run(fn):
+        """fn() once on the path, with the counts set to 0 just before and
+        read just after: (result, host ms to the device's end, launches).
+        Timing repeats and checks run off the path, unrecorded."""
+        sync()
+        kernels.reset_launches()
+        on_path[0] = True
+        try:
+            out, ms = h.once_ms(fn)
+        finally:
+            on_path[0] = False
+        got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        path.update(got)
+        return out, ms, got
+
+    def sample(m, k):
+        return torch.from_numpy(np.sort(rng.choice(m, min(k, m), replace=False))).to(dev)
+
+    def affine_at(A, idx):
+        return tsw.AffinePoints(A.x[:, idx], A.y[:, idx], A.inf[idx])
+
+    def tiled(A, m):
+        t = torch.arange(m, device=dev) % A.x.shape[1]
+        return tsw.AffinePoints(A.x[:, t], A.y[:, t], A.inf[t])
+
+    def same_tiles(what, P, k):
+        """Lanes i and i + k of a batch tiled from k lanes hold equal words."""
+        t = torch.arange(P[0].shape[-1], device=dev) % k
+        if not all(torch.equal(v, v[..., t]) for v in P):
+            raise AssertionError(f"{what}: tiled lanes differ")
+
+    km._launch = recording
+    try:
+        # -- config 1: BN254 Fr element operations at 2^GROUP_LOG_N ---------------
+        f = bn254.FR
+        p = f.modulus
+        a, b = h.rand_field(f, n), h.rand_field(f, n)
+        a[:, ::4099] = 0
+        idx = sample(n, FIELD_KAT)
+        av, bv = fp.to_ints(f, a[:, idx]), fp.to_ints(f, b[:, idx])
+        leg_v = [0 if x == 0 else (1 if pow(x, (p - 1) // 2, p) == 1 else -1) for x in av]
+        checks = {
+            "mont_mul": (lambda: fp.mont_mul(f, a, b), lambda r: fp.to_ints(f, r[:, idx]) == [
+                x * y % p for x, y in zip(av, bv)], 20),
+            "mont_sqr": (lambda: fp.mont_sqr(f, a), lambda r: fp.to_ints(f, r[:, idx]) == [
+                x * x % p for x in av], 20),
+            "add": (lambda: fp.add(f, a, b), lambda r: fp.to_ints(f, r[:, idx]) == [
+                (x + y) % p for x, y in zip(av, bv)], 20),
+            "sub": (lambda: fp.sub(f, a, b), lambda r: fp.to_ints(f, r[:, idx]) == [
+                (x - y) % p for x, y in zip(av, bv)], 20),
+            "batch_inv": (lambda: fp.batch_inv(f, a), lambda r: fp.to_ints(f, r[:, idx]) == [
+                pow(x, -1, p) if x else 0 for x in av], 3),
+            "legendre": (lambda: fp.legendre(f, a), lambda r: r[idx].tolist() == leg_v, 3),
+            "sqrt": (lambda: fp.sqrt(f, a), lambda r: r[1][idx].tolist() == [v >= 0 for v in leg_v]
+                     and fp.to_ints(f, r[0][:, idx]) == [sqrt_reference(f, x) for x in av], 3),
+        }
+        field_rows = {}
+        for name, (fn, ok, iters) in checks.items():
+            r, wall_ms, got = run(fn)
+            if not ok(r):
+                raise AssertionError(f"bn254 Fr {name} at 2^{GROUP_LOG_N}: differs from Python ints")
+            ms = h.time_ms(fn, iters)
+            field_rows[name] = dict(ms=ms, first_call_ms=wall_ms, elements_per_s=n / ms * 1e3,
+                                    launches=got)
+        h.emit("field_ops", field=f.name, n=n, known_answers=len(av), correct=True, ops=field_rows)
+        sqrt_launches = field_rows["sqrt"]["launches"]
+        del a, b
+
+        # -- config 2: BLS12-381 G1 at 2^GROUP_LOG_N ----------------------------
+        C = B.G1
+        mod = C.base.modulus
+        base, px, py, sc = group_inputs(C, n, rng)
+        A = affine_from_numpy(px, py, np.zeros(n, dtype=bool), dev)
+        s = limbs_from_numpy(sc, dev)
+        J, sm_ms, sm_launches = run(lambda: tsw.scalar_mul(C, A, s))
+        aff, aff_ms, aff_launches = run(lambda: tsw.to_affine(C, J))
+        gidx = sample(n, GROUP_KAT)
+        want = [ec_mul(base[i % len(base)], scalar_of(sc, i), C.a_int, mod) for i in gidx.tolist()]
+        if tsw.affine_to_ints(C, affine_at(aff, gidx)) != want:
+            raise AssertionError("scalar_mul 2^16: results differ from the host's ec_mul")
+        _, trace = device_trace(torch, lambda: tsw.scalar_mul(C, A, s), sm_ms)
+        # its bound: the products alone (the additions' operations are
+        # fewer), the points and scalars read once, the Jacobian result written
+        n_prod = sm_launches.get("mont_mul", 0) + sm_launches.get("mont_sqr", 0)
+        L, Ls = C.base.num_limbs, C.scalar.num_limbs
+        b_ms, b_by = h.bound((5 * L + Ls) * n * 4, n_prod * n * h.mul_ops(C.base))
+        h.emit("scalar_mul", curve=C.name, n=n, scalar_bits=16 * Ls,
+               known_answers=len(want), correct=True, ms=sm_ms, to_affine_ms=aff_ms,
+               bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / sm_ms,
+               scalar_muls_per_s=n / (sm_ms + aff_ms) * 1e3, launches=sm_launches,
+               to_affine_launches=aff_launches, product_launches_per_bit=n_prod / (16 * C.scalar.num_limbs),
+               trace=trace)
+        del J, aff, A, s
+
+        # the Jacobian edge classes, tiled: generic, P == Q, P == -Q, P, Q or
+        # both at infinity, with random Z
+        ps, qs = jac_edge_pairs(C, 64, rng)
+        lams = [int.from_bytes(rng.bytes(48), "little") % (mod - 1) + 1 for _ in range(128)]
+
+        def jac(pts, ls):
+            cs = [jacobian_coords(q, lam, mod) for q, lam in zip(pts, ls)]
+            return tsw.JacobianPoints(*(fp.from_ints(C.base, [c[k] for c in cs], device=dev)
+                                        for k in range(3)))
+
+        t64 = torch.arange(n, device=dev) % 64
+        P64, Q64 = jac(ps, lams[:64]), jac(qs, lams[64:])
+        P = tsw.JacobianPoints(*(v[:, t64] for v in P64))
+        Q = tsw.JacobianPoints(*(v[:, t64] for v in Q64))
+        Aq = tiled(tsw.affine_from_ints(C, qs, dev), n)
+        edge_rows = {}
+        for name, fn, want in (
+            ("jac_add", lambda: tsw.jac_add(C, P, Q), [ec_add(u, v, 0, mod) for u, v in zip(ps, qs)]),
+            ("jac_add_mixed", lambda: tsw.jac_add_mixed(C, P, Aq),
+             [ec_add(u, v, 0, mod) for u, v in zip(ps, qs)]),
+            ("jac_double", lambda: tsw.jac_double(C, P), [ec_add(u, u, 0, mod) for u in ps]),
+        ):
+            R, wall_ms, got = run(fn)
+            same_tiles(name, R, 64)
+            head = tsw.JacobianPoints(*(v[:, :64] for v in R))
+            if tsw.affine_to_ints(C, tsw.to_affine(C, head)) != want:
+                raise AssertionError(f"{name} on the edge classes: differs from the host oracle")
+            edge_rows[name] = dict(ms=h.time_ms(fn, 3), first_call_ms=wall_ms, launches=got)
+        h.emit("jacobian_edges", curve=C.name, n=n, classes=6, correct=True, ops=edge_rows)
+        del P, Q, Aq
+
+        # cofactor clearing and both subgroup checks: lanes by i % 8: 0-2 the
+        # scalar_mul's base points (in), 3-5 points outside the subgroup
+        # (never multiplied by the cofactor), 6 those points cleared (in),
+        # 7 infinity (in)
+        off = off_subgroup_points(C, OFF_POOL, rng)
+        Aoff = tiled(tsw.affine_from_ints(C, off, dev), n)
+        Jc, cc_ms, cc_launches = run(lambda: tsw.clear_cofactor(C, Aoff))
+        cleared = tsw.to_affine(C, Jc)
+        same_tiles("clear_cofactor", cleared, OFF_POOL)
+        if tsw.affine_to_ints(C, affine_at(cleared, torch.arange(OFF_POOL, device=dev))) != [
+                ec_mul(q, C.cofactor, 0, mod) for q in off]:
+            raise AssertionError("clear_cofactor: differs from the host's ec_mul")
+        cls = torch.arange(n, device=dev) % 8
+        outside, was_cleared = (cls >= 3) & (cls <= 5), cls == 6
+
+        def pick(u, v, w):  # base, outside, cleared
+            lead = (None,) * (u.dim() - 1)
+            return torch.where(outside[lead], v, torch.where(was_cleared[lead], w, u))
+
+        mix = tsw.AffinePoints(*(pick(u, v, w) for u, v, w in zip(
+            tiled(tsw.affine_from_ints(C, base, dev), n), Aoff, cleared)))
+        mix = mix._replace(inf=mix.inf | (cls == 7))
+        expect = ~outside
+        checks = {}
+        for name, fn in (("subgroup_check", lambda: tsw.subgroup_check(C, mix)),
+                         ("bls12_381_g1_subgroup_check",
+                          lambda: fast_checks.bls12_381_g1_subgroup_check(C, mix))):
+            ok, ms, got = run(fn)
+            if not torch.equal(ok, expect):
+                raise AssertionError(f"{name}: {int((ok != expect).sum())} lanes wrong")
+            checks[name] = dict(ms=ms, checks_per_s=n / ms * 1e3, launches=got)
+        h.emit("subgroup", curve=C.name, n=n, off_subgroup_pool=OFF_POOL, correct=True,
+               clear_cofactor=dict(ms=cc_ms, launches=cc_launches), checks=checks)
+        del Jc, cleared, mix
+
+        # the zcash G1 vectors tiled to 2^GROUP_LOG_N, then OFF_POOL encodings
+        # of points outside the subgroup: deserialized with validate=True
+        # (the fast check), serialized back
+        vec_pts = [None]
+        for _ in range(ZCASH_VECTORS - 1):
+            vec_pts.append(ec_add(vec_pts[-1], (C.gen_x, C.gen_y), 0, mod))
+        vidx = sample(n, GROUP_KAT)
+        zrows = {}
+        Aoff_small = tsw.affine_from_ints(C, off, dev)
+        for compress in (True, False):
+            width = 48 if compress else 96
+            kind = "compressed" if compress else "uncompressed"
+            vec = np.fromfile(os.path.join(REPO, "tests", "vectors",
+                                           f"g1_{kind}_valid_test_vectors.dat"), dtype=np.uint8)
+            vec = vec.reshape(ZCASH_VECTORS, width)[np.arange(n) % ZCASH_VECTORS]
+            data = np.concatenate([vec, zc.serialize_g1(Aoff_small, compress)])
+            (pts, ok), ms, got = run(lambda: zc.deserialize_g1(
+                data, compress=compress, validate=True, device=dev))
+            if not ok[:n].all() or ok[n:].any():
+                raise AssertionError(f"zcash {kind}: {int((~ok[:n]).sum())} vectors rejected, "
+                                     f"{int(ok[n:].sum())} points outside the subgroup accepted")
+            back, ser_ms = h.once_ms(lambda: zc.serialize_g1(
+                tsw.AffinePoints(pts.x[:, :n], pts.y[:, :n], pts.inf[:n]), compress))
+            if not np.array_equal(back, vec):
+                raise AssertionError(f"zcash {kind}: re-serialized bytes differ")
+            if tsw.affine_to_ints(C, affine_at(pts, vidx)) != [
+                    vec_pts[i % ZCASH_VECTORS] for i in vidx.tolist()]:
+                raise AssertionError(f"zcash {kind}: points differ from k G")
+            zrows[kind] = dict(ms=ms, deserializations_per_s=data.shape[0] / ms * 1e3,
+                               serialize_ms=ser_ms, launches=got)
+        h.emit("zcash", n=n, off_subgroup_rejected=OFF_POOL, byte_exact=True, correct=True, **zrows)
+        del pts, back
+
+        # BN254 and BLS12-377 G1 at 2^SMALL_LOG_N: scalar_mul and the generic check
+        m = 1 << SMALL_LOG_N
+        small = {}
+        for Cs in (bn254.G1, bls12_377.G1):
+            mods = Cs.base.modulus
+            base_s, px, py, sc = group_inputs(Cs, m, rng)
+            As = affine_from_numpy(px, py, np.zeros(m, dtype=bool), dev)
+            ss = limbs_from_numpy(sc, dev)
+            Js, ms, got = run(lambda: tsw.scalar_mul(Cs, As, ss))
+            gi = sample(m, GROUP_KAT)
+            if tsw.affine_to_ints(Cs, affine_at(tsw.to_affine(Cs, Js), gi)) != [
+                    ec_mul(base_s[i % len(base_s)], scalar_of(sc, i), Cs.a_int, mods)
+                    for i in gi.tolist()]:
+                raise AssertionError(f"{Cs.name} scalar_mul: differs from the host's ec_mul")
+            # lanes by i % 4: 0-1 base points, 2 outside the subgroup (when the
+            # cofactor allows any), 3 infinity
+            cl = torch.arange(m, device=dev) % 4
+            Am = tiled(tsw.affine_from_ints(Cs, base_s, dev), m)
+            if Cs.cofactor > 1:
+                Ao = tiled(tsw.affine_from_ints(Cs, off_subgroup_points(Cs, OFF_POOL, rng), dev), m)
+                Am = tsw.AffinePoints(torch.where((cl == 2)[None], Ao.x, Am.x),
+                                      torch.where((cl == 2)[None], Ao.y, Am.y), Am.inf)
+            Am = tsw.AffinePoints(Am.x, Am.y, Am.inf | (cl == 3))
+            expect = ~(cl == 2) if Cs.cofactor > 1 else torch.ones(m, dtype=torch.bool, device=dev)
+            ok, ms_c, got_c = run(lambda: tsw.subgroup_check(Cs, Am))
+            if not torch.equal(ok, expect):
+                raise AssertionError(f"{Cs.name} subgroup_check: {int((ok != expect).sum())} lanes wrong")
+            small[Cs.name] = dict(scalar_mul_ms=ms, scalar_muls_per_s=m / ms * 1e3,
+                                  scalar_mul_launches=got, subgroup_check_ms=ms_c,
+                                  subgroup_check_launches=got_c)
+        h.emit("small_curves", n=m, correct=True, curves=small)
+    finally:
+        km._launch = launch
+    path_launches = dict(path)
+    h.emit("group_path_launches", launches=path_launches, recorded_keys=len(keys),
+           per_scalar_mul=sm_launches, per_sqrt=sqrt_launches)
+    for name in ("mont_mul", "mont_sqr", "mont_pow", "mont_inv"):
+        recorded = sum(v for k, v in keys.items() if k[0] == name)
+        if recorded != path.get(name, 0) or recorded == 0:
+            raise AssertionError(f"group path: {name} {recorded} launches recorded, "
+                                 f"{path.get(name, 0)} counted")
+
+    # -- kernel vs plain at the five moduli -------------------------------------
+    plain = {"mont_mul": lambda spec, ins, e: km.mont_mul_plain(spec, *ins),
+             "mont_sqr": lambda spec, ins, e: km.mont_sqr_plain(spec, *ins),
+             "mont_pow": lambda spec, ins, e: km.mont_pow_plain(spec, ins[0], e),
+             "mont_inv": lambda spec, ins, e: km.mont_inv_plain(spec, ins[0])}
+    kern = {"mont_mul": lambda spec, ins, e: km.mont_mul(spec, *ins),
+            "mont_sqr": lambda spec, ins, e: km.mont_sqr(spec, *ins),
+            "mont_pow": lambda spec, ins, e: km.mont_pow(spec, ins[0], e),
+            "mont_inv": lambda spec, ins, e: km.mont_inv(spec, ins[0])}
+    err = collections.defaultdict(int)
+    edge_fields = {}
+    for f in (bn254.FR, bn254.FQ, B.FR, B.FQ, bls12_377.FQ):
+        p = f.modulus
+        words = mont_inv_edge_words(f, np.random.default_rng(9), n_random=8)
+        xe = fp.from_ints(f, words, mont=False, device=dev)
+        k = len(words)
+        ii = torch.arange(k * k, device=dev)
+        pair = (xe[:, ii // k], xe[:, ii % k])
+        exps = [0, 1, 2, 3, p - 2, (p - 1) // 2, f.trace, 1 << max(f.two_adicity - 1, 0)]
+        if f.sqrt_mode != "tonelli":
+            exps.append(f.sqrt_exp)
+        cases = [("mont_mul", pair, None), ("mont_sqr", (xe,), None), ("mont_inv", (xe,), None)]
+        cases += [("mont_pow", (xe,), e) for e in exps]
+        for name, ins, e in cases:
+            err[name] = max(err[name], h.check_equal(f"{name} {f.name} edge words (e = {e})",
+                                                     kern[name](f, ins, e), plain[name](f, ins, e)))
+        if fp.to_ints(f, km.mont_inv(f, xe), mont=False) != [
+                pow(w * pow(f.r_int, -1, p), -1, p) * f.r_int % p if w else 0 for w in words]:
+            raise AssertionError(f"mont_inv {f.name}: edge words differ from Python's pow")
+        edge_fields[f.name] = dict(words=k, pairs=k * k, exponents=len(exps), nw=f.num_limbs // 2)
+    rows = collections.defaultdict(list)
+    for (name, fname, shape, e), count in sorted(keys.items(), key=lambda kv: -math.prod(kv[0][2])):
+        spec, ins = first[(name, fname, shape, e)]
+        got = kern[name](spec, ins, e)
+        want, plain_ms = h.once_ms(lambda: plain[name](spec, ins, e))
+        e_row = h.check_equal(f"{name} {fname} {shape} (e = {e})", got, want)
+        err[name] = max(err[name], e_row)
+        rows[name].append(dict(field=fname, nw=spec.num_limbs // 2, shape=list(shape),
+                               exponent_bits=None if e is None else e.bit_length(),
+                               launches=count, max_abs_err=e_row, plain_ms=plain_ms, ins=ins, e=e,
+                               spec=spec))
+    first.clear()
+    # times and bounds: mont_mul and mont_sqr at every recorded shape of
+    # 2^GROUP_LOG_N elements (NW = 8: BN254 Fr; NW = 12: BLS12-381 Fq),
+    # mont_pow at its widest recorded launch per field, mont_inv at its
+    # recorded launches
+    report = {}
+    for name, rs in rows.items():
+        timed = []
+        for r in rs:
+            spec, ins, e = r.pop("spec"), r.pop("ins"), r.pop("e")
+            m_el = math.prod(r["shape"][1:])
+            L = spec.num_limbs
+            if name in ("mont_mul", "mont_sqr"):
+                if m_el != n:
+                    continue
+                ops = m_el * h.mul_ops(spec)
+                nbytes = (len(ins) + 1) * L * m_el * 4
+            elif name == "mont_pow":
+                if any(t["field"] == r["field"] for t in timed):
+                    continue  # the widest launch of each field only
+                nprod = e.bit_length() - 1 + bin(e).count("1") if e else 0
+                ops, nbytes = m_el * nprod * h.mul_ops(spec), 2 * L * m_el * 4
+                r["products"] = nprod
+            else:
+                its = [mont_inv_model(spec, v)[1] for v in fp.to_ints(spec, ins[0], mont=False)[:64]]
+                ops = m_el * sum(its) / len(its) * (18 * (L // 2) + 7)
+                nbytes = 2 * L * m_el * 4
+            r["ms"] = h.time_ms(lambda: kern[name](spec, ins, e), 20 if m_el <= n else 3)
+            b_ms, b_by = h.bound(nbytes, ops)
+            r.update(bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / r["ms"])
+            timed.append(r)
+        h.emit("kernel_group_path_shapes", kernel=name, rows=rs)
+        report[name] = dict(max_abs_err=err[name], launches=path.get(name, 0), rows=timed,
+                            edge_words=edge_fields)
+    return report
 
 
 def main():
@@ -1723,7 +2111,14 @@ def main():
          mont_sqr_shapes=[[k[0], list(k[1]), v] for k, v in sqr_shapes.items()])
     del A64, Ad, Dd, Da, head
 
-    # ---- 8. kernels line -----------------------------------------------------
+    # ---- 8. the field and G1 group path ------------------------------------------
+    group_report = field_group_phase(torch, types.SimpleNamespace(
+        dev=dev, sync=sync, time_ms=time_ms, once_ms=once_ms, rand_field=rand_field,
+        check_equal=check_equal, mul_ops=mul_ops, bound=bound, emit=emit))
+    for name, r in group_report.items():
+        report[name]["group"] = r
+
+    # ---- 9. kernels line -----------------------------------------------------
     sources = {
         "mont_mul": ("zkarray_torch/kernels/csrc/mont.cu", "zkarray/kernels/mont.py:235"),
         "mont_sqr": ("zkarray_torch/kernels/csrc/mont.cu", "zkarray/kernels/mont.py:254"),

@@ -3,7 +3,8 @@
 GPU and no nvcc: every kernel launch is replaced by a counted call of its
 plain version, torch.cuda and nvidia-smi by stubs, and the build by empty
 ptxas reports. It finds wrong paths, shapes, counts and control flow before
-a chip call; it says nothing about the CUDA sources. About 8 minutes:
+a chip call; it says nothing about the CUDA sources. About 12 minutes
+(phase 8's group path runs its full-length scalar chains at 64 points):
 
     python3 scripts/rehearse_chip_smoke.py > rehearsal.out
 """
@@ -79,6 +80,7 @@ def main():
     cs.KAT_POINTS, cs.ELEM_LOG_N, cs.MADD_KAT_BASE = 20, 8, 8
     cs.EDGE_SLOTS, cs.EDGE_ROUNDS, cs.ORACLE_SLOTS, cs.ORACLE_ROUNDS = 421, 4, 99, 3
     cs.TREE_EDGE_ROWS, cs.TREE_EDGE_WIDTHS, cs.TREE_ROUTE_WIDTHS = 4, (1, 2, 3, 13, 16), (17, 33)
+    cs.GROUP_LOG_N, cs.SMALL_LOG_N, cs.FIELD_KAT, cs.GROUP_KAT, cs.OFF_POOL = 6, 5, 16, 8, 4
     dm.FOURSTEP_BIG, dm.FOURSTEP_MIN = 1 << 12, 1 << 9
     ksw.TREE_SUM_MAX = 16  # c = 7 at 2^8 points: trees of 64, two element-wise levels
 

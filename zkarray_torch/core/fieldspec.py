@@ -1,11 +1,15 @@
 """Per-field Montgomery constants (the port's own copy of the subset it needs).
 
-Counterpart of zkarray/core/fieldspec.py:FieldSpec. Base-2^16 limbs, L =
+Counterpart of zkarray/core/fieldspec.py:FieldSpec, less the small-subgroup
+roots of mixed-radix domains. Base-2^16 limbs, L =
 4·ceil(bits/64), so R = 2^(16 L) equals arkworks' 64-bit-limb radix and
 Montgomery-form values match the JAX package's bit for bit.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import Tuple
 
 LIMB_BITS = 16
 LIMB_MASK = (1 << LIMB_BITS) - 1
@@ -21,7 +25,8 @@ class FieldSpec:
         self.generator_int = generator % modulus
         self.name = name or f"Fp{modulus.bit_length()}"
         self.bits = modulus.bit_length()
-        self.num_limbs = 4 * (-(-self.bits // 64))
+        self.n64 = -(-self.bits // 64)
+        self.num_limbs = 4 * self.n64
         self.r_bits = LIMB_BITS * self.num_limbs
         self.r_int = (1 << self.r_bits) % modulus
         self.r2_int = (self.r_int * self.r_int) % modulus
@@ -39,6 +44,25 @@ class FieldSpec:
         self.trace = t
         self.two_adic_root_int = pow(self.generator_int, t, modulus)
 
+        # square-root route (zkarray/core/fieldspec.py:105-126): one power
+        # for p = 3 mod 4, Atkin's for p = 5 mod 8, else Tonelli-Shanks with
+        # a certified quadratic non-residue (the generator when it is one)
+        p = modulus
+        if p % 4 == 3:
+            self.sqrt_mode, self.sqrt_exp, self.sqrt_qnr = "3mod4", (p + 1) // 4, None
+        elif p % 8 == 5:
+            self.sqrt_mode, self.sqrt_exp, self.sqrt_qnr = "5mod8", (p + 3) // 8, 2
+        else:
+            qnr = self.generator_int
+            if pow(qnr, (p - 1) // 2, p) != p - 1:
+                qnr = 2
+                while pow(qnr, (p - 1) // 2, p) != p - 1:
+                    qnr += 1
+            self.sqrt_mode, self.sqrt_exp, self.sqrt_qnr = "tonelli", (t - 1) // 2, qnr
+        self.mod_minus_one_div_two = (p - 1) // 2
+        # 2p < R: a product of canonical inputs needs no extra top limb
+        self.has_spare_bit = (p << 1) < (1 << self.r_bits)
+
     def __hash__(self):
         return hash((self.modulus, self.generator_int))
 
@@ -55,6 +79,18 @@ class FieldSpec:
     def limbs_of(self, x: int):
         """Little-endian base-2^16 limbs of ``x`` (L of them)."""
         return [(x >> (LIMB_BITS * i)) & LIMB_MASK for i in range(self.num_limbs)]
+
+    @functools.cached_property
+    def modulus_limbs(self) -> Tuple[int, ...]:
+        return tuple(self.limbs_of(self.modulus))
+
+    @functools.cached_property
+    def r_limbs(self) -> Tuple[int, ...]:
+        return tuple(self.limbs_of(self.r_int))
+
+    @functools.cached_property
+    def r2_limbs(self) -> Tuple[int, ...]:
+        return tuple(self.limbs_of(self.r2_int))
 
     def to_mont_int(self, x: int) -> int:
         return (x * self.r_int) % self.modulus

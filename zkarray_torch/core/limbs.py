@@ -13,6 +13,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from zkarray_torch import DEFAULT_DEVICE
 from zkarray_torch.core.fieldspec import LIMB_BITS, LIMB_MASK
 
 
@@ -20,38 +21,44 @@ from zkarray_torch.core.fieldspec import LIMB_BITS, LIMB_MASK
 # host <-> limb conversion (numpy; boundary code, not a hot path)
 # ---------------------------------------------------------------------------
 
+def int_to_limbs_np(x: int, num_limbs: int) -> np.ndarray:
+    """One Python int -> (L,) uint32 little-endian base-2^16 limbs."""
+    x = int(x)
+    if x < 0 or x >> (LIMB_BITS * num_limbs):
+        raise ValueError("integer does not fit in given limb count")
+    return np.asarray([(x >> (LIMB_BITS * i)) & LIMB_MASK for i in range(num_limbs)],
+                      dtype=np.uint32)
+
+
 def ints_to_limbs_np(xs: Sequence[int], num_limbs: int) -> np.ndarray:
     """Python ints -> (L, len(xs)) uint32 planar limb array."""
     out = np.empty((num_limbs, len(xs)), dtype=np.uint32)
     for j, x in enumerate(xs):
-        x = int(x)
-        if x < 0 or x >> (LIMB_BITS * num_limbs):
-            raise ValueError("integer does not fit in given limb count")
-        for i in range(num_limbs):
-            out[i, j] = (x >> (LIMB_BITS * i)) & LIMB_MASK
+        out[:, j] = int_to_limbs_np(x, num_limbs)
     return out
+
+
+def limbs_to_int(limbs) -> int:
+    """(L,) limb vector (tensor or array) -> Python int."""
+    return limbs_to_ints(np.asarray(limbs.detach().cpu() if isinstance(limbs, torch.Tensor)
+                                    else limbs).reshape(-1, 1))[0]
 
 
 def limbs_to_ints(limbs) -> list:
-    """(L, *batch) limb tensor or array -> flat list of Python ints."""
+    """(L, *batch) limb tensor or array of 16-bit limbs -> flat list of
+    Python ints (one copy to the host, then each element's bytes)."""
     if isinstance(limbs, torch.Tensor):
         limbs = limbs.detach().cpu().numpy()
-    arr = np.asarray(limbs).astype(np.int64)
-    flat = arr.reshape(arr.shape[0], -1)
-    out = []
-    for j in range(flat.shape[1]):
-        x = 0
-        for i in range(flat.shape[0] - 1, -1, -1):
-            x = (x << LIMB_BITS) | int(flat[i, j])
-        out.append(x)
-    return out
+    arr = np.asarray(limbs)
+    flat = np.ascontiguousarray(arr.reshape(arr.shape[0], -1).T.astype("<u2"))
+    return [int.from_bytes(row.tobytes(), "little") for row in flat]
 
 
 # ---------------------------------------------------------------------------
 # device primitives (broadcast over trailing batch axes)
 # ---------------------------------------------------------------------------
 
-def zeros(num_limbs: int, batch_shape=(), device=None) -> torch.Tensor:
+def zeros(num_limbs: int, batch_shape=(), device=DEFAULT_DEVICE) -> torch.Tensor:
     return torch.zeros((num_limbs,) + tuple(batch_shape), dtype=torch.int32, device=device)
 
 
@@ -108,6 +115,17 @@ def sub_with_borrow(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, tor
     return diff, c < 0
 
 
+def geq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a >= b elementwise over the batch (canonical limbs); bool tensor."""
+    _, borrow = sub_with_borrow(a, b)
+    return ~borrow
+
+
+def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-batch-element select: mask True -> a. mask shape = batch shape."""
+    return torch.where(mask[None], a, b)
+
+
 def is_zero(a: torch.Tensor) -> torch.Tensor:
     """True where all limbs are zero (batch-shaped bool)."""
     return (a == 0).all(dim=0)
@@ -115,6 +133,27 @@ def is_zero(a: torch.Tensor) -> torch.Tensor:
 
 def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a == b).all(dim=0)
+
+
+def bit(a: torch.Tensor, i: int) -> torch.Tensor:
+    """Bit i (Python int index) of each batch element, as 0/1 in a's dtype."""
+    return (a[i // LIMB_BITS] >> (i % LIMB_BITS)) & 1
+
+
+def num_bits_total(a: torch.Tensor) -> torch.Tensor:
+    """Bit length per batch element (int32): the top nonzero limb's index
+    times 16 plus that limb's own bit length; 0 for zero."""
+    x = a.to(torch.int64)
+    nz = x != 0
+    top = (a.shape[0] - 1) - torch.flip(nz, [0]).to(torch.int8).argmax(dim=0)
+    v = x.gather(0, top[None])[0]
+    width = torch.zeros_like(v)
+    for s in (8, 4, 2, 1):
+        m = v >= (1 << s)
+        width = width + torch.where(m, s, 0)
+        v = torch.where(m, v >> s, v)
+    width = width + (v > 0).to(torch.int64)
+    return torch.where(nz.any(dim=0), top * LIMB_BITS + width, 0).to(torch.int32)
 
 
 def pack_pairs(a: torch.Tensor) -> torch.Tensor:

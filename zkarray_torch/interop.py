@@ -13,7 +13,7 @@ import torch
 
 from zkarray_torch import DEFAULT_DEVICE
 from zkarray_torch.core.fieldspec import FieldSpec
-from zkarray_torch.ec.sw import AffinePoints, SWCurveSpec, XYZZPoints
+from zkarray_torch.ec.sw import AffinePoints, JacobianPoints, SWCurveSpec, XYZZPoints
 
 
 def limbs_from_numpy(arr, device=DEFAULT_DEVICE) -> torch.Tensor:
@@ -38,6 +38,15 @@ def affine_from_numpy(x, y, inf, device=DEFAULT_DEVICE) -> AffinePoints:
 
 def affine_to_numpy(A: AffinePoints):
     return limbs_to_numpy(A.x), limbs_to_numpy(A.y), A.inf.detach().cpu().numpy()
+
+
+def jacobian_from_numpy(coords, device=DEFAULT_DEVICE) -> JacobianPoints:
+    """Three (L, *batch) uint32 arrays (x, y, z) -> JacobianPoints."""
+    return JacobianPoints(*(limbs_from_numpy(v, device) for v in coords))
+
+
+def jacobian_to_numpy(P: JacobianPoints):
+    return tuple(limbs_to_numpy(v) for v in P)
 
 
 def xyzz_from_numpy(coords, device=DEFAULT_DEVICE) -> XYZZPoints:

@@ -2,9 +2,11 @@
 
 The port's own copies of tests/ec_oracle.py (textbook affine arithmetic on
 Python ints) and of bench.py's tiled MSM inputs with their O(1)-host-work
-known answer; and edge-class inputs for the bucket accumulation and the
-window Horner, built with the oracle, that the CPU tests and chip_smoke.py
-share.
+known answer; edge-class inputs for the bucket accumulation and the
+window Horner, built with the oracle; and for the group path, seeded points
+and scalars with known answers at sampled indices, Jacobian edge-class
+pairs, and curve points outside the prime-order subgroup, that the CPU
+tests and chip_smoke.py share.
 """
 
 from __future__ import annotations
@@ -56,6 +58,132 @@ def ec_msm_oracle(pts, scalars, a, mod):
     for p, k in zip(pts, scalars):
         acc = ec_add(acc, ec_mul(p, k, a, mod), a, mod)
     return acc
+
+
+def sqrt_mod(a: int, p: int):
+    """A square root of a mod an odd prime p (Tonelli-Shanks), or None."""
+    a %= p
+    if a == 0:
+        return 0
+    if pow(a, (p - 1) // 2, p) != 1:
+        return None
+    q, s = p - 1, 0
+    while q % 2 == 0:
+        q, s = q // 2, s + 1
+    z = 2
+    while pow(z, (p - 1) // 2, p) != p - 1:
+        z += 1
+    m, c, t, r = s, pow(z, q, p), pow(a, q, p), pow(a, (q + 1) // 2, p)
+    while t != 1:
+        i, t2 = 0, t
+        while t2 != 1:
+            t2, i = t2 * t2 % p, i + 1
+        b = pow(c, 1 << (m - i - 1), p)
+        m, c, t, r = i, b * b % p, t * b * b % p, r * b % p
+    return r
+
+
+def sqrt_reference(spec, x: int) -> int:
+    """The root zkarray/ff/fp.py:sqrt returns for a canonical x (0 for a
+    non-square), on Python ints, route by route: x^((p+1)/4); Atkin's
+    x^((p+3)/8) times 2^((p-1)/4) where x^((p-1)/4) != 1; Tonelli-Shanks'
+    bit-by-bit discrete log with the constants c^(-2^j) of
+    c = qnr^trace."""
+    p = spec.modulus
+    if spec.sqrt_mode == "3mod4":
+        r = pow(x, spec.sqrt_exp, p)
+    elif spec.sqrt_mode == "5mod8":
+        r = pow(x, (p + 3) // 8, p)
+        if pow(x, (p - 1) // 4, p) != 1:
+            r = r * pow(2, (p - 1) // 4, p) % p
+    else:
+        s, t = spec.two_adicity, spec.trace
+        cs_inv = [pow(pow(spec.sqrt_qnr, t, p), -(1 << j), p) for j in range(s)]
+        g, r = pow(x, t, p), pow(x, (t + 1) // 2, p)
+        for j in range(s):
+            if pow(g, 1 << (s - 1 - j), p) != 1:
+                g = g * cs_inv[j] % p
+                if j >= 1:
+                    r = r * cs_inv[j - 1] % p
+    return r if r * r % p == x % p else 0
+
+
+def off_subgroup_points(curve: SWCurveSpec, n: int, rng: np.random.Generator) -> list:
+    """n points on the curve whose order the prime subgroup's r does not
+    kill: x drawn at random until x^3 + a x + b is a square, y its root, never
+    multiplied by the cofactor (the host checks r P != infinity). Needs a
+    cofactor > 1."""
+    if curve.cofactor == 1:
+        raise ValueError(f"{curve.name} has cofactor 1: every point is in the subgroup")
+    mod, a, r = curve.base.modulus, curve.a_int, curve.scalar.modulus
+    out = []
+    while len(out) < n:
+        x = int.from_bytes(rng.bytes(64), "little") % mod
+        y = sqrt_mod(x * x * x + a * x + curve.b_int, mod)
+        if y is not None and ec_mul((x, y), r, a, mod) is not None:
+            out.append((x, y))
+    return out
+
+
+def group_inputs(curve: SWCurveSpec, n: int, rng: np.random.Generator, base_n: int = 64):
+    """Seeded inputs of a batched scalar multiplication: ``base_n`` random
+    multiples of the generator tiled to n points, and n scalars of
+    ``curve.scalar.bits`` random bits as canonical limbs. Returns (base
+    points, px, py, sc): the affine int pairs, uint32 limb arrays (L, n),
+    (L, n) and (Ls, n); point i is base[i % base_n]."""
+    gen = (curve.gen_x, curve.gen_y)
+    base = [ec_mul(gen, int(k), curve.a_int, curve.base.modulus)
+            for k in rng.integers(1, 1 << 62, size=base_n)]
+    A0 = affine_from_ints(curve, base, device="cpu")
+    reps = -(-n // base_n)
+    px = np.tile(A0.x.numpy().astype(np.uint32), (1, reps))[:, :n]
+    py = np.tile(A0.y.numpy().astype(np.uint32), (1, reps))[:, :n]
+    Ls, bits = curve.scalar.num_limbs, curve.scalar.bits
+    sc = rng.integers(0, 1 << 16, size=(Ls, n), dtype=np.uint32)
+    sc[bits // 16 :] = 0
+    if bits % 16:
+        sc[bits // 16] &= (1 << (bits % 16)) - 1
+    return base, np.ascontiguousarray(px), np.ascontiguousarray(py), sc
+
+
+def scalar_of(sc: np.ndarray, i: int) -> int:
+    """Scalar i of a (Ls, n) canonical limb array, as a Python int."""
+    return sum(int(sc[l, i]) << (16 * l) for l in range(sc.shape[0]))
+
+
+def jac_edge_pairs(curve: SWCurveSpec, n: int, rng: np.random.Generator):
+    """n point pairs (P, Q), affine int pairs or None, in the edge classes of
+    the Jacobian add by i % 6: generic, P == Q, P == -Q, P at infinity, Q at
+    infinity, both at infinity."""
+    mod, a = curve.base.modulus, curve.a_int
+    gen = (curve.gen_x, curve.gen_y)
+    ps, qs = [], []
+    for i in range(n):
+        k1, k2 = (int(k) for k in rng.integers(1, 1 << 62, size=2))
+        P, Q = ec_mul(gen, k1, a, mod), ec_mul(gen, k2, a, mod)
+        cls = i % 6
+        if cls == 1:
+            Q = P
+        elif cls == 2:
+            Q = ec_neg(P, mod)
+        elif cls == 3:
+            P = None
+        elif cls == 4:
+            Q = None
+        elif cls == 5:
+            P = Q = None
+        ps.append(P)
+        qs.append(Q)
+    return ps, qs
+
+
+def jacobian_coords(pt, lam: int, mod: int):
+    """Canonical Jacobian (X, Y, Z) = (x lam^2, y lam^3, lam) of an affine
+    int pair; infinity is (1, 1, 0), the JAX package's jac_zero."""
+    if pt is None:
+        return (1, 1, 0)
+    l2 = lam * lam % mod
+    return (pt[0] * l2 % mod, pt[1] * l2 * lam % mod, lam % mod)
 
 
 def tiled_inputs(curve: SWCurveSpec, n: int, rng: np.random.Generator, base_n: int = 64):
