@@ -121,7 +121,29 @@ Phases, each printing one JSON line and raising on any failure:
    and the square-root exponent for mont_pow) and on every recorded input,
    with times and bounds at 2^16 (mont_mul and mont_sqr at NW = 8 and 12,
    mont_pow at each field's widest launch, mont_inv at its launches).
-9. the kernels line: per kernel its launches on its path (phase 3 for the
+9. the pairing path (BASELINE config 5), each result against host known
+   answers: BLS12-381 pairing_each over 2^12 pairs tiled from 64 seeded
+   (a_j G, b_j H), every 1,024th G1 point at infinity, every lane against
+   E^(a_j b_j) (1 at infinity; E = testing.E_BLS12_381), run once with the
+   launches per call counted by kernel, then the median of 3 timed runs and
+   one under torch.profiler (device ops, busy, idle share); pairing (the
+   product over the same pairs) against E^(sum a_j b_j); BLS12-377
+   pairing_each at 2^12 (D-twist) on its own E; one BLS12-381
+   pairing_each over 2^16 pairs with its peak memory; the 1,000 zcash G2
+   vectors tiled to 2^16 with 16 encodings outside G2 after them,
+   deserialized with validate=True (all accepted and re-serialized
+   byte-exact, sampled points against k H; the 16 rejected), both
+   encodings; bls12_381_g2_subgroup_check on 2^16 lanes in G2, outside it
+   and at infinity, every lane exact. fp_add and fp_sub (csrc/fadd.cu;
+   fp_sub also as fp_neg) against their plain versions at BN254 Fr and Fq,
+   BLS12-381 Fr and Fq and BLS12-377 Fq on testing.fadd_edge_words (all
+   pairs: 0, 1, p - 1, words >= p, carries and borrows across every 32-bit
+   word) and on the first inputs of every (field, shape, strides) key
+   recorded on phases 8 and 9, each with its first words; times at
+   (24, 2^16) and at the path's widest launch against the byte bound 3 x L
+   x 4 B / 3.35 TB/s. The product kernels against their plain versions on
+   every (field, shape, exponent) key of phase 9's runs.
+10. the kernels line: per kernel its launches on its path (phase 3 for the
    MSM kernels, 5 for butterfly_dit, twiddle_mul and pow_table, 6 and 7 for
    the entries of butterfly_stage, xyzz_add_affine and mont_sqr, 3 for the
    entries of mont_pow and xyzz_double, which left the MSM path), error
@@ -132,7 +154,9 @@ Phases, each printing one JSON line and raising on any failure:
    fft launches (none) sit under "ntt". One row per CUDA kernel: xyzz_accum
    serves both xyzz_accum_grid and xyzz_accum_tiles. mont_mul, mont_sqr,
    mont_pow and mont_inv also carry phase 8's launches, rows and error
-   under "group".
+   under "group", and phase 9's launches per pairing call under "pairing";
+   fp_add and fp_sub (no Pallas counterpart) have phase 9's pairing_each
+   as their path.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
@@ -141,6 +165,7 @@ before printing any result.
 
 import collections
 import ctypes
+import gc
 import json
 import math
 import os
@@ -178,6 +203,11 @@ FIELD_KAT = 256  # field results held against Python ints at this many sampled i
 GROUP_KAT = 64  # group results held against the host's ec_mul at this many sampled points
 OFF_POOL = 16  # distinct curve points outside the subgroup, tiled
 ZCASH_VECTORS = 1000  # tests/vectors/g1_*_valid_test_vectors.dat: k G for k < 1000
+PAIR_LOG_N = 12  # BASELINE config 5: BLS12-381 pairing_each and pairing, BLS12-377 pairing_each
+PAIR_BIG_LOG_N = 16  # one BLS12-381 pairing_each, for its peak memory
+PAIR_BASE = 64  # seeded scalar pairs (a_j, b_j) the pairing inputs tile
+PAIR_INF_EVERY = 1024  # every 1,024th lane's G1 point at infinity
+G2_LOG_N = 16  # the zcash G2 vectors tiled, and the G2 subgroup check
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -448,7 +478,7 @@ def sass_functions(path):
 
 # ---- 8. the field and G1 group path --------------------------------------------
 
-def field_group_phase(torch, h):
+def field_group_phase(torch, h, rec):
     """Phase 8: BN254 Fr element operations (config 1) and the BLS12-381 G1
     group path (config 2) at 2^GROUP_LOG_N, BN254 and BLS12-377 G1 at
     2^SMALL_LOG_N, each result against host known answers; every product
@@ -474,29 +504,21 @@ def field_group_phase(torch, h):
     rng = np.random.default_rng(8)
     n = 1 << GROUP_LOG_N
     path = collections.Counter()  # product-kernel launches over the whole path
-    keys, first = collections.Counter(), {}
-    launch = km._launch
-    on_path = [False]
-
-    def recording(kernel, spec, *ins, exponent=None):
-        if on_path[0]:
-            key = (kernel, spec.name, tuple(ins[0].shape), exponent)
-            keys[key] += 1
-            if key not in first:
-                first[key] = (spec, tuple(t.clone() for t in ins))
-        return launch(kernel, spec, *ins, exponent=exponent)
+    products = ("mont_mul", "mont_sqr", "mont_pow", "mont_inv")
 
     def run(fn):
         """fn() once on the path, with the counts set to 0 just before and
         read just after: (result, host ms to the device's end, launches).
-        Timing repeats and checks run off the path, unrecorded."""
+        Every launch is recorded in ``rec`` (the fp_add/fp_sub inputs are
+        replayed in phase 9). Timing repeats and checks run off the path,
+        unrecorded."""
         sync()
         kernels.reset_launches()
-        on_path[0] = True
+        rec.on = True
         try:
             out, ms = h.once_ms(fn)
         finally:
-            on_path[0] = False
+            rec.on = False
         got = {k: v for k, v in kernels.LAUNCHES.items() if v}
         path.update(got)
         return out, ms, got
@@ -517,205 +539,202 @@ def field_group_phase(torch, h):
         if not all(torch.equal(v, v[..., t]) for v in P):
             raise AssertionError(f"{what}: tiled lanes differ")
 
-    km._launch = recording
-    try:
-        # -- config 1: BN254 Fr element operations at 2^GROUP_LOG_N ---------------
-        f = bn254.FR
-        p = f.modulus
-        a, b = h.rand_field(f, n), h.rand_field(f, n)
-        a[:, ::4099] = 0
-        idx = sample(n, FIELD_KAT)
-        av, bv = fp.to_ints(f, a[:, idx]), fp.to_ints(f, b[:, idx])
-        leg_v = [0 if x == 0 else (1 if pow(x, (p - 1) // 2, p) == 1 else -1) for x in av]
-        checks = {
-            "mont_mul": (lambda: fp.mont_mul(f, a, b), lambda r: fp.to_ints(f, r[:, idx]) == [
-                x * y % p for x, y in zip(av, bv)], 20),
-            "mont_sqr": (lambda: fp.mont_sqr(f, a), lambda r: fp.to_ints(f, r[:, idx]) == [
-                x * x % p for x in av], 20),
-            "add": (lambda: fp.add(f, a, b), lambda r: fp.to_ints(f, r[:, idx]) == [
-                (x + y) % p for x, y in zip(av, bv)], 20),
-            "sub": (lambda: fp.sub(f, a, b), lambda r: fp.to_ints(f, r[:, idx]) == [
-                (x - y) % p for x, y in zip(av, bv)], 20),
-            "batch_inv": (lambda: fp.batch_inv(f, a), lambda r: fp.to_ints(f, r[:, idx]) == [
-                pow(x, -1, p) if x else 0 for x in av], 3),
-            "legendre": (lambda: fp.legendre(f, a), lambda r: r[idx].tolist() == leg_v, 3),
-            "sqrt": (lambda: fp.sqrt(f, a), lambda r: r[1][idx].tolist() == [v >= 0 for v in leg_v]
-                     and fp.to_ints(f, r[0][:, idx]) == [sqrt_reference(f, x) for x in av], 3),
-        }
-        field_rows = {}
-        for name, (fn, ok, iters) in checks.items():
-            r, wall_ms, got = run(fn)
-            if not ok(r):
-                raise AssertionError(f"bn254 Fr {name} at 2^{GROUP_LOG_N}: differs from Python ints")
-            ms = h.time_ms(fn, iters)
-            field_rows[name] = dict(ms=ms, first_call_ms=wall_ms, elements_per_s=n / ms * 1e3,
-                                    launches=got)
-        h.emit("field_ops", field=f.name, n=n, known_answers=len(av), correct=True, ops=field_rows)
-        sqrt_launches = field_rows["sqrt"]["launches"]
-        del a, b
+    # -- config 1: BN254 Fr element operations at 2^GROUP_LOG_N ---------------
+    f = bn254.FR
+    p = f.modulus
+    a, b = h.rand_field(f, n), h.rand_field(f, n)
+    a[:, ::4099] = 0
+    idx = sample(n, FIELD_KAT)
+    av, bv = fp.to_ints(f, a[:, idx]), fp.to_ints(f, b[:, idx])
+    leg_v = [0 if x == 0 else (1 if pow(x, (p - 1) // 2, p) == 1 else -1) for x in av]
+    checks = {
+        "mont_mul": (lambda: fp.mont_mul(f, a, b), lambda r: fp.to_ints(f, r[:, idx]) == [
+            x * y % p for x, y in zip(av, bv)], 20),
+        "mont_sqr": (lambda: fp.mont_sqr(f, a), lambda r: fp.to_ints(f, r[:, idx]) == [
+            x * x % p for x in av], 20),
+        "add": (lambda: fp.add(f, a, b), lambda r: fp.to_ints(f, r[:, idx]) == [
+            (x + y) % p for x, y in zip(av, bv)], 20),
+        "sub": (lambda: fp.sub(f, a, b), lambda r: fp.to_ints(f, r[:, idx]) == [
+            (x - y) % p for x, y in zip(av, bv)], 20),
+        "batch_inv": (lambda: fp.batch_inv(f, a), lambda r: fp.to_ints(f, r[:, idx]) == [
+            pow(x, -1, p) if x else 0 for x in av], 3),
+        "legendre": (lambda: fp.legendre(f, a), lambda r: r[idx].tolist() == leg_v, 3),
+        "sqrt": (lambda: fp.sqrt(f, a), lambda r: r[1][idx].tolist() == [v >= 0 for v in leg_v]
+                 and fp.to_ints(f, r[0][:, idx]) == [sqrt_reference(f, x) for x in av], 3),
+    }
+    field_rows = {}
+    for name, (fn, ok, iters) in checks.items():
+        r, wall_ms, got = run(fn)
+        if not ok(r):
+            raise AssertionError(f"bn254 Fr {name} at 2^{GROUP_LOG_N}: differs from Python ints")
+        ms = h.time_ms(fn, iters)
+        field_rows[name] = dict(ms=ms, first_call_ms=wall_ms, elements_per_s=n / ms * 1e3,
+                                launches=got)
+    h.emit("field_ops", field=f.name, n=n, known_answers=len(av), correct=True, ops=field_rows)
+    sqrt_launches = field_rows["sqrt"]["launches"]
+    del a, b
 
-        # -- config 2: BLS12-381 G1 at 2^GROUP_LOG_N ----------------------------
-        C = B.G1
-        mod = C.base.modulus
-        base, px, py, sc = group_inputs(C, n, rng)
-        A = affine_from_numpy(px, py, np.zeros(n, dtype=bool), dev)
-        s = limbs_from_numpy(sc, dev)
-        J, sm_ms, sm_launches = run(lambda: tsw.scalar_mul(C, A, s))
-        aff, aff_ms, aff_launches = run(lambda: tsw.to_affine(C, J))
-        gidx = sample(n, GROUP_KAT)
-        want = [ec_mul(base[i % len(base)], scalar_of(sc, i), C.a_int, mod) for i in gidx.tolist()]
-        if tsw.affine_to_ints(C, affine_at(aff, gidx)) != want:
-            raise AssertionError("scalar_mul 2^16: results differ from the host's ec_mul")
-        _, trace = device_trace(torch, lambda: tsw.scalar_mul(C, A, s), sm_ms)
-        # its bound: the products alone (the additions' operations are
-        # fewer), the points and scalars read once, the Jacobian result written
-        n_prod = sm_launches.get("mont_mul", 0) + sm_launches.get("mont_sqr", 0)
-        L, Ls = C.base.num_limbs, C.scalar.num_limbs
-        b_ms, b_by = h.bound((5 * L + Ls) * n * 4, n_prod * n * h.mul_ops(C.base))
-        h.emit("scalar_mul", curve=C.name, n=n, scalar_bits=16 * Ls,
-               known_answers=len(want), correct=True, ms=sm_ms, to_affine_ms=aff_ms,
-               bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / sm_ms,
-               scalar_muls_per_s=n / (sm_ms + aff_ms) * 1e3, launches=sm_launches,
-               to_affine_launches=aff_launches, product_launches_per_bit=n_prod / (16 * C.scalar.num_limbs),
-               trace=trace)
-        del J, aff, A, s
+    # -- config 2: BLS12-381 G1 at 2^GROUP_LOG_N ----------------------------
+    C = B.G1
+    mod = C.base.modulus
+    base, px, py, sc = group_inputs(C, n, rng)
+    A = affine_from_numpy(px, py, np.zeros(n, dtype=bool), dev)
+    s = limbs_from_numpy(sc, dev)
+    J, sm_ms, sm_launches = run(lambda: tsw.scalar_mul(C, A, s))
+    aff, aff_ms, aff_launches = run(lambda: tsw.to_affine(C, J))
+    gidx = sample(n, GROUP_KAT)
+    want = [ec_mul(base[i % len(base)], scalar_of(sc, i), C.a_int, mod) for i in gidx.tolist()]
+    if tsw.affine_to_ints(C, affine_at(aff, gidx)) != want:
+        raise AssertionError("scalar_mul 2^16: results differ from the host's ec_mul")
+    _, trace = device_trace(torch, lambda: tsw.scalar_mul(C, A, s), sm_ms)
+    # its bound: the products alone (the additions' operations are
+    # fewer), the points and scalars read once, the Jacobian result written
+    n_prod = sm_launches.get("mont_mul", 0) + sm_launches.get("mont_sqr", 0)
+    L, Ls = C.base.num_limbs, C.scalar.num_limbs
+    b_ms, b_by = h.bound((5 * L + Ls) * n * 4, n_prod * n * h.mul_ops(C.base))
+    h.emit("scalar_mul", curve=C.name, n=n, scalar_bits=16 * Ls,
+           known_answers=len(want), correct=True, ms=sm_ms, to_affine_ms=aff_ms,
+           bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / sm_ms,
+           scalar_muls_per_s=n / (sm_ms + aff_ms) * 1e3, launches=sm_launches,
+           to_affine_launches=aff_launches, product_launches_per_bit=n_prod / (16 * C.scalar.num_limbs),
+           trace=trace)
+    del J, aff, A, s
 
-        # the Jacobian edge classes, tiled: generic, P == Q, P == -Q, P, Q or
-        # both at infinity, with random Z
-        ps, qs = jac_edge_pairs(C, 64, rng)
-        lams = [int.from_bytes(rng.bytes(48), "little") % (mod - 1) + 1 for _ in range(128)]
+    # the Jacobian edge classes, tiled: generic, P == Q, P == -Q, P, Q or
+    # both at infinity, with random Z
+    ps, qs = jac_edge_pairs(C, 64, rng)
+    lams = [int.from_bytes(rng.bytes(48), "little") % (mod - 1) + 1 for _ in range(128)]
 
-        def jac(pts, ls):
-            cs = [jacobian_coords(q, lam, mod) for q, lam in zip(pts, ls)]
-            return tsw.JacobianPoints(*(fp.from_ints(C.base, [c[k] for c in cs], device=dev)
-                                        for k in range(3)))
+    def jac(pts, ls):
+        cs = [jacobian_coords(q, lam, mod) for q, lam in zip(pts, ls)]
+        return tsw.JacobianPoints(*(fp.from_ints(C.base, [c[k] for c in cs], device=dev)
+                                    for k in range(3)))
 
-        t64 = torch.arange(n, device=dev) % 64
-        P64, Q64 = jac(ps, lams[:64]), jac(qs, lams[64:])
-        P = tsw.JacobianPoints(*(v[:, t64] for v in P64))
-        Q = tsw.JacobianPoints(*(v[:, t64] for v in Q64))
-        Aq = tiled(tsw.affine_from_ints(C, qs, dev), n)
-        edge_rows = {}
-        for name, fn, want in (
-            ("jac_add", lambda: tsw.jac_add(C, P, Q), [ec_add(u, v, 0, mod) for u, v in zip(ps, qs)]),
-            ("jac_add_mixed", lambda: tsw.jac_add_mixed(C, P, Aq),
-             [ec_add(u, v, 0, mod) for u, v in zip(ps, qs)]),
-            ("jac_double", lambda: tsw.jac_double(C, P), [ec_add(u, u, 0, mod) for u in ps]),
-        ):
-            R, wall_ms, got = run(fn)
-            same_tiles(name, R, 64)
-            head = tsw.JacobianPoints(*(v[:, :64] for v in R))
-            if tsw.affine_to_ints(C, tsw.to_affine(C, head)) != want:
-                raise AssertionError(f"{name} on the edge classes: differs from the host oracle")
-            edge_rows[name] = dict(ms=h.time_ms(fn, 3), first_call_ms=wall_ms, launches=got)
-        h.emit("jacobian_edges", curve=C.name, n=n, classes=6, correct=True, ops=edge_rows)
-        del P, Q, Aq
+    t64 = torch.arange(n, device=dev) % 64
+    P64, Q64 = jac(ps, lams[:64]), jac(qs, lams[64:])
+    P = tsw.JacobianPoints(*(v[:, t64] for v in P64))
+    Q = tsw.JacobianPoints(*(v[:, t64] for v in Q64))
+    Aq = tiled(tsw.affine_from_ints(C, qs, dev), n)
+    edge_rows = {}
+    for name, fn, want in (
+        ("jac_add", lambda: tsw.jac_add(C, P, Q), [ec_add(u, v, 0, mod) for u, v in zip(ps, qs)]),
+        ("jac_add_mixed", lambda: tsw.jac_add_mixed(C, P, Aq),
+         [ec_add(u, v, 0, mod) for u, v in zip(ps, qs)]),
+        ("jac_double", lambda: tsw.jac_double(C, P), [ec_add(u, u, 0, mod) for u in ps]),
+    ):
+        R, wall_ms, got = run(fn)
+        same_tiles(name, R, 64)
+        head = tsw.JacobianPoints(*(v[:, :64] for v in R))
+        if tsw.affine_to_ints(C, tsw.to_affine(C, head)) != want:
+            raise AssertionError(f"{name} on the edge classes: differs from the host oracle")
+        edge_rows[name] = dict(ms=h.time_ms(fn, 3), first_call_ms=wall_ms, launches=got)
+    h.emit("jacobian_edges", curve=C.name, n=n, classes=6, correct=True, ops=edge_rows)
+    del P, Q, Aq
 
-        # cofactor clearing and both subgroup checks: lanes by i % 8: 0-2 the
-        # scalar_mul's base points (in), 3-5 points outside the subgroup
-        # (never multiplied by the cofactor), 6 those points cleared (in),
-        # 7 infinity (in)
-        off = off_subgroup_points(C, OFF_POOL, rng)
-        Aoff = tiled(tsw.affine_from_ints(C, off, dev), n)
-        Jc, cc_ms, cc_launches = run(lambda: tsw.clear_cofactor(C, Aoff))
-        cleared = tsw.to_affine(C, Jc)
-        same_tiles("clear_cofactor", cleared, OFF_POOL)
-        if tsw.affine_to_ints(C, affine_at(cleared, torch.arange(OFF_POOL, device=dev))) != [
-                ec_mul(q, C.cofactor, 0, mod) for q in off]:
-            raise AssertionError("clear_cofactor: differs from the host's ec_mul")
-        cls = torch.arange(n, device=dev) % 8
-        outside, was_cleared = (cls >= 3) & (cls <= 5), cls == 6
+    # cofactor clearing and both subgroup checks: lanes by i % 8: 0-2 the
+    # scalar_mul's base points (in), 3-5 points outside the subgroup
+    # (never multiplied by the cofactor), 6 those points cleared (in),
+    # 7 infinity (in)
+    off = off_subgroup_points(C, OFF_POOL, rng)
+    Aoff = tiled(tsw.affine_from_ints(C, off, dev), n)
+    Jc, cc_ms, cc_launches = run(lambda: tsw.clear_cofactor(C, Aoff))
+    cleared = tsw.to_affine(C, Jc)
+    same_tiles("clear_cofactor", cleared, OFF_POOL)
+    if tsw.affine_to_ints(C, affine_at(cleared, torch.arange(OFF_POOL, device=dev))) != [
+            ec_mul(q, C.cofactor, 0, mod) for q in off]:
+        raise AssertionError("clear_cofactor: differs from the host's ec_mul")
+    cls = torch.arange(n, device=dev) % 8
+    outside, was_cleared = (cls >= 3) & (cls <= 5), cls == 6
 
-        def pick(u, v, w):  # base, outside, cleared
-            lead = (None,) * (u.dim() - 1)
-            return torch.where(outside[lead], v, torch.where(was_cleared[lead], w, u))
+    def pick(u, v, w):  # base, outside, cleared
+        lead = (None,) * (u.dim() - 1)
+        return torch.where(outside[lead], v, torch.where(was_cleared[lead], w, u))
 
-        mix = tsw.AffinePoints(*(pick(u, v, w) for u, v, w in zip(
-            tiled(tsw.affine_from_ints(C, base, dev), n), Aoff, cleared)))
-        mix = mix._replace(inf=mix.inf | (cls == 7))
-        expect = ~outside
-        checks = {}
-        for name, fn in (("subgroup_check", lambda: tsw.subgroup_check(C, mix)),
-                         ("bls12_381_g1_subgroup_check",
-                          lambda: fast_checks.bls12_381_g1_subgroup_check(C, mix))):
-            ok, ms, got = run(fn)
-            if not torch.equal(ok, expect):
-                raise AssertionError(f"{name}: {int((ok != expect).sum())} lanes wrong")
-            checks[name] = dict(ms=ms, checks_per_s=n / ms * 1e3, launches=got)
-        h.emit("subgroup", curve=C.name, n=n, off_subgroup_pool=OFF_POOL, correct=True,
-               clear_cofactor=dict(ms=cc_ms, launches=cc_launches), checks=checks)
-        del Jc, cleared, mix
+    mix = tsw.AffinePoints(*(pick(u, v, w) for u, v, w in zip(
+        tiled(tsw.affine_from_ints(C, base, dev), n), Aoff, cleared)))
+    mix = mix._replace(inf=mix.inf | (cls == 7))
+    expect = ~outside
+    checks = {}
+    for name, fn in (("subgroup_check", lambda: tsw.subgroup_check(C, mix)),
+                     ("bls12_381_g1_subgroup_check",
+                      lambda: fast_checks.bls12_381_g1_subgroup_check(C, mix))):
+        ok, ms, got = run(fn)
+        if not torch.equal(ok, expect):
+            raise AssertionError(f"{name}: {int((ok != expect).sum())} lanes wrong")
+        checks[name] = dict(ms=ms, checks_per_s=n / ms * 1e3, launches=got)
+    h.emit("subgroup", curve=C.name, n=n, off_subgroup_pool=OFF_POOL, correct=True,
+           clear_cofactor=dict(ms=cc_ms, launches=cc_launches), checks=checks)
+    del Jc, cleared, mix
 
-        # the zcash G1 vectors tiled to 2^GROUP_LOG_N, then OFF_POOL encodings
-        # of points outside the subgroup: deserialized with validate=True
-        # (the fast check), serialized back
-        vec_pts = [None]
-        for _ in range(ZCASH_VECTORS - 1):
-            vec_pts.append(ec_add(vec_pts[-1], (C.gen_x, C.gen_y), 0, mod))
-        vidx = sample(n, GROUP_KAT)
-        zrows = {}
-        Aoff_small = tsw.affine_from_ints(C, off, dev)
-        for compress in (True, False):
-            width = 48 if compress else 96
-            kind = "compressed" if compress else "uncompressed"
-            vec = np.fromfile(os.path.join(REPO, "tests", "vectors",
-                                           f"g1_{kind}_valid_test_vectors.dat"), dtype=np.uint8)
-            vec = vec.reshape(ZCASH_VECTORS, width)[np.arange(n) % ZCASH_VECTORS]
-            data = np.concatenate([vec, zc.serialize_g1(Aoff_small, compress)])
-            (pts, ok), ms, got = run(lambda: zc.deserialize_g1(
-                data, compress=compress, validate=True, device=dev))
-            if not ok[:n].all() or ok[n:].any():
-                raise AssertionError(f"zcash {kind}: {int((~ok[:n]).sum())} vectors rejected, "
-                                     f"{int(ok[n:].sum())} points outside the subgroup accepted")
-            back, ser_ms = h.once_ms(lambda: zc.serialize_g1(
-                tsw.AffinePoints(pts.x[:, :n], pts.y[:, :n], pts.inf[:n]), compress))
-            if not np.array_equal(back, vec):
-                raise AssertionError(f"zcash {kind}: re-serialized bytes differ")
-            if tsw.affine_to_ints(C, affine_at(pts, vidx)) != [
-                    vec_pts[i % ZCASH_VECTORS] for i in vidx.tolist()]:
-                raise AssertionError(f"zcash {kind}: points differ from k G")
-            zrows[kind] = dict(ms=ms, deserializations_per_s=data.shape[0] / ms * 1e3,
-                               serialize_ms=ser_ms, launches=got)
-        h.emit("zcash", n=n, off_subgroup_rejected=OFF_POOL, byte_exact=True, correct=True, **zrows)
-        del pts, back
+    # the zcash G1 vectors tiled to 2^GROUP_LOG_N, then OFF_POOL encodings
+    # of points outside the subgroup: deserialized with validate=True
+    # (the fast check), serialized back
+    vec_pts = [None]
+    for _ in range(ZCASH_VECTORS - 1):
+        vec_pts.append(ec_add(vec_pts[-1], (C.gen_x, C.gen_y), 0, mod))
+    vidx = sample(n, GROUP_KAT)
+    zrows = {}
+    Aoff_small = tsw.affine_from_ints(C, off, dev)
+    for compress in (True, False):
+        width = 48 if compress else 96
+        kind = "compressed" if compress else "uncompressed"
+        vec = np.fromfile(os.path.join(REPO, "tests", "vectors",
+                                       f"g1_{kind}_valid_test_vectors.dat"), dtype=np.uint8)
+        vec = vec.reshape(ZCASH_VECTORS, width)[np.arange(n) % ZCASH_VECTORS]
+        data = np.concatenate([vec, zc.serialize_g1(Aoff_small, compress)])
+        (pts, ok), ms, got = run(lambda: zc.deserialize_g1(
+            data, compress=compress, validate=True, device=dev))
+        if not ok[:n].all() or ok[n:].any():
+            raise AssertionError(f"zcash {kind}: {int((~ok[:n]).sum())} vectors rejected, "
+                                 f"{int(ok[n:].sum())} points outside the subgroup accepted")
+        back, ser_ms = h.once_ms(lambda: zc.serialize_g1(
+            tsw.AffinePoints(pts.x[:, :n], pts.y[:, :n], pts.inf[:n]), compress))
+        if not np.array_equal(back, vec):
+            raise AssertionError(f"zcash {kind}: re-serialized bytes differ")
+        if tsw.affine_to_ints(C, affine_at(pts, vidx)) != [
+                vec_pts[i % ZCASH_VECTORS] for i in vidx.tolist()]:
+            raise AssertionError(f"zcash {kind}: points differ from k G")
+        zrows[kind] = dict(ms=ms, deserializations_per_s=data.shape[0] / ms * 1e3,
+                           serialize_ms=ser_ms, launches=got)
+    h.emit("zcash", n=n, off_subgroup_rejected=OFF_POOL, byte_exact=True, correct=True, **zrows)
+    del pts, back
 
-        # BN254 and BLS12-377 G1 at 2^SMALL_LOG_N: scalar_mul and the generic check
-        m = 1 << SMALL_LOG_N
-        small = {}
-        for Cs in (bn254.G1, bls12_377.G1):
-            mods = Cs.base.modulus
-            base_s, px, py, sc = group_inputs(Cs, m, rng)
-            As = affine_from_numpy(px, py, np.zeros(m, dtype=bool), dev)
-            ss = limbs_from_numpy(sc, dev)
-            Js, ms, got = run(lambda: tsw.scalar_mul(Cs, As, ss))
-            gi = sample(m, GROUP_KAT)
-            if tsw.affine_to_ints(Cs, affine_at(tsw.to_affine(Cs, Js), gi)) != [
-                    ec_mul(base_s[i % len(base_s)], scalar_of(sc, i), Cs.a_int, mods)
-                    for i in gi.tolist()]:
-                raise AssertionError(f"{Cs.name} scalar_mul: differs from the host's ec_mul")
-            # lanes by i % 4: 0-1 base points, 2 outside the subgroup (when the
-            # cofactor allows any), 3 infinity
-            cl = torch.arange(m, device=dev) % 4
-            Am = tiled(tsw.affine_from_ints(Cs, base_s, dev), m)
-            if Cs.cofactor > 1:
-                Ao = tiled(tsw.affine_from_ints(Cs, off_subgroup_points(Cs, OFF_POOL, rng), dev), m)
-                Am = tsw.AffinePoints(torch.where((cl == 2)[None], Ao.x, Am.x),
-                                      torch.where((cl == 2)[None], Ao.y, Am.y), Am.inf)
-            Am = tsw.AffinePoints(Am.x, Am.y, Am.inf | (cl == 3))
-            expect = ~(cl == 2) if Cs.cofactor > 1 else torch.ones(m, dtype=torch.bool, device=dev)
-            ok, ms_c, got_c = run(lambda: tsw.subgroup_check(Cs, Am))
-            if not torch.equal(ok, expect):
-                raise AssertionError(f"{Cs.name} subgroup_check: {int((ok != expect).sum())} lanes wrong")
-            small[Cs.name] = dict(scalar_mul_ms=ms, scalar_muls_per_s=m / ms * 1e3,
-                                  scalar_mul_launches=got, subgroup_check_ms=ms_c,
-                                  subgroup_check_launches=got_c)
-        h.emit("small_curves", n=m, correct=True, curves=small)
-    finally:
-        km._launch = launch
+    # BN254 and BLS12-377 G1 at 2^SMALL_LOG_N: scalar_mul and the generic check
+    m = 1 << SMALL_LOG_N
+    small = {}
+    for Cs in (bn254.G1, bls12_377.G1):
+        mods = Cs.base.modulus
+        base_s, px, py, sc = group_inputs(Cs, m, rng)
+        As = affine_from_numpy(px, py, np.zeros(m, dtype=bool), dev)
+        ss = limbs_from_numpy(sc, dev)
+        Js, ms, got = run(lambda: tsw.scalar_mul(Cs, As, ss))
+        gi = sample(m, GROUP_KAT)
+        if tsw.affine_to_ints(Cs, affine_at(tsw.to_affine(Cs, Js), gi)) != [
+                ec_mul(base_s[i % len(base_s)], scalar_of(sc, i), Cs.a_int, mods)
+                for i in gi.tolist()]:
+            raise AssertionError(f"{Cs.name} scalar_mul: differs from the host's ec_mul")
+        # lanes by i % 4: 0-1 base points, 2 outside the subgroup (when the
+        # cofactor allows any), 3 infinity
+        cl = torch.arange(m, device=dev) % 4
+        Am = tiled(tsw.affine_from_ints(Cs, base_s, dev), m)
+        if Cs.cofactor > 1:
+            Ao = tiled(tsw.affine_from_ints(Cs, off_subgroup_points(Cs, OFF_POOL, rng), dev), m)
+            Am = tsw.AffinePoints(torch.where((cl == 2)[None], Ao.x, Am.x),
+                                  torch.where((cl == 2)[None], Ao.y, Am.y), Am.inf)
+        Am = tsw.AffinePoints(Am.x, Am.y, Am.inf | (cl == 3))
+        expect = ~(cl == 2) if Cs.cofactor > 1 else torch.ones(m, dtype=torch.bool, device=dev)
+        ok, ms_c, got_c = run(lambda: tsw.subgroup_check(Cs, Am))
+        if not torch.equal(ok, expect):
+            raise AssertionError(f"{Cs.name} subgroup_check: {int((ok != expect).sum())} lanes wrong")
+        small[Cs.name] = dict(scalar_mul_ms=ms, scalar_muls_per_s=m / ms * 1e3,
+                              scalar_mul_launches=got, subgroup_check_ms=ms_c,
+                              subgroup_check_launches=got_c)
+    h.emit("small_curves", n=m, correct=True, curves=small)
     path_launches = dict(path)
+    keys = {k: v for k, v in rec.keys.items() if k[0] in products}
     h.emit("group_path_launches", launches=path_launches, recorded_keys=len(keys),
            per_scalar_mul=sm_launches, per_sqrt=sqrt_launches)
-    for name in ("mont_mul", "mont_sqr", "mont_pow", "mont_inv"):
+    for name in products:
         recorded = sum(v for k, v in keys.items() if k[0] == name)
         if recorded != path.get(name, 0) or recorded == 0:
             raise AssertionError(f"group path: {name} {recorded} launches recorded, "
@@ -753,7 +772,8 @@ def field_group_phase(torch, h):
         edge_fields[f.name] = dict(words=k, pairs=k * k, exponents=len(exps), nw=f.num_limbs // 2)
     rows = collections.defaultdict(list)
     for (name, fname, shape, e), count in sorted(keys.items(), key=lambda kv: -math.prod(kv[0][2])):
-        spec, ins = first[(name, fname, shape, e)]
+        spec, ins, _ = rec.first.pop((name, fname, shape, e))
+        del rec.keys[(name, fname, shape, e)]  # phase 9 replays its own products
         got = kern[name](spec, ins, e)
         want, plain_ms = h.once_ms(lambda: plain[name](spec, ins, e))
         e_row = h.check_equal(f"{name} {fname} {shape} (e = {e})", got, want)
@@ -762,7 +782,6 @@ def field_group_phase(torch, h):
                                exponent_bits=None if e is None else e.bit_length(),
                                launches=count, max_abs_err=e_row, plain_ms=plain_ms, ins=ins, e=e,
                                spec=spec))
-    first.clear()
     # times and bounds: mont_mul and mont_sqr at every recorded shape of
     # 2^GROUP_LOG_N elements (NW = 8: BN254 Fr; NW = 12: BLS12-381 Fq),
     # mont_pow at its widest recorded launch per field, mont_inv at its
@@ -796,6 +815,308 @@ def field_group_phase(torch, h):
         h.emit("kernel_group_path_shapes", kernel=name, rows=rs)
         report[name] = dict(max_abs_err=err[name], launches=path.get(name, 0), rows=timed,
                             edge_words=edge_fields)
+    return report
+
+
+# ---- 9. the pairing path -----------------------------------------------------
+
+def replica(torch, t, copy=True):
+    """A tensor with ``t``'s shape and strides over a buffer of its own: the
+    span of storage t reads, cloned (or left empty). clone() alone would make
+    a slice or a stride-0 broadcast contiguous."""
+    span = 1 + sum((s - 1) * st for s, st in zip(t.shape, t.stride()) if s > 0)
+    flat = (torch.as_strided(t, (span,), (1,), t.storage_offset()).clone() if copy
+            else torch.empty(span, dtype=t.dtype, device=t.device))
+    return torch.as_strided(flat, tuple(t.shape), tuple(t.stride()))
+
+
+def install_recorders(torch, km):
+    """Wrap kernels.mont's launchers so that, while ``rec.on``, every launch
+    of fp_add/fp_sub is counted by (kernel, field, shape, the strides of a,
+    b and the output) and every product launch by (kernel, field, shape,
+    exponent), each key's first inputs kept with their strides. Phases 8
+    and 9 read and replay them. Returns (rec, restore)."""
+    rec = types.SimpleNamespace(on=False, keys=collections.Counter(), first={})
+    addsub, launch = km._launch_addsub, km._launch
+
+    def rec_addsub(kernel, spec, a, b, out):
+        if rec.on:
+            key = (kernel, spec.name, tuple(a.shape), tuple(a.stride()), tuple(b.stride()),
+                   None if out is None else tuple(out.stride()))
+            rec.keys[key] += 1
+            if key not in rec.first:
+                rec.first[key] = (spec, (replica(torch, a), replica(torch, b)),
+                                  None if out is None else replica(torch, out, copy=False))
+        return addsub(kernel, spec, a, b, out)
+
+    def rec_launch(kernel, spec, *ins, exponent=None):
+        if rec.on:
+            key = (kernel, spec.name, tuple(ins[0].shape), exponent)
+            rec.keys[key] += 1
+            if key not in rec.first:
+                rec.first[key] = (spec, tuple(replica(torch, t) for t in ins), None)
+        return launch(kernel, spec, *ins, exponent=exponent)
+
+    km._launch_addsub, km._launch = rec_addsub, rec_launch
+
+    def restore():
+        km._launch_addsub, km._launch = addsub, launch
+
+    return rec, restore
+
+
+def words_hex(t):
+    """The first batch element of a limb tensor as one hex int."""
+    col = t.reshape(t.shape[0], -1)[:, 0].tolist()
+    return hex(sum((v & 0xFFFF) << (16 * k) for k, v in enumerate(col)))
+
+
+def pairing_phase(torch, h, rec):
+    """Phase 9: the BLS12-381 pairing path (BASELINE config 5) and
+    BLS12-377's, the G2 encodings and the G2 subgroup check, each against
+    host known answers; then fp_add and fp_sub against their plain versions
+    at five moduli on edge words and on every input recorded on phases 8
+    and 9 (``rec``), and the product kernels on phase 9's recorded inputs.
+    Returns the kernels line's rows for fp_add and fp_sub and the product
+    kernels' pairing-path figures."""
+    from zkarray_torch import kernels
+    from zkarray_torch.curves import bls12_377, bn254
+    from zkarray_torch.curves import bls12_381 as B
+    from zkarray_torch.core.limbs import ints_to_limbs_np
+    from zkarray_torch.curves import bls12_381_zcash as zc
+    from zkarray_torch.ec import fast_checks
+    from zkarray_torch.ec import sw_ext
+    from zkarray_torch.ec.pairing import bls12
+    from zkarray_torch.kernels import mont as km
+    from zkarray_torch.testing import (E_BLS12_377, E_BLS12_381, ext_ec_add, fadd_edge_words,
+                                       fp12_tensor, g2_affine_from_ints, g2_affine_to_ints,
+                                       g2_off_subgroup_points, gt_powers, pairing_inputs)
+
+    dev, sync = h.dev, h.sync
+    rng = np.random.default_rng(9)
+    n = 1 << PAIR_LOG_N
+
+    def run(fn, record=True):
+        """fn() once with the counts set to 0 just before and read just
+        after: (result, host ms to the device's end, launches)."""
+        sync()
+        kernels.reset_launches()
+        rec.on = record
+        try:
+            out, ms = h.once_ms(fn)
+        finally:
+            rec.on = False
+        return out, ms, {k: v for k, v in kernels.LAUNCHES.items() if v}
+
+    def expected(bspec, e_flat, ab, inf, m):
+        """Per-lane host known answers E^(a_j b_j) (1 on the infinity lanes)
+        as an Fp12 tensor of m lanes, and the combined E^(sum)."""
+        F12 = bspec.fq12
+        r = bspec.g1.scalar.modulus
+        rows = gt_powers(F12.host, e_flat, ab)
+        one = tuple(F12.host.flatten(F12.host.one()))
+        table = fp12_tensor(F12, rows + [one], dev)
+        lane = np.arange(m) % len(ab)
+        lane[np.arange(m) % PAIR_INF_EVERY == PAIR_INF_EVERY - 1] = len(ab)
+        total = sum(ab[j] for j in lane.tolist() if j < len(ab)) % r
+        comb = fp12_tensor(F12, gt_powers(F12.host, e_flat, [total]), dev)[..., 0]
+        return table[..., torch.from_numpy(lane).to(dev)], comb
+
+    # -- BLS12-381 pairing_each at 2^PAIR_LOG_N --------------------------------------
+    spec = B.PAIRING
+    t0 = time.perf_counter()
+    P, Q, ab, inf = pairing_inputs(spec, n, rng, PAIR_BASE, PAIR_INF_EVERY, device=dev)
+    want, want_comb = expected(spec, E_BLS12_381, ab, inf, n)
+    host_s = time.perf_counter() - t0
+    each = lambda: bls12.pairing_each(spec, P, Q)  # noqa: E731
+    seen = collections.Counter(rec.keys)
+    got, first_ms, per_pairing = run(each)
+    path_keys = {k for k, v in rec.keys.items() if v > seen.get(k, 0)}  # this run's launches
+    if not torch.equal(got, want):
+        raise AssertionError(f"pairing_each 2^{PAIR_LOG_N}: lanes differ from E^(ab)")
+    walls = []
+    for _ in range(3):
+        got, ms, _ = run(each, record=False)
+        walls.append(ms)
+        if not torch.equal(got, want):
+            raise AssertionError("pairing_each: a timed run differs")
+    med = sorted(walls)[1]
+    got, trace = device_trace(torch, each, med)
+    if not torch.equal(got, want):
+        raise AssertionError("pairing_each: the traced run differs")
+    h.emit("pairing_each", curve=spec.name, pairs=n, infinity_lanes=int(inf.sum()),
+           known_answer_pairs=len(ab), correct=True, ms=med, ms_runs=walls, first_call_ms=first_ms,
+           pairings_per_s=n / med * 1e3, launches_per_pairing_call=per_pairing,
+           launches_per_pair=sum(per_pairing.values()) / n, host_known_answer_s=host_s, trace=trace)
+    del got
+
+    # -- pairing (combined over the pairs) ------------------------------------------
+    comb = lambda: bls12.pairing(spec, P, Q)  # noqa: E731
+    got, comb_first_ms, comb_launches = run(comb)
+    if not torch.equal(got, want_comb):
+        raise AssertionError("pairing (combined): differs from E^(sum a b)")
+    got, comb_ms, _ = run(comb, record=False)
+    if not torch.equal(got, want_comb):
+        raise AssertionError("pairing (combined): the timed run differs")
+    h.emit("pairing", curve=spec.name, pairs=n, correct=True, ms=comb_ms, first_call_ms=comb_first_ms,
+           pairs_per_s=n / comb_ms * 1e3, launches=comb_launches)
+
+    # -- BLS12-377 pairing_each at 2^PAIR_LOG_N (D-twist) ---------------------------
+    s377 = bls12_377.PAIRING
+    P7, Q7, ab7, inf7 = pairing_inputs(s377, n, rng, PAIR_BASE, PAIR_INF_EVERY, device=dev)
+    want7, _ = expected(s377, E_BLS12_377, ab7, inf7, n)
+    got7, ms7, launches7 = run(lambda: bls12.pairing_each(s377, P7, Q7))
+    if not torch.equal(got7, want7):
+        raise AssertionError(f"bls12_377 pairing_each 2^{PAIR_LOG_N}: lanes differ from E^(ab)")
+    h.emit("pairing_each_bls12_377", curve=s377.name, pairs=n, correct=True, ms=ms7,
+           pairings_per_s=n / ms7 * 1e3, launches=launches7)
+    del P7, Q7, got7, want7
+
+    # -- one pairing_each at 2^PAIR_BIG_LOG_N: its peak memory -------------------
+    m = 1 << PAIR_BIG_LOG_N
+    t = torch.arange(m, device=dev) % n
+    Pb = P._replace(x=P.x[:, t], y=P.y[:, t], inf=P.inf[t])
+    Qb = Q._replace(x=Q.x[..., t], y=Q.y[..., t], inf=Q.inf[t])
+    sync()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gotb, big_ms, big_launches = run(lambda: bls12.pairing_each(spec, Pb, Qb), record=False)
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    if not torch.equal(gotb, want[..., t]):
+        raise AssertionError(f"pairing_each 2^{PAIR_BIG_LOG_N}: lanes differ from E^(ab)")
+    h.emit("pairing_each_big", curve=spec.name, pairs=m, correct=True, ms=big_ms,
+           pairings_per_s=m / big_ms * 1e3, peak_bytes_above_inputs=peak, launches=big_launches)
+    del Pb, Qb, gotb, want, P, Q
+
+    # -- G2: zcash vectors at 2^G2_LOG_N, the subgroup check ----------------------
+    C2 = B.G2
+    F2h = C2.ops.host
+    g = G2_LOG_N
+    m2 = 1 << g
+    vec_pts, cur = [None], None
+    for _ in range(ZCASH_VECTORS - 1):
+        cur = ext_ec_add(F2h, cur, (C2.gen_x, C2.gen_y))
+        vec_pts.append(cur)
+    off = g2_off_subgroup_points(C2, OFF_POOL, rng)
+    Aoff = g2_affine_from_ints(C2, off, dev)
+    vidx = np.sort(rng.choice(m2, GROUP_KAT, replace=False))
+    zrows = {}
+    for compress in (True, False):
+        width = 96 if compress else 192
+        kind = "compressed" if compress else "uncompressed"
+        vec = np.fromfile(os.path.join(REPO, "tests", "vectors", f"g2_{kind}_valid_test_vectors.dat"),
+                          dtype=np.uint8).reshape(ZCASH_VECTORS, width)[np.arange(m2) % ZCASH_VECTORS]
+        data = np.concatenate([vec, zc.serialize_g2(Aoff, compress)])
+        (pts, ok), ms, got_l = run(lambda: zc.deserialize_g2(data, compress=compress, validate=True,
+                                                              device=dev))
+        if not ok[:m2].all() or ok[m2:].any():
+            raise AssertionError(f"zcash G2 {kind}: {int((~ok[:m2]).sum())} vectors rejected, "
+                                 f"{int(ok[m2:].sum())} points outside G2 accepted")
+        head = sw_ext.ExtAffine(pts.x[..., :m2], pts.y[..., :m2], pts.inf[:m2])
+        back, ser_ms = h.once_ms(lambda: zc.serialize_g2(head, compress))
+        if not np.array_equal(back, vec):
+            raise AssertionError(f"zcash G2 {kind}: re-serialized bytes differ")
+        vi = torch.from_numpy(vidx).to(dev)
+        if g2_affine_to_ints(C2, sw_ext.ExtAffine(head.x[..., vi], head.y[..., vi], head.inf[vi])) != [
+                vec_pts[i % ZCASH_VECTORS] for i in vidx.tolist()]:
+            raise AssertionError(f"zcash G2 {kind}: points differ from k H")
+        zrows[kind] = dict(ms=ms, deserializations_per_s=data.shape[0] / ms * 1e3,
+                           serialize_ms=ser_ms, launches=got_l)
+    h.emit("zcash_g2", n=m2, off_subgroup_rejected=OFF_POOL, byte_exact=True, correct=True, **zrows)
+
+    # lanes by i % 8: 0-4 the vectors' points (in G2), 5-6 outside G2, 7 infinity
+    cls = torch.arange(m2, device=dev) % 8
+    Ao = sw_ext.ExtAffine(Aoff.x[..., cls % OFF_POOL], Aoff.y[..., cls % OFF_POOL],
+                          torch.zeros(m2, dtype=torch.bool, device=dev))
+    outside = (cls == 5) | (cls == 6)
+    mix = sw_ext.ExtAffine(torch.where(outside, Ao.x, head.x), torch.where(outside, Ao.y, head.y),
+                           head.inf | (cls == 7))
+    okm, sg_ms, sg_launches = run(lambda: fast_checks.bls12_381_g2_subgroup_check(C2, mix))
+    if not torch.equal(okm, ~outside):
+        raise AssertionError(f"G2 subgroup check: {int((okm != ~outside).sum())} lanes wrong")
+    h.emit("g2_subgroup", n=m2, correct=True, ms=sg_ms, checks_per_s=m2 / sg_ms * 1e3,
+           launches=sg_launches)
+    del pts, head, mix, back
+
+    # -- fp_add and fp_sub against their plain versions ----------------------------
+    fields = (bn254.FR, bn254.FQ, B.FR, B.FQ, bls12_377.FQ)
+    plain = {"fp_add": km.add_plain, "fp_sub": km.sub_plain}
+    err = collections.defaultdict(int)
+    edge = {}
+    for f in fields:
+        words = fadd_edge_words(f, np.random.default_rng(10))
+        x = torch.from_numpy(ints_to_limbs_np(words, f.num_limbs).astype(np.int32)).to(dev)
+        k = len(words)
+        ii = torch.arange(k * k, device=dev)
+        a, b = x[:, ii // k], x[:, ii % k]
+        for name, kern, pl in (("fp_add", km.fp_add, km.add_plain), ("fp_sub", km.fp_sub, km.sub_plain),
+                               ("fp_sub", km.fp_neg, lambda f, v: km.sub_plain(f, torch.zeros_like(v), v))):
+            args = (a, b) if kern is not km.fp_neg else (x,)
+            err[name] = max(err[name], h.check_equal(f"{kern.__name__} {f.name} edge words",
+                                                     kern(f, *args), pl(f, *args)))
+        edge[f.name] = dict(words=k, pairs=k * k, first_words=[hex(w) for w in words[:4]])
+    recorded = collections.defaultdict(list)
+    prods = collections.defaultdict(list)
+    for key, count in sorted(rec.keys.items(), key=lambda kv: -math.prod(kv[0][2])):
+        spec_k, ins, out = rec.first[key]
+        name = key[0]
+        if name in plain:
+            got = km._launch_addsub(name, spec_k, ins[0], ins[1], out)
+            want_k, plain_ms = h.once_ms(lambda: plain[name](spec_k, *ins))
+            e_row = h.check_equal(f"{name} {key[1]} {key[2]} strides {key[3:]}", got, want_k)
+            err[name] = max(err[name], e_row)
+            recorded[name].append(dict(field=key[1], shape=list(key[2]), strides=[list(s) if s else s
+                                                                                 for s in key[3:]],
+                                       launches=count, on_pairing_each=key in path_keys,
+                                       max_abs_err=e_row, plain_ms=plain_ms, a0=words_hex(ins[0]),
+                                       b0=words_hex(ins[1]), _ins=ins, _out=out, _spec=spec_k))
+        else:
+            e = key[3]
+            pl = {"mont_mul": lambda: km.mont_mul_plain(spec_k, *ins),
+                  "mont_sqr": lambda: km.mont_sqr_plain(spec_k, *ins),
+                  "mont_pow": lambda: km.mont_pow_plain(spec_k, ins[0], e),
+                  "mont_inv": lambda: km.mont_inv_plain(spec_k, ins[0])}[name]
+            got = km._launch(name, spec_k, *ins, exponent=e)
+            e_row = h.check_equal(f"{name} {key[1]} {key[2]} (e = {e})", got, pl())
+            prods[name].append(dict(field=key[1], shape=list(key[2]), launches=count, max_abs_err=e_row,
+                                    a0=words_hex(ins[0])))
+    rec.first.clear()
+    report = {}
+    for name, kern in (("fp_add", km.fp_add), ("fp_sub", km.fp_sub)):
+        rows = recorded[name]
+        if not rows:
+            raise AssertionError(f"{name}: no launch recorded on phases 8-9")
+        # times: (24, 2^16) contiguous random words, and the path's widest launch
+        f = B.FQ
+        L = f.num_limbs
+        a, b = h.rand_field(f, 1 << 16), h.rand_field(f, 1 << 16)
+        gc.collect()  # the recorded inputs are many objects: no collection inside the timing
+        ms = h.time_ms(lambda: kern(f, a, b), 50)
+        dev_ms, dev_n = traced_device_ms(torch, name, lambda: kern(f, a, b), 20, dev)
+        plain_ms = h.once_ms(lambda: plain[name](f, a, b))[1]
+        b_ms, b_by = h.bound(3 * L * 4 * (1 << 16), (1 << 16) * h.add_ops(f))
+        wide = next(r for r in rows if r["on_pairing_each"])  # rows run widest first
+        m_el = math.prod(wide["shape"][1:])
+        wide_ms = h.time_ms(lambda: km._launch_addsub(name, wide["_spec"], *wide["_ins"], wide["_out"]),
+                            20)
+        reads = sum(h.distinct_elems(t) for t in wide["_ins"])  # a stride-0 constant is read once
+        wb_ms, wb_by = h.bound(wide["_spec"].num_limbs * 4 * (reads + m_el),
+                               m_el * h.add_ops(wide["_spec"]))
+        for r in rows:
+            for k_ in ("_ins", "_out", "_spec"):
+                r.pop(k_)
+        wide.update(ms=wide_ms, bound_ms=wb_ms, bound_by=wb_by, share_of_bound=wb_ms / wide_ms)
+        h.emit("kernel_addsub_shapes", kernel=name, rows=rows)
+        report[name] = dict(max_abs_err=err[name], launches=per_pairing.get(name, 0), ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+                            device_ms_per_launch_traced=dev_ms, traced_launches=dev_n,
+                            shape=[L, 1 << 16], widest_path_launch=wide, recorded_keys=len(rows),
+                            edge_words=edge)
+    h.emit("kernel_pairing_path_products", rows={k: v for k, v in prods.items()})
+    for name in ("mont_mul", "mont_sqr", "mont_inv", "mont_pow"):
+        report[name] = dict(launches_per_pairing_call=per_pairing.get(name, 0),
+                            recorded_keys=len(prods.get(name, [])),
+                            max_abs_err=max((r["max_abs_err"] for r in prods.get(name, [])), default=0))
     return report
 
 
@@ -2112,13 +2433,25 @@ def main():
     del A64, Ad, Dd, Da, head
 
     # ---- 8. the field and G1 group path ------------------------------------------
-    group_report = field_group_phase(torch, types.SimpleNamespace(
+    helpers = types.SimpleNamespace(
         dev=dev, sync=sync, time_ms=time_ms, once_ms=once_ms, rand_field=rand_field,
-        check_equal=check_equal, mul_ops=mul_ops, bound=bound, emit=emit))
-    for name, r in group_report.items():
-        report[name]["group"] = r
+        check_equal=check_equal, mul_ops=mul_ops, add_ops=add_ops, bound=bound, emit=emit,
+        distinct_elems=distinct_elems)
+    rec, restore = install_recorders(torch, km)
+    try:
+        group_report = field_group_phase(torch, helpers, rec)
+        for name, r in group_report.items():
+            report[name]["group"] = r
 
-    # ---- 9. kernels line -----------------------------------------------------
+        # ---- 9. the pairing path ---------------------------------------------------
+        pair_report = pairing_phase(torch, helpers, rec)
+    finally:
+        restore()
+    for name in ("mont_mul", "mont_sqr", "mont_inv", "mont_pow"):
+        report[name]["pairing"] = pair_report.pop(name)
+    report.update(pair_report)
+
+    # ---- 10. kernels line ----------------------------------------------------
     sources = {
         "mont_mul": ("zkarray_torch/kernels/csrc/mont.cu", "zkarray/kernels/mont.py:235"),
         "mont_sqr": ("zkarray_torch/kernels/csrc/mont.cu", "zkarray/kernels/mont.py:254"),
@@ -2154,6 +2487,10 @@ def main():
                         "zkarray/kernels/mont.py:235 and zkarray/kernels/mont.py:254, fused into "
                         "zkarray/poly/domain.py:64 twiddle_table, :160 fft_fourstep_big's body1 "
                         "and :314 the degree-aware twist"),
+        "fp_add": ("zkarray_torch/kernels/csrc/fadd.cu",
+                   "none: zkarray/ff/fp.py:257 add (and :264 double), which XLA fuses"),
+        "fp_sub": ("zkarray_torch/kernels/csrc/fadd.cu",
+                   "none: zkarray/ff/fp.py:268 sub and :277 neg, which XLA fuses"),
     }
     paths = {k: (f"msm 2^{LOG_N}", launches[k]) for k in msm_kernels}
     paths["mont_sqr"] = ("ec.sw.xyzz_double_affine", sqr_launches)
@@ -2163,6 +2500,9 @@ def main():
         paths[k] = (f"fft 2^{NTT_LOG_N}", ntt_launches[k])
     paths["butterfly_stage"] = ("kernels.mont.butterfly_stage", stage_launches)
     paths["xyzz_add_affine"] = ("ec.sw.xyzz_add_affine", madd_launches)
+    for k in ("fp_add", "fp_sub"):
+        paths[k] = (f"ec.pairing.bls12.pairing_each (BLS12-381, 2^{PAIR_LOG_N} pairs)",
+                    report[k]["launches"])
     idle = [k for k, (_, n_l) in paths.items() if n_l == 0]
     if idle:
         raise AssertionError(f"kernels never launched on their path: {idle}")

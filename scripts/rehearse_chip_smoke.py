@@ -3,8 +3,9 @@
 GPU and no nvcc: every kernel launch is replaced by a counted call of its
 plain version, torch.cuda and nvidia-smi by stubs, and the build by empty
 ptxas reports. It finds wrong paths, shapes, counts and control flow before
-a chip call; it says nothing about the CUDA sources. About 12 minutes
-(phase 8's group path runs its full-length scalar chains at 64 points):
+a chip call; it says nothing about the CUDA sources. About 20 minutes
+(phase 8's group path runs its full-length scalar chains at 64 points,
+phase 9 nine pairing calls of 8 to 16 pairs, ~10 s each on the CPU):
 
     python3 scripts/rehearse_chip_smoke.py > rehearsal.out
 """
@@ -69,18 +70,26 @@ def launch_xyzz(kernel, curve, *coords):
     return ksw._dbl_plain(curve, coords)
 
 
+def launch_addsub(kernel, spec, a, b, out):
+    LAUNCHES[kernel] += 1
+    r = (km.add_plain if kernel == "fp_add" else km.sub_plain)(spec, a, b)
+    return r if out is None else out.copy_(r)
+
+
 def accum(curve, state, coords, valid, what):
     LAUNCHES["xyzz_accum"] += 1
     return ksw.xyzz_accum_plain(curve, state, coords, valid)
 
 
-def main():
+def setup():
+    """Small sizes, the stubs and the counted plain versions."""
     cs.DEVICE = "cpu"
     cs.LOG_N, cs.NTT_LOG_N, cs.COSET_LOG_N, cs.DEG_LOG_M = 8, 12, 10, 9
     cs.KAT_POINTS, cs.ELEM_LOG_N, cs.MADD_KAT_BASE = 20, 8, 8
     cs.EDGE_SLOTS, cs.EDGE_ROUNDS, cs.ORACLE_SLOTS, cs.ORACLE_ROUNDS = 421, 4, 99, 3
     cs.TREE_EDGE_ROWS, cs.TREE_EDGE_WIDTHS, cs.TREE_ROUTE_WIDTHS = 4, (1, 2, 3, 13, 16), (17, 33)
     cs.GROUP_LOG_N, cs.SMALL_LOG_N, cs.FIELD_KAT, cs.GROUP_KAT, cs.OFF_POOL = 6, 5, 16, 8, 4
+    cs.PAIR_LOG_N, cs.PAIR_BIG_LOG_N, cs.PAIR_BASE, cs.PAIR_INF_EVERY, cs.G2_LOG_N = 3, 4, 4, 4, 5
     dm.FOURSTEP_BIG, dm.FOURSTEP_MIN = 1 << 12, 1 << 9
     ksw.TREE_SUM_MAX = 16  # c = 7 at 2^8 points: trees of 64, two element-wise levels
 
@@ -112,6 +121,7 @@ def main():
     # every wrapper takes its kernel route, which now runs the plain version
     km.on_cpu = lambda *ts: False
     km._launch = launch_mont
+    km._launch_addsub = launch_addsub
     km._launch_dit = lambda spec, x, tw, stride: counted("butterfly_dit", km.butterfly_dit_plain)(
         spec, x, tw, stride)
     km.butterfly_stage = counted("butterfly_stage", km.butterfly_stage_plain)
@@ -132,6 +142,10 @@ def main():
             km.on_cpu = lambda *ts: False
 
     km.twiddle_mul = counted("twiddle_mul", twiddle_on_cpu)
+
+
+def main():
+    setup()
     return cs.main()
 
 

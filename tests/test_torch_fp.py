@@ -303,3 +303,45 @@ def test_limb_helpers_match_jax_and_oracle():
     assert tlb.num_bits_total(a).dtype == torch.int32
     assert tlb.zeros.__defaults__ == ((), DEFAULT_DEVICE)
     assert tlb.zeros(4, (2,), "cpu").shape == (4, 2)
+
+
+@pytest.mark.parametrize("n", [1, 3, 25, 61])
+def test_carry_helpers_match_python_ints(n):
+    """core/limbs.py's carry lookahead at n limbs against Python ints:
+    normalize on nonnegative int64 columns up to 2^62 (the final carry
+    dropped), add_with_carry and sub_with_borrow on 16-bit limbs whose
+    carries and borrows run across every limb (all-ones, zero, single-limb
+    edges, random); more than 61 limbs raises."""
+    from zkarray_torch.core import limbs as tlb
+
+    rng = np.random.default_rng(40 + n)
+    M = (1 << 16) - 1
+
+    def value(cols):
+        return [sum(int(c) << (16 * i) for i, c in enumerate(col)) for col in cols.T.tolist()]
+
+    def ints(limbs):
+        return [sum(int(v) << (16 * i) for i, v in enumerate(col)) for col in limbs.T.tolist()]
+
+    cols = np.concatenate([rng.integers(0, 1 << 62, size=(n, 8), dtype=np.int64),
+                           rng.integers(0, 1 << 17, size=(n, 8), dtype=np.int64),
+                           np.full((n, 1), M, np.int64), np.full((n, 1), 1 << 16, np.int64)], 1)
+    out = tlb.normalize(torch.from_numpy(cols), n)
+    assert ints(out.numpy()) == [v % (1 << (16 * n)) for v in value(cols)]
+    if n + 4 <= 61:  # room for every carry: the whole value
+        assert ints(tlb.normalize(torch.from_numpy(cols), n + 4).numpy()) == value(cols)
+    edge = [0, 1, M, 1 << (16 * n) - 1, (1 << (16 * n)) - 1, (1 << (16 * n)) - 2]
+    edge += [M << (16 * k) for k in range(n)] + [1 << (16 * k) for k in range(n)]
+    edge += [int.from_bytes(rng.bytes(2 * n), "little") for _ in range(8)]
+    k = len(edge)
+    limbs = torch.from_numpy(tlb.ints_to_limbs_np(edge, n).astype(np.int64))
+    a, b = limbs[:, np.arange(k * k) // k], limbs[:, np.arange(k * k) % k]
+    xa, xb = ints(a.numpy()), ints(b.numpy())
+    s, c = tlb.add_with_carry(a, b)
+    assert ints(s.numpy()) == [(x + y) % (1 << (16 * n)) for x, y in zip(xa, xb)]
+    assert c.tolist() == [(x + y) >> (16 * n) for x, y in zip(xa, xb)]
+    d, borrow = tlb.sub_with_borrow(a, b)
+    assert ints(d.numpy()) == [(x - y) % (1 << (16 * n)) for x, y in zip(xa, xb)]
+    assert borrow.tolist() == [y > x for x, y in zip(xa, xb)]
+    with pytest.raises(ValueError):
+        tlb.sub_with_borrow(torch.zeros(62, 1), torch.zeros(62, 1))

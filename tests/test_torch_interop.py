@@ -112,7 +112,10 @@ def test_import_pulls_in_no_jax():
         "zkarray_torch.testing, zkarray_torch.kernels.sw, zkarray_torch.poly.domain, "
         "zkarray_torch.poly.evaluations, zkarray_torch.curves.bn254, "
         "zkarray_torch.curves.bls12_377, zkarray_torch.curves.bls12_381_zcash, "
-        "zkarray_torch.ec.point_serde, zkarray_torch.serialize.wrappers; "
+        "zkarray_torch.ec.point_serde, zkarray_torch.serialize.wrappers, "
+        "zkarray_torch.ff.towers, zkarray_torch.ff.sparse12, zkarray_torch.ff.cyclotomic, "
+        "zkarray_torch.ff.tower_host, zkarray_torch.ec.sw_ext, zkarray_torch.ec.pairing.bls12, "
+        "zkarray_torch.ec.fast_checks; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'zkarray')]; "
         "assert not bad, bad"
     )
@@ -135,6 +138,46 @@ def _imported_roots(path: Path):
 def test_source_scan_finds_no_jax_or_zkarray_import():
     files = sorted((ROOT / "zkarray_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"zkarray_torch/ff/towers.py", "zkarray_torch/ff/sparse12.py",
+            "zkarray_torch/ff/cyclotomic.py", "zkarray_torch/ff/tower_host.py",
+            "zkarray_torch/ec/sw_ext.py", "zkarray_torch/ec/pairing/bls12.py",
+            "zkarray_torch/kernels/mont.py"} <= names  # mont.py: fadd.cu's wrappers
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "zkarray"}
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_pairing_path_constants_and_default_device():
+    """The towers' Frobenius tables, G2 and the pairing specs equal the JAX
+    package's; the new entry points default to the package's device."""
+    import inspect
+
+    from zkarray.ec.pairing import bls12 as jbls12
+    from zkarray_torch import DEFAULT_DEVICE
+    from zkarray_torch.curves import bls12_377 as t377
+    from zkarray_torch.curves import bls12_381_zcash as tzc
+    from zkarray_torch.ec import point_serde as tps
+    from zkarray_torch.ec import sw_ext as tsw_ext
+    from zkarray_torch.ff import towers as ttowers
+
+    assert DEFAULT_DEVICE == "cuda"
+    for jm, tm in ((jcurves, tcurves), (jbls377, t377)):
+        for name in ("FQ2", "FQ6", "FQ12"):
+            j, t = getattr(jm, name), getattr(tm, name)
+            assert (t.name, t.deg, t.shape, t.nonresidue_host) == (j.name, j.deg, j.shape,
+                                                                   j.nonresidue_host)
+            assert t._frob == j._frob
+        jg, tg = jm.G2, tm.G2
+        assert (tg.a_host, tg.b_host, tg.gen_x, tg.gen_y, tg.cofactor) == (
+            jg.a_host, jg.b_host, jg.gen_x, jg.gen_y, jg.cofactor)
+        jp, tp = jm.PAIRING, tm.PAIRING
+        assert (tp.x, tp.twist_type, tp.x_bits, tp.two_inv_int) == (jp.x, jp.twist_type,
+                                                                  jp.x_bits, jp.two_inv_int)
+        assert isinstance(jp, jbls12.Bls12Spec)
+    assert (tfast._PSI_X_C1, tfast._PSI_Y) == (jfast._PSI_X_C1, jfast._PSI_Y)
+    for fn in (ttowers.PrimeOps.zero, ttowers.PrimeOps.one, ttowers.PrimeOps.const,
+               ttowers.PrimeOps.from_ints, ttowers.ExtOps.zero, ttowers.ExtOps.one,
+               ttowers.ExtOps.const, ttowers.ExtOps.from_ints, tsw_ext.ExtCurveSpec.generator,
+               tsw_ext.zero, tps.deserialize_sw_ext, tzc.deserialize_g2):
+        assert inspect.signature(fn).parameters["device"].default == DEFAULT_DEVICE, fn

@@ -181,3 +181,50 @@ def test_twiddle_mul_plain_matches_jax_twiddle_table(case):
         assert not wide[:, :, rest].any()  # nothing outside the block is written
     with pytest.raises(ValueError):  # exponents beyond the tables
         tkm.twiddle_mul(TFR, x, tw, r0, c0 + n2)
+
+
+def _five_fields():
+    from zkarray.curves import bls12_377 as j377, bn254 as jbn
+    from zkarray_torch.curves import bls12_377 as t377, bn254 as tbn
+
+    return [(jbn.FR, tbn.FR), (jbn.FQ, tbn.FQ), (jcurves.FR, tcurves.FR),
+            (jcurves.FQ, tcurves.FQ), (j377.FQ, t377.FQ)]
+
+
+@pytest.mark.parametrize("k", range(5), ids=["bn254.Fr", "bn254.Fq", "bls12_381.Fr",
+                                              "bls12_381.Fq", "bls12_377.Fq"])
+def test_field_additions_plain_match_jax(k):
+    """add_plain and sub_plain (csrc/fadd.cu's plain versions; -a is
+    sub_plain(0, a)) on testing.fadd_edge_words, all pairs, against
+    zkarray.ff.fp.add/sub/neg bit for bit, inputs >= p included; the wrappers fp_add/fp_sub/fp_neg give
+    the same words on CPU tensors, into a new tensor and into a strided
+    ``out`` (the tower layout's coefficient axes behind the limb axis)."""
+    from zkarray_torch.core.limbs import ints_to_limbs_np
+    from zkarray_torch.testing import fadd_edge_words
+
+    jspec, tspec = _five_fields()[k]
+    Lk = tspec.num_limbs
+    words = fadd_edge_words(tspec, np.random.default_rng(20 + k))
+    m = len(words)
+    arr = ints_to_limbs_np(words, Lk)
+    ii = np.arange(m * m)
+    a_np, b_np = arr[:, ii // m], arr[:, ii % m]
+    ja, jb = jnp.asarray(a_np), jnp.asarray(b_np)
+    ta = torch.from_numpy(a_np.astype(np.int32))
+    tb = torch.from_numpy(b_np.astype(np.int32))
+    for jf, plain, wrap, args_j, args_t in (
+        (jfp.add, tkm.add_plain, tkm.fp_add, (ja, jb), (ta, tb)),
+        (jfp.sub, tkm.sub_plain, tkm.fp_sub, (ja, jb), (ta, tb)),
+        (jfp.neg, lambda f, x: tkm.sub_plain(f, torch.zeros_like(x), x), tkm.fp_neg, (ja,), (ta,)),
+    ):
+        want = np.asarray(jf(jspec, *args_j))
+        assert np.array_equal(limbs_to_numpy(plain(tspec, *args_t)), want)
+        assert np.array_equal(limbs_to_numpy(wrap(tspec, *args_t)), want)
+        # into the (c, L, n) layout through its (L, c, n) view, c = 1
+        out = torch.empty((1, Lk, m * m), dtype=torch.int32)
+        wrap(tspec, *(t[:, None] for t in args_t), out=out.movedim(1, 0))
+        assert np.array_equal(limbs_to_numpy(out[0]), want)
+    # broadcasting: a ()-batch constant against the batch, as align pads it
+    c = torch.from_numpy(arr[:, 3].astype(np.int32))
+    want = np.asarray(jfp.add(jspec, jnp.asarray(arr[:, 3]), ja))
+    assert np.array_equal(limbs_to_numpy(tkm.fp_add(tspec, c, ta)), want)

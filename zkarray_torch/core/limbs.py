@@ -8,6 +8,7 @@ has no add, sub, shift or compare).
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -63,56 +64,64 @@ def zeros(num_limbs: int, batch_shape=(), device=DEFAULT_DEVICE) -> torch.Tensor
 
 
 def normalize(cols: torch.Tensor, out_limbs: int) -> torch.Tensor:
-    """Carry-propagate signed int64 base-2^16 columns into 16-bit limbs.
+    """Carry-propagate nonnegative int64 base-2^16 columns (< 2^62) into
+    16-bit limbs.
 
     Returns (out_limbs, *batch) int64 limbs in [0, 2^16); the final carry is
-    dropped (callers guarantee it is zero or read it via ``sub_with_borrow``).
-    """
-    out, _ = _ripple(cols, out_limbs)
-    return out
-
-
-def _ripple(cols: torch.Tensor, out_limbs: int):
-    """(limbs, final signed carry) of int64 columns with |value| < 2^62.
-
-    Three carry-save passes bring every column below 2^17 (each pass moves
-    all columns' high bits up one limb at once); the exact ripple then runs
-    over 48-bit chunks of three limbs, a third of the serial steps."""
+    dropped (callers guarantee it is zero). Four carry-save passes bring
+    every column to at most 2^16 (each pass moves all columns' high bits up
+    one limb at once); the last carries then follow from one binary add of
+    the limbs' generate and propagate bits (``_lookahead``)."""
     x = cols.to(torch.int64)
     if x.shape[0] < out_limbs:
         x = torch.cat([x, x.new_zeros((out_limbs - x.shape[0],) + tuple(x.shape[1:]))])
     else:
         x = x[:out_limbs].clone()
-    top = torch.zeros_like(x[0])
-    for _ in range(3):
+    for _ in range(4):
         c = x >> LIMB_BITS
         x &= LIMB_MASK
         x[1:] += c[:-1]
-        top += c[-1]
-    m = -(-out_limbs // 3)
-    x = torch.cat([x, x.new_zeros((3 * m - out_limbs,) + tuple(x.shape[1:]))])
-    x = x.reshape((m, 3) + tuple(x.shape[1:]))
-    # columns are now in (-2^15, 2^17): a chunk is exact in int64
-    chunks = x[:, 0] + (x[:, 1] << LIMB_BITS) + (x[:, 2] << (2 * LIMB_BITS))
-    c = torch.zeros_like(top)
-    for j in range(m):
-        t = chunks[j] + c
-        chunks[j] = t & ((1 << 48) - 1)
-        c = t >> 48
-    out = torch.stack([chunks & LIMB_MASK, (chunks >> LIMB_BITS) & LIMB_MASK,
-                       chunks >> (2 * LIMB_BITS)], dim=1).reshape((3 * m,) + tuple(x.shape[2:]))
-    # limbs past out_limbs in the top chunk belong to the final carry
-    carry = top + (c << (LIMB_BITS * (3 * m - out_limbs)))
-    for k in range(out_limbs, 3 * m):
-        carry = carry + (out[k] << (LIMB_BITS * (k - out_limbs)))
-    return out[:out_limbs], carry
+    cin, _ = _lookahead(x > LIMB_MASK, x == LIMB_MASK)
+    return (x + cin) & LIMB_MASK
+
+
+@functools.lru_cache(maxsize=None)
+def _bit_weights(n: int, batch_dims: int, device: str) -> torch.Tensor:
+    """(n, 1, ..., 1) int64 column of 2^i."""
+    return (torch.ones(n, dtype=torch.int64, device=device)
+            << torch.arange(n, device=device)).reshape((n,) + (1,) * batch_dims)
+
+
+def _lookahead(gen: torch.Tensor, prop: torch.Tensor):
+    """Carries of a ripple over n <= 61 limbs where limb i generates a carry
+    where gen[i] and passes the incoming one on where prop[i] (disjoint bool
+    masks, (n, *batch)): with A = gen | prop and B = gen as n-bit integers,
+    the carry into limb i is bit i of (A + B) ^ A ^ B. Returns (carry into
+    each limb as int64 0/1, (n, *batch); carry out of the top limb, *batch)."""
+    n = gen.shape[0]
+    if n > 61:
+        raise ValueError(f"carry lookahead over {n} limbs: at most 61")
+    w = _bit_weights(n, gen.dim() - 1, str(gen.device))
+    g = (gen * w).sum(0)
+    a = ((gen | prop) * w).sum(0)
+    c = (a + g) ^ a ^ g
+    return (c[None] & w).ne(0).to(torch.int64), (c >> n) & 1
+
+
+def add_with_carry(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """a + b over 16-bit limbs of equal length. Returns (int64 sum limbs
+    mod 2^(16 L), int64 carry 0/1)."""
+    s = a.to(torch.int64) + b.to(torch.int64)
+    cin, cout = _lookahead(s > LIMB_MASK, s == LIMB_MASK)
+    return (s + cin) & LIMB_MASK, cout
 
 
 def sub_with_borrow(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """a - b over canonical limbs of equal length. Returns (int64 diff limbs
+    """a - b over 16-bit limbs of equal length. Returns (int64 diff limbs
     mod 2^(16 L), borrow) with borrow True where b > a."""
-    diff, c = _ripple(a.to(torch.int64) - b.to(torch.int64), a.shape[0])
-    return diff, c < 0
+    d = a.to(torch.int64) - b.to(torch.int64)
+    bin_, bout = _lookahead(d < 0, d == 0)
+    return (d - bin_) & LIMB_MASK, bout.bool()
 
 
 def geq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,12 @@
-"""BLS12-381 fields and G1 (standard public constants).
+"""BLS12-381 fields, towers, G1, G2 and the pairing (standard public
+constants).
 
-Counterpart of zkarray/curves/bls12_381.py:FR/FQ/G1; the towers, G2 and the
-pairing are not ported yet.
+Counterpart of zkarray/curves/bls12_381.py. Towers: Fq2 = Fq[u]/(u^2 + 1),
+Fq6 = Fq2[v]/(v^3 - (u + 1)), Fq12 = Fq6[w]/(w^2 - v). G2 is the M-twist
+y^2 = x^3 + 4(u + 1) over Fq2.
 """
+
+import torch
 
 from zkarray_torch.core.fieldspec import FieldSpec
 from zkarray_torch.ec.sw import SWCurveSpec
@@ -24,3 +28,54 @@ G1 = SWCurveSpec(
     gen_y=0x08B3F481E3AAA0F1A09E30ED741D8AE4FCF5E095D5D00AF600DB18CB2C04B3EDD03CC744A2888AE40CAA232946C5E7E1,
     cofactor=0x396C8C005555E1568C00AAAB0000AAAB,
 )
+
+# BLS parameter X (the ate loop count)
+X = -0xD201000000010000
+
+# ---- towers
+from zkarray_torch.ff.towers import ExtOps, PrimeOps  # noqa: E402
+
+FQ_OPS = PrimeOps(FQ)
+FQ2 = ExtOps("bls12_381.Fq2", FQ_OPS, 2, FQ_MODULUS - 1)  # beta = -1
+
+
+def _nr6_hook(fq2, x):
+    """x (u + 1) = (c0 - c1) + (c0 + c1) u for x in Fq2."""
+    return torch.stack([fq2.base.sub(x[0], x[1]), fq2.base.add(x[0], x[1])])
+
+
+def _nr12_hook(fq6, x):
+    """x v = (xi x2, x0, x1) for x in Fq6, xi = u + 1: a coefficient shuffle
+    and the Fq6 hook, where the JAX package multiplies by v in full."""
+    return fq6._stack([fq6.mul_nonresidue(x[2]), x[0], x[1]])
+
+
+FQ6 = ExtOps("bls12_381.Fq6", FQ2, 3, (1, 1), mul_nonresidue_hook=_nr6_hook)
+FQ12 = ExtOps("bls12_381.Fq12", FQ6, 2, ((0, 0), (1, 0), (0, 0)),  # beta = v
+              mul_nonresidue_hook=_nr12_hook)
+
+# ---- G2: y^2 = x^3 + 4(u + 1) over Fq2, M-twist
+from zkarray_torch.ec.sw_ext import ExtCurveSpec  # noqa: E402
+
+G2 = ExtCurveSpec(
+    name="bls12_381.G2",
+    ops=FQ2,
+    scalar_spec=FR,
+    a_host=(0, 0),
+    b_host=(4, 4),
+    gen_x_host=(
+        0x024AA2B2F08F0A91260805272DC51051C6E47AD4FA403B02B4510B647AE3D1770BAC0326A805BBEFD48056C8C121BDB8,
+        0x13E02B6052719F607DACD3A088274F65596BD0D09920B61AB5DA61BBDC7F5049334CF11213945D57E5AC7D055D042B7E,
+    ),
+    gen_y_host=(
+        0x0CE5D527727D6E118CC9CDC6DA2E351AADFD9BAA8CBDD3A76D429A695160D12C923AC9CC3BACA289E193548608B82801,
+        0x0606C4A02EA734CC32ACD2B02BC28B99CB3E287E85A763AF267492AB572E99AB3F370D275CEC1DA1AAA9075FF05F79BE,
+    ),
+    cofactor=0x5D543A95414E7F1091D50792876A202CD91DE4547085ABAA68A205B2E5A7DDFA628F1CB4D9E82EF21537E293A6691AE1616EC6E786F0C70CF1C38E31C7238E5,
+)
+
+# ---- the pairing engine
+from zkarray_torch.ec.pairing.bls12 import Bls12Spec  # noqa: E402
+
+PAIRING = Bls12Spec(name="bls12_381", x=X, twist_type="M", fq_spec=FQ, fq2=FQ2, fq6=FQ6,
+                    fq12=FQ12, g1_curve=G1, g2_curve=G2)

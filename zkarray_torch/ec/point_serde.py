@@ -1,10 +1,13 @@
 """Short-Weierstrass point serialization in arkworks' canonical format.
 
-Counterpart of zkarray/ec/point_serde.py's SW part (serialize_sw,
-deserialize_sw); the twisted-Edwards formats wait for the Edwards curves.
-Compressed = x bytes with SWFlags in the top 2 bits of the last byte (y
-negative when y > -y as integers); uncompressed = x bytes ++ y bytes with
-the flags; infinity = zeros and the infinity flag.
+Counterpart of zkarray/ec/point_serde.py's short-Weierstrass parts
+(serialize_sw, deserialize_sw, and for points over an extension field
+serialize_sw_ext, deserialize_sw_ext); the twisted-Edwards formats wait for
+the Edwards curves. Compressed = x bytes with SWFlags in the top 2 bits of
+the last byte (y negative when y > -y as integers; over an extension,
+coefficient by coefficient from the highest); uncompressed = x bytes ++ y
+bytes with the flags; infinity = zeros and the infinity flag. An extension
+element is its coefficients c0..c_{d-1} in order, the flags in the last.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from zkarray_torch import DEFAULT_DEVICE
 from zkarray_torch.core import limbs as lb
 from zkarray_torch.core.fieldspec import FieldSpec
 from zkarray_torch.ec import sw as sw_mod
+from zkarray_torch.ec import sw_ext
 from zkarray_torch.ec.sw import AffinePoints, SWCurveSpec
 from zkarray_torch.ff import fp
 from zkarray_torch.serialize.canonical import (SW_FLAG_INFINITY, SW_FLAG_NEGATIVE, deserialize_fp,
@@ -79,4 +83,101 @@ def deserialize_sw(curve: SWCurveSpec, data: np.ndarray, compress: bool = True,
             ok = ok & sw_mod.is_on_curve(curve, pts).cpu().numpy()
     if validate:
         ok = ok & sw_mod.subgroup_check(curve, pts).cpu().numpy()
+    return pts, ok
+
+
+# ---------------------------------------------------------------------------
+# points over an extension field (G2): arkworks' default canonical format
+# ---------------------------------------------------------------------------
+
+def ext_y_is_negative(F, y: torch.Tensor) -> torch.Tensor:
+    """y > -y in arkworks' extension-field order: coefficient-lexicographic,
+    the HIGHEST coefficient first (quadratic_extension.rs:444-453)."""
+    spec = F.spec
+    gt = torch.zeros(F.batch_shape_of(y), dtype=torch.bool, device=y.device)
+    decided = torch.zeros_like(gt)
+    for j in range(F.deg - 1, -1, -1):
+        gt |= ~decided & y_is_negative(spec, y[j])
+        decided |= ~fp.is_zero(spec, y[j])
+    return gt
+
+
+def serialize_sw_ext(curve: sw_ext.ExtCurveSpec, pts: sw_ext.ExtAffine,
+                     compress: bool = True) -> np.ndarray:
+    """ExtAffine points over a quadratic or cubic extension -> canonical
+    bytes, (n, deg * nb) compressed or (n, 2 deg nb) uncompressed."""
+    F = curve.ops
+    spec, deg = F.spec, F.deg
+    batch, dev = F.batch_shape_of(pts.x), pts.x.device
+    inf = pts.inf.reshape(-1).cpu().numpy()
+    neg = ext_y_is_negative(F, pts.y).reshape(-1).cpu().numpy()
+    flags = np.where(inf, np.uint8(SW_FLAG_INFINITY),
+                     np.where(neg, np.uint8(SW_FLAG_NEGATIVE), np.uint8(0)))
+
+    def enc(v, with_flags):
+        parts = [serialize_fp(spec, v[j]) for j in range(deg - 1)]
+        parts.append(serialize_fp(spec, v[deg - 1], flag_bits=2 if with_flags else 0,
+                                  flags=flags if with_flags else None))
+        return np.concatenate(parts, axis=1)
+
+    xz = F.select(pts.inf, F.zero(batch, dev), pts.x)
+    if compress:
+        return enc(xz, True)
+    yz = F.select(pts.inf, F.zero(batch, dev), pts.y)
+    return np.concatenate([enc(xz, False), enc(yz, True)], axis=1)
+
+
+def deserialize_sw_ext(curve: sw_ext.ExtCurveSpec, data: np.ndarray, compress: bool = True,
+                       validate: bool = True, device=DEFAULT_DEVICE
+                       ) -> Tuple[sw_ext.ExtAffine, np.ndarray]:
+    """Canonical bytes -> (ExtAffine on ``device``, valid mask). Compressed
+    decoding of quadratic extensions takes the root from towers.quad_sqrt;
+    compressed cubic-extension points are not implemented (the reference
+    raises NotImplementedError too). Under ``validate`` the points must lie
+    on the curve; no subgroup check here."""
+    from zkarray_torch.ff.towers import quad_sqrt
+
+    F = curve.ops
+    spec, deg = F.spec, F.deg
+    data = np.asarray(data, dtype=np.uint8)
+    if data.ndim == 1:
+        data = data[None]
+    n = data.shape[0]
+    nb = field_byte_size(spec)
+
+    def dec(block, flag_bits_last):
+        coeffs, oks, flags, off = [], np.ones(n, dtype=bool), None, 0
+        for j in range(deg):
+            fb = flag_bits_last if j == deg - 1 else 0
+            w = field_byte_size(spec, fb)
+            v, fl, ok = deserialize_fp(spec, block[:, off:off + w], flag_bits=fb, device=device)
+            off += w
+            coeffs.append(v)
+            oks &= ok
+            flags = fl
+        return torch.stack(coeffs), flags, oks
+
+    if compress:
+        if deg != 2:
+            raise NotImplementedError(
+                "compressed ext-point decoding implemented for quadratic extensions only")
+        x, flags, ok = dec(data, 2)
+        is_inf = (flags & SW_FLAG_INFINITY) != 0
+        neg = (flags & SW_FLAG_NEGATIVE) != 0
+        rhs = F.add(F.mul(F.sqr(x), x), F.const(curve.b_host, (n,), device))
+        if not curve.a_is_zero:
+            rhs = F.add(rhs, F.mul(F.const(curve.a_host, (n,), device), x))
+        root, is_sq = quad_sqrt(F, rhs)
+        y_pos = F.select(ext_y_is_negative(F, root), F.neg(root), root)
+        y = F.select(torch.from_numpy(neg).to(device), F.neg(y_pos), y_pos)
+        pts = sw_ext.ExtAffine(x, y, torch.from_numpy(is_inf).to(device))
+        ok = ok & (is_sq.cpu().numpy() | is_inf) & ~(is_inf & neg)
+    else:
+        x, _, okx = dec(data[:, :deg * nb], 0)
+        y, flags, oky = dec(data[:, deg * nb:], 2)
+        is_inf = (flags & SW_FLAG_INFINITY) != 0
+        pts = sw_ext.ExtAffine(x, y, torch.from_numpy(is_inf).to(device))
+        ok = okx & oky
+    if validate:
+        ok = ok & (sw_ext.is_on_curve(curve, pts).cpu().numpy() | is_inf)
     return pts, ok

@@ -2,8 +2,9 @@
 
 Counterpart of zkarray/ff/fp.py. Field tensors are ``int32[L, *batch]`` in
 Montgomery form unless stated otherwise, R = 2^(16 L). ``mont_mul``,
-``mont_sqr``, ``pow_const``, ``pow2k`` and ``inv`` go through
-zkarray_torch.kernels.mont, which launches a CUDA kernel for CUDA tensors;
+``mont_sqr``, ``pow_const``, ``pow2k``, ``inv``, ``add``, ``sub``,
+``double`` and ``neg`` go through zkarray_torch.kernels.mont, which launches
+a CUDA kernel for CUDA tensors;
 everything else here is plain PyTorch on the tensors' own device (in the JAX
 package it is XLA).
 
@@ -92,19 +93,13 @@ def mont_reduce(spec: FieldSpec, cols: torch.Tensor) -> torch.Tensor:
     return km.redc_plain(spec, full).to(torch.int32)
 
 
-add = km.add  # (a + b) mod p
-sub = km.sub  # (a - b) mod p
+add = km.fp_add  # (a + b) mod p, one csrc/fadd.cu launch on a CUDA device
+sub = km.fp_sub  # (a - b) mod p, likewise
+neg = km.fp_neg  # -a mod p (0 stays 0): one fp_sub launch of 0 - a
 
 
-def double(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
-    return add(spec, a, a)
-
-
-def neg(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
-    """-a mod p (0 stays 0)."""
-    p = km.limb_col(spec, spec.modulus, str(a.device), a.dim() - 1).expand(a.shape)
-    d, _ = lb.sub_with_borrow(p, a)
-    return torch.where(lb.is_zero(a)[None], a.to(torch.int64), d).to(torch.int32)
+def double(spec: FieldSpec, a: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    return add(spec, a, a, out)
 
 
 def to_mont(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:

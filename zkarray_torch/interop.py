@@ -13,7 +13,9 @@ import torch
 
 from zkarray_torch import DEFAULT_DEVICE
 from zkarray_torch.core.fieldspec import FieldSpec
+from zkarray_torch.ec.pairing.bls12 import G2Prepared
 from zkarray_torch.ec.sw import AffinePoints, JacobianPoints, SWCurveSpec, XYZZPoints
+from zkarray_torch.ec.sw_ext import ExtAffine, ExtJacobian
 
 
 def limbs_from_numpy(arr, device=DEFAULT_DEVICE) -> torch.Tensor:
@@ -56,6 +58,41 @@ def xyzz_from_numpy(coords, device=DEFAULT_DEVICE) -> XYZZPoints:
 
 def xyzz_to_numpy(P: XYZZPoints):
     return tuple(limbs_to_numpy(v) for v in P)
+
+
+def ext_affine_from_numpy(x, y, inf, device=DEFAULT_DEVICE) -> ExtAffine:
+    """Tower-element coordinates ((deg,) + base.shape + (L, *batch) uint32)
+    and the infinity mask -> ExtAffine."""
+    return ExtAffine(limbs_from_numpy(x, device), limbs_from_numpy(y, device),
+                     torch.from_numpy(np.asarray(inf, dtype=bool).copy()).to(device))
+
+
+def ext_affine_to_numpy(A: ExtAffine):
+    return limbs_to_numpy(A.x), limbs_to_numpy(A.y), A.inf.detach().cpu().numpy()
+
+
+def ext_jacobian_from_numpy(coords, device=DEFAULT_DEVICE) -> ExtJacobian:
+    """Three tower-element arrays (x, y, z) -> ExtJacobian."""
+    return ExtJacobian(*(limbs_from_numpy(v, device) for v in coords))
+
+
+def ext_jacobian_to_numpy(P: ExtJacobian):
+    return tuple(limbs_to_numpy(v) for v in P)
+
+
+def g2_prepared_from_numpy(dbl, add, inf, add_rows=None, device=DEFAULT_DEVICE) -> G2Prepared:
+    """Line coefficients (nbits, 3, 2, L, *batch) and the mask -> G2Prepared.
+    The JAX package keeps an add-step slot for every bit; pass the set bits
+    (``Bls12Spec.add_bits``) as ``add_rows`` to keep those rows only."""
+    add = np.asarray(add)
+    if add_rows is not None:
+        add = add[list(add_rows)]
+    return G2Prepared(limbs_from_numpy(dbl, device), limbs_from_numpy(add, device),
+                      torch.from_numpy(np.asarray(inf, dtype=bool).copy()).to(device))
+
+
+def g2_prepared_to_numpy(Qp: G2Prepared):
+    return limbs_to_numpy(Qp.dbl_coeffs), limbs_to_numpy(Qp.add_coeffs), Qp.inf.detach().cpu().numpy()
 
 
 def same_field(spec: FieldSpec, modulus: int, generator: int, r_int: int, r2_int: int,

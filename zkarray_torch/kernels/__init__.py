@@ -20,6 +20,8 @@ and binds them with ctypes. ``LAUNCHES`` counts each kernel's launches.
     xyzz_bit_horner  sw.cu     sw.xyzz_bit_horner                      (none: ec/msm.py:_weighted_sum_bits' bit-Horner launches)
     pow_table        twiddle.cu  mont.pow_table                        (none: poly/domain.py's table launch chains)
     twiddle_mul      twiddle.cu  mont.twiddle_mul                      (none: poly/domain.py's table launch chains)
+    fp_add           fadd.cu   mont.fp_add                             (none: ff/fp.py:add and :double, plain torch chains)
+    fp_sub           fadd.cu   mont.fp_sub, mont.fp_neg                (none: ff/fp.py:sub and :neg, plain torch chains)
 """
 
 from zkarray_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401

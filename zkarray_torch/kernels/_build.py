@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("mont", "sw", "ntt", "madd", "xyzz", "twiddle")
+SOURCES = ("mont", "sw", "ntt", "madd", "xyzz", "twiddle", "fadd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -62,13 +62,17 @@ EXPORTS = {
         "zk_pow_table": [_P, _LL, _I, _P, _I, _I, _P, _P],
         "zk_twiddle_mul": [_P, _P, _LL, _LL, _P, _LL, _P, _LL, _I, _LL, _LL, _LL, _LL, _I, _P, _P],
     },
+    "fadd": {
+        "zk_fp_add": [_P, _LL, _I, _P, _P],
+        "zk_fp_sub": [_P, _LL, _I, _P, _P],
+    },
 }
 
 # Launches per kernel, counted by each wrapper where it launches its kernel.
 LAUNCHES = {"mont_mul": 0, "mont_sqr": 0, "xyzz_accum": 0, "horner_windows": 0,
             "butterfly_dit": 0, "butterfly_stage": 0, "xyzz_add_affine": 0,
             "xyzz_add": 0, "xyzz_double": 0, "xyzz_tree_sum": 0, "mont_pow": 0, "pow_table": 0,
-            "twiddle_mul": 0, "mont_inv": 0, "xyzz_bit_horner": 0}
+            "twiddle_mul": 0, "mont_inv": 0, "xyzz_bit_horner": 0, "fp_add": 0, "fp_sub": 0}
 
 _libs = {}
 

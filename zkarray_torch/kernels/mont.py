@@ -9,7 +9,9 @@ launch, where the JAX package leaves XLA to fuse a lax.scan), nor has
 CUDA device; its plain version is the JAX package's Fermat power), nor have
 ``pow_table`` and ``twiddle_mul`` (one launch each for a power table and for
 a block's k1-twiddle multiply, where poly/domain.py ran chains of mont_mul
-and mont_sqr launches). Each wrapper takes the plain version for tensors on
+and mont_sqr launches), nor have ``fp_add`` and ``fp_sub`` (csrc/fadd.cu:
+ff/fp.py's add, double, sub and neg as one launch each, read and written
+through the operand map). Each wrapper takes the plain version for tensors on
 the CPU and launches its kernel (``csrc/mont.cu``, ``csrc/ntt.cu``,
 ``csrc/twiddle.cu``) for tensors on a CUDA device (or raises); there is no
 other rule and no fallback. Both versions compute every product a*b*R^-1 mod p and
@@ -25,9 +27,11 @@ table at a stride. The results are identical either way, because the field
 arithmetic is exact: each stage computes the same fully reduced
 (lo + hi w, lo - hi w).
 
-The module also holds the plain field helpers (constants, add, sub) that
-ff/fp.py and the plain versions in kernels/sw.py share, so the kernel layer
-depends on core/ only.
+The module also holds the plain field helpers (constants, ``add_plain``,
+``sub_plain``) that ff/fp.py and the plain versions in
+kernels/sw.py share, so the kernel layer depends on core/ only. The plain
+versions call the plain bodies on any device: chip_smoke.py runs them on
+the card as references.
 """
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ import numpy as np
 import torch
 
 from zkarray_torch.core.fieldspec import LIMB_BITS, LIMB_MASK, FieldSpec
-from zkarray_torch.core.limbs import normalize, pack_pairs, sub_with_borrow, unpack_pairs
+from zkarray_torch.core.limbs import (add_with_carry, normalize, pack_pairs, sub_with_borrow,
+                                      unpack_pairs)
 from zkarray_torch.kernels import _build
 
 
@@ -91,20 +96,21 @@ def const(spec: FieldSpec, value: int, batch_shape, device) -> torch.Tensor:
     return col.to(torch.int32).expand((spec.num_limbs,) + tuple(batch_shape))
 
 
-def add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(a + b) mod p, plain PyTorch on the tensors' device."""
+def add_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a + b) mod p, plain PyTorch on the tensors' device: a + b on L + 1
+    limbs, p subtracted once when the sum is >= p (the low L limbs kept)."""
     a, b = align(spec.num_limbs, a, b)
-    s = normalize(a.to(torch.int64) + b.to(torch.int64), spec.num_limbs + 1)
-    return cond_sub_p_plain(spec, s).to(torch.int32)
+    s, c = add_with_carry(a, b)
+    return cond_sub_p_plain(spec, torch.cat([s, c[None]])).to(torch.int32)
 
 
-def sub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(a - b) mod p, plain PyTorch on the tensors' device."""
+def sub_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a - b) mod p, plain PyTorch on the tensors' device: p added once on a
+    borrow, modulo 2^(16 L). 0 - a is -a mod p, 0 for a = 0."""
     L = spec.num_limbs
     a, b = align(L, a, b)
     d, borrow = sub_with_borrow(a, b)
-    p = limb_col(spec, spec.modulus, str(d.device), d.dim() - 1)
-    d_fix = normalize(d + p, L)
+    d_fix, _ = add_with_carry(d, limb_col(spec, spec.modulus, str(d.device), d.dim() - 1))
     return torch.where(borrow[None], d_fix, d).to(torch.int32)
 
 
@@ -187,7 +193,7 @@ def butterfly_dit_plain(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor,
     w = tw[:, : (H - 1) * stride + 1 : stride].reshape(L, 1, H, 1)
     lo, hi = x[:, :, 0], x[:, :, 1]
     t = mont_mul_plain(spec, hi, w)
-    s, d = add(spec, lo, t), sub(spec, lo, t)
+    s, d = add_plain(spec, lo, t), sub_plain(spec, lo, t)
     lo.copy_(s)
     hi.copy_(d)
     return x
@@ -196,7 +202,7 @@ def butterfly_dit_plain(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor,
 def butterfly_stage_plain(spec: FieldSpec, lo: torch.Tensor, hi: torch.Tensor,
                           w: torch.Tensor):
     """DIF butterfly (lo, hi, w) -> (lo + hi, (lo - hi) w)."""
-    return add(spec, lo, hi), mont_mul_plain(spec, sub(spec, lo, hi), w)
+    return add_plain(spec, lo, hi), mont_mul_plain(spec, sub_plain(spec, lo, hi), w)
 
 
 # ---------------------------------------------------------------------------
@@ -342,6 +348,70 @@ def mont_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     if on_cpu(a):
         return mont_inv_plain(spec, a)
     return _launch("mont_inv", spec, a)
+
+
+# ---------------------------------------------------------------------------
+# field addition and subtraction (csrc/fadd.cu)
+# ---------------------------------------------------------------------------
+
+def _launch_addsub(kernel: str, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor,
+                   out: torch.Tensor | None) -> torch.Tensor:
+    """Launch csrc/fadd.cu's ``kernel`` (fp_add or fp_sub) on (L, *batch)
+    inputs of one shape, each read in place as ``_operand`` allows (or
+    copied, the copy held until the launch); the output is ``out`` (written
+    through the same map, so it must be expressible without a copy) or a new
+    contiguous tensor."""
+    L = spec.num_limbs
+    shape = a.shape
+    if shape[0] != L or b.shape != shape:
+        raise ValueError(f"{kernel}: expected inputs of one (L={L}, *batch) shape")
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    elif out.shape != shape:
+        raise ValueError(f"{kernel}: out {tuple(out.shape)} is not {tuple(shape)}")
+    check_cuda_int32(kernel, a, b, out, contiguous=False)
+    ops = [_operand(a), _operand(b), _operand(out)]  # held until the launch
+    if ops[2][0] is not out:
+        raise ValueError(f"{kernel}: out's strides {out.stride()} cannot be written in place")
+    desc = operand_words(ops)
+    lib = _build.load("fadd")
+    with torch.cuda.device(out.device):
+        err = getattr(lib, f"zk_{kernel}")(words_ptr(desc), out[0].numel(), L // 2,
+                                           words_ptr(field_words(spec)),
+                                           torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, kernel)
+    _build.LAUNCHES[kernel] += 1
+    return out
+
+
+def _addsub(kernel: str, plain, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor,
+            out: torch.Tensor | None) -> torch.Tensor:
+    if on_cpu(a, b, *(() if out is None else (out,))):
+        r = plain(spec, a, b)
+        return r if out is None else out.copy_(r)
+    a, b = align(spec.num_limbs, a, b)
+    return _launch_addsub(kernel, spec, a, b, out)
+
+
+def fp_add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor,
+           out: torch.Tensor | None = None) -> torch.Tensor:
+    """(a + b) mod p over (L, *batch) int32 limb tensors broadcast as align
+    does, into ``out`` when given. CPU tensors: ``add_plain``; CUDA tensors:
+    csrc/fadd.cu:fp_add, one launch."""
+    return _addsub("fp_add", add_plain, spec, a, b, out)
+
+
+def fp_sub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor,
+           out: torch.Tensor | None = None) -> torch.Tensor:
+    """(a - b) mod p; dispatch as ``fp_add`` (csrc/fadd.cu:fp_sub)."""
+    return _addsub("fp_sub", sub_plain, spec, a, b, out)
+
+
+def fp_neg(spec: FieldSpec, a: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """-a mod p (0 stays 0) as ``fp_sub`` of 0 - a, the 0 a stride-0
+    constant: ``sub_plain`` on CPU tensors, one csrc/fadd.cu:fp_sub launch
+    on CUDA tensors."""
+    return _addsub("fp_sub", sub_plain, spec, const(spec, 0, a.shape[1:], a.device), a, out)
 
 
 def _launch_dit(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor, stride: int):

@@ -41,8 +41,8 @@ def _ops(curve):
     return (
         lambda u, v: km.mont_mul_plain(f, u, v),
         lambda u: km.mont_sqr_plain(f, u),
-        lambda u, v: km.add(f, u, v),
-        lambda u, v: km.sub(f, u, v),
+        lambda u, v: km.add_plain(f, u, v),
+        lambda u, v: km.sub_plain(f, u, v),
     )
 
 
@@ -177,7 +177,7 @@ def xyzz_accum_plain(curve, state, coords, valid):
         v = valid[r]
         a_inf = (v & 1) == 0
         sign = ((v >> 1) & 1) != 0
-        AY = torch.where(sign[None], km.sub(f, zero, AY), AY)
+        AY = torch.where(sign[None], km.sub_plain(f, zero, AY), AY)
         st = _madd_plain(curve, st, AX, AY, a_inf)
     return torch.cat([lb.pack_pairs(v) for v in st], dim=0)
 

@@ -6,7 +6,10 @@ known answer; edge-class inputs for the bucket accumulation and the
 window Horner, built with the oracle; and for the group path, seeded points
 and scalars with known answers at sampled indices, Jacobian edge-class
 pairs, and curve points outside the prime-order subgroup, that the CPU
-tests and chip_smoke.py share.
+tests and chip_smoke.py share; for the pairing path, host G2 arithmetic
+over Fp2, the known answers E = e(G1, G2) of BLS12-381 and BLS12-377 and
+their powers (HostExt), tiled pairing inputs, and edge words for the field
+additions.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import numpy as np
 import torch
 
 from zkarray_torch.core.limbs import pack_pairs
-from zkarray_torch.ec.sw import SWCurveSpec, affine_from_ints, xyzz_from_affine
+from zkarray_torch.ec.sw import AffinePoints, SWCurveSpec, affine_from_ints, xyzz_from_affine
+from zkarray_torch.ec.sw_ext import ExtAffine
 from zkarray_torch.ff import fp
 
 
@@ -464,3 +468,230 @@ def bit_horner_edge_parts(curve: SWCurveSpec, nbits: int, W: int, rng: np.random
         parts[k] = classes(k, tuple(rand() for _ in range(4)), acc2)
         acc = ksw._fadd_plain(curve, acc2, parts[k])
     return tuple(torch.stack([pt[i] for pt in parts], dim=1).contiguous() for i in range(4))
+
+
+# ---------------------------------------------------------------------------
+# the pairing path: host G2 arithmetic, GT known answers, tiled inputs
+# ---------------------------------------------------------------------------
+
+# E = e(G1 generator, G2 generator) as 12 canonical ints in coefficient
+# order (the JAX package's Fp12 layout flattened), computed once from
+# zkarray.ec.pairing.bls12.pairing_each. tests/test_torch_pairing.py holds
+# them against the JAX package's words for it, which
+# scripts/pairing_bundle_words.py writes to tests/vectors (BLS12-381's in
+# the pairing bundle, BLS12-377's in bls12_377_pairing_e.npz), and against
+# the port.
+E_BLS12_381 = (
+    2819105605953691245277803056322684086884703000473961065716485506033588504203831029066448642358042597501014294104502,
+    1323968232986996742571315206151405965104242542339680722164220900812303524334628370163366153839984196298685227734799,
+    2987335049721312504428602988447616328830341722376962214011674875969052835043875658579425548512925634040144704192135,
+    3879723582452552452538684314479081967502111497413076598816163759028842927668327542875108457755966417881797966271311,
+    261508182517997003171385743374653339186059518494239543139839025878870012614975302676296704930880982238308326681253,
+    231488992246460459663813598342448669854473942105054381511346786719005883340876032043606739070883099647773793170614,
+    3993582095516422658773669068931361134188738159766715576187490305611759126554796569868053818105850661142222948198557,
+    1074773511698422344502264006159859710502164045911412750831641680783012525555872467108249271286757399121183508900634,
+    2727588299083545686739024317998512740561167011046940249988557419323068809019137624943703910267790601287073339193943,
+    493643299814437640914745677854369670041080344349607504656543355799077485536288866009245028091988146107059514546594,
+    734401332196641441839439105942623141234148957972407782257355060229193854324927417865401895596108124443575283868655,
+    2348330098288556420918672502923664952620152483128593484301759394583320358354186482723629999370241674973832318248497,
+)
+E_BLS12_377 = (
+    110083230830723987109655696820214910916273706674572586634856969551308702305356658303775506237961573154771378344140,
+    244788780104742846436871668319121047075257290166108409917241404606936524542608766332803537171539190182256533917063,
+    70591179866591025581008162845739604858876788014997542519276300506514073583341324769099527146730334236662895865046,
+    33215506749015620019257676299396072211755543898124622075825860836511008942214474501211834441808696780044441245539,
+    141996005453347263090173180206723577395804269667710911417921159823287638494815269986942278355476391040915850450151,
+    49108445638151337603000681250658658472023497933997577640647495353498252268968290335483603123267725037131403671515,
+    90176803298438364423747154903552831429250422756541192446894181932259050413142675599091235793803716757083372706375,
+    19151991642090052547303373703409991425197256637457462081216740605518326884012063439339008275308332070736636254862,
+    107814639769391127316528217157090438027031338224027008312403448100972183752115829716940620193448040349262503431554,
+    38714735791791130983722173336432250534993930888432824523201238967962785087648814681113534394878856902006900821087,
+    61665802096505683799087817396448925253103935552660966716062941445711365774494544506267962952144550065239368469812,
+    5382601735945323996025725556060270047499954807549021966963123697509349722278727211567122542201726580665357585411,
+)
+
+
+def host_fq2_inv(F2h, a):
+    """a^-1 in a host quadratic extension of a prime field by its norm:
+    (a0 - a1 u) / (a0^2 - beta a1^2); 0 stays 0."""
+    p, beta = F2h.p, F2h.nonresidue
+    norm = (a[0] * a[0] - beta * a[1] * a[1]) % p
+    if norm == 0:
+        return (0, 0)
+    ni = pow(norm, -1, p)
+    return (a[0] * ni % p, -a[1] * ni % p)
+
+
+def ext_ec_add(F2h, P, Q):
+    """Affine addition on y^2 = x^3 + b (a = 0) over a host Fp2 (points are
+    ((x0, x1), (y0, y1)) or None)."""
+    if P is None:
+        return Q
+    if Q is None:
+        return P
+    (x1, y1), (x2, y2) = P, Q
+    if x1 == x2:
+        if F2h.add(y1, y2) == F2h.zero():
+            return None
+        lam = F2h.mul(F2h.mul(F2h.embed(3), F2h.mul(x1, x1)), host_fq2_inv(F2h, F2h.add(y1, y1)))
+    else:
+        lam = F2h.mul(F2h.sub(y2, y1), host_fq2_inv(F2h, F2h.sub(x2, x1)))
+    x3 = F2h.sub(F2h.sub(F2h.mul(lam, lam), x1), x2)
+    return (x3, F2h.sub(F2h.mul(lam, F2h.sub(x1, x3)), y1))
+
+
+def ext_ec_mul(F2h, P, k: int):
+    """k P (double-and-add, high bit first; k < 0 negates) over a host Fp2."""
+    if k < 0:
+        P, k = (None if P is None else (P[0], F2h.neg(P[1]))), -k
+    acc = None
+    for bit in bin(k)[2:] if k else "":
+        acc = ext_ec_add(F2h, acc, acc)
+        if bit == "1":
+            acc = ext_ec_add(F2h, acc, P)
+    return acc
+
+
+def host_fq2_sqrt(F2h, a):
+    """A square root of a in a host Fp2 over a prime field (the norm trick,
+    with sqrt_mod), or None."""
+    p, beta = F2h.p, F2h.nonresidue
+    if a[1] % p == 0:
+        r = sqrt_mod(a[0], p)
+        if r is not None:
+            return (r, 0)
+        r = sqrt_mod(a[0] * pow(beta, -1, p), p)
+        return None if r is None else (0, r)
+    d = sqrt_mod(a[0] * a[0] - beta * a[1] * a[1], p)
+    if d is None:
+        return None
+    half = pow(2, -1, p)
+    x0 = sqrt_mod((a[0] + d) * half, p)
+    if x0 is None:
+        x0 = sqrt_mod((a[0] - d) * half, p)
+    if not x0:
+        return None
+    x = (x0, a[1] * pow(2 * x0, -1, p) % p)
+    return x if F2h.mul(x, x) == (a[0] % p, a[1] % p) else None
+
+
+def g2_affine_from_ints(curve, pts, device="cpu"):
+    """Host G2 points (((x0, x1), (y0, y1)) or None) -> ExtAffine (2, L, n)
+    coordinates; infinity as zeros."""
+    F = curve.ops
+    xy = [((0, 0), (0, 0)) if q is None else q for q in pts]
+    x = F.from_ints([[q[0][j] for q in xy] for j in range(2)], device)
+    y = F.from_ints([[q[1][j] for q in xy] for j in range(2)], device)
+    return ExtAffine(x, y, torch.tensor([q is None for q in pts], dtype=torch.bool, device=device))
+
+
+def g2_affine_to_ints(curve, A) -> list:
+    """ExtAffine over Fp2 -> host points (None at infinity)."""
+    F = curve.ops
+    x, y = F.to_ints(A.x), F.to_ints(A.y)
+    inf = A.inf.reshape(-1).tolist()
+    return [None if inf[i] else ((x[0][i], x[1][i]), (y[0][i], y[1][i])) for i in range(len(inf))]
+
+
+def g2_off_subgroup_points(curve, n: int, rng: np.random.Generator) -> list:
+    """n points of the twist outside the prime-order subgroup: x drawn until
+    x^3 + b has a root, never multiplied by the cofactor (the host checks
+    r P != infinity)."""
+    F2h = curve.ops.host
+    p, r = F2h.p, curve.scalar.modulus
+    out = []
+    while len(out) < n:
+        x = tuple(int.from_bytes(rng.bytes(64), "little") % p for _ in range(2))
+        y = host_fq2_sqrt(F2h, F2h.add(F2h.mul(F2h.mul(x, x), x), curve.b_host))
+        if y is not None and ext_ec_mul(F2h, (x, y), r) is not None:
+            out.append((x, y))
+    return out
+
+
+def fp12_from_flat(F12h, flat):
+    """12 canonical ints in coefficient order -> a host Fp12 element."""
+    def nest(host, xs):
+        if not hasattr(host, "deg"):
+            return xs[0]
+        k = len(xs) // host.deg
+        return tuple(nest(host.base, xs[j * k:(j + 1) * k]) for j in range(host.deg))
+    return nest(F12h, list(flat))
+
+
+def fp12_to_flat(F12, a) -> list:
+    """An Fp12 tensor (2, 3, 2, L, *batch) -> per element a tuple of 12
+    canonical ints in coefficient order."""
+    return list(zip(*_flat_cols(F12, a)))
+
+
+def _flat_cols(ops, a):
+    if not hasattr(ops, "deg"):
+        return [ops.to_ints(a)]
+    out = []
+    for j in range(ops.deg):
+        out.extend(_flat_cols(ops.base, a[j]))
+    return out
+
+
+def gt_powers(F12h, e_flat, ks) -> list:
+    """[E^k for k in ks] on the host, the squarings E^(2^i) shared."""
+    sq = [fp12_from_flat(F12h, e_flat)]
+    for _ in range(max(k.bit_length() for k in ks)):
+        sq.append(F12h.mul(sq[-1], sq[-1]))
+    out = []
+    for k in ks:
+        acc = F12h.one()
+        for i in range(k.bit_length()):
+            if (k >> i) & 1:
+                acc = F12h.mul(acc, sq[i])
+        out.append(tuple(F12h.flatten(acc)))
+    return out
+
+
+def fp12_tensor(F12, rows, device="cpu"):
+    """Rows of 12 canonical ints (coefficient order) -> an Fp12 tensor
+    (2, 3, 2, L, len(rows))."""
+    def nest(ops, cols):
+        if not hasattr(ops, "deg"):
+            return list(cols[0])
+        k = len(cols) // ops.deg
+        return [nest(ops.base, cols[j * k:(j + 1) * k]) for j in range(ops.deg)]
+    return F12.from_ints(nest(F12, list(zip(*rows))), device)
+
+
+def pairing_inputs(bspec, n: int, rng: np.random.Generator, base_n: int = 64, inf_every: int = 1024,
+                   device="cpu"):
+    """Seeded pairs (a_j G1, b_j G2), j < base_n, tiled to n lanes (lane i
+    holds pair i % base_n), with lane i's G1 point at infinity where
+    i % inf_every == inf_every - 1 (every inf_every-th lane). Returns (P, Q, ab, inf): port points on ``device``,
+    the products a_j b_j mod r and the lanes' infinity mask (numpy)."""
+    g1, g2 = bspec.g1, bspec.g2
+    r = g1.scalar.modulus
+    F2h = g2.ops.host
+    ks = [(int.from_bytes(rng.bytes(40), "little") % (r - 1) + 1,
+           int.from_bytes(rng.bytes(40), "little") % (r - 1) + 1) for _ in range(base_n)]
+    p1 = [ec_mul((g1.gen_x, g1.gen_y), a, g1.a_int, g1.base.modulus) for a, _ in ks]
+    p2 = [ext_ec_mul(F2h, (g2.gen_x, g2.gen_y), b) for _, b in ks]
+    A1 = affine_from_ints(g1, p1, device)
+    A2 = g2_affine_from_ints(g2, p2, device)
+    t = torch.arange(n, device=device) % base_n
+    inf = np.arange(n) % inf_every == inf_every - 1
+    P = AffinePoints(A1.x[:, t], A1.y[:, t], torch.from_numpy(inf).to(device))
+    Q = ExtAffine(A2.x[..., t], A2.y[..., t], torch.zeros(n, dtype=torch.bool, device=device))
+    return P, Q, [a * b % r for a, b in ks], inf
+
+
+def fadd_edge_words(spec, rng: np.random.Generator, n_random: int = 6) -> list:
+    """Ints below R = 2^(16 L) (16-bit limbs, not all below p) for the field
+    additions' edge cases: 0, 1, p - 1 and its neighbours, values >= p up to
+    R - 1, R - p, and 2^(32 k) - 1 and 2^(32 k) at every 32-bit word boundary
+    k (a carry or borrow across it), then random words below p and below R."""
+    p, R = spec.modulus, 1 << (16 * spec.num_limbs)
+    words = [0, 1, 2, p - 2, p - 1, p, p + 1, R - 1, R - p, R - p - 1, (p - 1) // 2, p // 2 + 1]
+    if 2 * p < R:
+        words += [2 * p - 1, 2 * p]
+    for k in range(1, spec.num_limbs // 2):
+        words += [(1 << (32 * k)) - 1, 1 << (32 * k)]
+    words += [int.from_bytes(rng.bytes(64), "little") % p for _ in range(n_random)]
+    words += [int.from_bytes(rng.bytes(64), "little") % R for _ in range(n_random)]
+    return sorted(set(w for w in words if 0 <= w < R))
