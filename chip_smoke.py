@@ -143,7 +143,30 @@ Phases, each printing one JSON line and raising on any failure:
    (24, 2^16) and at the path's widest launch against the byte bound 3 x L
    x 4 B / 3.35 TB/s. The product kernels against their plain versions on
    every (field, shape, exponent) key of phase 9's runs.
-10. the kernels line: per kernel its launches on its path (phase 3 for the
+10. BN254, GT and the BW6 pairings, each against host known answers:
+   BN254 pairing_each over 2^12 pairs tiled from 64 seeded (a_j G1, b_j
+   G2), every 1,024th G1 point at infinity, every lane against
+   E_BN254^(a_j b_j), and once over 2^16 pairs; pairing over the 2^12
+   against E^(sum); GT on BLS12-381's Fp12 (2^12 elements E^(k_i), k and
+   255-bit s < r tiled from 64 seeded values): gt_mul_scalar against
+   E^(k_i s_i), gt_msm (c = 3) against E^(sum k_i s_i), neg, sub and
+   double; BW6-761 and BW6-767 pairing_each and pairing at 2^12 against
+   their E. Each path (pairing_each, gt_mul_scalar, gt_msm): the launches
+   of one call by kernel (counted from 0 just before it), its peak memory,
+   the median of 3 timed calls and one traced call (device ops, busy, idle
+   share); pairing: its launches and one timed call. Then the six field kernels
+   at NW = 24 (mont_mul, mont_sqr, mont_pow, mont_inv, fp_add, fp_sub, the
+   last also as fp_neg) against their plain versions on edge words of both
+   768-bit fields; every kernel of the phase against its plain version on
+   every (field, shape, strides) input recorded on the first counted call
+   of each path (BN254's and the BW6 curves' pairing_each and pairing,
+   gt_mul_scalar, gt_msm), one kernel_phase10_shapes line per kernel with
+   each key's error and the paths that launched it; the NW = 24 kernels
+   each timed at (48, 2^16) and at its widest BW6 launch,
+   with bounds and ptxas' registers, stack and spills at NW = 24; and
+   xyzz_add, xyzz_add_affine, horner_windows, butterfly_dit and pow_table
+   refusing NW = 24 (each raises, no launch counted).
+11. the kernels line: per kernel its launches on its path (phase 3 for the
    MSM kernels, 5 for butterfly_dit, twiddle_mul and pow_table, 6 and 7 for
    the entries of butterfly_stage, xyzz_add_affine and mont_sqr, 3 for the
    entries of mont_pow and xyzz_double, which left the MSM path), error
@@ -156,7 +179,10 @@ Phases, each printing one JSON line and raising on any failure:
    mont_pow and mont_inv also carry phase 8's launches, rows and error
    under "group", and phase 9's launches per pairing call under "pairing";
    fp_add and fp_sub (no Pallas counterpart) have phase 9's pairing_each
-   as their path.
+   as their path. mont_mul, mont_sqr, mont_pow, mont_inv, fp_add and
+   fp_sub also carry phase 10's launches per call under "bn254", "gt"
+   (gt_mul_scalar and gt_msm), "bw6_761" and "bw6_767", and their NW = 24
+   figures under "nw24".
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
@@ -208,6 +234,7 @@ PAIR_BIG_LOG_N = 16  # one BLS12-381 pairing_each, for its peak memory
 PAIR_BASE = 64  # seeded scalar pairs (a_j, b_j) the pairing inputs tile
 PAIR_INF_EVERY = 1024  # every 1,024th lane's G1 point at infinity
 G2_LOG_N = 16  # the zcash G2 vectors tiled, and the G2 subgroup check
+FIELD48_LOG_N = 16  # phase 10: the NW = 24 field kernels timed at (48, 2^16)
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -313,7 +340,8 @@ def traced_device_ms(torch, kernel, fn, reps, device):
 
 
 def parse_ptxas(log):
-    """{kernel function: {"registers": n, "spill_stores": b, "spill_loads": b}}."""
+    """{kernel function: {"registers": n, "stack_frame": b, "spill_stores": b,
+    "spill_loads": b}}."""
     out = {}
     name = None
     for line in log.splitlines():
@@ -324,6 +352,9 @@ def parse_ptxas(log):
             continue
         if name is None:
             continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            out[name]["stack_frame"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             out[name]["spill_stores"] = int(m.group(1))
@@ -591,7 +622,9 @@ def field_group_phase(torch, h, rec):
     # fewer), the points and scalars read once, the Jacobian result written
     n_prod = sm_launches.get("mont_mul", 0) + sm_launches.get("mont_sqr", 0)
     L, Ls = C.base.num_limbs, C.scalar.num_limbs
-    b_ms, b_by = h.bound((5 * L + Ls) * n * 4, n_prod * n * h.mul_ops(C.base))
+    ops = n * (sm_launches.get("mont_mul", 0) * h.mul_ops(C.base)
+               + sm_launches.get("mont_sqr", 0) * h.sqr_ops(C.base))
+    b_ms, b_by = h.bound((5 * L + Ls) * n * 4, ops)
     h.emit("scalar_mul", curve=C.name, n=n, scalar_bits=16 * Ls,
            known_answers=len(want), correct=True, ms=sm_ms, to_affine_ms=aff_ms,
            bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / sm_ms,
@@ -796,13 +829,13 @@ def field_group_phase(torch, h, rec):
             if name in ("mont_mul", "mont_sqr"):
                 if m_el != n:
                     continue
-                ops = m_el * h.mul_ops(spec)
+                ops = m_el * (h.sqr_ops if name == "mont_sqr" else h.mul_ops)(spec)
                 nbytes = (len(ins) + 1) * L * m_el * 4
             elif name == "mont_pow":
                 if any(t["field"] == r["field"] for t in timed):
                     continue  # the widest launch of each field only
                 nprod = e.bit_length() - 1 + bin(e).count("1") if e else 0
-                ops, nbytes = m_el * nprod * h.mul_ops(spec), 2 * L * m_el * 4
+                ops, nbytes = m_el * h.pow_ops(spec, e), 2 * L * m_el * 4
                 r["products"] = nprod
             else:
                 its = [mont_inv_model(spec, v)[1] for v in fp.to_ints(spec, ins[0], mont=False)[:64]]
@@ -889,8 +922,8 @@ def pairing_phase(torch, h, rec):
     from zkarray_torch.ec.pairing import bls12
     from zkarray_torch.kernels import mont as km
     from zkarray_torch.testing import (E_BLS12_377, E_BLS12_381, ext_ec_add, fadd_edge_words,
-                                       fp12_tensor, g2_affine_from_ints, g2_affine_to_ints,
-                                       g2_off_subgroup_points, gt_powers, pairing_inputs)
+                                       g2_affine_from_ints, g2_affine_to_ints,
+                                       g2_off_subgroup_points, pairing_inputs)
 
     dev, sync = h.dev, h.sync
     rng = np.random.default_rng(9)
@@ -911,16 +944,8 @@ def pairing_phase(torch, h, rec):
     def expected(bspec, e_flat, ab, inf, m):
         """Per-lane host known answers E^(a_j b_j) (1 on the infinity lanes)
         as an Fp12 tensor of m lanes, and the combined E^(sum)."""
-        F12 = bspec.fq12
-        r = bspec.g1.scalar.modulus
-        rows = gt_powers(F12.host, e_flat, ab)
-        one = tuple(F12.host.flatten(F12.host.one()))
-        table = fp12_tensor(F12, rows + [one], dev)
-        lane = np.arange(m) % len(ab)
-        lane[np.arange(m) % PAIR_INF_EVERY == PAIR_INF_EVERY - 1] = len(ab)
-        total = sum(ab[j] for j in lane.tolist() if j < len(ab)) % r
-        comb = fp12_tensor(F12, gt_powers(F12.host, e_flat, [total]), dev)[..., 0]
-        return table[..., torch.from_numpy(lane).to(dev)], comb
+        return expected_gt(torch, bspec.fq12, bspec.g1.scalar.modulus, e_flat, ab, m,
+                           PAIR_INF_EVERY, dev)
 
     # -- BLS12-381 pairing_each at 2^PAIR_LOG_N --------------------------------------
     spec = B.PAIRING
@@ -1120,6 +1145,346 @@ def pairing_phase(torch, h, rec):
     return report
 
 
+# ---- 10. BN254, GT and the BW6 pairings ------------------------------------------
+
+def expected_gt(torch, F, r, e_flat, ks, m, inf_every, dev):
+    """Per-lane host known answers E^(k_j) for lane i, j = i % len(ks) (1 on
+    the infinity lanes, every inf_every-th), as a tower tensor of m lanes on
+    ``dev``, and the combined E^(sum over the lanes mod r)."""
+    from zkarray_torch.testing import fp12_tensor, gt_powers
+
+    rows = gt_powers(F.host, e_flat, ks)
+    one = tuple(F.host.flatten(F.host.one()))
+    table = fp12_tensor(F, rows + [one], dev)
+    lane = np.arange(m) % len(ks)
+    lane[np.arange(m) % inf_every == inf_every - 1] = len(ks)
+    total = sum(ks[j] for j in lane.tolist() if j < len(ks)) % r
+    comb = fp12_tensor(F, gt_powers(F.host, e_flat, [total]), dev)[..., 0]
+    return table[..., torch.from_numpy(lane).to(dev)], comb
+
+
+def bn_gt_bw6_phase(torch, h, rec):
+    """Phase 10: the BN254 pairing, GT as a group on BLS12-381's Fp12 and the
+    BW6-761 and BW6-767 pairings, each against host known answers, each
+    path (pairing_each; GT's gt_mul_scalar and gt_msm) with its launches
+    per call by kernel, the median of 3 timed calls, one traced call and
+    its peak memory, and pairing (the product) with its launches and one
+    timed call; then the field kernels at NW = 24
+    (mont_mul, mont_sqr, mont_pow, mont_inv, fp_add, fp_sub) against their
+    plain versions on edge words and on every (field, shape, strides) input
+    recorded on the BW6 calls, timed at (48, 2^16) and at the widest BW6
+    launch; ptxas' registers and spills at NW = 24; and the XYZZ, MSM and NTT
+    kernels refusing NW = 24. Returns the kernels line's phase-10 figures."""
+    from zkarray_torch import kernels
+    from zkarray_torch.core.limbs import ints_to_limbs_np
+    from zkarray_torch.curves import bls12_381 as B
+    from zkarray_torch.curves import bn254, bw6_761, bw6_767
+    from zkarray_torch.ec.pairing import bn, bw6, gt
+    from zkarray_torch.ff import fp
+    from zkarray_torch.kernels import _build
+    from zkarray_torch.kernels import mont as km
+    from zkarray_torch.kernels import sw as ksw
+    from zkarray_torch.testing import (E_BLS12_381, E_BN254, E_BW6_761, E_BW6_767, fadd_edge_words,
+                                       gt_inputs, mont_inv_edge_words, mont_inv_model,
+                                       pairing_inputs)
+
+    dev, sync = h.dev, h.sync
+    rng = np.random.default_rng(10)
+    n = 1 << PAIR_LOG_N
+    rec.keys, rec.first = collections.Counter(), {}  # phase 10 records every path's inputs
+    paths = {}
+    seen, path_keys = collections.Counter(), {}
+
+    def tag(label):
+        """The keys whose launches the calls since the last tag added."""
+        nonlocal seen
+        path_keys[label] = {k for k, v in rec.keys.items() if v > seen.get(k, 0)}
+        seen = collections.Counter(rec.keys)
+
+    def run(fn, record=False):
+        sync()
+        kernels.reset_launches()
+        rec.on = record
+        try:
+            out, ms = h.once_ms(fn)
+        finally:
+            rec.on = False
+        return out, ms, {k: v for k, v in kernels.LAUNCHES.items() if v}
+
+    def measure(fn, check, record=False):
+        """fn's first call (launches counted, inputs recorded when
+        ``record``), 3 timed calls (the first with its peak memory above
+        what is allocated before it: no recorded copy in it) and one
+        traced, each result checked."""
+        got, first_ms, launches = run(fn, record)
+        check(got, "the first call")
+        walls = []
+        for i in range(3):
+            if i == 0:
+                sync()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            got, ms, _ = run(fn)
+            if i == 0:
+                peak = torch.cuda.max_memory_allocated() - base
+            check(got, "a timed call")
+            walls.append(ms)
+        med = sorted(walls)[1]
+        got, trace = device_trace(torch, fn, med)
+        check(got, "the traced call")
+        return dict(ms=med, ms_runs=walls, first_call_ms=first_ms, launches_per_call=launches,
+                    launches_total=sum(launches.values()), peak_bytes_above_inputs=peak,
+                    trace=trace)
+
+    def equal(what, want):
+        def check(got, when):
+            if got.shape != want.shape or not torch.equal(got, want):
+                raise AssertionError(f"{what}: {when} differs from the host known answers")
+        return check
+
+    def pairing_path(label, engine, spec, E, F, record, big=False):
+        t0 = time.perf_counter()
+        P, Q, ab, inf = pairing_inputs(spec, n, rng, PAIR_BASE, PAIR_INF_EVERY, device=dev)
+        r = spec.g1.scalar.modulus
+        want, want_comb = expected_gt(torch, F, r, E, ab, n, PAIR_INF_EVERY, dev)
+        host_s = time.perf_counter() - t0
+        each = measure(lambda: engine.pairing_each(spec, P, Q), equal(f"{label} pairing_each", want),
+                       record)
+        h.emit("pairing_each_" + label, curve=spec.name, pairs=n, infinity_lanes=int(inf.sum()),
+               known_answer_pairs=len(ab), correct=True, pairings_per_s=n / each["ms"] * 1e3,
+               host_known_answer_s=host_s, **each)
+        # the product over the pairs: one counted call and one timed
+        check = equal(f"{label} pairing", want_comb)
+        got, first_ms, launches = run(lambda: engine.pairing(spec, P, Q), record)
+        check(got, "the first call")
+        got, ms, _ = run(lambda: engine.pairing(spec, P, Q))
+        check(got, "the timed call")
+        h.emit("pairing_" + label, curve=spec.name, pairs=n, correct=True, ms=ms,
+               first_call_ms=first_ms, pairs_per_s=n / ms * 1e3, launches=launches)
+        paths[label] = each["launches_per_call"]
+        if big:
+            m = 1 << PAIR_BIG_LOG_N
+            t = torch.arange(m, device=dev) % n
+            Pb = P._replace(x=P.x[:, t], y=P.y[:, t], inf=P.inf[t])
+            Qb = Q._replace(x=Q.x[..., t], y=Q.y[..., t], inf=Q.inf[t])
+            sync()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            got, ms, launches = run(lambda: engine.pairing_each(spec, Pb, Qb))
+            peak = torch.cuda.max_memory_allocated() - base
+            equal(f"{label} pairing_each 2^{PAIR_BIG_LOG_N}", want[..., t])(got, "its call")
+            h.emit(f"pairing_each_{label}_big", curve=spec.name, pairs=m, correct=True, ms=ms,
+                   pairings_per_s=m / ms * 1e3, peak_bytes_above_inputs=peak, launches=launches)
+            del Pb, Qb, got
+        return each
+
+    # -- BN254 (Ethereum's ecPairing, Groth16 verification) ---------------------------
+    pairing_path("bn254", bn, bn254.PAIRING, E_BN254, bn254.FQ12, record=True, big=True)
+    tag("bn254")
+
+    # -- GT on BLS12-381's Fp12: scalar multiplication, MSM, neg, sub, double ------------
+    F12, r = B.FQ12, B.FR.modulus
+    G = gt.GTGroup(F12, B.FR)
+    t0 = time.perf_counter()
+    A, sc, ks, ss = gt_inputs(F12, E_BLS12_381, B.FR, n, rng, PAIR_BASE, device=dev)
+    no_inf = 1 << 62
+    want_mul, _ = expected_gt(torch, F12, r, E_BLS12_381, [k * s % r for k, s in zip(ks, ss)], n,
+                              no_inf, dev)
+    total = sum(ks[i % PAIR_BASE] * ss[i % PAIR_BASE] for i in range(n)) % r
+    want_msm = expected_gt(torch, F12, r, E_BLS12_381, [total], 1, no_inf, dev)[0][..., 0]
+    kb = ks[-1:] + ks[:-1]  # lane i - 1's k: A.roll(1)
+    want_neg = expected_gt(torch, F12, r, E_BLS12_381, [-k % r for k in ks], n, no_inf, dev)[0]
+    want_sub = expected_gt(torch, F12, r, E_BLS12_381, [(a - b) % r for a, b in zip(ks, kb)], n,
+                           no_inf, dev)[0]
+    want_dbl = expected_gt(torch, F12, r, E_BLS12_381, [2 * k % r for k in ks], n, no_inf, dev)[0]
+    host_s = time.perf_counter() - t0
+    gt_rows = {}
+    for op, fn, want in (("mul_scalar", lambda: gt.gt_mul_scalar(G, A, sc), want_mul),
+                         ("msm", lambda: gt.gt_msm(G, A, sc, 3), want_msm)):
+        row = measure(fn, equal(f"gt {op}", want), record=True)
+        row["ops_per_s"] = (n if op == "mul_scalar" else 1) / row["ms"] * 1e3
+        gt_rows[op] = row
+        paths[f"gt_{op}"] = row["launches_per_call"]
+    B_ = A.roll(1, -1)
+    for op, fn, want in (("neg", lambda: G.neg(A), want_neg), ("sub", lambda: G.sub(A, B_), want_sub),
+                         ("double", lambda: G.double(A), want_dbl)):
+        got, _, launches = run(fn)
+        equal(f"gt {op}", want)(got, "its call")
+        ms = h.time_ms(fn, 10)
+        gt_rows[op] = dict(ms=ms, ops_per_s=n / ms * 1e3, launches_per_call=launches)
+    h.emit("gt", tower=F12.name, n=n, c=3, scalar_bits=B.FR.bits, known_answer_elements=PAIR_BASE,
+           correct=True, host_known_answer_s=host_s, **gt_rows)
+    paths["gt"] = {k: paths["gt_mul_scalar"].get(k, 0) + paths["gt_msm"].get(k, 0)
+                   for k in set(paths["gt_mul_scalar"]) | set(paths["gt_msm"])}
+    tag("gt")
+    del A, sc, want_mul, want_neg, want_sub, want_dbl, B_
+
+    # -- BW6-761 (BLS12-377 proof verification) and BW6-767 --------------------------
+    for label, mod, E in (("bw6_761", bw6_761, E_BW6_761), ("bw6_767", bw6_767, E_BW6_767)):
+        pairing_path(label, bw6, mod.PAIRING, E, mod.FQ6, record=True)
+        tag(label)
+
+    # -- the field kernels at NW = 24 against their plain versions ----------------
+    plain = {"mont_mul": lambda f, ins, e: km.mont_mul_plain(f, *ins),
+             "mont_sqr": lambda f, ins, e: km.mont_sqr_plain(f, *ins),
+             "mont_pow": lambda f, ins, e: km.mont_pow_plain(f, ins[0], e),
+             "mont_inv": lambda f, ins, e: km.mont_inv_plain(f, ins[0]),
+             "fp_add": lambda f, ins, e: km.add_plain(f, *ins),
+             "fp_sub": lambda f, ins, e: km.sub_plain(f, *ins)}
+    kern = {"mont_mul": lambda f, ins, e: km.mont_mul(f, *ins),
+            "mont_sqr": lambda f, ins, e: km.mont_sqr(f, *ins),
+            "mont_pow": lambda f, ins, e: km.mont_pow(f, ins[0], e),
+            "mont_inv": lambda f, ins, e: km.mont_inv(f, ins[0]),
+            "fp_add": lambda f, ins, e: km.fp_add(f, *ins),
+            "fp_sub": lambda f, ins, e: km.fp_sub(f, *ins)}
+    names = list(plain)
+    err = collections.defaultdict(int)
+    edge = {}
+    fields48 = (bw6_761.FQ, bw6_767.FQ)
+    for f in fields48:
+        p = f.modulus
+        words = mont_inv_edge_words(f, np.random.default_rng(11), n_random=8)
+        xe = fp.from_ints(f, words, mont=False, device=dev)
+        k = len(words)
+        ii = torch.arange(k * k, device=dev)
+        exps = [0, 1, 2, 3, p - 2, (p - 1) // 2]  # two full-length chains: the plain ones are slow
+        cases = [("mont_mul", (xe[:, ii // k], xe[:, ii % k]), None), ("mont_sqr", (xe,), None),
+                 ("mont_inv", (xe,), None)] + [("mont_pow", (xe,), e) for e in exps]
+        aw = fadd_edge_words(f, np.random.default_rng(12))
+        xa = torch.from_numpy(ints_to_limbs_np(aw, f.num_limbs).astype(np.int32)).to(dev)
+        ka = len(aw)
+        ia = torch.arange(ka * ka, device=dev)
+        for name in ("fp_add", "fp_sub"):
+            cases.append((name, (xa[:, ia // ka], xa[:, ia % ka]), None))
+        for name, ins, e in cases:
+            err[name] = max(err[name], h.check_equal(f"{name} {f.name} edge words (e = {e})",
+                                                     kern[name](f, ins, e), plain[name](f, ins, e)))
+        err["fp_sub"] = max(err["fp_sub"], h.check_equal(
+            f"fp_neg {f.name} edge words", km.fp_neg(f, xa), km.sub_plain(f, torch.zeros_like(xa), xa)))
+        if fp.to_ints(f, km.mont_inv(f, xe), mont=False) != [
+                pow(w * pow(f.r_int, -1, p), -1, p) * f.r_int % p if w else 0 for w in words]:
+            raise AssertionError(f"mont_inv {f.name}: edge words differ from Python's pow")
+        edge[f.name] = dict(product_words=k, product_pairs=k * k, exponents=len(exps),
+                            addition_words=ka, addition_pairs=ka * ka)
+
+    # every (field, shape, strides) input recorded on phase 10's paths, widest first
+    rows = collections.defaultdict(list)
+    for key, count in sorted(rec.keys.items(), key=lambda kv: -math.prod(kv[0][2])):
+        spec, ins, out = rec.first.pop(key)
+        name = key[0]
+        e = key[3] if name not in ("fp_add", "fp_sub") else None
+        if name in ("fp_add", "fp_sub"):
+            got = km._launch_addsub(name, spec, ins[0], ins[1], out)
+        else:
+            got = km._launch(name, spec, *ins, exponent=e)
+        want, plain_ms = h.once_ms(lambda: plain[name](spec, ins, e))
+        e_row = h.check_equal(f"{name} {key[1]} {key[2]} {key[3:]}", got, want)
+        err[name] = max(err[name], e_row)
+        rows[name].append(dict(field=key[1], shape=list(key[2]), key=[str(x) for x in key[3:]],
+                               launches=count, paths=[c for c, ks_ in path_keys.items() if key in ks_],
+                               max_abs_err=e_row, plain_ms=plain_ms, _spec=spec, _ins=ins, _out=out,
+                               _e=e))
+    rec.first.clear()
+
+    # times and bounds: (48, 2^16) random words, and each kernel's widest BW6 launch
+    ptxas = {}
+    for src in ("mont", "fadd"):
+        ptxas.update(parse_ptxas(_build.lib_path(src).with_suffix(".ptxas.txt").read_text()))
+    report = {}
+    m16 = 1 << FIELD48_LOG_N
+    f = bw6_761.FQ
+    L = f.num_limbs
+    a, b = h.rand_field(f, m16), h.rand_field(f, m16)
+    e_time = f.modulus - 2
+    gc.collect()
+
+    def inv_ops(spec, t, m_el):
+        """mont_inv's 32-bit operations on m_el elements like t's first 16:
+        the host model's mean iterations x (18 NW + 7)."""
+        its = [mont_inv_model(spec, v)[1] for v in fp.to_ints(spec, t.reshape(t.shape[0], -1)[:, :16],
+                                                               mont=False)]
+        return m_el * sum(its) / len(its) * (18 * (spec.num_limbs // 2) + 7)
+
+    for name in names:
+        ins = (a, b) if name in ("mont_mul", "fp_add", "fp_sub") else (a,)
+        e = e_time if name == "mont_pow" else None
+        iters = 3 if name in ("mont_pow", "mont_inv") else 20
+        ms = h.time_ms(lambda: kern[name](f, ins, e), iters)
+        plain_ms = h.once_ms(lambda: plain[name](f, ins, e))[1]
+        if name in ("fp_add", "fp_sub"):
+            ops = m16 * h.add_ops(f)
+        elif name == "mont_pow":
+            ops = m16 * h.pow_ops(f, e)
+        elif name == "mont_inv":
+            ops = inv_ops(f, a, m16)
+        else:
+            ops = m16 * (h.sqr_ops if name == "mont_sqr" else h.mul_ops)(f)
+        b_ms, b_by = h.bound((len(ins) + 1) * L * 4 * m16, ops)
+        rs = rows.get(name, [])
+        rs48 = [r_ for r_ in rs if {"bw6_761", "bw6_767"} & set(r_["paths"])]
+        wide = None
+        if rs48:
+            w = rs48[0]  # rows run widest first
+            spec, w_ins, w_out, w_e = w["_spec"], w["_ins"], w["_out"], w["_e"]
+            m_el = math.prod(w["shape"][1:])
+            if name in ("fp_add", "fp_sub"):
+                w_ms = h.time_ms(lambda: km._launch_addsub(name, spec, w_ins[0], w_ins[1], w_out), 20)
+                w_ops = m_el * h.add_ops(spec)
+            else:
+                w_ms = h.time_ms(lambda: km._launch(name, spec, *w_ins, exponent=w_e),
+                                 3 if name == "mont_inv" else 20)
+                w_ops = (inv_ops(spec, w_ins[0], m_el) if name == "mont_inv" else
+                         m_el * h.pow_ops(spec, w_e) if name == "mont_pow" else
+                         m_el * (h.sqr_ops if name == "mont_sqr" else h.mul_ops)(spec))
+            reads = sum(h.distinct_elems(t) for t in w_ins)
+            wb_ms, wb_by = h.bound(spec.num_limbs * 4 * (reads + m_el), w_ops)
+            wide = dict(field=w["field"], shape=w["shape"], launches=w["launches"], ms=w_ms,
+                        bound_ms=wb_ms, bound_by=wb_by, share_of_bound=wb_ms / w_ms)
+        for r_ in rs:
+            for k_ in ("_spec", "_ins", "_out", "_e"):
+                r_.pop(k_)
+        h.emit("kernel_phase10_shapes", kernel=name, rows=rs)
+        regs = {k: v for k, v in ptxas.items() if f"{name}_kernelILi24E" in k}
+        per_path = {lbl: paths[lbl].get(name, 0) for lbl in ("bn254", "gt", "bw6_761", "bw6_767")}
+        report[name] = dict(max_abs_err=err[name], per_path_launches=per_path, ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+                            shape=[L, m16], exponent_bits=None if e is None else e.bit_length(),
+                            widest_bw6_launch=wide, recorded_keys=len(rs),
+                            recorded_keys_by_path={lbl: sum(lbl in r_["paths"] for r_ in rs)
+                                                   for lbl in path_keys},
+                            edge_words=edge,
+                            ptxas_nw24=regs)
+    h.emit("nw24_kernels", rows={k: {kk: vv for kk, vv in v.items() if kk != "edge_words"}
+                                 for k, v in report.items()}, edge_words=edge)
+
+    # the XYZZ, MSM and NTT kernels are not built at NW = 24: each refuses it
+    C = bw6_761.G1
+    pts = [h.rand_field(f, 64) for _ in range(4)]
+    refusals = {}
+    for kernel, call in (
+            ("xyzz_add", lambda: ksw.xyzz_add(C, pts, pts)),
+            ("xyzz_add_affine", lambda: ksw.xyzz_add_affine(C, pts, pts[0], pts[1],
+                                                             torch.zeros(64, dtype=torch.bool,
+                                                                         device=dev))),
+            ("horner_windows", lambda: ksw.horner_windows(C, torch.cat(pts).T.contiguous()[:4], 13)),
+            ("butterfly_dit", lambda: km.butterfly_dit(f, pts[0].reshape(L, 1, 2, 4, 8).clone(),
+                                                       pts[1], 1)),
+            ("pow_table", lambda: km.pow_table(f, 5, 64, dev))):
+        before = kernels.LAUNCHES[kernel]
+        try:
+            call()
+            sync()
+        except RuntimeError as exc:
+            refusals[kernel] = str(exc)[:120]
+        else:
+            raise AssertionError(f"{kernel} ran at NW = 24")
+        if kernels.LAUNCHES[kernel] != before:
+            raise AssertionError(f"{kernel}: a refused launch was counted")
+    h.emit("nw24_refused", kernels=refusals, correct=True)
+    h.emit("phase10_launches", per_call=paths)
+    return report
+
+
 def main():
     import torch
 
@@ -1266,6 +1631,12 @@ def main():
     def mul_ops(spec):  # 32-bit ops of one CIOS product: 2 NW^2 + 2 NW^2 + NW, cond-sub 2 NW
         return 4 * nw(spec) ** 2 + 3 * nw(spec)
 
+    def sqr_ops(spec):  # one Montgomery square: each cross product once, NW^2 + NW; then as mul_ops
+        return 3 * nw(spec) ** 2 + 4 * nw(spec)
+
+    def pow_ops(spec, e):  # mont_pow's chain: a square per bit below the top, a product per set bit
+        return (e.bit_length() - 1) * sqr_ops(spec) + bin(e).count("1") * mul_ops(spec) if e else 0
+
     def add_ops(spec):  # carry chain + conditional subtract/add
         return 3 * nw(spec)
 
@@ -1313,7 +1684,8 @@ def main():
             err = check_equal(f"{name} {spec.name}", got, want)
             ms = time_ms(lambda: kern(spec, *args), 20)
             plain_ms = time_ms(lambda: plain(spec, *args), 2)
-            b_ms, b_by = bound((n_in + 1) * L * n * 4, n * mul_ops(spec))
+            ops = n * (sqr_ops if name == "mont_sqr" else mul_ops)(spec)
+            b_ms, b_by = bound((n_in + 1) * L * n * 4, ops)
             emit("kernel", kernel=name, field=spec.name, n=n, max_abs_err=err, ms=ms,
                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
             if spec is FQ:
@@ -1597,7 +1969,8 @@ def main():
         err = check_equal(f"{name} {fname} at {shape}", got, plain(spec, *halves))
         ms = time_ms(lambda: kern(spec, *halves), 20)
         plain_ms = time_ms(lambda: plain(spec, *halves), 2)
-        tb, to = ((n_in + 1) * L * m * 4 / HBM_BYTES_PER_S * 1e3, m * mul_ops(spec) / int_ops_per_s * 1e3)
+        ops = m * (sqr_ops if name == "mont_sqr" else mul_ops)(spec)
+        tb, to = (n_in + 1) * L * m * 4 / HBM_BYTES_PER_S * 1e3, ops / int_ops_per_s * 1e3
         at_shape[name].append(dict(field=fname, shape=list(shape), launches=count, max_abs_err=err,
                                    ms=ms, plain_ms=plain_ms, bound_bytes_ms=tb, bound_ops_ms=to))
     for name, rows in at_shape.items():
@@ -1792,7 +2165,7 @@ def main():
         want, plain_ms = once_ms(lambda: km.mont_pow_plain(f, x, e))
         err = check_equal(f"mont_pow at {tuple(x.shape)}", got, want)
         ms = time_ms(lambda: km.mont_pow(f, x, e), 3 if m > 1024 else 20)
-        b_ms, b_by = bound(2 * Lq * m * 4, m * n_prod * mul_ops(f))
+        b_ms, b_by = bound(2 * Lq * m * 4, m * pow_ops(f, e))
         pow_rows[label] = dict(shape=list(x.shape), max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                bound_ms=b_ms, bound_by=b_by)
         pow_in[label] = (x, want)
@@ -2435,7 +2808,8 @@ def main():
     # ---- 8. the field and G1 group path ------------------------------------------
     helpers = types.SimpleNamespace(
         dev=dev, sync=sync, time_ms=time_ms, once_ms=once_ms, rand_field=rand_field,
-        check_equal=check_equal, mul_ops=mul_ops, add_ops=add_ops, bound=bound, emit=emit,
+        check_equal=check_equal, mul_ops=mul_ops, sqr_ops=sqr_ops, pow_ops=pow_ops, add_ops=add_ops,
+        bound=bound, emit=emit,
         distinct_elems=distinct_elems)
     rec, restore = install_recorders(torch, km)
     try:
@@ -2445,13 +2819,19 @@ def main():
 
         # ---- 9. the pairing path ---------------------------------------------------
         pair_report = pairing_phase(torch, helpers, rec)
+
+        # ---- 10. BN254, GT and the BW6 pairings; the field kernels at NW = 24 ------
+        nw24_report = bn_gt_bw6_phase(torch, helpers, rec)
     finally:
         restore()
     for name in ("mont_mul", "mont_sqr", "mont_inv", "mont_pow"):
         report[name]["pairing"] = pair_report.pop(name)
     report.update(pair_report)
+    for name, r in nw24_report.items():
+        report[name].update(r.pop("per_path_launches"))
+        report[name]["nw24"] = r
 
-    # ---- 10. kernels line ----------------------------------------------------
+    # ---- 11. kernels line ----------------------------------------------------
     sources = {
         "mont_mul": ("zkarray_torch/kernels/csrc/mont.cu", "zkarray/kernels/mont.py:235"),
         "mont_sqr": ("zkarray_torch/kernels/csrc/mont.cu", "zkarray/kernels/mont.py:254"),

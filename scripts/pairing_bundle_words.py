@@ -12,13 +12,27 @@ it against:
 - tests/vectors/bls12_377_pairing_e.npz: BLS12-377's E = e(G1 generator,
   G2 generator) from pairing_each at width 1 (the D-twist path), with the
   generators it was computed on, as 16-bit limbs.
+- tests/vectors/bn254_pairing_bundle.npz: tests/pairing_bundle.py's four
+  BN254 pairs, as for BLS12-381, with the ladder's add-step coefficients in
+  all 64 slots (one per digit of 6X + 2, zero digits included) and the two
+  Frobenius-twist lines.
+- tests/vectors/bw6_761_pairing.npz and bw6_767_pairing.npz: the pairs
+  (G, H) and (2G, 2H) (host points), with zkarray.ec.pairing.bw6's
+  g2_prepare (every doubling of both loops; the add steps at the set bits
+  of the seed and at the nonzero digits of loop 2, with their slot
+  numbers; the extra line), the Miller values (combine=False), their final
+  exponentiations and E = e(G, H), lane 0 of those.
 
-    JAX_PLATFORMS=cpu python3 scripts/pairing_bundle_words.py [bls12_381|bls12_377|all] [XLA cache dir]
+    JAX_PLATFORMS=cpu python3 scripts/pairing_bundle_words.py [bls12_381|bls12_377|bn254|bw6_761|bw6_767|all] [XLA cache dir]
+
+Run each target in a process of its own ("all" runs them one by one in
+this process): XLA:CPU can abort compiling a further 768-bit Miller graph
+in a process that has compiled one. Minutes of compile each on a CPU.
 
 The tests build the inputs themselves and check them against the stored
 ones, so a file cannot drift from its inputs unseen; tests marked slow
-rebuild the words with the JAX package (``words_bls12_381``,
-``words_bls12_377``) and hold the files equal to them.
+rebuild the words with the JAX package (``words_<target>``) and hold the
+files equal to them.
 """
 
 import os
@@ -29,7 +43,10 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VEC_DIR = os.path.join(ROOT, "tests", "vectors")
 OUT = {"bls12_381": os.path.join(VEC_DIR, "bls12_381_pairing_bundle.npz"),
-       "bls12_377": os.path.join(VEC_DIR, "bls12_377_pairing_e.npz")}
+       "bls12_377": os.path.join(VEC_DIR, "bls12_377_pairing_e.npz"),
+       "bn254": os.path.join(VEC_DIR, "bn254_pairing_bundle.npz"),
+       "bw6_761": os.path.join(VEC_DIR, "bw6_761_pairing.npz"),
+       "bw6_767": os.path.join(VEC_DIR, "bw6_767_pairing.npz")}
 
 
 def limbs(a):
@@ -68,8 +85,64 @@ def words_bls12_377():
     return dict(g_x=limbs(G.x), g_y=limbs(G.y), h_x=limbs(H.x), h_y=limbs(H.y), e=limbs(e))
 
 
+def words_bn254():
+    """The JAX package's words for tests/pairing_bundle.py's BN254 pairs:
+    its g2_prepare keeps an add-step slot for each of the 64 digits."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import pairing_bundle
+    from zkarray.ec.pairing import bn
+
+    bd = pairing_bundle.bn254()
+    spec = bd["mod"].PAIRING
+    Qp = bn.g2_prepare(spec, bd["Q"])
+    f = bn.multi_miller_loop(spec, bd["P"], Qp, False)
+    return dict(
+        p_x=limbs(bd["P"].x), p_y=limbs(bd["P"].y), p_inf=np.asarray(bd["P"].inf),
+        q_x=limbs(bd["Q"].x), q_y=limbs(bd["Q"].y), q_inf=np.asarray(bd["Q"].inf),
+        dbl_coeffs=limbs(Qp.dbl_coeffs), add_coeffs=limbs(Qp.add_coeffs),
+        q1_coeffs=limbs(Qp.q1_coeffs), q2_coeffs=limbs(Qp.q2_coeffs), miller=limbs(f),
+        gts=limbs(bd["gts"]), prod=limbs(bd["prod"]))
+
+
+def words_bw6(curve):
+    """The JAX package's BW6 words on the pairs (G, H) and (2G, 2H)."""
+    import importlib
+
+    from zkarray.ec.pairing import bw6
+
+    b = importlib.import_module(f"zkarray.curves.{curve}")
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from ec_oracle import ec_add
+
+    def two(c):
+        g = (c.gen_x, c.gen_y)
+        return c.affine_from_ints([g, ec_add(g, g, c.a_int, c.base.modulus)])
+
+    spec = b.PAIRING
+    P, Q = two(b.G1), two(b.G2)
+    Qp = bw6.g2_prepare(spec, Q)
+    f = bw6.multi_miller_loop(spec, P, Qp, False)
+    gts = bw6.final_exponentiation(spec, f)
+    rows1 = [i for i, bit in enumerate(spec.loop_1_bits) if bit]
+    rows2 = [i for i, d in enumerate(spec.ate_loop_count_2[:-1][::-1]) if d]
+    return dict(
+        p_x=limbs(P.x), p_y=limbs(P.y), q_x=limbs(Q.x), q_y=limbs(Q.y),
+        dbl_1=limbs(Qp.dbl_1), add_1=limbs(np.asarray(Qp.add_1)[rows1]), add_1_rows=np.asarray(rows1),
+        extra=limbs(Qp.extra), dbl_2=limbs(Qp.dbl_2), add_2=limbs(np.asarray(Qp.add_2)[rows2]),
+        add_2_rows=np.asarray(rows2), miller=limbs(f), gts=limbs(gts), e=limbs(np.asarray(gts)[..., :1]))
+
+
+def words_bw6_761():
+    return words_bw6("bw6_761")
+
+
+def words_bw6_767():
+    return words_bw6("bw6_767")
+
+
 def main(argv):
-    which = argv[0] if argv and argv[0] in ("bls12_381", "bls12_377", "all") else "all"
+    names = ("bls12_381", "bls12_377", "bn254", "bw6_761", "bw6_767")
+    which = argv[0] if argv and argv[0] in names + ("all",) else "all"
     rest = argv[1:] if argv and argv[0] == which else argv
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, ROOT)
@@ -79,7 +152,8 @@ def main(argv):
     from zkarray.jaxcache import setup_cache
 
     setup_cache(rest[0] if rest else os.environ.get("ZKARRAY_CACHE_DIR", "/tmp/zkarray-xla-cache"))
-    build = {"bls12_381": words_bls12_381, "bls12_377": words_bls12_377}
+    build = {"bls12_381": words_bls12_381, "bls12_377": words_bls12_377, "bn254": words_bn254,
+             "bw6_761": words_bw6_761, "bw6_767": words_bw6_767}
     for name in build if which == "all" else (which,):
         np.savez_compressed(OUT[name], **build[name]())
         print(OUT[name], os.path.getsize(OUT[name]))

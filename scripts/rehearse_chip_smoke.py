@@ -3,9 +3,12 @@
 GPU and no nvcc: every kernel launch is replaced by a counted call of its
 plain version, torch.cuda and nvidia-smi by stubs, and the build by empty
 ptxas reports. It finds wrong paths, shapes, counts and control flow before
-a chip call; it says nothing about the CUDA sources. About 20 minutes
+a chip call; it says nothing about the CUDA sources. About 35 minutes
 (phase 8's group path runs its full-length scalar chains at 64 points,
-phase 9 nine pairing calls of 8 to 16 pairs, ~10 s each on the CPU):
+phase 9 nine pairing calls of 8 to 16 pairs, ~10 s each on the CPU, phase
+10 twenty-two BN254, GT and BW6 calls of 8 to 16 lanes). The XYZZ, MSM,
+NTT and twiddle kernels' stand-ins refuse L = 48 as their C entries do on
+the card:
 
     python3 scripts/rehearse_chip_smoke.py > rehearsal.out
 """
@@ -63,7 +66,22 @@ def launch_mont(kernel, spec, *ins, exponent=None):
     return km.mont_mul_plain(spec, ins[0], ins[-1])
 
 
+def refuse_nw24(kernel, limbs):
+    """The card's XYZZ, MSM, NTT and twiddle kernels are built for NW = 8
+    and 12 only: at L = 48 their C entries return cudaErrorInvalidValue."""
+    if limbs not in (16, 24):
+        raise RuntimeError(f"{kernel}: CUDA launch failed (1: invalid argument)")
+
+
+def field_only(kernel, fn, limbs_of):
+    def call(*args, **kw):
+        refuse_nw24(kernel, limbs_of(*args))
+        return fn(*args, **kw)
+    return call
+
+
 def launch_xyzz(kernel, curve, *coords):
+    refuse_nw24(kernel, curve.base.num_limbs)
     LAUNCHES[kernel] += 1
     if kernel == "xyzz_add":
         return ksw._fadd_plain(curve, coords[:4], coords[4:])
@@ -90,6 +108,7 @@ def setup():
     cs.TREE_EDGE_ROWS, cs.TREE_EDGE_WIDTHS, cs.TREE_ROUTE_WIDTHS = 4, (1, 2, 3, 13, 16), (17, 33)
     cs.GROUP_LOG_N, cs.SMALL_LOG_N, cs.FIELD_KAT, cs.GROUP_KAT, cs.OFF_POOL = 6, 5, 16, 8, 4
     cs.PAIR_LOG_N, cs.PAIR_BIG_LOG_N, cs.PAIR_BASE, cs.PAIR_INF_EVERY, cs.G2_LOG_N = 3, 4, 4, 4, 5
+    cs.FIELD48_LOG_N = 5
     dm.FOURSTEP_BIG, dm.FOURSTEP_MIN = 1 << 12, 1 << 9
     ksw.TREE_SUM_MAX = 16  # c = 7 at 2^8 points: trees of 64, two element-wise levels
 
@@ -122,16 +141,20 @@ def setup():
     km.on_cpu = lambda *ts: False
     km._launch = launch_mont
     km._launch_addsub = launch_addsub
-    km._launch_dit = lambda spec, x, tw, stride: counted("butterfly_dit", km.butterfly_dit_plain)(
-        spec, x, tw, stride)
+    km._launch_dit = field_only("butterfly_dit", counted("butterfly_dit", km.butterfly_dit_plain),
+                                lambda spec, *a: spec.num_limbs)
     km.butterfly_stage = counted("butterfly_stage", km.butterfly_stage_plain)
     ksw._accum = accum
     ksw._launch_xyzz = launch_xyzz
-    ksw.horner_windows = counted("horner_windows", ksw.horner_windows_plain)
-    ksw.xyzz_add_affine = counted("xyzz_add_affine", ksw.xyzz_add_affine_plain)
+    curve_limbs = lambda curve, *a: curve.base.num_limbs  # noqa: E731
+    ksw.horner_windows = field_only("horner_windows", counted("horner_windows",
+                                                              ksw.horner_windows_plain), curve_limbs)
+    ksw.xyzz_add_affine = field_only("xyzz_add_affine", counted("xyzz_add_affine",
+                                                                ksw.xyzz_add_affine_plain), curve_limbs)
     ksw.xyzz_tree_sum = counted("xyzz_tree_sum", ksw.xyzz_tree_sum_plain)
     ksw.xyzz_bit_horner = counted("xyzz_bit_horner", ksw.xyzz_bit_horner_plain)
-    km.pow_table = counted("pow_table", km.pow_table)  # a CPU device takes the plain version
+    km.pow_table = field_only("pow_table", counted("pow_table", km.pow_table),  # the plain version
+                              lambda spec, *a, **kw: spec.num_limbs)
     twiddle_mul = km.twiddle_mul
 
     def twiddle_on_cpu(*args, **kw):

@@ -144,6 +144,49 @@ def test_pow_const_matches_jax(pair):
         tfp.pow_const(ts, ta, -1)
 
 
+@pytest.mark.parametrize("curve", ["bw6_761", "bw6_767"])
+def test_l48_field_kernels_plain_match_jax(curve):
+    """The plain versions of the mont.cu kernels at L = 48 (NW = 24, the
+    BW6 fields): mont_mul/mont_sqr against the JAX package's on
+    mont_inv_edge_words and random words spanning the field, every pair of
+    16; pow_const (mont_pow's plain version) at e = 0, 1, 2 and a seeded
+    761-bit e; the inverse (mont_inv's plain version, Fermat) against the
+    JAX package's inv; and the word model of mont_inv's binary GCD at
+    NW = 24 against pow on the edge words and 4 random ones, its
+    iterations under the stated bound and under the kernel's 64 NW cap."""
+    import importlib
+
+    js = importlib.import_module(f"zkarray.curves.{curve}").FQ
+    ts = importlib.import_module(f"zkarray_torch.curves.{curve}").FQ
+    assert ts.num_limbs == js.num_limbs == 48 and interop_same(ts, js)
+    p, R = ts.modulus, ts.r_int
+    edge = mont_inv_edge_words(ts, np.random.default_rng(3), n_random=4)
+    xs = [ts.from_mont_int(w) for w in edge]
+    assert max(xs).bit_length() > 700  # the random words span the field
+    ja, ta = both(js, xs)
+    k = 16
+    ii = np.arange(k * k)
+    jx, tx = both(js, [xs[i % len(xs)] for i in ii // k])
+    jy, ty = both(js, [xs[(3 * i + 1) % len(xs)] for i in ii % k])
+    assert same(jfp.mont_mul(js, jx, jy), tkm.mont_mul_plain(ts, tx, ty))
+    assert same(jfp.mont_sqr(js, ja), tkm.mont_sqr_plain(ts, ta))
+    e761 = int.from_bytes(np.random.default_rng(12).bytes(96), "little") >> 7
+    for e in (0, 1, 2, e761):
+        got = tfp.pow_const(ts, ta, e)
+        assert same(jfp.pow_const(js, ja, e), got), e
+    assert same(jfp.inv(js, ja), tkm.mont_inv(ts, ta))  # CPU wrapper = Fermat plain version
+    for w in edge:
+        inv_w, iters = mont_inv_model(ts, w)
+        assert inv_w == (pow(w * pow(R, -1, p), -1, p) * R % p if w else 0), w
+        assert iters < mont_inv_iteration_bound(ts, w) <= 64 * (ts.num_limbs // 2), w
+
+
+def interop_same(ts, js):
+    from zkarray_torch import interop
+
+    return interop.same_field(ts, js.modulus, js.generator_int, js.r_int, js.r2_int, js.inv16)
+
+
 def test_plain_mont_kernels_match_pallas_interpret():
     js, ts = jcurves.FR, tcurves.FR
     p = js.modulus
@@ -328,6 +371,9 @@ def test_carry_helpers_match_python_ints(n):
                            np.full((n, 1), M, np.int64), np.full((n, 1), 1 << 16, np.int64)], 1)
     out = tlb.normalize(torch.from_numpy(cols), n)
     assert ints(out.numpy()) == [v % (1 << (16 * n)) for v in value(cols)]
+    low, top = tlb.normalize(torch.from_numpy(cols), n, carry_out=True)  # the carry kept
+    assert torch.equal(low, out)
+    assert [v + (t << (16 * n)) for v, t in zip(ints(low.numpy()), top.tolist())] == value(cols)
     if n + 4 <= 61:  # room for every carry: the whole value
         assert ints(tlb.normalize(torch.from_numpy(cols), n + 4).numpy()) == value(cols)
     edge = [0, 1, M, 1 << (16 * n) - 1, (1 << (16 * n)) - 1, (1 << (16 * n)) - 2]

@@ -115,7 +115,9 @@ def test_import_pulls_in_no_jax():
         "zkarray_torch.ec.point_serde, zkarray_torch.serialize.wrappers, "
         "zkarray_torch.ff.towers, zkarray_torch.ff.sparse12, zkarray_torch.ff.cyclotomic, "
         "zkarray_torch.ff.tower_host, zkarray_torch.ec.sw_ext, zkarray_torch.ec.pairing.bls12, "
-        "zkarray_torch.ec.fast_checks; "
+        "zkarray_torch.ec.fast_checks, zkarray_torch.ec.pairing.bn, zkarray_torch.ec.pairing.gt, "
+        "zkarray_torch.ec.pairing.bw6, zkarray_torch.ec.pairing.mnt, zkarray_torch.curves.bw6_761, "
+        "zkarray_torch.curves.bw6_767; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'zkarray')]; "
         "assert not bad, bad"
     )
@@ -142,7 +144,11 @@ def test_source_scan_finds_no_jax_or_zkarray_import():
     assert {"zkarray_torch/ff/towers.py", "zkarray_torch/ff/sparse12.py",
             "zkarray_torch/ff/cyclotomic.py", "zkarray_torch/ff/tower_host.py",
             "zkarray_torch/ec/sw_ext.py", "zkarray_torch/ec/pairing/bls12.py",
-            "zkarray_torch/kernels/mont.py"} <= names  # mont.py: fadd.cu's wrappers
+            "zkarray_torch/kernels/mont.py",  # mont.py: fadd.cu's wrappers
+            "zkarray_torch/ec/pairing/bn.py", "zkarray_torch/ec/pairing/gt.py",
+            "zkarray_torch/ec/pairing/bw6.py", "zkarray_torch/ec/pairing/mnt.py",
+            "zkarray_torch/curves/bn254.py", "zkarray_torch/curves/bw6_761.py",
+            "zkarray_torch/curves/bw6_767.py"} <= names
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "zkarray"}
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
@@ -159,6 +165,7 @@ def test_pairing_path_constants_and_default_device():
     from zkarray_torch.curves import bls12_381_zcash as tzc
     from zkarray_torch.ec import point_serde as tps
     from zkarray_torch.ec import sw_ext as tsw_ext
+    from zkarray_torch.ec.pairing import gt as tgt
     from zkarray_torch.ff import towers as ttowers
 
     assert DEFAULT_DEVICE == "cuda"
@@ -179,5 +186,7 @@ def test_pairing_path_constants_and_default_device():
     for fn in (ttowers.PrimeOps.zero, ttowers.PrimeOps.one, ttowers.PrimeOps.const,
                ttowers.PrimeOps.from_ints, ttowers.ExtOps.zero, ttowers.ExtOps.one,
                ttowers.ExtOps.const, ttowers.ExtOps.from_ints, tsw_ext.ExtCurveSpec.generator,
-               tsw_ext.zero, tps.deserialize_sw_ext, tzc.deserialize_g2):
+               tsw_ext.zero, tps.deserialize_sw_ext, tzc.deserialize_g2, tgt.GTGroup.zero,
+               interop.bn_g2_prepared_from_numpy, interop.bw6_g2_prepared_from_numpy,
+               interop.gt_from_numpy):
         assert inspect.signature(fn).parameters["device"].default == DEFAULT_DEVICE, fn

@@ -184,21 +184,25 @@ def test_twiddle_mul_plain_matches_jax_twiddle_table(case):
 
 
 def _five_fields():
-    from zkarray.curves import bls12_377 as j377, bn254 as jbn
+    from zkarray.curves import bls12_377 as j377, bn254 as jbn, bw6_761 as j761, bw6_767 as j767
     from zkarray_torch.curves import bls12_377 as t377, bn254 as tbn
+    from zkarray_torch.curves import bw6_761 as t761, bw6_767 as t767
 
     return [(jbn.FR, tbn.FR), (jbn.FQ, tbn.FQ), (jcurves.FR, tcurves.FR),
-            (jcurves.FQ, tcurves.FQ), (j377.FQ, t377.FQ)]
+            (jcurves.FQ, tcurves.FQ), (j377.FQ, t377.FQ), (j761.FQ, t761.FQ), (j767.FQ, t767.FQ)]
 
 
-@pytest.mark.parametrize("k", range(5), ids=["bn254.Fr", "bn254.Fq", "bls12_381.Fr",
-                                              "bls12_381.Fq", "bls12_377.Fq"])
+@pytest.mark.parametrize("k", range(7), ids=["bn254.Fr", "bn254.Fq", "bls12_381.Fr",
+                                              "bls12_381.Fq", "bls12_377.Fq", "bw6_761.Fq",
+                                              "bw6_767.Fq"])
 def test_field_additions_plain_match_jax(k):
     """add_plain and sub_plain (csrc/fadd.cu's plain versions; -a is
     sub_plain(0, a)) on testing.fadd_edge_words, all pairs, against
     zkarray.ff.fp.add/sub/neg bit for bit, inputs >= p included; the wrappers fp_add/fp_sub/fp_neg give
     the same words on CPU tensors, into a new tensor and into a strided
-    ``out`` (the tower layout's coefficient axes behind the limb axis)."""
+    ``out`` (the tower layout's coefficient axes behind the limb axis).
+    The two BW6 fields are the L = 48 (NW = 24) cases: carries across 47
+    limb boundaries, 23 word boundaries."""
     from zkarray_torch.core.limbs import ints_to_limbs_np
     from zkarray_torch.testing import fadd_edge_words
 

@@ -12,7 +12,6 @@ marked slow rebuild those words with the JAX package and hold the files
 equal to them. The port's CPU path is the plain versions: one pairing takes
 ~10 s here."""
 
-import importlib.util
 import os
 
 import numpy as np
@@ -21,6 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from torch_parity import words_script  # noqa: E402
 from zkarray.curves import bls12_381 as jb  # noqa: E402
 from zkarray.curves import bls12_381_zcash as jzc  # noqa: E402
 from zkarray.ec import fast_checks as jfast  # noqa: E402
@@ -104,16 +104,6 @@ def test_bls12_381_slice_matches_jax():
     assert e_r == one and tt.fp12_to_flat(tb.FQ12, prod[..., None])[0] == e_5
 
 
-def _words_script():
-    """scripts/pairing_bundle_words.py as a module (the JAX words' builder)."""
-    path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "scripts",
-                        "pairing_bundle_words.py")
-    spec = importlib.util.spec_from_file_location("pairing_bundle_words", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 @pytest.mark.slow
 @pytest.mark.parametrize("curve", ["bls12_381", "bls12_377"])
 def test_stored_pairing_words_match_jax(curve):
@@ -121,7 +111,7 @@ def test_stored_pairing_words_match_jax(curve):
     computes now: tests/pairing_bundle.py's BLS12-381 bundle with its
     g2_prepare and Miller values, and BLS12-377's pairing_each(G, H) (the
     D-twist path). Minutes of XLA compile each on a CPU."""
-    mod = _words_script()
+    mod = words_script()
     want = {"bls12_381": mod.words_bls12_381, "bls12_377": mod.words_bls12_377}[curve]()
     ref = np.load(mod.OUT[curve])
     assert sorted(ref.files) == sorted(want)

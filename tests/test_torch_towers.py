@@ -15,6 +15,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from torch_parity import nest, rand_host  # noqa: E402
+from torch_parity import tower_both as both  # noqa: E402
 from zkarray.curves import bls12_381 as jb  # noqa: E402
 from zkarray.ff import cyclotomic as jcyc  # noqa: E402
 from zkarray.ff import sparse12 as jsp  # noqa: E402
@@ -24,27 +26,9 @@ from zkarray_torch.curves import bls12_381 as tb  # noqa: E402
 from zkarray_torch.ff import cyclotomic as tcyc  # noqa: E402
 from zkarray_torch.ff import sparse12 as tsp  # noqa: E402
 from zkarray_torch.ff.towers import quad_sqrt as tquad_sqrt  # noqa: E402
-from zkarray_torch.interop import limbs_from_numpy, limbs_to_numpy  # noqa: E402
+from zkarray_torch.interop import limbs_to_numpy  # noqa: E402
 
 TOWERS = [(jb.FQ2, tb.FQ2), (jb.FQ6, tb.FQ6), (jb.FQ12, tb.FQ12)]
-
-
-def rand_host(host, rng):
-    if not hasattr(host, "deg"):  # either package's HostPrime
-        return rng.randrange(host.p)
-    return tuple(rand_host(host.base, rng) for _ in range(host.deg))
-
-
-def nest(elems, host):
-    """Host elements -> from_ints' coefficient-major nesting."""
-    if not hasattr(host, "deg"):
-        return list(elems)
-    return [nest([e[j] for e in elems], host.base) for j in range(host.deg)]
-
-
-def both(J, elems):
-    j = J.from_ints(nest(elems, J.host))
-    return j, limbs_from_numpy(np.asarray(j), "cpu")
 
 
 def same(j, t):

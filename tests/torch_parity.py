@@ -90,3 +90,71 @@ def msm_inputs(seed, n=N, scalars=None, inf_at=()):
     tA = affine_from_numpy(np.asarray(jA.x), np.asarray(jA.y), np.asarray(jA.inf), "cpu")
     ts = limbs_from_numpy(np.asarray(js), "cpu")
     return pts, scalars, jA, js, tA, ts
+
+
+# ---- towers: host elements of either package's HostExt ---------------------
+
+def rand_host(host, rng):
+    """A random host element of a tower (``rng`` a random.Random)."""
+    if not hasattr(host, "deg"):  # either package's HostPrime
+        return rng.randrange(host.p)
+    return tuple(rand_host(host.base, rng) for _ in range(host.deg))
+
+
+def nest(elems, host):
+    """Host elements -> from_ints' coefficient-major nesting."""
+    if not hasattr(host, "deg"):
+        return list(elems)
+    return [nest([e[j] for e in elems], host.base) for j in range(host.deg)]
+
+
+def tower_both(J, elems):
+    """The same host elements as a JAX tower array and a port CPU tensor."""
+    j = J.from_ints(nest(elems, J.host))
+    return j, limbs_from_numpy(np.asarray(j), "cpu")
+
+
+def check_tower_ops(J, T, seed, width=2):
+    """The port's tower T against the JAX package's J on ``width`` random
+    elements (the first operand's lane 0 zero): mul, sqr, inv (0 -> 0),
+    add, sub, neg, double, select, is_zero, eq, the Frobenius map at every
+    power, conjugate on a quadratic level and mul_nonresidue on a base
+    element, bit for bit."""
+    import random
+
+    import torch
+
+    rng = random.Random(seed)
+    xs = [J.host.zero()] + [rand_host(J.host, rng) for _ in range(width - 1)]
+    ys = [rand_host(J.host, rng) for _ in range(width)]
+    ja, ta = tower_both(J, xs)
+    jc, tc = tower_both(J, ys)
+    assert (T.name, T.deg, T.shape, T.nonresidue_host, T._frob) == (
+        J.name, J.deg, J.shape, J.nonresidue_host, J._frob)
+    for jr, tr in ((J.mul(ja, jc), T.mul(ta, tc)), (J.sqr(jc), T.sqr(tc)), (J.inv(ja), T.inv(ta)),
+                   (J.add(ja, jc), T.add(ta, tc)), (J.sub(ja, jc), T.sub(ta, tc)),
+                   (J.neg(jc), T.neg(tc)), (J.double(jc), T.double(tc))):
+        assert same(jr, tr)
+    mask = np.asarray([i % 2 == 0 for i in range(width)])
+    assert same(J.select(mask, ja, jc), T.select(torch.from_numpy(mask), ta, tc))
+    assert np.array_equal(np.asarray(J.is_zero(ja)), T.is_zero(ta).numpy())
+    assert np.array_equal(np.asarray(J.eq(ja, ja)), T.eq(ta, ta).numpy())
+    for i in range(J.deg_abs):
+        assert same(J.frobenius(jc, i), T.frobenius(tc, i)), i
+    if J.deg == 2:
+        assert same(J.conjugate(jc), T.conjugate(tc))
+    assert same(J.mul_nonresidue(jc[0]), T.mul_nonresidue(tc[0]))
+
+
+def words_script():
+    """scripts/pairing_bundle_words.py as a module (the JAX package's stored
+    pairing words' builder)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts",
+                        "pairing_bundle_words.py")
+    spec = importlib.util.spec_from_file_location("pairing_bundle_words", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod

@@ -30,9 +30,11 @@ class FieldSpec:
         self.r_bits = LIMB_BITS * self.num_limbs
         self.r_int = (1 << self.r_bits) % modulus
         self.r2_int = (self.r_int * self.r_int) % modulus
-        # -p^-1 mod 2^16 (plain CIOS) and mod 2^32 (the kernels' 32-bit words)
+        # -p^-1 mod 2^16 and mod 2^32 (the kernels' 32-bit words), and mod R
+        # (the plain reduction's whole-vector step)
         self.inv16 = (-pow(modulus, -1, 1 << 16)) % (1 << 16)
         self.inv32 = (-pow(modulus, -1, 1 << 32)) % (1 << 32)
+        self.p_inv_neg_r = (-pow(modulus, -1, 1 << self.r_bits)) % (1 << self.r_bits)  # -p^-1 mod R
         self._rinv = pow(self.r_int, -1, modulus)
         # 2-adicity: p - 1 = 2^s * t with t odd
         t = modulus - 1

@@ -63,26 +63,31 @@ def zeros(num_limbs: int, batch_shape=(), device=DEFAULT_DEVICE) -> torch.Tensor
     return torch.zeros((num_limbs,) + tuple(batch_shape), dtype=torch.int32, device=device)
 
 
-def normalize(cols: torch.Tensor, out_limbs: int) -> torch.Tensor:
+def normalize(cols: torch.Tensor, out_limbs: int, carry_out: bool = False):
     """Carry-propagate nonnegative int64 base-2^16 columns (< 2^62) into
     16-bit limbs.
 
     Returns (out_limbs, *batch) int64 limbs in [0, 2^16); the final carry is
-    dropped (callers guarantee it is zero). Four carry-save passes bring
-    every column to at most 2^16 (each pass moves all columns' high bits up
-    one limb at once); the last carries then follow from one binary add of
-    the limbs' generate and propagate bits (``_lookahead``)."""
+    dropped (callers guarantee it is zero), or with ``carry_out`` returned
+    beside them: (limbs, the carry out of the top limb (*batch), which may
+    pass 1). Four carry-save passes bring every column to at most 2^16
+    (each pass moves all columns' high bits up one limb at once); the last
+    carries then follow from one binary add of the limbs' generate and
+    propagate bits (``_lookahead``)."""
     x = cols.to(torch.int64)
     if x.shape[0] < out_limbs:
         x = torch.cat([x, x.new_zeros((out_limbs - x.shape[0],) + tuple(x.shape[1:]))])
     else:
         x = x[:out_limbs].clone()
+    top = torch.zeros_like(x[0])
     for _ in range(4):
         c = x >> LIMB_BITS
         x &= LIMB_MASK
         x[1:] += c[:-1]
-    cin, _ = _lookahead(x > LIMB_MASK, x == LIMB_MASK)
-    return (x + cin) & LIMB_MASK
+        top += c[-1]
+    cin, cout = _lookahead(x > LIMB_MASK, x == LIMB_MASK)
+    limbs = (x + cin) & LIMB_MASK
+    return (limbs, top + cout) if carry_out else limbs
 
 
 @functools.lru_cache(maxsize=None)

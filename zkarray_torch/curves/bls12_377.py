@@ -35,7 +35,7 @@ G1 = SWCurveSpec(
 )
 
 # ---- towers
-from zkarray_torch.ff.towers import ExtOps, PrimeOps  # noqa: E402
+from zkarray_torch.ff.towers import ExtOps, PrimeOps, mul_by_cubic_generator  # noqa: E402
 
 FQ_OPS = PrimeOps(FQ)
 FQ2 = ExtOps("bls12_377.Fq2", FQ_OPS, 2, FQ_MODULUS - 5)  # beta = -5
@@ -47,15 +47,9 @@ def _nr6_hook(fq2, x):
     return torch.stack([fq.neg(fq.add(fq.double(fq.double(x[1])), x[1])), x[0]])
 
 
-def _nr12_hook(fq6, x):
-    """x v = (u x2, x0, x1) for x in Fq6: a coefficient shuffle and the Fq6
-    hook."""
-    return fq6._stack([fq6.mul_nonresidue(x[2]), x[0], x[1]])
-
-
 FQ6 = ExtOps("bls12_377.Fq6", FQ2, 3, (0, 1), mul_nonresidue_hook=_nr6_hook)
 FQ12 = ExtOps("bls12_377.Fq12", FQ6, 2, ((0, 0), (1, 0), (0, 0)),  # beta = v
-              mul_nonresidue_hook=_nr12_hook)
+              mul_nonresidue_hook=mul_by_cubic_generator)
 
 # ---- G2: y^2 = x^3 + b/u over Fq2, D-twist
 from zkarray_torch.ec.sw_ext import ExtCurveSpec  # noqa: E402

@@ -33,7 +33,7 @@ G1 = SWCurveSpec(
 X = -0xD201000000010000
 
 # ---- towers
-from zkarray_torch.ff.towers import ExtOps, PrimeOps  # noqa: E402
+from zkarray_torch.ff.towers import ExtOps, PrimeOps, mul_by_cubic_generator  # noqa: E402
 
 FQ_OPS = PrimeOps(FQ)
 FQ2 = ExtOps("bls12_381.Fq2", FQ_OPS, 2, FQ_MODULUS - 1)  # beta = -1
@@ -44,15 +44,9 @@ def _nr6_hook(fq2, x):
     return torch.stack([fq2.base.sub(x[0], x[1]), fq2.base.add(x[0], x[1])])
 
 
-def _nr12_hook(fq6, x):
-    """x v = (xi x2, x0, x1) for x in Fq6, xi = u + 1: a coefficient shuffle
-    and the Fq6 hook, where the JAX package multiplies by v in full."""
-    return fq6._stack([fq6.mul_nonresidue(x[2]), x[0], x[1]])
-
-
 FQ6 = ExtOps("bls12_381.Fq6", FQ2, 3, (1, 1), mul_nonresidue_hook=_nr6_hook)
 FQ12 = ExtOps("bls12_381.Fq12", FQ6, 2, ((0, 0), (1, 0), (0, 0)),  # beta = v
-              mul_nonresidue_hook=_nr12_hook)
+              mul_nonresidue_hook=mul_by_cubic_generator)
 
 # ---- G2: y^2 = x^3 + 4(u + 1) over Fq2, M-twist
 from zkarray_torch.ec.sw_ext import ExtCurveSpec  # noqa: E402

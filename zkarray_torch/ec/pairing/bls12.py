@@ -24,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from zkarray_torch.ec.sw import AffinePoints
+from zkarray_torch.ec.pairing.mnt import ext_pow_const
 from zkarray_torch.ec.sw_ext import ExtAffine, ExtCurveSpec
 from zkarray_torch.ff import cyclotomic as cyc
 from zkarray_torch.ff import fp
@@ -253,14 +254,4 @@ def pairing_each(bspec: Bls12Spec, P: AffinePoints, Q: ExtAffine):
     return final_exponentiation(bspec, multi_miller_loop(bspec, P, g2_prepare(bspec, Q), False))
 
 
-def fp12_pow_const(fq12, a, e: int):
-    """a^e by plain square-and-multiply (high bit first, a product on the
-    set bits only), for any Fp12 element."""
-    if e == 0:
-        return fq12.one(fq12.batch_shape_of(a), a.device)
-    r = a
-    for bit in bin(e)[3:]:
-        r = fq12.sqr(r)
-        if bit == "1":
-            r = fq12.mul(r, a)
-    return r
+fp12_pow_const = ext_pow_const  # a^e for any Fp12 element (the JAX package's name)

@@ -342,6 +342,15 @@ class ExtOps:
         return (a == b).flatten(0, len(self.shape)).all(dim=0)
 
 
+def mul_by_cubic_generator(cubic: ExtOps, x):
+    """x u for x in a cubic extension by u^3 = beta: the coefficient shuffle
+    (beta x2, x0, x1). It is the nonresidue product of a quadratic extension
+    whose nonresidue is that cubic's generator (Fp12 = Fp6[w]/(w^2 - v);
+    BW6's Fp6 = Fp3[v]/(v^2 - u)), where the JAX package multiplies by the
+    generator in full; the words are the same."""
+    return cubic._stack([cubic.mul_nonresidue(x[2]), x[0], x[1]])
+
+
 def quad_sqrt(F2: ExtOps, a):
     """Batched square root in Fp2 = Fp[u]/(u^2 - beta) over a prime field:
     ``(root, is_square mask)``, root 0 where ``a`` is not a square

@@ -13,7 +13,9 @@ import torch
 
 from zkarray_torch import DEFAULT_DEVICE
 from zkarray_torch.core.fieldspec import FieldSpec
+from zkarray_torch.ec.pairing import bw6
 from zkarray_torch.ec.pairing.bls12 import G2Prepared
+from zkarray_torch.ec.pairing.bn import BnG2Prepared, BnSpec
 from zkarray_torch.ec.sw import AffinePoints, JacobianPoints, SWCurveSpec, XYZZPoints
 from zkarray_torch.ec.sw_ext import ExtAffine, ExtJacobian
 
@@ -93,6 +95,48 @@ def g2_prepared_from_numpy(dbl, add, inf, add_rows=None, device=DEFAULT_DEVICE) 
 
 def g2_prepared_to_numpy(Qp: G2Prepared):
     return limbs_to_numpy(Qp.dbl_coeffs), limbs_to_numpy(Qp.add_coeffs), Qp.inf.detach().cpu().numpy()
+
+
+def _mask(inf, device):
+    return torch.from_numpy(np.asarray(inf, dtype=bool).copy()).to(device)
+
+
+def bn_g2_prepared_from_numpy(bspec: BnSpec, dbl, add, q1, q2, inf,
+                              device=DEFAULT_DEVICE) -> BnG2Prepared:
+    """The JAX package's BnG2Prepared arrays -> the port's: its add-step
+    coefficients hold one slot per digit of 6X + 2 (64, 3, 2, L, *batch),
+    of which the port keeps the nonzero digits' (``BnSpec.add_digits``)."""
+    add = np.asarray(add)
+    if add.shape[0] != len(bspec.digits):
+        raise ValueError(f"expected {len(bspec.digits)} add-step slots, got {add.shape[0]}")
+    return BnG2Prepared(limbs_from_numpy(dbl, device), limbs_from_numpy(add[bspec.add_digits], device),
+                        limbs_from_numpy(q1, device), limbs_from_numpy(q2, device), _mask(inf, device))
+
+
+def bw6_g2_prepared_from_numpy(bspec, dbl_1, add_1, extra, dbl_2, add_2, inf,
+                               device=DEFAULT_DEVICE) -> "bw6.G2Prepared":
+    """The JAX package's BW6 G2Prepared arrays -> the port's: its add steps
+    hold one slot per bit of u (add_1) and per digit of loop 2 (add_2), of
+    which the port keeps the set bits' and the nonzero digits'
+    (``BW6Spec.add_rows_1``/``add_rows_2``)."""
+    add_1, add_2 = np.asarray(add_1), np.asarray(add_2)
+    if (add_1.shape[0], add_2.shape[0]) != (len(bspec.loop_1_bits), len(bspec.digits_2)):
+        raise ValueError(f"expected {len(bspec.loop_1_bits)} and {len(bspec.digits_2)} add-step "
+                         f"slots, got {add_1.shape[0]} and {add_2.shape[0]}")
+    return bw6.G2Prepared(limbs_from_numpy(dbl_1, device),
+                          limbs_from_numpy(add_1[bspec.add_rows_1], device),
+                          limbs_from_numpy(extra, device), limbs_from_numpy(dbl_2, device),
+                          limbs_from_numpy(add_2[bspec.add_rows_2], device), _mask(inf, device))
+
+
+def gt_from_numpy(ext, arr, device=DEFAULT_DEVICE) -> torch.Tensor:
+    """A JAX package GT stack (a target-field element array, ext.shape +
+    (L, *batch)) -> the port's tensor, its shape checked."""
+    a = np.asarray(arr)
+    lead = tuple(ext.shape) + (ext.spec.num_limbs,)
+    if a.shape[:len(lead)] != lead:
+        raise ValueError(f"expected a {ext.name} stack {lead} + batch, got {a.shape}")
+    return limbs_from_numpy(a, device)
 
 
 def same_field(spec: FieldSpec, modulus: int, generator: int, r_int: int, r2_int: int,

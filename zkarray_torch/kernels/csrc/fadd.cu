@@ -8,7 +8,9 @@
 //
 // Bound on an H100: bytes. An L = 24 addition reads 2 x 96 B and writes
 // 96 B per element (16-bit limbs held in int32) and does ~3 NW 32-bit
-// operations. The operands and the output go through field.cuh's strided
+// operations; an L = 48 one (BW6's 761- and 767-bit fields, NW = 24 through
+// ZK_DISPATCH_NW_FIELD) reads 2 x 192 B and writes 192 B for ~72
+// operations, 0.375 a byte, so bytes bound it at every width. The operands and the output go through field.cuh's strided
 // map (Operand: base, ld, inner, outer), so a tower element's coefficient
 // axes, a stride-0 constant or a coefficient slice of a stacked tensor are
 // read and written in place.
@@ -106,7 +108,7 @@ static int launch_addsub(bool sub, const long long* ops, long long n, int nw,
   const Operand a = operand_from_host(ops), b = operand_from_host(ops + 4);
   const OutOperand o{(int32_t*)(uintptr_t)ops[8], ops[9], ops[10], ops[11]};
   const unsigned grid = blocks_for(n, 256);
-  ZK_DISPATCH_NW(nw, {
+  ZK_DISPATCH_NW_FIELD(nw, {
     const FieldConsts<NW> F = consts_from_host<NW>(consts);
     if (sub)
       fp_sub_kernel<NW><<<grid, 256, 0, (cudaStream_t)stream>>>(a, b, o, n, F);

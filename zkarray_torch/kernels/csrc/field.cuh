@@ -567,6 +567,31 @@ __device__ __forceinline__ Xyzz<NW> xyzz_add(const PA& P, const PB& Q, const Fie
       return (int)cudaErrorInvalidValue; \
   }
 
+// The same for the element-wise field kernels (mont.cu's four, fadd.cu's
+// two), which also take NW = 24: the 761- and 767-bit fields of BW6 (and
+// MNT4/6-753). The XYZZ, MSM and NTT kernels keep ZK_DISPATCH_NW, so they
+// are not built at 768 bits and reject NW = 24 with cudaErrorInvalidValue.
+#define ZK_DISPATCH_NW_FIELD(nw, ...) \
+  switch (nw) {                       \
+    case 8: {                         \
+      constexpr int NW = 8;           \
+      __VA_ARGS__;                    \
+      break;                          \
+    }                                 \
+    case 12: {                        \
+      constexpr int NW = 12;          \
+      __VA_ARGS__;                    \
+      break;                          \
+    }                                 \
+    case 24: {                        \
+      constexpr int NW = 24;          \
+      __VA_ARGS__;                    \
+      break;                          \
+    }                                 \
+    default:                          \
+      return (int)cudaErrorInvalidValue; \
+  }
+
 extern "C" const char* zk_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

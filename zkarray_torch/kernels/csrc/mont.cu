@@ -33,6 +33,17 @@
 // iterations and the dependent instructions in each bound it; see
 // mont_inv_kernel.
 //
+// Each kernel is built for NW = 8, 12 and 24 (ZK_DISPATCH_NW_FIELD): 254-
+// to 384-bit fields, and the 761- and 767-bit fields of BW6, where fmul's
+// CIOS holds a, b and t[NW + 2], ~74 live words, and mont_inv's loop u, v,
+// b, c, d, e and the two fsub_cc results, ~190 (ptxas' registers and spills
+// at each width: chip_smoke.py's build line). The simple one-thread-per-
+// element design is kept at every width. At NW = 24 a product reads 2 x
+// 192 B and writes 192 B per element and does ~4 NW^2 = 2,304 32-bit
+// operations, ~4 a byte against the card's ~5 (16.7 T int32 ops/s over
+// 3.35 TB/s): still bound by bytes, nearly balanced, where a 254- to
+// 384-bit product has 1 to 2 operations a byte.
+//
 // Operands are read through field.cuh's strided map (Operand); outputs are
 // contiguous, ld = n.
 #include "field.cuh"
@@ -194,7 +205,7 @@ extern "C" int zk_mont_mul(const long long* ops, void* out, long long n, int nw,
   if (n <= 0) return 0;
   if (!operands_ok(ops, 2)) return (int)cudaErrorInvalidValue;
   const Operand a = operand_from_host(ops), b = operand_from_host(ops + 4);
-  ZK_DISPATCH_NW(nw, mont_mul_kernel<NW><<<blocks_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
+  ZK_DISPATCH_NW_FIELD(nw, mont_mul_kernel<NW><<<blocks_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
                           a, b, (int32_t*)out, n, consts_from_host<NW>(consts)));
   return (int)cudaGetLastError();
 }
@@ -204,7 +215,7 @@ extern "C" int zk_mont_sqr(const long long* ops, void* out, long long n, int nw,
   if (n <= 0) return 0;
   if (!operands_ok(ops, 1)) return (int)cudaErrorInvalidValue;
   const Operand a = operand_from_host(ops);
-  ZK_DISPATCH_NW(nw, mont_sqr_kernel<NW><<<blocks_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
+  ZK_DISPATCH_NW_FIELD(nw, mont_sqr_kernel<NW><<<blocks_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
                           a, (int32_t*)out, n, consts_from_host<NW>(consts)));
   return (int)cudaGetLastError();
 }
@@ -219,7 +230,7 @@ extern "C" int zk_mont_pow(const long long* ops, void* out, long long n, const u
   e.nbits = nbits;
   for (int j = 0; j < MAX_EXP_WORDS; ++j) e.w[j] = j < (nbits + 31) / 32 ? exp[j] : 0u;
   const Operand a = operand_from_host(ops);
-  ZK_DISPATCH_NW(nw, mont_pow_kernel<NW><<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
+  ZK_DISPATCH_NW_FIELD(nw, mont_pow_kernel<NW><<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
                           a, (int32_t*)out, n, e, consts_from_host<NW>(consts)));
   return (int)cudaGetLastError();
 }
@@ -230,7 +241,7 @@ extern "C" int zk_mont_inv(const long long* ops, void* out, long long n, const u
   if (n <= 0) return 0;
   if (!operands_ok(ops, 1)) return (int)cudaErrorInvalidValue;
   const Operand a = operand_from_host(ops);
-  ZK_DISPATCH_NW(nw, {
+  ZK_DISPATCH_NW_FIELD(nw, {
     Fe<NW> r;
     for (int j = 0; j < NW; ++j) r.w[j] = r2[j];
     mont_inv_kernel<NW><<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(

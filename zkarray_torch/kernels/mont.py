@@ -43,7 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from zkarray_torch.core.fieldspec import LIMB_BITS, LIMB_MASK, FieldSpec
+from zkarray_torch.core.fieldspec import FieldSpec
 from zkarray_torch.core.limbs import (add_with_carry, normalize, pack_pairs, sub_with_borrow,
                                       unpack_pairs)
 from zkarray_torch.kernels import _build
@@ -145,18 +145,65 @@ def on_cpu(*ts: torch.Tensor) -> bool:
 # plain PyTorch version (int64 lanes holding 16-bit limbs)
 # ---------------------------------------------------------------------------
 
-def redc_plain(spec: FieldSpec, cols: torch.Tensor) -> torch.Tensor:
-    """Montgomery-reduce (2L+1, *batch) int64 columns (value < R p):
-    returns (value * R^-1 mod p) as int64 limbs. Mirrors _redc: per limb,
-    m = -t_i/p mod 2^16, fold m*p in, carry the cleared column up."""
+# lanes of one block of the plain product: its (L, L, lanes) int64 products
+# stay within 2^27 elements (1 GiB)
+_PLAIN_BLOCK_ELEMS = 1 << 27
+
+
+@functools.lru_cache(maxsize=None)
+def _diagonals(la: int, lb: int, n_out: int, device: str):
+    """For the flattened (la, lb) products a_i b_j: the output column i + j
+    of each one with i + j < n_out, and their positions."""
+    k = (torch.arange(la)[:, None] + torch.arange(lb)[None, :]).reshape(-1)
+    keep = (k < n_out).nonzero().squeeze(1)
+    return k[keep].to(device), keep.to(device)
+
+
+def _columns(a: torch.Tensor, b: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Columns k < n_out of the product of int64 limb vectors a (La, n) and
+    b (Lb, n) or (Lb, 1): sum over i + j = k of a_i b_j, each 16 x 16-bit
+    product exact in int64, by one outer product and one index_add."""
+    k, keep = _diagonals(a.shape[0], b.shape[0], n_out, str(a.device))
+    prod = (a[:, None] * b[None, :]).reshape(a.shape[0] * b.shape[0], -1)
+    if keep.numel() != prod.shape[0]:
+        prod = prod[keep]
+    out = torch.zeros((n_out, prod.shape[1]), dtype=torch.int64, device=a.device)
+    return out.index_add_(0, k, prod)
+
+
+def _by_blocks(spec: FieldSpec, fn, *cols: torch.Tensor) -> torch.Tensor:
+    """fn over blocks of lanes of the (k, n) tensors ``cols``, so that no
+    block's (L, L, lanes) products pass _PLAIN_BLOCK_ELEMS; the blocks'
+    results joined along the lanes."""
     L = spec.num_limbs
-    batch = cols.shape[1:]
-    p = limb_col(spec, spec.modulus, str(cols.device), len(batch))
-    for i in range(L):
-        m = (cols[i] * spec.inv16) & LIMB_MASK
-        cols[i : i + L] += m[None] * p
-        cols[i + 1] += cols[i] >> LIMB_BITS
-    return cond_sub_p_plain(spec, normalize(cols[L:], L + 1))
+    step = max(1, _PLAIN_BLOCK_ELEMS // (L * L))
+    out = [fn(*(c[:, s:s + step] for c in cols)) for s in range(0, cols[0].shape[1], step)]
+    return torch.cat(out, 1) if len(out) > 1 else out[0]
+
+
+def _redc_block(spec: FieldSpec, cols: torch.Tensor) -> torch.Tensor:
+    """Montgomery reduction of (2L+1, m) int64 columns T < R p: with T's low
+    half lo + c R, m = lo (-p^-1) mod R makes lo + m p a multiple of R,
+    (lo + m p)/R = c2, and T R^-1 mod p is (T + m p)/R, below 2p: the high
+    columns plus those of m p plus c + c2, one conditional subtract."""
+    L = spec.num_limbs
+    dev = str(cols.device)
+    lo, c = normalize(cols[:L], L, carry_out=True)
+    m = normalize(_columns(lo, limb_col(spec, spec.p_inv_neg_r, dev, 1), L), L)
+    mp = _columns(m, limb_col(spec, spec.modulus, dev, 1), 2 * L)
+    _, c2 = normalize(lo + mp[:L], L, carry_out=True)
+    high = cols[L:] + torch.cat([mp[L:], torch.zeros_like(mp[:1])])
+    high[0] += c + c2
+    return cond_sub_p_plain(spec, normalize(high, L + 1))
+
+
+def redc_plain(spec: FieldSpec, cols: torch.Tensor) -> torch.Tensor:
+    """Montgomery-reduce (2L+1, *batch) int64 columns (value < R p): returns
+    (value * R^-1 mod p) as int64 limbs. The same value as _redc's per-limb
+    reduction (the reduced result is unique), in a few whole-vector steps
+    (``_redc_block``) over blocks of lanes."""
+    out = _by_blocks(spec, lambda c: _redc_block(spec, c), cols.reshape(cols.shape[0], -1))
+    return out.reshape((spec.num_limbs,) + tuple(cols.shape[1:]))
 
 
 def cond_sub_p_plain(spec: FieldSpec, r: torch.Tensor) -> torch.Tensor:
@@ -169,16 +216,16 @@ def cond_sub_p_plain(spec: FieldSpec, r: torch.Tensor) -> torch.Tensor:
 
 
 def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a*b*R^-1 mod p on (L, *batch) limb tensors, in plain PyTorch."""
+    """a*b*R^-1 mod p on (L, *batch) limb tensors, in plain PyTorch: the
+    product's columns (``_columns``) and ``_redc_block``, over blocks of
+    lanes so that no temporary passes 2^27 int64 elements."""
     L = spec.num_limbs
     a, b = align(L, a, b)
     batch = tuple(a.shape[1:])
-    a64 = a.to(torch.int64)
-    b64 = b.to(torch.int64)
-    cols = torch.zeros((2 * L + 1,) + batch, dtype=torch.int64, device=a.device)
-    for i in range(L):
-        cols[i : i + L] += a64[i][None] * b64  # 16x16-bit products, exact in int64
-    return redc_plain(spec, cols).to(torch.int32)
+    a64 = a.reshape(L, -1).to(torch.int64)
+    b64 = b.reshape(L, -1).to(torch.int64)
+    out = _by_blocks(spec, lambda x, y: _redc_block(spec, _columns(x, y, 2 * L + 1)), a64, b64)
+    return out.to(torch.int32).reshape((L,) + batch)
 
 
 def mont_sqr_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:

@@ -7,9 +7,9 @@ window Horner, built with the oracle; and for the group path, seeded points
 and scalars with known answers at sampled indices, Jacobian edge-class
 pairs, and curve points outside the prime-order subgroup, that the CPU
 tests and chip_smoke.py share; for the pairing path, host G2 arithmetic
-over Fp2, the known answers E = e(G1, G2) of BLS12-381 and BLS12-377 and
-their powers (HostExt), tiled pairing inputs, and edge words for the field
-additions.
+over Fp2, the known answers E = e(G1, G2) of BLS12-381, BLS12-377, BN254,
+BW6-761 and BW6-767 and their powers (HostExt), tiled pairing and GT
+inputs, and edge words for the field additions.
 """
 
 from __future__ import annotations
@@ -419,7 +419,8 @@ def mont_inv_edge_words(spec, rng: np.random.Generator, n_random: int = 8) -> li
     out = [0, 1, spec.r_int % p, p - 1]
     out += [1 << k for k in (1, 31, 32, 33, 64, 200, bits - 2) if k < bits - 1]
     out += [spec.to_mont_int(pow(2, k, p)) for k in (1, 63, 64, 255, 380)]
-    out += [int.from_bytes(rng.bytes(48), "little") % p for _ in range(n_random)]
+    width = max(48, 2 * spec.num_limbs)  # bytes: random words span the whole field
+    out += [int.from_bytes(rng.bytes(width), "little") % p for _ in range(n_random)]
     return out
 
 
@@ -508,6 +509,43 @@ E_BLS12_377 = (
     38714735791791130983722173336432250534993930888432824523201238967962785087648814681113534394878856902006900821087,
     61665802096505683799087817396448925253103935552660966716062941445711365774494544506267962952144550065239368469812,
     5382601735945323996025725556060270047499954807549021966963123697509349722278727211567122542201726580665357585411,
+)
+
+# BN254's, BW6-761's and BW6-767's (an Fp6 element: 6 ints), taken from the
+# JAX package's words that scripts/pairing_bundle_words.py stores (lane 0 of
+# pairing_each on tests/pairing_bundle.py's BN254 pairs; the "e" entry of
+# tests/vectors/bw6_761_pairing.npz and bw6_767_pairing.npz), never computed
+# by the port; tests/test_torch_pairing_bn.py and test_torch_bw6.py hold the
+# port against those words.
+E_BN254 = (
+    17264119758069723980713015158403419364912226240334615592005620718956030922389,
+    1300711225518851207585954685848229181392358478699795190245709208408267917898,
+    8894217292938489450175280157304813535227569267786222825147475294561798790624,
+    1829859855596098509359522796979920150769875799037311140071969971193843357227,
+    4968700049505451466697923764727215585075098085662966862137174841375779106779,
+    12814315002058128940449527172080950701976819591738376253772993495204862218736,
+    4233474252585134102088637248223601499779641130562251948384759786370563844606,
+    9420544134055737381096389798327244442442230840902787283326002357297404128074,
+    13457906610892676317612909831857663099224588803620954529514857102808143524905,
+    5122435115068592725432309312491733755581898052459744089947319066829791570839,
+    8891987925005301465158626530377582234132838601606565363865129986128301774627,
+    440796048150724096437130979851431985500142692666486515369083499585648077975,
+)
+E_BW6_761 = (
+    5159030990850041326117965283088584843079003629760788798373329258277172298594960580420554787189781555745658885144937149083050673090380129795824365833570250784729398533452179885877923708666584171616014532677249059780359732135058095,
+    2606527826331497047737724406878311180060772366722826297497504344083394604836691419948678311648105967663068616785162535806889748069587814184814320662846672196546690593626281026352092616181204305737828073907393425883962017179024386,
+    6610536341239083925055641666656286180676627476924931555060566462232499546295810668611283585169762093387089357689978643879321996388929447650132043507740421477190911354713882949142277921610651470895789765533316715693286933683753310,
+    3151602220490305412802092837102648886737792036056486941082674120404189645082467000074839617696193321479548444947759097874316512074697945373382643577563325770844054928871605906705132349873975165206584813173695102001728978517402597,
+    2118045193263508177398190527869259717746859395779946641694761170918615260855078154011971952105142585645394058452732287089594835495419096215466005902321812686974992119350659877408213814468219237559290191006706122033070359712912792,
+    2333071434125211947034580639796531768144522440243688707306692516411436145978443575587646423335971183089082093679891445147238133357030155197807033014700653472587913986586385046045433277641110470706654469412198904018701566023282618,
+)
+E_BW6_767 = (
+    430486052764118261049269038588834886439498297278447932706145537149745291851213372100495862670704841380610054213026647003524426906200439090825131137558983414750151711836881876355648913165633103032825438493638540166337087481131922713,
+    107330758438540445503939251321219568719868870126662410136316598493184510685113402785951939819292120348164786631408564084806204942436291907066335109869180009581641233866814742478541977636509799928893484866837466802599420051151080949,
+    374643769216272977244090810032242502349076837351597782199495148084893322265524881699288770882344311613268200811552397428749194988518960013044893569079094913588946029366651421146962459414027598341309442154324972843148349267703910446,
+    390682634981901788431615518712557391458674019206699976718739850038713927326941736460670024447484433782082133920493672790087246737965799194109252350043493512652860075887580473807648144360182081170931474731867113213287700092413654641,
+    282898801575060770551939138590850478619533182108104295816534646252130602300562377611328736530676778176279288776605574659952928182288457195646028926497457920266497302301703261801367988261416006722617735939931059134429779495329678696,
+    145859091666275098653110870522849500219236027981525213420173006309308761443014702325470858844314894335816220022102038265888183182496674440659723401714986375303332285091016503704255805710853822493638095832267390241746426431964995362,
 )
 
 
@@ -609,7 +647,8 @@ def g2_off_subgroup_points(curve, n: int, rng: np.random.Generator) -> list:
 
 
 def fp12_from_flat(F12h, flat):
-    """12 canonical ints in coefficient order -> a host Fp12 element."""
+    """12 canonical ints in coefficient order -> a host Fp12 element (any
+    host tower: 6 ints for a BW6 Fp6 element)."""
     def nest(host, xs):
         if not hasattr(host, "deg"):
             return xs[0]
@@ -620,7 +659,7 @@ def fp12_from_flat(F12h, flat):
 
 def fp12_to_flat(F12, a) -> list:
     """An Fp12 tensor (2, 3, 2, L, *batch) -> per element a tuple of 12
-    canonical ints in coefficient order."""
+    canonical ints in coefficient order (any tower: an Fp6 one gives 6)."""
     return list(zip(*_flat_cols(F12, a)))
 
 
@@ -634,7 +673,8 @@ def _flat_cols(ops, a):
 
 
 def gt_powers(F12h, e_flat, ks) -> list:
-    """[E^k for k in ks] on the host, the squarings E^(2^i) shared."""
+    """[E^k for k in ks] on the host (any target tower), the squarings
+    E^(2^i) shared."""
     sq = [fp12_from_flat(F12h, e_flat)]
     for _ in range(max(k.bit_length() for k in ks)):
         sq.append(F12h.mul(sq[-1], sq[-1]))
@@ -650,7 +690,7 @@ def gt_powers(F12h, e_flat, ks) -> list:
 
 def fp12_tensor(F12, rows, device="cpu"):
     """Rows of 12 canonical ints (coefficient order) -> an Fp12 tensor
-    (2, 3, 2, L, len(rows))."""
+    (2, 3, 2, L, len(rows)); any tower (rows of 6 for a BW6 Fp6)."""
     def nest(ops, cols):
         if not hasattr(ops, "deg"):
             return list(cols[0])
@@ -661,23 +701,29 @@ def fp12_tensor(F12, rows, device="cpu"):
 
 def pairing_inputs(bspec, n: int, rng: np.random.Generator, base_n: int = 64, inf_every: int = 1024,
                    device="cpu"):
-    """Seeded pairs (a_j G1, b_j G2), j < base_n, tiled to n lanes (lane i
+    """Seeded pairs (a_j G1, b_j G2), j < base_n (G2 over Fp2, or over the
+    prime field for BW6), tiled to n lanes (lane i
     holds pair i % base_n), with lane i's G1 point at infinity where
     i % inf_every == inf_every - 1 (every inf_every-th lane). Returns (P, Q, ab, inf): port points on ``device``,
     the products a_j b_j mod r and the lanes' infinity mask (numpy)."""
     g1, g2 = bspec.g1, bspec.g2
     r = g1.scalar.modulus
-    F2h = g2.ops.host
     ks = [(int.from_bytes(rng.bytes(40), "little") % (r - 1) + 1,
            int.from_bytes(rng.bytes(40), "little") % (r - 1) + 1) for _ in range(base_n)]
     p1 = [ec_mul((g1.gen_x, g1.gen_y), a, g1.a_int, g1.base.modulus) for a, _ in ks]
-    p2 = [ext_ec_mul(F2h, (g2.gen_x, g2.gen_y), b) for _, b in ks]
     A1 = affine_from_ints(g1, p1, device)
-    A2 = g2_affine_from_ints(g2, p2, device)
     t = torch.arange(n, device=device) % base_n
     inf = np.arange(n) % inf_every == inf_every - 1
     P = AffinePoints(A1.x[:, t], A1.y[:, t], torch.from_numpy(inf).to(device))
-    Q = ExtAffine(A2.x[..., t], A2.y[..., t], torch.zeros(n, dtype=torch.bool, device=device))
+    no_inf = torch.zeros(n, dtype=torch.bool, device=device)
+    if isinstance(g2, SWCurveSpec):  # BW6: G2 over the prime field
+        p2 = [ec_mul((g2.gen_x, g2.gen_y), b, g2.a_int, g2.base.modulus) for _, b in ks]
+        A2 = affine_from_ints(g2, p2, device)
+        Q = AffinePoints(A2.x[:, t], A2.y[:, t], no_inf)
+    else:
+        p2 = [ext_ec_mul(g2.ops.host, (g2.gen_x, g2.gen_y), b) for _, b in ks]
+        A2 = g2_affine_from_ints(g2, p2, device)
+        Q = ExtAffine(A2.x[..., t], A2.y[..., t], no_inf)
     return P, Q, [a * b % r for a, b in ks], inf
 
 
@@ -692,6 +738,26 @@ def fadd_edge_words(spec, rng: np.random.Generator, n_random: int = 6) -> list:
         words += [2 * p - 1, 2 * p]
     for k in range(1, spec.num_limbs // 2):
         words += [(1 << (32 * k)) - 1, 1 << (32 * k)]
-    words += [int.from_bytes(rng.bytes(64), "little") % p for _ in range(n_random)]
-    words += [int.from_bytes(rng.bytes(64), "little") % R for _ in range(n_random)]
+    width = max(64, 2 * spec.num_limbs)  # bytes: random words span the whole field
+    words += [int.from_bytes(rng.bytes(width), "little") % p for _ in range(n_random)]
+    words += [int.from_bytes(rng.bytes(width), "little") % R for _ in range(n_random)]
     return sorted(set(w for w in words if 0 <= w < R))
+
+
+def gt_inputs(F, e_flat, scalar, n: int, rng: np.random.Generator, base_n: int = 64,
+              device="cpu"):
+    """GT inputs tiled from base_n seeded pairs (k_j, s_j): lane i holds the
+    element E^(k_j) and the scalar s_j, j = i % base_n, with s_j below the
+    ``scalar`` field's r (255-bit for BLS12-381's). Returns (elements, scalar limbs (Ls, n),
+    ks, ss): the elements as a tower tensor of n lanes on ``device`` (from
+    host powers of E), the scalars as canonical 16-bit limbs."""
+    from zkarray_torch.core.limbs import ints_to_limbs_np
+
+    r = scalar.modulus
+    nbytes = (r.bit_length() + 7) // 8
+    ks = [int.from_bytes(rng.bytes(nbytes), "little") % r for _ in range(base_n)]
+    ss = [int.from_bytes(rng.bytes(nbytes), "little") % r for _ in range(base_n)]
+    table = fp12_tensor(F, gt_powers(F.host, e_flat, ks), device)
+    t = torch.arange(n, device=device) % base_n
+    sc = torch.from_numpy(ints_to_limbs_np(ss, scalar.num_limbs).astype(np.int32)).to(device)
+    return table[..., t], sc[:, t], ks, ss
