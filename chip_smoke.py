@@ -125,8 +125,8 @@ Phases, each printing one JSON line and raising on any failure:
    answers: BLS12-381 pairing_each over 2^12 pairs tiled from 64 seeded
    (a_j G, b_j H), every 1,024th G1 point at infinity, every lane against
    E^(a_j b_j) (1 at infinity; E = testing.E_BLS12_381), run once with the
-   launches per call counted by kernel, then the median of 3 timed runs and
-   one under torch.profiler (device ops, busy, idle share); pairing (the
+   launches per call counted by kernel, then PAIR_TIMED_RUNS timed runs
+   (one) and one under torch.profiler (device ops, busy, idle share); pairing (the
    product over the same pairs) against E^(sum a_j b_j); BLS12-377
    pairing_each at 2^12 (D-twist) on its own E; one BLS12-381
    pairing_each over 2^16 pairs with its peak memory; the 1,000 zcash G2
@@ -153,7 +153,7 @@ Phases, each printing one JSON line and raising on any failure:
    double; BW6-761 and BW6-767 pairing_each and pairing at 2^12 against
    their E. Each path (pairing_each, gt_mul_scalar, gt_msm): the launches
    of one call by kernel (counted from 0 just before it), its peak memory,
-   the median of 3 timed calls and one traced call (device ops, busy, idle
+   PAIR_TIMED_RUNS timed calls and one traced call (device ops, busy, idle
    share); pairing: its launches and one timed call. Then the six field kernels
    at NW = 24 (mont_mul, mont_sqr, mont_pow, mont_inv, fp_add, fp_sub, the
    last also as fp_neg) against their plain versions on edge words of both
@@ -166,7 +166,27 @@ Phases, each printing one JSON line and raising on any failure:
    with bounds and ptxas' registers, stack and spills at NW = 24; and
    xyzz_add, xyzz_add_affine, horner_windows, butterfly_dit and pow_table
    refusing NW = 24 (each raises, no launch counted).
-11. the kernels line: per kernel its launches on its path (phase 3 for the
+11. msm_mixed, the MNT and CP6 pairings, NW = 10 and 26: ec/msm.py:msm_mixed
+   on BLS12-381 G1 at 2^20 tiled points with scalars in six magnitude
+   classes (0, 1, <= 8, <= 16, <= 64 bits, full width; testing.
+   mixed_scalars) against the host known answer, beside msm on the same
+   inputs (class sizes, launches by kernel, peak memory; msm_mixed the
+   median of 3 and a trace, msm, ~8 s a call on these skewed digits, one
+   timed call); MNT4-298, MNT6-298, MNT4-753 and MNT6-753 pairing_each at
+   2^12 pairs tiled from 64 seeded (a_j G1, b_j G2), a_j, b_j < 2^64, every 1,024th G1 point
+   at infinity, every lane against host powers of the JAX package's E,
+   and pairing once; CP6-782's host G2 ladder on the 64 distinct points
+   (s per point), its Miller loop and final exponentiation on the prepared
+   coefficients tiled to 2^12 lanes (every lane checked) and pairing_each
+   end to end on 16 pairs. Then the six field kernels against their plain
+   versions on the NW = 10 (MNT4/6-298) and NW = 26 (CP6-782) fields' edge
+   words and on every (field, shape, strides) input recorded on the paths'
+   first counted calls (one kernel_phase11_shapes line per kernel), and
+   timed at (20, 2^16) and (52, 2^16) (mont_pow at e = p - 2), each result
+   held against the plain version, with bounds, the widest launch of each
+   width's paths and ptxas' registers, stack and spills (nw10_kernels,
+   nw26_kernels).
+12. the kernels line: per kernel its launches on its path (phase 3 for the
    MSM kernels, 5 for butterfly_dit, twiddle_mul and pow_table, 6 and 7 for
    the entries of butterfly_stage, xyzz_add_affine and mont_sqr, 3 for the
    entries of mont_pow and xyzz_double, which left the MSM path), error
@@ -182,7 +202,9 @@ Phases, each printing one JSON line and raising on any failure:
    as their path. mont_mul, mont_sqr, mont_pow, mont_inv, fp_add and
    fp_sub also carry phase 10's launches per call under "bn254", "gt"
    (gt_mul_scalar and gt_msm), "bw6_761" and "bw6_767", and their NW = 24
-   figures under "nw24".
+   figures under "nw24"; phase 11's launches per call under "phase11" and
+   their NW = 10 and 26 figures under "nw10" and "nw26". Every row lists
+   the word counts NW its kernel is built for ("nw_widths").
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
@@ -233,8 +255,16 @@ PAIR_LOG_N = 12  # BASELINE config 5: BLS12-381 pairing_each and pairing, BLS12-
 PAIR_BIG_LOG_N = 16  # one BLS12-381 pairing_each, for its peak memory
 PAIR_BASE = 64  # seeded scalar pairs (a_j, b_j) the pairing inputs tile
 PAIR_INF_EVERY = 1024  # every 1,024th lane's G1 point at infinity
+# timed calls of each pairing and GT path after its counted first call
+# (phases 9-11): one, which keeps the whole script within its time limit
+# (three took ~1,120 s of the 1,200 on an H100 with phase 11)
+PAIR_TIMED_RUNS = 1
 G2_LOG_N = 16  # the zcash G2 vectors tiled, and the G2 subgroup check
-FIELD48_LOG_N = 16  # phase 10: the NW = 24 field kernels timed at (48, 2^16)
+FIELD48_LOG_N = 16  # phases 10-11: the field kernels timed at (L, 2^16), L = 48 and 20, 52
+MIXED_LOG_N = 20  # phase 11: msm_mixed on BLS12-381 G1
+MNT_LOG_N = 12  # phase 11: MNT pairing_each and CP6's Miller loop + final exponentiation lanes
+CP6_EACH = 16  # phase 11: CP6-782 pairing_each end to end on this many distinct pairs
+PAIR_SCALAR_BITS = 64  # phase 11: bits of a_j, b_j in the MNT and CP6 pairs (a_j G, b_j H)
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -898,6 +928,102 @@ def install_recorders(torch, km):
     return rec, restore
 
 
+MSM_KERNELS = ("xyzz_accum", "horner_windows", "xyzz_bit_horner", "xyzz_add", "xyzz_double",
+               "xyzz_tree_sum")
+
+
+def install_msm_recorders(torch, rec):
+    """Wrap kernels.sw's MSM launchers (both accumulation wrappers, the
+    window Horner, the bit-Horner, the element-wise XYZZ kernels and the
+    tree sum) so that, while ``rec.on``, every launch's inputs are kept in
+    ``rec.msm`` as (kernel, inputs with their strides, extra). Returns
+    restore()."""
+    from zkarray_torch.kernels import sw as ksw
+
+    rec.msm = []
+    names = ("xyzz_accum_grid", "xyzz_accum_tiles", "horner_windows", "xyzz_bit_horner",
+             "_launch_xyzz", "xyzz_tree_sum")
+    orig = {n: getattr(ksw, n) for n in names}
+
+    def keep(kernel, ins, extra=None):
+        if rec.on:
+            rec.msm.append((kernel, tuple(replica(torch, t) for t in ins), extra))
+
+    def grid(curve, state, coords, valid):
+        keep("xyzz_accum", (state, coords, valid), "grid")
+        return orig["xyzz_accum_grid"](curve, state, coords, valid)
+
+    def tiles(curve, state, coords, valid):
+        keep("xyzz_accum", (state, coords, valid), "tiles")
+        return orig["xyzz_accum_tiles"](curve, state, coords, valid)
+
+    def horner(curve, win, c):
+        keep("horner_windows", (win,), c)
+        return orig["horner_windows"](curve, win, c)
+
+    def bit_horner(curve, parts):
+        keep("xyzz_bit_horner", tuple(parts))
+        return orig["xyzz_bit_horner"](curve, parts)
+
+    def launch_xyzz(kernel, curve, *coords):
+        keep(kernel, coords)
+        return orig["_launch_xyzz"](kernel, curve, *coords)
+
+    def tree(curve, P):
+        keep("xyzz_tree_sum", tuple(P))
+        return orig["xyzz_tree_sum"](curve, P)
+
+    for n, fn in zip(names, (grid, tiles, horner, bit_horner, launch_xyzz, tree)):
+        setattr(ksw, n, fn)
+
+    def restore():
+        for n, fn in orig.items():
+            setattr(ksw, n, fn)
+        rec.msm = []
+
+    return restore
+
+
+def replay_msm_launches(h, curve, calls):
+    """Every recorded MSM-kernel launch (install_msm_recorders) launched
+    again on its own inputs and held against its plain version, bit for
+    bit (raises on a difference). Returns one row per launch: kernel,
+    route, shape, operand strides, error, kernel and plain wall ms."""
+    from zkarray_torch.kernels import mont as km
+    from zkarray_torch.kernels import sw as ksw
+
+    def run(kernel, ins, extra, plain):
+        if kernel == "xyzz_accum":
+            return (ksw.xyzz_accum_plain if plain else
+                    ksw.xyzz_accum_grid if extra == "grid" else ksw.xyzz_accum_tiles)(curve, *ins)
+        if kernel == "horner_windows":
+            return (ksw.horner_windows_plain if plain else ksw.horner_windows)(curve, ins[0], extra)
+        if kernel == "xyzz_bit_horner":
+            return (ksw.xyzz_bit_horner_plain if plain else ksw.xyzz_bit_horner)(curve, ins)
+        if kernel == "xyzz_tree_sum":
+            return (ksw.xyzz_tree_sum_plain if plain else ksw.xyzz_tree_sum)(curve, ins)
+        if plain:
+            return (ksw._fadd_plain(curve, ins[:4], ins[4:]) if kernel == "xyzz_add" else
+                    ksw._dbl_plain(curve, ins))
+        return ksw._launch_xyzz(kernel, curve, *ins)
+
+    rows = []
+    for kernel, ins, extra in calls:
+        got, ms = h.once_ms(lambda: run(kernel, ins, extra, False))
+        want, plain_ms = h.once_ms(lambda: run(kernel, ins, extra, True))
+        if not isinstance(got, tuple):  # xyzz_accum and horner_windows: one tensor
+            got, want = (got,), (want,)
+        err = max(h.check_equal(f"{kernel} on msm_mixed's input {len(rows)}, output {i}", g, w_)
+                  for i, (g, w_) in enumerate(zip(got, want)))
+        rows.append(dict(kernel=kernel, route=extra if kernel == "xyzz_accum" else None,
+                         c=extra if kernel == "horner_windows" else None,
+                         shape=list(ins[1 if kernel == "xyzz_accum" else 0].shape),  # accum: coords
+                         operand_maps=[list(km._operand(t)[1:]) for t in ins]
+                         if kernel in ("xyzz_add", "xyzz_double", "xyzz_tree_sum") else None,
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms))
+    return rows
+
+
 def words_hex(t):
     """The first batch element of a limb tensor as one hex int."""
     col = t.reshape(t.shape[0], -1)[:, 0].tolist()
@@ -960,12 +1086,12 @@ def pairing_phase(torch, h, rec):
     if not torch.equal(got, want):
         raise AssertionError(f"pairing_each 2^{PAIR_LOG_N}: lanes differ from E^(ab)")
     walls = []
-    for _ in range(3):
+    for _ in range(PAIR_TIMED_RUNS):
         got, ms, _ = run(each, record=False)
         walls.append(ms)
         if not torch.equal(got, want):
             raise AssertionError("pairing_each: a timed run differs")
-    med = sorted(walls)[1]
+    med = sorted(walls)[len(walls) // 2]
     got, trace = device_trace(torch, each, med)
     if not torch.equal(got, want):
         raise AssertionError("pairing_each: the traced run differs")
@@ -1163,11 +1289,262 @@ def expected_gt(torch, F, r, e_flat, ks, m, inf_every, dev):
     return table[..., torch.from_numpy(lane).to(dev)], comb
 
 
+class PathRuns:
+    """Phases 10 and 11's per-path runs: a call with the launch counters
+    reset (its kernel inputs recorded in ``rec`` when asked), timed, traced,
+    its result checked, and the recorded keys each path launched."""
+
+    def __init__(self, torch, h, rec):
+        self.torch, self.h, self.rec = torch, h, rec
+        rec.keys, rec.first = collections.Counter(), {}
+        self.seen, self.path_keys = collections.Counter(), {}
+
+    def tag(self, label):
+        """The keys whose launches the calls since the last tag added."""
+        self.path_keys[label] = {k for k, v in self.rec.keys.items() if v > self.seen.get(k, 0)}
+        self.seen = collections.Counter(self.rec.keys)
+
+    def replay(self, label, err):
+        """Tag ``label``, replay the keys its calls recorded against the
+        plain versions (replay_recorded) and forget them, so that the next
+        path records afresh and no path's input copies outlive it."""
+        self.tag(label)
+        rows = replay_recorded(self.h, self.rec, {label: self.path_keys[label]}, err)
+        self.rec.keys.clear()
+        self.seen.clear()
+        return rows
+
+    def run(self, fn, record=False):
+        from zkarray_torch import kernels
+
+        self.h.sync()
+        kernels.reset_launches()
+        self.rec.on = record
+        try:
+            out, ms = self.h.once_ms(fn)
+        finally:
+            self.rec.on = False
+        return out, ms, {k: v for k, v in kernels.LAUNCHES.items() if v}
+
+    def measure(self, fn, check, record=False, timed=PAIR_TIMED_RUNS, trace=True):
+        """fn's first call (launches counted, inputs recorded when
+        ``record``), ``timed`` timed calls (the first with its peak memory
+        above what is allocated before it: no recorded copy in it; the
+        median reported) and, with ``trace``, one traced call, each result
+        checked."""
+        torch = self.torch
+        got, first_ms, launches = self.run(fn, record)
+        check(got, "the first call")
+        walls = []
+        for i in range(timed):
+            if i == 0:
+                self.h.sync()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            got, ms, _ = self.run(fn)
+            if i == 0:
+                peak = torch.cuda.max_memory_allocated() - base
+            check(got, "a timed call")
+            walls.append(ms)
+        med = sorted(walls)[len(walls) // 2]
+        if trace:
+            got, trace = device_trace(torch, fn, med)
+            check(got, "the traced call")
+        else:
+            trace = None
+        return dict(ms=med, ms_runs=walls, first_call_ms=first_ms, launches_per_call=launches,
+                    launches_total=sum(launches.values()), peak_bytes_above_inputs=peak,
+                    trace=trace)
+
+    def equal(self, what, want):
+        torch = self.torch
+
+        def check(got, when):
+            if got.shape != want.shape or not torch.equal(got, want):
+                raise AssertionError(f"{what}: {when} differs from the host known answers")
+        return check
+
+
+FIELD_KERNELS = ("mont_mul", "mont_sqr", "mont_pow", "mont_inv", "fp_add", "fp_sub")
+
+
+def field_kernel_calls():
+    """(plain, kern): the six field kernels' plain versions and wrappers as
+    f(spec, inputs, exponent)."""
+    from zkarray_torch.kernels import mont as km
+
+    plain = {"mont_mul": lambda f, ins, e: km.mont_mul_plain(f, *ins),
+             "mont_sqr": lambda f, ins, e: km.mont_sqr_plain(f, *ins),
+             "mont_pow": lambda f, ins, e: km.mont_pow_plain(f, ins[0], e),
+             "mont_inv": lambda f, ins, e: km.mont_inv_plain(f, ins[0]),
+             "fp_add": lambda f, ins, e: km.add_plain(f, *ins),
+             "fp_sub": lambda f, ins, e: km.sub_plain(f, *ins)}
+    kern = {"mont_mul": lambda f, ins, e: km.mont_mul(f, *ins),
+            "mont_sqr": lambda f, ins, e: km.mont_sqr(f, *ins),
+            "mont_pow": lambda f, ins, e: km.mont_pow(f, ins[0], e),
+            "mont_inv": lambda f, ins, e: km.mont_inv(f, ins[0]),
+            "fp_add": lambda f, ins, e: km.fp_add(f, *ins),
+            "fp_sub": lambda f, ins, e: km.fp_sub(f, *ins)}
+    return plain, kern
+
+
+def field_edge_checks(torch, h, fields, err):
+    """The six field kernels against their plain versions on edge words of
+    each field: every pair of testing.mont_inv_edge_words for the products,
+    mont_pow at e = 0, 1, 2, 3, p - 2, (p - 1)/2, every pair of
+    fadd_edge_words for the additions, fp_neg; mont_inv also against
+    Python's pow. Raises on a difference; ``err`` takes each kernel's
+    largest error. Returns the counts per field."""
+    from zkarray_torch.core.limbs import ints_to_limbs_np
+    from zkarray_torch.ff import fp
+    from zkarray_torch.kernels import mont as km
+    from zkarray_torch.testing import fadd_edge_words, mont_inv_edge_words
+
+    plain, kern = field_kernel_calls()
+    dev = h.dev
+    edge = {}
+    for f in fields:
+        p = f.modulus
+        words = mont_inv_edge_words(f, np.random.default_rng(11), n_random=8)
+        xe = fp.from_ints(f, words, mont=False, device=dev)
+        k = len(words)
+        ii = torch.arange(k * k, device=dev)
+        exps = [0, 1, 2, 3, p - 2, (p - 1) // 2]  # two full-length chains: the plain ones are slow
+        cases = [("mont_mul", (xe[:, ii // k], xe[:, ii % k]), None), ("mont_sqr", (xe,), None),
+                 ("mont_inv", (xe,), None)] + [("mont_pow", (xe,), e) for e in exps]
+        aw = fadd_edge_words(f, np.random.default_rng(12))
+        xa = torch.from_numpy(ints_to_limbs_np(aw, f.num_limbs).astype(np.int32)).to(dev)
+        ka = len(aw)
+        ia = torch.arange(ka * ka, device=dev)
+        for name in ("fp_add", "fp_sub"):
+            cases.append((name, (xa[:, ia // ka], xa[:, ia % ka]), None))
+        for name, ins, e in cases:
+            err[name] = max(err[name], h.check_equal(f"{name} {f.name} edge words (e = {e})",
+                                                     kern[name](f, ins, e), plain[name](f, ins, e)))
+        err["fp_sub"] = max(err["fp_sub"], h.check_equal(
+            f"fp_neg {f.name} edge words", km.fp_neg(f, xa), km.sub_plain(f, torch.zeros_like(xa), xa)))
+        if fp.to_ints(f, km.mont_inv(f, xe), mont=False) != [
+                pow(w * pow(f.r_int, -1, p), -1, p) * f.r_int % p if w else 0 for w in words]:
+            raise AssertionError(f"mont_inv {f.name}: edge words differ from Python's pow")
+        edge[f.name] = dict(product_words=k, product_pairs=k * k, exponents=len(exps),
+                            addition_words=ka, addition_pairs=ka * ka)
+    return edge
+
+
+def replay_recorded(h, rec, path_keys, err):
+    """Every (field, shape, strides) input that ``rec`` recorded, widest
+    first, launched again and held against the plain version (raises on a
+    difference; ``err`` takes each kernel's largest error). Returns per
+    kernel its rows: field, shape, key, launches, the paths that launched
+    it, error, plain ms, and the inputs under _-keys for timing."""
+    from zkarray_torch.kernels import mont as km
+
+    plain, _ = field_kernel_calls()
+    rows = collections.defaultdict(list)
+    for key, count in sorted(rec.keys.items(), key=lambda kv: -math.prod(kv[0][2])):
+        spec, ins, out = rec.first.pop(key)
+        name = key[0]
+        e = key[3] if name not in ("fp_add", "fp_sub") else None
+        if name in ("fp_add", "fp_sub"):
+            got = km._launch_addsub(name, spec, ins[0], ins[1], out)
+        else:
+            got = km._launch(name, spec, *ins, exponent=e)
+        want, plain_ms = h.once_ms(lambda: plain[name](spec, ins, e))
+        e_row = h.check_equal(f"{name} {key[1]} {key[2]} {key[3:]}", got, want)
+        err[name] = max(err[name], e_row)
+        rows[name].append(dict(field=key[1], shape=list(key[2]), key=[str(x) for x in key[3:]],
+                               launches=count, paths=[c for c, ks_ in path_keys.items() if key in ks_],
+                               max_abs_err=e_row, plain_ms=plain_ms, _spec=spec, _ins=ins, _out=out,
+                               _e=e))
+    rec.first.clear()
+    return rows
+
+
+def field_width_report(torch, h, f, rows, labels, wide_key, edge, err):
+    """The six field kernels at field ``f``'s width: wrapper ms at (L,
+    2^FIELD48_LOG_N) random words (mont_pow at e = p - 2) with its plain ms
+    and bound, the kernel's result held against the plain version's there
+    (``err``); each kernel's widest recorded launch on the paths ``labels``
+    (under ``wide_key``) with its bound; ptxas' registers, stack and spills
+    at NW = L/2 from the library that holds that width."""
+    from zkarray_torch.ff import fp
+    from zkarray_torch.kernels import _build
+    from zkarray_torch.kernels import mont as km
+    from zkarray_torch.testing import mont_inv_model
+
+    plain, kern = field_kernel_calls()
+    L = f.num_limbs
+    nw = L // 2
+    ptxas = {}
+    for src in (_build.field_lib(nw), "fadd"):
+        ptxas.update(parse_ptxas(_build.lib_path(src).with_suffix(".ptxas.txt").read_text()))
+    report = {}
+    m16 = 1 << FIELD48_LOG_N
+    a, b = h.rand_field(f, m16), h.rand_field(f, m16)
+    e_time = f.modulus - 2
+    gc.collect()
+
+    def inv_ops(spec, t, m_el):
+        """mont_inv's 32-bit operations on m_el elements like t's first 16:
+        the host model's mean iterations x (18 NW + 7)."""
+        its = [mont_inv_model(spec, v)[1] for v in fp.to_ints(spec, t.reshape(t.shape[0], -1)[:, :16],
+                                                               mont=False)]
+        return m_el * sum(its) / len(its) * (18 * (spec.num_limbs // 2) + 7)
+
+    for name in FIELD_KERNELS:
+        ins = (a, b) if name in ("mont_mul", "fp_add", "fp_sub") else (a,)
+        e = e_time if name == "mont_pow" else None
+        iters = 3 if name in ("mont_pow", "mont_inv") else 20
+        ms = h.time_ms(lambda: kern[name](f, ins, e), iters)
+        want, plain_ms = h.once_ms(lambda: plain[name](f, ins, e))
+        err[name] = max(err[name], h.check_equal(f"{name} {f.name} ({L}, {m16}) (e = {e})",
+                                                 kern[name](f, ins, e), want))
+        del want
+        if name in ("fp_add", "fp_sub"):
+            ops = m16 * h.add_ops(f)
+        elif name == "mont_pow":
+            ops = m16 * h.pow_ops(f, e)
+        elif name == "mont_inv":
+            ops = inv_ops(f, a, m16)
+        else:
+            ops = m16 * (h.sqr_ops if name == "mont_sqr" else h.mul_ops)(f)
+        b_ms, b_by = h.bound((len(ins) + 1) * L * 4 * m16, ops)
+        rs = rows.get(name, [])
+        rs_w = [r_ for r_ in rs if set(labels) & set(r_["paths"])
+                and r_["_spec"].num_limbs == L and r_["_ins"] is not None]
+        wide = None
+        if rs_w:
+            w = max(rs_w, key=lambda r_: math.prod(r_["shape"]))
+            spec, w_ins, w_out, w_e = w["_spec"], w["_ins"], w["_out"], w["_e"]
+            m_el = math.prod(w["shape"][1:])
+            if name in ("fp_add", "fp_sub"):
+                w_ms = h.time_ms(lambda: km._launch_addsub(name, spec, w_ins[0], w_ins[1], w_out), 20)
+                w_ops = m_el * h.add_ops(spec)
+            else:
+                w_ms = h.time_ms(lambda: km._launch(name, spec, *w_ins, exponent=w_e),
+                                 3 if name == "mont_inv" else 20)
+                w_ops = (inv_ops(spec, w_ins[0], m_el) if name == "mont_inv" else
+                         m_el * h.pow_ops(spec, w_e) if name == "mont_pow" else
+                         m_el * (h.sqr_ops if name == "mont_sqr" else h.mul_ops)(spec))
+            reads = sum(h.distinct_elems(t) for t in w_ins)
+            wb_ms, wb_by = h.bound(spec.num_limbs * 4 * (reads + m_el), w_ops)
+            wide = dict(field=w["field"], shape=w["shape"], launches=w["launches"], ms=w_ms,
+                        bound_ms=wb_ms, bound_by=wb_by, share_of_bound=wb_ms / w_ms)
+        regs = {k: v for k, v in ptxas.items() if f"{name}_kernelILi{nw}E" in k}
+        report[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "share_of_bound": b_ms / ms, "shape": [L, m16],
+                        "exponent_bits": None if e is None else e.bit_length(), wide_key: wide,
+                        "recorded_keys": len(rs),
+                        "recorded_keys_at_width": sum(r_["_spec"].num_limbs == L for r_ in rs),
+                        "edge_words": edge, f"ptxas_nw{nw}": regs}
+    return report
+
+
 def bn_gt_bw6_phase(torch, h, rec):
     """Phase 10: the BN254 pairing, GT as a group on BLS12-381's Fp12 and the
     BW6-761 and BW6-767 pairings, each against host known answers, each
     path (pairing_each; GT's gt_mul_scalar and gt_msm) with its launches
-    per call by kernel, the median of 3 timed calls, one traced call and
+    per call by kernel, PAIR_TIMED_RUNS timed calls, one traced call and
     its peak memory, and pairing (the product) with its launches and one
     timed call; then the field kernels at NW = 24
     (mont_mul, mont_sqr, mont_pow, mont_inv, fp_add, fp_sub) against their
@@ -1175,72 +1552,17 @@ def bn_gt_bw6_phase(torch, h, rec):
     recorded on the BW6 calls, timed at (48, 2^16) and at the widest BW6
     launch; ptxas' registers and spills at NW = 24; and the XYZZ, MSM and NTT
     kernels refusing NW = 24. Returns the kernels line's phase-10 figures."""
-    from zkarray_torch import kernels
-    from zkarray_torch.core.limbs import ints_to_limbs_np
     from zkarray_torch.curves import bls12_381 as B
     from zkarray_torch.curves import bn254, bw6_761, bw6_767
     from zkarray_torch.ec.pairing import bn, bw6, gt
-    from zkarray_torch.ff import fp
-    from zkarray_torch.kernels import _build
-    from zkarray_torch.kernels import mont as km
-    from zkarray_torch.kernels import sw as ksw
-    from zkarray_torch.testing import (E_BLS12_381, E_BN254, E_BW6_761, E_BW6_767, fadd_edge_words,
-                                       gt_inputs, mont_inv_edge_words, mont_inv_model,
-                                       pairing_inputs)
+    from zkarray_torch.testing import E_BLS12_381, E_BN254, E_BW6_761, E_BW6_767, gt_inputs, pairing_inputs
 
     dev, sync = h.dev, h.sync
     rng = np.random.default_rng(10)
     n = 1 << PAIR_LOG_N
-    rec.keys, rec.first = collections.Counter(), {}  # phase 10 records every path's inputs
+    pr = PathRuns(torch, h, rec)  # phase 10 records every path's inputs
+    run, measure, equal, tag, path_keys = pr.run, pr.measure, pr.equal, pr.tag, pr.path_keys
     paths = {}
-    seen, path_keys = collections.Counter(), {}
-
-    def tag(label):
-        """The keys whose launches the calls since the last tag added."""
-        nonlocal seen
-        path_keys[label] = {k for k, v in rec.keys.items() if v > seen.get(k, 0)}
-        seen = collections.Counter(rec.keys)
-
-    def run(fn, record=False):
-        sync()
-        kernels.reset_launches()
-        rec.on = record
-        try:
-            out, ms = h.once_ms(fn)
-        finally:
-            rec.on = False
-        return out, ms, {k: v for k, v in kernels.LAUNCHES.items() if v}
-
-    def measure(fn, check, record=False):
-        """fn's first call (launches counted, inputs recorded when
-        ``record``), 3 timed calls (the first with its peak memory above
-        what is allocated before it: no recorded copy in it) and one
-        traced, each result checked."""
-        got, first_ms, launches = run(fn, record)
-        check(got, "the first call")
-        walls = []
-        for i in range(3):
-            if i == 0:
-                sync()
-                base = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-            got, ms, _ = run(fn)
-            if i == 0:
-                peak = torch.cuda.max_memory_allocated() - base
-            check(got, "a timed call")
-            walls.append(ms)
-        med = sorted(walls)[1]
-        got, trace = device_trace(torch, fn, med)
-        check(got, "the traced call")
-        return dict(ms=med, ms_runs=walls, first_call_ms=first_ms, launches_per_call=launches,
-                    launches_total=sum(launches.values()), peak_bytes_above_inputs=peak,
-                    trace=trace)
-
-    def equal(what, want):
-        def check(got, when):
-            if got.shape != want.shape or not torch.equal(got, want):
-                raise AssertionError(f"{what}: {when} differs from the host known answers")
-        return check
 
     def pairing_path(label, engine, spec, E, F, record, big=False):
         t0 = time.perf_counter()
@@ -1325,140 +1647,40 @@ def bn_gt_bw6_phase(torch, h, rec):
         tag(label)
 
     # -- the field kernels at NW = 24 against their plain versions ----------------
-    plain = {"mont_mul": lambda f, ins, e: km.mont_mul_plain(f, *ins),
-             "mont_sqr": lambda f, ins, e: km.mont_sqr_plain(f, *ins),
-             "mont_pow": lambda f, ins, e: km.mont_pow_plain(f, ins[0], e),
-             "mont_inv": lambda f, ins, e: km.mont_inv_plain(f, ins[0]),
-             "fp_add": lambda f, ins, e: km.add_plain(f, *ins),
-             "fp_sub": lambda f, ins, e: km.sub_plain(f, *ins)}
-    kern = {"mont_mul": lambda f, ins, e: km.mont_mul(f, *ins),
-            "mont_sqr": lambda f, ins, e: km.mont_sqr(f, *ins),
-            "mont_pow": lambda f, ins, e: km.mont_pow(f, ins[0], e),
-            "mont_inv": lambda f, ins, e: km.mont_inv(f, ins[0]),
-            "fp_add": lambda f, ins, e: km.fp_add(f, *ins),
-            "fp_sub": lambda f, ins, e: km.fp_sub(f, *ins)}
-    names = list(plain)
     err = collections.defaultdict(int)
-    edge = {}
-    fields48 = (bw6_761.FQ, bw6_767.FQ)
-    for f in fields48:
-        p = f.modulus
-        words = mont_inv_edge_words(f, np.random.default_rng(11), n_random=8)
-        xe = fp.from_ints(f, words, mont=False, device=dev)
-        k = len(words)
-        ii = torch.arange(k * k, device=dev)
-        exps = [0, 1, 2, 3, p - 2, (p - 1) // 2]  # two full-length chains: the plain ones are slow
-        cases = [("mont_mul", (xe[:, ii // k], xe[:, ii % k]), None), ("mont_sqr", (xe,), None),
-                 ("mont_inv", (xe,), None)] + [("mont_pow", (xe,), e) for e in exps]
-        aw = fadd_edge_words(f, np.random.default_rng(12))
-        xa = torch.from_numpy(ints_to_limbs_np(aw, f.num_limbs).astype(np.int32)).to(dev)
-        ka = len(aw)
-        ia = torch.arange(ka * ka, device=dev)
-        for name in ("fp_add", "fp_sub"):
-            cases.append((name, (xa[:, ia // ka], xa[:, ia % ka]), None))
-        for name, ins, e in cases:
-            err[name] = max(err[name], h.check_equal(f"{name} {f.name} edge words (e = {e})",
-                                                     kern[name](f, ins, e), plain[name](f, ins, e)))
-        err["fp_sub"] = max(err["fp_sub"], h.check_equal(
-            f"fp_neg {f.name} edge words", km.fp_neg(f, xa), km.sub_plain(f, torch.zeros_like(xa), xa)))
-        if fp.to_ints(f, km.mont_inv(f, xe), mont=False) != [
-                pow(w * pow(f.r_int, -1, p), -1, p) * f.r_int % p if w else 0 for w in words]:
-            raise AssertionError(f"mont_inv {f.name}: edge words differ from Python's pow")
-        edge[f.name] = dict(product_words=k, product_pairs=k * k, exponents=len(exps),
-                            addition_words=ka, addition_pairs=ka * ka)
-
-    # every (field, shape, strides) input recorded on phase 10's paths, widest first
-    rows = collections.defaultdict(list)
-    for key, count in sorted(rec.keys.items(), key=lambda kv: -math.prod(kv[0][2])):
-        spec, ins, out = rec.first.pop(key)
-        name = key[0]
-        e = key[3] if name not in ("fp_add", "fp_sub") else None
-        if name in ("fp_add", "fp_sub"):
-            got = km._launch_addsub(name, spec, ins[0], ins[1], out)
-        else:
-            got = km._launch(name, spec, *ins, exponent=e)
-        want, plain_ms = h.once_ms(lambda: plain[name](spec, ins, e))
-        e_row = h.check_equal(f"{name} {key[1]} {key[2]} {key[3:]}", got, want)
-        err[name] = max(err[name], e_row)
-        rows[name].append(dict(field=key[1], shape=list(key[2]), key=[str(x) for x in key[3:]],
-                               launches=count, paths=[c for c, ks_ in path_keys.items() if key in ks_],
-                               max_abs_err=e_row, plain_ms=plain_ms, _spec=spec, _ins=ins, _out=out,
-                               _e=e))
-    rec.first.clear()
-
-    # times and bounds: (48, 2^16) random words, and each kernel's widest BW6 launch
-    ptxas = {}
-    for src in ("mont", "fadd"):
-        ptxas.update(parse_ptxas(_build.lib_path(src).with_suffix(".ptxas.txt").read_text()))
-    report = {}
-    m16 = 1 << FIELD48_LOG_N
+    edge = field_edge_checks(torch, h, (bw6_761.FQ, bw6_767.FQ), err)
+    rows = replay_recorded(h, rec, path_keys, err)
+    for name, rs in rows.items():
+        h.emit("kernel_phase10_shapes", kernel=name,
+               rows=[{k_: v for k_, v in r_.items() if not k_.startswith("_")} for r_ in rs])
     f = bw6_761.FQ
-    L = f.num_limbs
-    a, b = h.rand_field(f, m16), h.rand_field(f, m16)
-    e_time = f.modulus - 2
-    gc.collect()
-
-    def inv_ops(spec, t, m_el):
-        """mont_inv's 32-bit operations on m_el elements like t's first 16:
-        the host model's mean iterations x (18 NW + 7)."""
-        its = [mont_inv_model(spec, v)[1] for v in fp.to_ints(spec, t.reshape(t.shape[0], -1)[:, :16],
-                                                               mont=False)]
-        return m_el * sum(its) / len(its) * (18 * (spec.num_limbs // 2) + 7)
-
-    for name in names:
-        ins = (a, b) if name in ("mont_mul", "fp_add", "fp_sub") else (a,)
-        e = e_time if name == "mont_pow" else None
-        iters = 3 if name in ("mont_pow", "mont_inv") else 20
-        ms = h.time_ms(lambda: kern[name](f, ins, e), iters)
-        plain_ms = h.once_ms(lambda: plain[name](f, ins, e))[1]
-        if name in ("fp_add", "fp_sub"):
-            ops = m16 * h.add_ops(f)
-        elif name == "mont_pow":
-            ops = m16 * h.pow_ops(f, e)
-        elif name == "mont_inv":
-            ops = inv_ops(f, a, m16)
-        else:
-            ops = m16 * (h.sqr_ops if name == "mont_sqr" else h.mul_ops)(f)
-        b_ms, b_by = h.bound((len(ins) + 1) * L * 4 * m16, ops)
-        rs = rows.get(name, [])
-        rs48 = [r_ for r_ in rs if {"bw6_761", "bw6_767"} & set(r_["paths"])]
-        wide = None
-        if rs48:
-            w = rs48[0]  # rows run widest first
-            spec, w_ins, w_out, w_e = w["_spec"], w["_ins"], w["_out"], w["_e"]
-            m_el = math.prod(w["shape"][1:])
-            if name in ("fp_add", "fp_sub"):
-                w_ms = h.time_ms(lambda: km._launch_addsub(name, spec, w_ins[0], w_ins[1], w_out), 20)
-                w_ops = m_el * h.add_ops(spec)
-            else:
-                w_ms = h.time_ms(lambda: km._launch(name, spec, *w_ins, exponent=w_e),
-                                 3 if name == "mont_inv" else 20)
-                w_ops = (inv_ops(spec, w_ins[0], m_el) if name == "mont_inv" else
-                         m_el * h.pow_ops(spec, w_e) if name == "mont_pow" else
-                         m_el * (h.sqr_ops if name == "mont_sqr" else h.mul_ops)(spec))
-            reads = sum(h.distinct_elems(t) for t in w_ins)
-            wb_ms, wb_by = h.bound(spec.num_limbs * 4 * (reads + m_el), w_ops)
-            wide = dict(field=w["field"], shape=w["shape"], launches=w["launches"], ms=w_ms,
-                        bound_ms=wb_ms, bound_by=wb_by, share_of_bound=wb_ms / w_ms)
-        for r_ in rs:
-            for k_ in ("_spec", "_ins", "_out", "_e"):
-                r_.pop(k_)
-        h.emit("kernel_phase10_shapes", kernel=name, rows=rs)
-        regs = {k: v for k, v in ptxas.items() if f"{name}_kernelILi24E" in k}
-        per_path = {lbl: paths[lbl].get(name, 0) for lbl in ("bn254", "gt", "bw6_761", "bw6_767")}
-        report[name] = dict(max_abs_err=err[name], per_path_launches=per_path, ms=ms,
-                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
-                            shape=[L, m16], exponent_bits=None if e is None else e.bit_length(),
-                            widest_bw6_launch=wide, recorded_keys=len(rs),
-                            recorded_keys_by_path={lbl: sum(lbl in r_["paths"] for r_ in rs)
-                                                   for lbl in path_keys},
-                            edge_words=edge,
-                            ptxas_nw24=regs)
+    report = field_width_report(torch, h, f, rows, ("bw6_761", "bw6_767"), "widest_bw6_launch",
+                                edge, err)
+    for name, r_ in report.items():
+        r_["per_path_launches"] = {lbl: paths[lbl].get(name, 0)
+                                   for lbl in ("bn254", "gt", "bw6_761", "bw6_767")}
+        r_["recorded_keys_by_path"] = {lbl: sum(lbl in x["paths"] for x in rows.get(name, []))
+                                       for lbl in path_keys}
     h.emit("nw24_kernels", rows={k: {kk: vv for kk, vv in v.items() if kk != "edge_words"}
                                  for k, v in report.items()}, edge_words=edge)
 
     # the XYZZ, MSM and NTT kernels are not built at NW = 24: each refuses it
-    C = bw6_761.G1
+    refusals = refused_launches(torch, h, bw6_761.G1)
+    h.emit("nw24_refused", kernels=refusals, correct=True)
+    h.emit("phase10_launches", per_call=paths)
+    return report
+
+
+def refused_launches(torch, h, C):
+    """xyzz_add, xyzz_add_affine, horner_windows, butterfly_dit and pow_table
+    at curve C's field width, which their C entries are not built for: each
+    must raise, with no launch counted. Returns the messages."""
+    from zkarray_torch import kernels
+    from zkarray_torch.kernels import mont as km
+    from zkarray_torch.kernels import sw as ksw
+
+    f, dev = C.base, h.dev
+    L = f.num_limbs
     pts = [h.rand_field(f, 64) for _ in range(4)]
     refusals = {}
     for kernel, call in (
@@ -1473,15 +1695,201 @@ def bn_gt_bw6_phase(torch, h, rec):
         before = kernels.LAUNCHES[kernel]
         try:
             call()
-            sync()
+            h.sync()
         except RuntimeError as exc:
             refusals[kernel] = str(exc)[:120]
         else:
-            raise AssertionError(f"{kernel} ran at NW = 24")
+            raise AssertionError(f"{kernel} ran at NW = {L // 2}")
         if kernels.LAUNCHES[kernel] != before:
             raise AssertionError(f"{kernel}: a refused launch was counted")
-    h.emit("nw24_refused", kernels=refusals, correct=True)
-    h.emit("phase10_launches", per_call=paths)
+    return refusals
+
+
+def mixed_mnt_cp6_phase(torch, h, rec):
+    """Phase 11: ec/msm.py:msm_mixed on BLS12-381 G1 at 2^MIXED_LOG_N points
+    (scalars in six magnitude classes) beside msm on the same inputs, each
+    against the host known answer, and every MSM-kernel launch of its first
+    counted call against the plain version on its own inputs; the MNT4-298, MNT6-298, MNT4-753 and
+    MNT6-753 pairing_each at 2^MNT_LOG_N pairs and pairing over them; CP6-782's
+    host G2 preparation per point, its Miller loop and final exponentiation
+    at 2^MNT_LOG_N lanes and pairing_each end to end on CP6_EACH pairs. Each
+    pairing lane against host powers of E (testing.E_*, the JAX package's
+    words); each path with its launches per call by kernel, PAIR_TIMED_RUNS
+    timed calls, one traced call and its peak memory. Then the field kernels
+    against their plain versions on the NW = 10 and NW = 26 fields' edge
+    words, on every (field, shape, strides) input recorded on the paths'
+    first counted calls, and at (L, 2^FIELD48_LOG_N) with their times,
+    bounds and ptxas' registers, stack and spills at both widths. Returns
+    the kernels line's phase-11 figures."""
+    from zkarray_torch import testing as tt
+    from zkarray_torch.curves import bls12_381 as B
+    from zkarray_torch.curves import cp6_782, mnt4_298, mnt4_753, mnt6_298, mnt6_753
+    from zkarray_torch.ec import msm as tmsm
+    from zkarray_torch.ec import sw as tsw
+    from zkarray_torch.ec.pairing import cp6, mnt
+    from zkarray_torch.interop import affine_from_numpy, limbs_from_numpy
+
+    dev, sync = h.dev, h.sync
+    pr = PathRuns(torch, h, rec)
+    paths = {}
+    err = collections.defaultdict(int)
+    rows = collections.defaultdict(list)  # each path's recorded inputs, replayed after it
+
+    def replay(label):
+        """Replay ``label``'s recorded inputs; keep the input copies of each
+        kernel's widest row per field width only (field_width_report times
+        those), so the copies of five paths do not pile up on the card."""
+        for name, rs in pr.replay(label, err).items():
+            rows[name].extend(rs)
+            widest = {}
+            for r_ in rows[name]:
+                L_ = r_["_spec"].num_limbs
+                if r_["_ins"] is not None and (L_ not in widest or math.prod(r_["shape"]) >
+                                               math.prod(widest[L_]["shape"])):
+                    widest[L_] = r_
+            for r_ in rows[name]:
+                if r_ is not widest.get(r_["_spec"].num_limbs):
+                    r_["_ins"] = r_["_out"] = None
+
+    # -- msm_mixed: a Groth16 witness's magnitudes, tiled points ------------------
+    n = 1 << MIXED_LOG_N
+    rng = np.random.default_rng(11)
+    t0 = time.perf_counter()
+    px, py, _, ks, _ = tt.tiled_inputs(B.G1, n, rng)
+    sc = tt.mixed_scalars(B.FR, n, rng)
+    want_pt = tt.expected_msm(B.G1, ks, sc)
+    classes = {str(b): len(i) for b, i in tmsm.classify_scalars(sc, B.FR.bits)}
+    host_s = time.perf_counter() - t0
+    A = affine_from_numpy(px, py, np.zeros(n, dtype=bool), dev)
+    s = limbs_from_numpy(sc, dev)
+    del px, py, sc
+
+    def check_pt(what):
+        def check(res, when):
+            aff = tsw.xyzz_to_affine(B.G1, tsw.XYZZPoints(*(v[:, None] for v in res)))
+            if tsw.affine_to_ints(B.G1, aff) != [want_pt]:
+                raise AssertionError(f"{what}: {when} differs from the host known answer")
+        return check
+
+    # the first counted call also keeps the inputs of every MSM-kernel launch
+    # (each class's accumulation feeds, window rows and bit-Horner partials,
+    # the 1-bit class's tree levels, the class totals' adds)
+    restore_msm = install_msm_recorders(torch, rec)
+    try:
+        mixed = pr.measure(lambda: tmsm.msm_mixed(B.G1, A, s), check_pt("msm_mixed"), record=True,
+                           timed=3)
+        msm_calls = rec.msm
+    finally:
+        restore_msm()
+    replay("msm_mixed")
+    paths["msm_mixed"] = mixed["launches_per_call"]
+    recorded = collections.Counter(k for k, _, _ in msm_calls)
+    counted = {k: v for k, v in mixed["launches_per_call"].items() if k in MSM_KERNELS}
+    if dict(recorded) != counted:
+        raise AssertionError(f"msm_mixed: MSM-kernel launches recorded {dict(recorded)}, "
+                             f"counted {counted}")
+    msm_rows = replay_msm_launches(h, B.G1, msm_calls)
+    del msm_calls
+    h.emit("kernel_msm_mixed_shapes", inputs="every MSM-kernel launch of msm_mixed's first counted "
+           "call, as it passed them", rows=msm_rows)
+    msm_vs_plain = {k: dict(launches=v, max_abs_err=max(r["max_abs_err"] for r in msm_rows
+                                                         if r["kernel"] == k),
+                            ms_sum=sum(r["ms"] for r in msm_rows if r["kernel"] == k),
+                            plain_ms_sum=sum(r["plain_ms"] for r in msm_rows if r["kernel"] == k))
+                    for k, v in recorded.items()}
+    # msm on these inputs is ~8 s a call (its residual rounds), within 1 % from call to call
+    whole = pr.measure(lambda: tmsm.msm(B.G1, A, s), check_pt("msm"), trace=False)
+    h.emit("msm_mixed", curve=B.G1.name, n=n, zero_scalars=n - sum(classes.values()),
+           classes_by_bits=classes, correct=True, host_known_answer_s=host_s,
+           points_per_s=n / mixed["ms"] * 1e3, **mixed, kernels_vs_plain=msm_vs_plain,
+           msm_same_inputs=dict(whole, points_per_s=n / whole["ms"] * 1e3),
+           msm_over_mixed=whole["ms"] / mixed["ms"])
+    del A, s
+
+    # -- the MNT pairings: MNT4/6-298 and MNT4/6-753 ---------------------------
+    m = 1 << MNT_LOG_N
+    for label, mod in (("mnt4_298", mnt4_298), ("mnt6_298", mnt6_298), ("mnt4_753", mnt4_753),
+                       ("mnt6_753", mnt6_753)):
+        spec = mod.PAIRING
+        t0 = time.perf_counter()
+        P, Q, ab, inf = tt.pairing_inputs(spec, m, rng, PAIR_BASE, PAIR_INF_EVERY, device=dev,
+                                          scalar_bits=PAIR_SCALAR_BITS)
+        want, want_comb = expected_gt(torch, spec.gt, spec.g1.scalar.modulus,
+                                      getattr(tt, f"E_{label.upper()}"), ab, m, PAIR_INF_EVERY, dev)
+        host_s = time.perf_counter() - t0
+        each = pr.measure(lambda: mnt.pairing_each(spec, P, Q),
+                          pr.equal(f"{label} pairing_each", want), record=True)
+        h.emit("pairing_each_" + label, curve=spec.name, pairs=m, infinity_lanes=int(inf.sum()),
+               known_answer_pairs=len(ab), pair_scalar_bits=PAIR_SCALAR_BITS, correct=True,
+               pairings_per_s=m / each["ms"] * 1e3, host_known_answer_s=host_s, **each)
+        got, ms, launches = pr.run(lambda: mnt.pairing(spec, P, Q), record=True)
+        pr.equal(f"{label} pairing", want_comb)(got, "its call")
+        h.emit("pairing_" + label, curve=spec.name, pairs=m, correct=True, ms=ms,
+               pairs_per_s=m / ms * 1e3, launches=launches)
+        paths[label] = each["launches_per_call"]
+        replay(label)
+        del P, Q, want, got
+
+    # -- CP6-782: the host G2 ladder, then the Miller loop and final exponentiation ----
+    spec = cp6_782.PAIRING
+    t0 = time.perf_counter()
+    P, Q, ab, inf = tt.pairing_inputs(spec, m, rng, PAIR_BASE, PAIR_INF_EVERY, device=dev,
+                                      scalar_bits=PAIR_SCALAR_BITS)
+    q_host = tt.g2_affine_to_ints(spec.g2, Q._replace(x=Q.x[..., :PAIR_BASE], y=Q.y[..., :PAIR_BASE],
+                                                      inf=Q.inf[:PAIR_BASE]))
+    want, _ = expected_gt(torch, cp6_782.FQ6, spec.g1.scalar.modulus, tt.E_CP6_782, ab, m,
+                          PAIR_INF_EVERY, dev)
+    host_s = time.perf_counter() - t0
+    del Q
+    sync()
+    t0 = time.perf_counter()
+    Qp64 = cp6.g2_prepare_host(spec, q_host, dev)
+    sync()
+    prep_s = time.perf_counter() - t0
+    t = torch.arange(m, device=dev) % PAIR_BASE
+    Qp = cp6.CP6G2Prepared(*(v[..., t] for v in Qp64[:4]), torch.zeros(m, dtype=torch.bool, device=dev))
+    del Qp64
+    loop = pr.measure(lambda: cp6.final_exponentiation(spec, cp6.multi_miller_loop(spec, P, Qp, False)),
+                      pr.equal("cp6_782 Miller loop + final exponentiation", want), record=True)
+    paths["cp6_782"] = loop["launches_per_call"]
+    del Qp
+    k = CP6_EACH
+    Pk = P._replace(x=P.x[:, :k], y=P.y[:, :k], inf=P.inf[:k])
+    got, each_ms, each_launches = pr.run(lambda: cp6.pairing_each(spec, Pk, q_host[:k]), record=True)
+    pr.equal("cp6_782 pairing_each", want[..., :k])(got, "its call")
+    replay("cp6_782")
+    h.emit("cp6_782", curve=spec.name, g2_prepare_host=dict(points=len(q_host), s=prep_s,
+                                                           s_per_point=prep_s / len(q_host)),
+           miller_loop_final_exp=dict(lanes=m, infinity_lanes=int(inf.sum()), correct=True,
+                                      pairings_per_s=m / loop["ms"] * 1e3, **loop),
+           pairing_each=dict(pairs=k, correct=True, ms=each_ms, launches=each_launches),
+           known_answer_pairs=len(ab), pair_scalar_bits=PAIR_SCALAR_BITS, host_known_answer_s=host_s)
+    del P, Pk, want, got
+
+    # -- the field kernels at NW = 10 and 26 against their plain versions ----------
+    edge = field_edge_checks(torch, h, (mnt4_298.FQ, mnt6_298.FQ, cp6_782.FQ), err)
+    for name, rs in rows.items():
+        h.emit("kernel_phase11_shapes", kernel=name,
+               rows=[{k_: v for k_, v in r_.items() if not k_.startswith("_")} for r_ in rs])
+    report = {name: {"phase11": {lbl: paths[lbl].get(name, 0) for lbl in paths}}
+              for name in FIELD_KERNELS}
+    for f, labels in ((mnt4_298.FQ, ("mnt4_298", "mnt6_298")), (cp6_782.FQ, ("cp6_782",))):
+        nw = f.num_limbs // 2
+        rep = field_width_report(torch, h, f, rows, labels, "widest_path_launch", edge, err)
+        for name, r_ in rep.items():
+            r_.pop("edge_words")
+            r_["recorded_keys_by_path"] = {lbl: sum(lbl in x["paths"] for x in rows.get(name, []))
+                                           for lbl in pr.path_keys}
+            report[name][f"nw{nw}"] = r_
+        h.emit(f"nw{nw}_kernels", rows=rep, edge_words=edge)
+    # the XYZZ, MSM and NTT kernels are not built at NW = 10 or 26 either
+    h.emit("nw10_nw26_refused", correct=True,
+           kernels={C.name: refused_launches(torch, h, C) for C in (mnt4_298.G1, cp6_782.G1)})
+    for name in FIELD_KERNELS:
+        report[name]["phase11_max_abs_err"] = err[name]
+    for name, r_ in msm_vs_plain.items():
+        report[name] = {"msm_mixed": r_}
+    h.emit("phase11_launches", per_call=paths)
     return report
 
 
@@ -1609,11 +2017,14 @@ def main():
         return out, (time.perf_counter() - t) * 1e3
 
     def rand_field(spec, n):
-        """(L, n) canonical limbs below p (top limb below p's top limb)."""
+        """(L, n) canonical limbs below p: p's top nonzero limb t random below
+        p's, the limbs above t zero (a 298-bit p in L = 20 limbs has two)."""
         L = spec.num_limbs
+        t = (spec.modulus.bit_length() - 1) // 16
         x = torch.randint(0, 1 << 16, (L, n), generator=gen, device=dev, dtype=torch.int32)
-        top = spec.modulus >> (16 * (L - 1))
-        x[L - 1] = torch.randint(0, top, (n,), generator=gen, device=dev, dtype=torch.int32)
+        x[t] = torch.randint(0, spec.modulus >> (16 * t), (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        x[t + 1:] = 0
         return x
 
     def max_abs_err(a, b):
@@ -2822,6 +3233,9 @@ def main():
 
         # ---- 10. BN254, GT and the BW6 pairings; the field kernels at NW = 24 ------
         nw24_report = bn_gt_bw6_phase(torch, helpers, rec)
+
+        # ---- 11. msm_mixed, the MNT and CP6 pairings; the field kernels at NW = 10, 26
+        new_report = mixed_mnt_cp6_phase(torch, helpers, rec)
     finally:
         restore()
     for name in ("mont_mul", "mont_sqr", "mont_inv", "mont_pow"):
@@ -2830,8 +3244,13 @@ def main():
     for name, r in nw24_report.items():
         report[name].update(r.pop("per_path_launches"))
         report[name]["nw24"] = r
+    for name, r in new_report.items():
+        report[name].update(r)
+        if "msm_mixed" in r:  # its MSM kernels, held on msm_mixed's own inputs
+            report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
+                                              r["msm_mixed"]["max_abs_err"])
 
-    # ---- 11. kernels line ----------------------------------------------------
+    # ---- 12. kernels line ----------------------------------------------------
     sources = {
         "mont_mul": ("zkarray_torch/kernels/csrc/mont.cu", "zkarray/kernels/mont.py:235"),
         "mont_sqr": ("zkarray_torch/kernels/csrc/mont.cu", "zkarray/kernels/mont.py:254"),
@@ -2889,8 +3308,10 @@ def main():
     rows = []
     for name, (src, repl) in sources.items():
         r = report[name]
+        widths = sorted(_build.FIELD_LIBS) if name in FIELD_KERNELS else [8, 12]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
-                     "path": paths[name][0], "launches": paths[name][1], "library_ms": None, **r})
+                     "path": paths[name][0], "launches": paths[name][1], "library_ms": None,
+                     "nw_widths": widths, **r})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -22,8 +22,22 @@ it against:
   of the seed and at the nonzero digits of loop 2, with their slot
   numbers; the extra line), the Miller values (combine=False), their final
   exponentiations and E = e(G, H), lane 0 of those.
+- tests/vectors/{mnt4_298,mnt6_298,mnt4_753,mnt6_753}_pairing.npz: the
+  pairs (G, H) and (2G, 2H) (host points), zkarray.ec.pairing.mnt's
+  g1_prepare (x_twist, y_twist), g2_prepare (x and y over the twist, every
+  doubling step's four coefficients, the add steps' two at the nonzero
+  digits with their slot numbers, final_add), the Miller values
+  (combine=False), their final exponentiations and E = e(G, H).
+- tests/vectors/cp6_782_pairing.npz: the same pairs on CP6-782,
+  zkarray.ec.pairing.cp6's g2_prepare_host (each doubling step's gro and gt,
+  the add steps' at the ladder's set bits with their slot numbers), the
+  Miller values, their final exponentiations and E. Its host ladder inverts
+  in Fq3 by Fermat, about 2.5 minutes a point on a CPU.
+- tests/vectors/msm_mixed.npz: zkarray.ec.msm.msm_mixed's XYZZ words on
+  tests/test_scalar_mul_extras.py's mixed-magnitude BN254 inputs at c = 4
+  and c = None, and on the same points with all-zero scalars.
 
-    JAX_PLATFORMS=cpu python3 scripts/pairing_bundle_words.py [bls12_381|bls12_377|bn254|bw6_761|bw6_767|all] [XLA cache dir]
+    JAX_PLATFORMS=cpu python3 scripts/pairing_bundle_words.py [bls12_381|bls12_377|bn254|bw6_761|bw6_767|mnt4_298|mnt6_298|mnt4_753|mnt6_753|cp6_782|msm_mixed|all] [XLA cache dir]
 
 Run each target in a process of its own ("all" runs them one by one in
 this process): XLA:CPU can abort compiling a further 768-bit Miller graph
@@ -46,7 +60,11 @@ OUT = {"bls12_381": os.path.join(VEC_DIR, "bls12_381_pairing_bundle.npz"),
        "bls12_377": os.path.join(VEC_DIR, "bls12_377_pairing_e.npz"),
        "bn254": os.path.join(VEC_DIR, "bn254_pairing_bundle.npz"),
        "bw6_761": os.path.join(VEC_DIR, "bw6_761_pairing.npz"),
-       "bw6_767": os.path.join(VEC_DIR, "bw6_767_pairing.npz")}
+       "bw6_767": os.path.join(VEC_DIR, "bw6_767_pairing.npz"),
+       "msm_mixed": os.path.join(VEC_DIR, "msm_mixed.npz")}
+MNT = ("mnt4_298", "mnt6_298", "mnt4_753", "mnt6_753")
+for _c in MNT + ("cp6_782",):
+    OUT[_c] = os.path.join(VEC_DIR, f"{_c}_pairing.npz")
 
 
 def limbs(a):
@@ -140,8 +158,124 @@ def words_bw6_767():
     return words_bw6("bw6_767")
 
 
+def host_pairs(b):
+    """The host pairs (G, H) and (2G, 2H) of a curve module whose G2 lies
+    over an extension (the doubling by the tower's host arithmetic)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from ec_oracle import ec_add, ec_add_f
+
+    g = (b.G1.gen_x, b.G1.gen_y)
+    h = (b.G2.gen_x, b.G2.gen_y)
+    H = b.G2.ops.host
+    return [g, ec_add(g, g, b.G1.a_int, b.G1.base.modulus)], [h, ec_add_f(H, h, h, b.G2.a_host)]
+
+
+def ext_affine(curve, pts):
+    """Host G2 points [(x, y)] -> the JAX package's ExtAffine."""
+    import jax.numpy as jnp
+
+    from zkarray.ec.sw_ext import ExtAffine
+
+    F = curve.ops
+
+    def nest(vals):
+        return [[v[j] for v in vals] for j in range(F.deg)]
+
+    return ExtAffine(F.from_ints(nest([p[0] for p in pts])), F.from_ints(nest([p[1] for p in pts])),
+                     jnp.zeros((len(pts),), dtype=bool))
+
+
+def words_mnt(curve):
+    """The JAX package's MNT words on the pairs (G, H) and (2G, 2H)."""
+    import importlib
+
+    from zkarray.ec.pairing import mnt
+
+    b = importlib.import_module(f"zkarray.curves.{curve}")
+    spec = b.PAIRING
+    g, h = host_pairs(b)
+    P = b.G1.affine_from_ints(g)
+    Q = ext_affine(b.G2, h)
+    P1 = mnt.g1_prepare(spec, P)
+    Qp = mnt.g2_prepare(spec, Q)
+    f = mnt.multi_miller_loop(spec, P1, Qp, False)
+    gts = mnt.final_exponentiation(spec, f)
+    rows = [i for i, d in enumerate(spec.ate_loop_count[1:]) if d]
+    return dict(
+        p_x=limbs(P.x), p_y=limbs(P.y), q_x=limbs(Q.x), q_y=limbs(Q.y),
+        x_twist=limbs(P1.x_twist), y_twist=limbs(P1.y_twist),
+        x_over_twist=limbs(Qp.x_over_twist), y_over_twist=limbs(Qp.y_over_twist),
+        dbl_coeffs=limbs(Qp.dbl_coeffs), add_coeffs=limbs(np.asarray(Qp.add_coeffs)[rows]),
+        add_rows=np.asarray(rows), final_add=limbs(Qp.final_add), miller=limbs(f),
+        gts=limbs(gts), e=limbs(np.asarray(gts)[..., :1]))
+
+
+def words_cp6_782():
+    """The JAX package's CP6-782 words on the pairs (G, H) and (2G, 2H)."""
+    from zkarray.curves import cp6_782 as b
+    from zkarray.ec.pairing import cp6
+
+    spec = b.PAIRING
+    g, h = host_pairs(b)
+    P = b.G1.affine_from_ints(g)
+    Qp = cp6.g2_prepare_host(spec, h)
+    f = cp6.multi_miller_loop(spec, P, Qp, False)
+    gts = cp6.final_exponentiation(spec, f)
+    rows = np.nonzero(np.asarray(Qp.bits))[0]
+    return dict(
+        p_x=limbs(P.x), p_y=limbs(P.y), q_x=limbs(ext_affine(b.G2, h).x),
+        q_y=limbs(ext_affine(b.G2, h).y), dbl_gro=limbs(Qp.dbl_gro), dbl_gt=limbs(Qp.dbl_gt),
+        add_gro=limbs(np.asarray(Qp.add_gro)[rows]), add_gt=limbs(np.asarray(Qp.add_gt)[rows]),
+        add_rows=rows, miller=limbs(f), gts=limbs(gts), e=limbs(np.asarray(gts)[..., :1]))
+
+
+def msm_mixed_inputs():
+    """tests/test_scalar_mul_extras.py:test_msm_mixed_magnitude_classes's
+    host inputs: 32 BN254 G1 points and scalars of four magnitudes."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from ec_oracle import ec_mul
+
+    from zkarray.curves import bn254
+
+    c = bn254.G1
+    gen = (c.gen_x, c.gen_y)
+    rng = np.random.default_rng(4)
+    n = 32
+    pts = [ec_mul(gen, int(k), c.a_int, c.base.modulus) for k in rng.integers(1, 1 << 20, n)]
+    ks = []
+    for i in range(n):
+        cls = i % 4
+        if cls == 0:
+            ks.append(1)
+        elif cls == 1:
+            ks.append(int(rng.integers(2, 1 << 8)))
+        elif cls == 2:
+            ks.append(int(rng.integers(1 << 8, 1 << 30)))
+        else:
+            ks.append(int(rng.integers(1 << 40, 1 << 62)))
+    return pts, ks
+
+
+def words_msm_mixed():
+    """The JAX package's msm_mixed at c = 4, c = None and on zero scalars."""
+    from zkarray.curves import bn254
+    from zkarray.ec import msm
+    from zkarray.ff import fp as jfp
+
+    c = bn254.G1
+    pts, ks = msm_mixed_inputs()
+    A = c.affine_from_ints(pts)
+    s = jfp.from_ints(c.scalar, ks, mont=False)
+    z = jfp.from_ints(c.scalar, [0] * len(ks), mont=False)
+    out = dict(p_x=limbs(A.x), p_y=limbs(A.y), scalars=limbs(s))
+    for tag, sc, cw in (("c4", s, 4), ("cnone", s, None), ("zero", z, None)):
+        r = msm.msm_mixed(c, A, sc, cw)
+        out[tag] = limbs(np.stack([np.asarray(v) for v in r]))
+    return out
+
+
 def main(argv):
-    names = ("bls12_381", "bls12_377", "bn254", "bw6_761", "bw6_767")
+    names = ("bls12_381", "bls12_377", "bn254", "bw6_761", "bw6_767") + MNT + ("cp6_782", "msm_mixed")
     which = argv[0] if argv and argv[0] in names + ("all",) else "all"
     rest = argv[1:] if argv and argv[0] == which else argv
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -153,7 +287,9 @@ def main(argv):
 
     setup_cache(rest[0] if rest else os.environ.get("ZKARRAY_CACHE_DIR", "/tmp/zkarray-xla-cache"))
     build = {"bls12_381": words_bls12_381, "bls12_377": words_bls12_377, "bn254": words_bn254,
-             "bw6_761": words_bw6_761, "bw6_767": words_bw6_767}
+             "bw6_761": words_bw6_761, "bw6_767": words_bw6_767, "cp6_782": words_cp6_782,
+             "msm_mixed": words_msm_mixed}
+    build.update({c: (lambda c=c: words_mnt(c)) for c in MNT})
     for name in build if which == "all" else (which,):
         np.savez_compressed(OUT[name], **build[name]())
         print(OUT[name], os.path.getsize(OUT[name]))

@@ -6,9 +6,10 @@ ptxas reports. It finds wrong paths, shapes, counts and control flow before
 a chip call; it says nothing about the CUDA sources. About 35 minutes
 (phase 8's group path runs its full-length scalar chains at 64 points,
 phase 9 nine pairing calls of 8 to 16 pairs, ~10 s each on the CPU, phase
-10 twenty-two BN254, GT and BW6 calls of 8 to 16 lanes). The XYZZ, MSM,
-NTT and twiddle kernels' stand-ins refuse L = 48 as their C entries do on
-the card:
+10 twenty-two BN254, GT and BW6 calls of 8 to 16 lanes, phase 11 msm_mixed
+at 2^8 points and twenty-five MNT and CP6 calls of 2 to 8 lanes). The XYZZ,
+MSM, NTT and twiddle kernels' stand-ins refuse every width but L = 16 and
+24 (NW = 8 and 12) as their C entries do on the card:
 
     python3 scripts/rehearse_chip_smoke.py > rehearsal.out
 """
@@ -68,7 +69,8 @@ def launch_mont(kernel, spec, *ins, exponent=None):
 
 def refuse_nw24(kernel, limbs):
     """The card's XYZZ, MSM, NTT and twiddle kernels are built for NW = 8
-    and 12 only: at L = 48 their C entries return cudaErrorInvalidValue."""
+    and 12 only: at L = 20, 48 or 52 their C entries return
+    cudaErrorInvalidValue."""
     if limbs not in (16, 24):
         raise RuntimeError(f"{kernel}: CUDA launch failed (1: invalid argument)")
 
@@ -109,6 +111,7 @@ def setup():
     cs.GROUP_LOG_N, cs.SMALL_LOG_N, cs.FIELD_KAT, cs.GROUP_KAT, cs.OFF_POOL = 6, 5, 16, 8, 4
     cs.PAIR_LOG_N, cs.PAIR_BIG_LOG_N, cs.PAIR_BASE, cs.PAIR_INF_EVERY, cs.G2_LOG_N = 3, 4, 4, 4, 5
     cs.FIELD48_LOG_N = 5
+    cs.MIXED_LOG_N, cs.MNT_LOG_N, cs.CP6_EACH = 8, 3, 2
     dm.FOURSTEP_BIG, dm.FOURSTEP_MIN = 1 << 12, 1 << 9
     ksw.TREE_SUM_MAX = 16  # c = 7 at 2^8 points: trees of 64, two element-wise levels
 

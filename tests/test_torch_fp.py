@@ -47,7 +47,7 @@ from zkarray_torch.curves import bn254 as tbn254  # noqa: E402
 from zkarray_torch.ff import fp as tfp  # noqa: E402
 from zkarray_torch.kernels import mont as tkm  # noqa: E402
 from zkarray_torch.testing import (  # noqa: E402
-    mont_inv_edge_words, mont_inv_iteration_bound, mont_inv_model, sqrt_reference)
+    fadd_edge_words, mont_inv_edge_words, mont_inv_iteration_bound, mont_inv_model, sqrt_reference)
 
 # Fq and Fr of BLS12-381, and BN254's Fr (the port's field code is generic)
 INV_FIELDS = FIELDS + [(jbn254.FR, port_field(jbn254.FR))]
@@ -179,6 +179,82 @@ def test_l48_field_kernels_plain_match_jax(curve):
         inv_w, iters = mont_inv_model(ts, w)
         assert inv_w == (pow(w * pow(R, -1, p), -1, p) * R % p if w else 0), w
         assert iters < mont_inv_iteration_bound(ts, w) <= 64 * (ts.num_limbs // 2), w
+
+
+@pytest.mark.parametrize("curve", ["mnt4_298", "mnt6_298", "cp6_782"])
+def test_l20_l52_field_kernels_plain_match_python_ints(curve):
+    """The plain versions of the six field kernels at the widths this port
+    added for MNT4/6-298 (L = 20, NW = 10) and CP6-782 (L = 52, NW = 26),
+    against Python ints (no new XLA compile): mont_mul/mont_sqr on
+    mont_inv_edge_words (every pair of 12), pow_const at e = 0, 1, 2 and
+    p - 2, the inverse (mont_inv's plain version, Fermat) against pow,
+    fp_add/fp_sub/fp_neg on fadd_edge_words (words >= p too: the sum keeps
+    its carry out, the difference is taken modulo 2^(16 L)); and the word
+    model of mont_inv's binary GCD, its iterations under the kernel's
+    64 NW cap."""
+    import importlib
+
+    from zkarray_torch.core.limbs import ints_to_limbs_np, limbs_to_ints
+
+    ts = importlib.import_module(f"zkarray_torch.curves.{curve}").FQ
+    assert ts.num_limbs == (52 if curve == "cp6_782" else 20)
+    p, R, L = ts.modulus, ts.r_int, ts.num_limbs
+    rinv = pow(R, -1, p)
+    edge = mont_inv_edge_words(ts, np.random.default_rng(len(curve)), n_random=4)
+    w = torch.from_numpy(ints_to_limbs_np(edge, L).astype(np.int32))
+    k = min(12, len(edge))
+    ii = torch.arange(k * k)
+    x, y = w[:, ii // k], w[:, ii % k]
+    vals = lambda t: limbs_to_ints(t)  # noqa: E731
+    assert vals(tkm.mont_mul_plain(ts, x, y)) == [a * b * rinv % p for a, b in zip(vals(x), vals(y))]
+    assert vals(tkm.mont_sqr_plain(ts, w)) == [a * a * rinv % p for a in edge]
+    for e in (0, 1, 2, p - 2):
+        want = [pow(a * rinv, e, p) * R % p for a in edge]
+        assert vals(tkm.mont_pow_plain(ts, w, e)) == want, e
+    assert vals(tkm.mont_inv(ts, w)) == [pow(a * rinv, -1, p) * R % p if a else 0 for a in edge]
+    for a in edge:
+        inv_a, iters = mont_inv_model(ts, a)
+        assert inv_a == (pow(a * rinv, -1, p) * R % p if a else 0), a
+        assert iters < mont_inv_iteration_bound(ts, a) <= 64 * (L // 2), a
+    aw = fadd_edge_words(ts, np.random.default_rng(3))
+    xa = torch.from_numpy(ints_to_limbs_np(aw, L).astype(np.int32))
+    ka = len(aw)
+    ia = torch.arange(ka * ka)
+    a_, b_ = xa[:, ia // ka], xa[:, ia % ka]
+    av, bv = vals(a_), vals(b_)
+    full = 1 << (16 * L)
+    assert vals(tkm.fp_add(ts, a_, b_)) == [(u + v - p) % full if u + v >= p else u + v
+                                            for u, v in zip(av, bv)]
+    assert vals(tkm.fp_sub(ts, a_, b_)) == [(u - v) % full if u >= v else (u - v + p) % full
+                                            for u, v in zip(av, bv)]
+    assert vals(tkm.fp_neg(ts, xa)) == [(-u + p) % full if u else 0 for u in aw]
+
+
+def test_field_kernel_widths():
+    """The six field kernels are built at NW = 8, 10, 12, 24 and 26
+    (csrc/field.cuh:ZK_DISPATCH_NW_FIELD, mont.cu once per width group) and
+    every other width raises before a launch; the XYZZ, MSM, NTT and
+    twiddle kernels keep NW = 8 and 12 (ZK_DISPATCH_NW)."""
+    import re
+    from pathlib import Path
+
+    from zkarray_torch.kernels import _build
+
+    assert {nw: _build.field_lib(nw) for nw in (8, 10, 12, 24, 26)} == {
+        8: "mont", 10: "mont", 12: "mont", 24: "mont_w24", 26: "mont_w26"}
+    for nw in (0, 6, 9, 11, 16, 20, 25, 27, 32):
+        with pytest.raises(ValueError):
+            _build.field_lib(nw)
+    for lib in ("mont", "mont_w24", "mont_w26"):
+        assert _build.source_of(lib)[0] == "mont" and lib in _build.SOURCES
+        assert _build.EXPORTS[lib] == _build.EXPORTS["mont"]
+    src = (Path(_build.CSRC) / "field.cuh").read_text()
+    body = src[src.index("#define ZK_DISPATCH_NW(nw"):src.index("#ifndef ZK_FIELD_WIDTHS")]
+    assert sorted(map(int, re.findall(r"case (\d+):", body))) == [8, 12]
+    field = src[src.index("#ifndef ZK_FIELD_WIDTHS"):src.index("#define ZK_DISPATCH_NW_FIELD")]
+    assert sorted(map(int, re.findall(r"ZK_NW_CASE\((\d+),", field))) == [8, 10, 12, 24, 26]
+    for name in ("sw", "xyzz", "madd", "ntt", "twiddle"):
+        assert "ZK_DISPATCH_NW_FIELD" not in (Path(_build.CSRC) / f"{name}.cu").read_text(), name
 
 
 def interop_same(ts, js):

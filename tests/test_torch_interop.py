@@ -117,7 +117,9 @@ def test_import_pulls_in_no_jax():
         "zkarray_torch.ff.tower_host, zkarray_torch.ec.sw_ext, zkarray_torch.ec.pairing.bls12, "
         "zkarray_torch.ec.fast_checks, zkarray_torch.ec.pairing.bn, zkarray_torch.ec.pairing.gt, "
         "zkarray_torch.ec.pairing.bw6, zkarray_torch.ec.pairing.mnt, zkarray_torch.curves.bw6_761, "
-        "zkarray_torch.curves.bw6_767; "
+        "zkarray_torch.curves.bw6_767, zkarray_torch.ec.pairing.cp6, zkarray_torch.curves.mnt4_298, "
+        "zkarray_torch.curves.mnt6_298, zkarray_torch.curves.mnt4_753, "
+        "zkarray_torch.curves.mnt6_753, zkarray_torch.curves.cp6_782; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'zkarray')]; "
         "assert not bad, bad"
     )
@@ -148,7 +150,10 @@ def test_source_scan_finds_no_jax_or_zkarray_import():
             "zkarray_torch/ec/pairing/bn.py", "zkarray_torch/ec/pairing/gt.py",
             "zkarray_torch/ec/pairing/bw6.py", "zkarray_torch/ec/pairing/mnt.py",
             "zkarray_torch/curves/bn254.py", "zkarray_torch/curves/bw6_761.py",
-            "zkarray_torch/curves/bw6_767.py"} <= names
+            "zkarray_torch/curves/bw6_767.py", "zkarray_torch/ec/pairing/cp6.py",
+            "zkarray_torch/curves/mnt4_298.py", "zkarray_torch/curves/mnt6_298.py",
+            "zkarray_torch/curves/mnt4_753.py", "zkarray_torch/curves/mnt6_753.py",
+            "zkarray_torch/curves/cp6_782.py", "zkarray_torch/ec/msm.py"} <= names
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "zkarray"}
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
@@ -165,6 +170,7 @@ def test_pairing_path_constants_and_default_device():
     from zkarray_torch.curves import bls12_381_zcash as tzc
     from zkarray_torch.ec import point_serde as tps
     from zkarray_torch.ec import sw_ext as tsw_ext
+    from zkarray_torch.ec.pairing import cp6 as tcp6
     from zkarray_torch.ec.pairing import gt as tgt
     from zkarray_torch.ff import towers as ttowers
 
@@ -188,5 +194,7 @@ def test_pairing_path_constants_and_default_device():
                ttowers.ExtOps.const, ttowers.ExtOps.from_ints, tsw_ext.ExtCurveSpec.generator,
                tsw_ext.zero, tps.deserialize_sw_ext, tzc.deserialize_g2, tgt.GTGroup.zero,
                interop.bn_g2_prepared_from_numpy, interop.bw6_g2_prepared_from_numpy,
-               interop.gt_from_numpy):
+               interop.gt_from_numpy, interop.mnt_g1_prepared_from_numpy,
+               interop.mnt_g2_prepared_from_numpy, interop.cp6_g2_prepared_from_numpy,
+               tcp6.g2_prepare_host):
         assert inspect.signature(fn).parameters["device"].default == DEFAULT_DEVICE, fn

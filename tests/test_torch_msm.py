@@ -15,7 +15,10 @@ compiles), bit for bit:
   weight bits in one group and in several;
 * the bit-Horner's plain version (kernels/sw.py:xyzz_bit_horner_plain, what
   the xyzz_bit_horner kernel computes) against the JAX package's loop of
-  xyzz_double and xyzz_add, on partials that take every edge branch.
+  xyzz_double and xyzz_add, on partials that take every edge branch;
+* classify_scalars at every class boundary, and msm_mixed against the JAX
+  package's words stored in tests/vectors/msm_mixed.npz (its MNT and CP6
+  siblings' way: no new XLA compile) and the host oracle.
 
 The port runs its one accumulate path, the grid-structured feed with the
 plain kernels, so these tests cover the production feed building."""
@@ -29,7 +32,7 @@ jnp = jax.numpy
 torch.set_num_threads(1)
 
 from torch_parity import (  # noqa: E402
-    BITS, JC, TC, C, N, assert_same_points, msm_inputs, xyzz_both, xyzz_coords)
+    BITS, JC, TC, C, N, assert_same_points, msm_inputs, words_script, xyzz_both, xyzz_coords)
 from zkarray.ec import msm as jmsm  # noqa: E402
 from zkarray.ec import sw as jsw  # noqa: E402
 from zkarray_torch.ec import msm as tmsm  # noqa: E402
@@ -246,3 +249,87 @@ def test_weighted_sum_bits_matches_jax_one_and_several_groups(monkeypatch):
     for quad in (None, 2):
         assert_same_points(want, tmsm._weighted_sum_bits(TC, tst, weights, quad))
     assert calls == [(TC.base.num_limbs, 5, len(wins))] * 2
+
+
+# ---- msm_mixed: the magnitude-partitioned front end --------------------------
+
+BOUNDARY_BITS = [0, 1, 2, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65, 200]
+
+
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381"])
+def test_classify_scalars_class_boundaries(curve):
+    """Scalars of bit length 0 (dropped), exactly 1, 8, 16, 32, 64, one past
+    each, and the field's full width (254 and 255) fall in the classes the
+    JAX package's classify_scalars gives them (a host numpy pass, no XLA)
+    and a Python-int oracle: the smallest bound of (1, 8, 16, 32, 64,
+    bits) at or above the bit length."""
+    import importlib
+
+    from zkarray_torch.core.limbs import ints_to_limbs_np
+
+    spec = importlib.import_module(f"zkarray_torch.curves.{curve}").FR
+    nb = spec.bits
+    rng = np.random.default_rng(nb)
+    ks = []
+    for b in BOUNDARY_BITS + [nb - 1, nb]:
+        ks += [0] if b == 0 else [1 << (b - 1), (1 << b) - 1,
+                                  (1 << (b - 1)) | int(rng.integers(0, 1 << min(b - 1, 62)))]
+    ks = [k % spec.modulus if k.bit_length() == nb else k for k in ks]
+    sc = ints_to_limbs_np(ks, spec.num_limbs)
+    got = tmsm.classify_scalars(sc, nb)
+    want = jmsm.classify_scalars(sc, nb)
+    assert [(b, i.tolist()) for b, i in got] == [(b, i.tolist()) for b, i in want]
+    bounds = tmsm.SCALAR_CLASSES + (nb,)
+    oracle = {}
+    for i, k in enumerate(ks):
+        if k:
+            oracle.setdefault(next(b for b in bounds if k.bit_length() <= b), []).append(i)
+    assert [(b, i.tolist()) for b, i in got] == sorted(oracle.items())
+    assert tmsm.classify_scalars(np.zeros_like(sc), nb) == []
+
+
+def _msm_mixed_words():
+    import os
+
+    ref = np.load(os.path.join(os.path.dirname(__file__), "vectors", "msm_mixed.npz"))
+    return {k: ref[k].astype(np.uint32) for k in ref.files}
+
+
+@pytest.mark.parametrize("case", ["c4", "cnone", "zero"])
+def test_msm_mixed_matches_jax_words(case):
+    """msm_mixed on tests/test_scalar_mul_extras.py's mixed-magnitude BN254
+    inputs (classes of 1, <= 8, <= 32 and <= 64 bits) at c = 4 and at the
+    default c, and on all-zero scalars (xyzz_zero), word for word against
+    the JAX package's stored XYZZ words; the affine point against the host
+    oracle (infinity for the zero scalars)."""
+    from zkarray_torch.curves import bn254
+    from zkarray_torch.ff import fp as tfp
+
+    ref = _msm_mixed_words()
+    curve = bn254.G1
+    pts, ks = words_script().msm_mixed_inputs()
+    A = affine_from_numpy(ref["p_x"], ref["p_y"], np.zeros(len(pts), bool), "cpu")
+    assert tsw.affine_to_ints(curve, A) == pts
+    sc = limbs_from_numpy(ref["scalars"], "cpu")
+    assert tfp.to_ints(curve.scalar, sc, mont=False) == ks
+    if case == "zero":
+        sc, ks = torch.zeros_like(sc), [0] * len(ks)
+    with torch.inference_mode():
+        res = tmsm.msm_mixed(curve, A, sc, 4 if case == "c4" else None)
+    assert np.array_equal(np.stack([limbs_to_numpy(v) for v in res]), ref[case])
+    p = curve.base.modulus
+    X, Y, ZZ, ZZZ = (tfp.to_ints(curve.base, v.reshape(-1, 1))[0] for v in res)
+    want = ec_msm_oracle(pts, ks, curve.a_int, p)
+    got = None if ZZ == 0 else (X * pow(ZZ, -1, p) % p, Y * pow(ZZZ, -1, p) % p)
+    assert got == want
+
+
+@pytest.mark.slow
+def test_stored_msm_mixed_words_match_jax():
+    """The stored msm_mixed words equal what the JAX package computes now."""
+    mod = words_script()
+    want = mod.words_msm_mixed()
+    ref = np.load(mod.OUT["msm_mixed"])
+    assert sorted(ref.files) == sorted(want)
+    for k, v in want.items():
+        assert ref[k].dtype == v.dtype and np.array_equal(ref[k], v), k

@@ -29,6 +29,7 @@ from zkarray_torch.ec.sw_ext import ExtAffine, ExtCurveSpec
 from zkarray_torch.ff import cyclotomic as cyc
 from zkarray_torch.ff import fp
 from zkarray_torch.ff.sparse12 import fp12_mul_by_014, fp12_mul_by_034
+from zkarray_torch.ff.towers import combine_pairs
 
 
 class Bls12Spec:
@@ -151,22 +152,6 @@ def _ell(bspec, f, coeffs, px, py, active):
         c1 = F2.mul_base(c1, px)
         nf = fp12_mul_by_034(F12, f, c0, c1, c2)
     return F12.select(active, nf, f)
-
-
-def combine_pairs(F12, f):
-    """Product over the pairs axis (the last), in a log tree: halves are
-    multiplied, an odd element carried by concatenation."""
-    n = f.shape[-1]
-    while n > 1:
-        h = n // 2
-        red = F12.mul(f[..., :h], f[..., h:2 * h])
-        if n % 2:
-            red = torch.cat([red, f[..., 2 * h:]], dim=-1)
-            n = h + 1
-        else:
-            n = h
-        f = red
-    return f[..., 0]
 
 
 def multi_miller_loop(bspec: Bls12Spec, P: AffinePoints, Qp: G2Prepared, combine: bool = True):

@@ -27,10 +27,10 @@ from typing import NamedTuple
 
 import torch
 
-from zkarray_torch.ec.pairing.bls12 import combine_pairs
 from zkarray_torch.ec.pairing.mnt import ext_pow_const
 from zkarray_torch.ec.sw import AffinePoints, SWCurveSpec
 from zkarray_torch.ff import fp
+from zkarray_torch.ff.towers import combine_pairs
 
 
 class BW6Spec:

@@ -116,7 +116,36 @@ class HostExt:
         return r
 
     def inv(self, a):
-        # group order p^degree - 1 → a^{-1} = a^{order - 1 - ... } = a^(p^k - 2)
+        """a^-1 (0 -> 0) through the norm, one inverse in the base (down to
+        Python's pow(x, -1, p)), as arkworks' QuadExtField/CubicExtField
+        inverse: degree 2 is conj(a) / (a0^2 - beta a1^2); degree 3 the
+        adjugate (a0^2 - beta a1 a2, beta a2^2 - a0 a1, a1^2 - a0 a2) over
+        a0 c0 + beta (a2 c1 + a1 c2). The inverse is unique, so it equals
+        the JAX package's Fermat power a^(p^k - 2) (tower_host.py there),
+        at a small fraction of its cost (a 782-bit Fq3 element: ~132 ms by
+        Fermat on a CPU)."""
+        B = self.base
+        beta = self.nonresidue
+        if self.deg == 2:
+            a0, a1 = a
+            norm = B.sub(B.mul(a0, a0), B.mul(beta, B.mul(a1, a1)))
+            if B.eq(norm, B.zero()):
+                return self.zero()
+            ninv = B.inv(norm)
+            return (B.mul(a0, ninv), B.neg(B.mul(a1, ninv)))
+        a0, a1, a2 = a
+        c0 = B.sub(B.mul(a0, a0), B.mul(beta, B.mul(a1, a2)))
+        c1 = B.sub(B.mul(beta, B.mul(a2, a2)), B.mul(a0, a1))
+        c2 = B.sub(B.mul(a1, a1), B.mul(a0, a2))
+        det = B.add(B.mul(a0, c0), B.mul(beta, B.add(B.mul(a2, c1), B.mul(a1, c2))))
+        if B.eq(det, B.zero()):
+            return self.zero()
+        dinv = B.inv(det)
+        return (B.mul(c0, dinv), B.mul(c1, dinv), B.mul(c2, dinv))
+
+    def inv_fermat(self, a):
+        """a^(p^k - 2): the JAX package's route (0 -> 0), kept as the
+        tests' reference for ``inv``."""
         return self.pow(a, self.p ** self.degree - 2)
 
     def eq(self, a, b):

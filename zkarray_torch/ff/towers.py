@@ -196,7 +196,9 @@ class ExtOps:
         and the result is written into a new contiguous (c..., L, *batch)."""
         k = len(self.shape)
         vs = [x.movedim(k, 0) for x in _pad_batch(xs, k)]
-        shape = torch.broadcast_shapes(*(v.shape for v in vs))
+        shape = vs[0].shape
+        if any(v.shape != shape for v in vs[1:]):  # broadcast_shapes costs host time
+            shape = torch.broadcast_shapes(*(v.shape for v in vs))
         out = torch.empty(tuple(shape[1:k + 1]) + (shape[0],) + tuple(shape[k + 1:]),
                           dtype=torch.int32, device=xs[0].device)
         fn(self.spec, *vs, out=out.movedim(k, 0))
@@ -243,10 +245,11 @@ class ExtOps:
         B = self.base
         ax = len(B.shape) + 1  # after the base's coefficient axes and the limb axis
         ops = [p[i] for p in pairs for i in (0, 1)]
-        nb = max(o.dim() - ax for o in ops)
-        ops = [o.reshape(tuple(o.shape) + (1,) * (nb - (o.dim() - ax))) for o in ops]
-        batch = torch.broadcast_shapes(*(tuple(o.shape[ax:]) for o in ops))
-        ops = [o.expand(tuple(o.shape[:ax]) + tuple(batch)) for o in ops]
+        if any(o.shape != ops[0].shape for o in ops[1:]):
+            nb = max(o.dim() - ax for o in ops)
+            ops = [o.reshape(tuple(o.shape) + (1,) * (nb - (o.dim() - ax))) for o in ops]
+            batch = torch.broadcast_shapes(*(tuple(o.shape[ax:]) for o in ops))
+            ops = [o.expand(tuple(o.shape[:ax]) + tuple(batch)) for o in ops]
         xs = torch.stack(ops[0::2], dim=ax)
         ys = torch.stack(ops[1::2], dim=ax)
         prod = B.mul(xs, ys)
@@ -342,6 +345,23 @@ class ExtOps:
         return (a == b).flatten(0, len(self.shape)).all(dim=0)
 
 
+def combine_pairs(ext, f):
+    """Product over the pairs axis (the last) of tower elements, in a log
+    tree: halves are multiplied, an odd element carried by concatenation
+    (the JAX package's order in every pairing family's Miller loop)."""
+    n = f.shape[-1]
+    while n > 1:
+        h = n // 2
+        red = ext.mul(f[..., :h], f[..., h:2 * h])
+        if n % 2:
+            red = torch.cat([red, f[..., 2 * h:]], dim=-1)
+            n = h + 1
+        else:
+            n = h
+        f = red
+    return f[..., 0]
+
+
 def mul_by_cubic_generator(cubic: ExtOps, x):
     """x u for x in a cubic extension by u^3 = beta: the coefficient shuffle
     (beta x2, x0, x1). It is the nonresidue product of a quadratic extension
@@ -349,6 +369,15 @@ def mul_by_cubic_generator(cubic: ExtOps, x):
     BW6's Fp6 = Fp3[v]/(v^2 - u)), where the JAX package multiplies by the
     generator in full; the words are the same."""
     return cubic._stack([cubic.mul_nonresidue(x[2]), x[0], x[1]])
+
+
+def mul_by_quadratic_generator(quad: ExtOps, x):
+    """x u for x in a quadratic extension by u^2 = beta: the shuffle
+    (beta x1, x0). It is the nonresidue product of a quadratic extension
+    whose nonresidue is that field's generator (MNT4's Fq4 = Fq2[v]/(v^2 -
+    u)), where the JAX package multiplies by (0, 1) in full; the words are
+    the same."""
+    return quad._stack([quad.mul_nonresidue(x[1]), x[0]])
 
 
 def quad_sqrt(F2: ExtOps, a):

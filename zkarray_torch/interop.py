@@ -13,7 +13,7 @@ import torch
 
 from zkarray_torch import DEFAULT_DEVICE
 from zkarray_torch.core.fieldspec import FieldSpec
-from zkarray_torch.ec.pairing import bw6
+from zkarray_torch.ec.pairing import bw6, cp6, mnt
 from zkarray_torch.ec.pairing.bls12 import G2Prepared
 from zkarray_torch.ec.pairing.bn import BnG2Prepared, BnSpec
 from zkarray_torch.ec.sw import AffinePoints, JacobianPoints, SWCurveSpec, XYZZPoints
@@ -127,6 +127,57 @@ def bw6_g2_prepared_from_numpy(bspec, dbl_1, add_1, extra, dbl_2, add_2, inf,
                           limbs_from_numpy(add_1[bspec.add_rows_1], device),
                           limbs_from_numpy(extra, device), limbs_from_numpy(dbl_2, device),
                           limbs_from_numpy(add_2[bspec.add_rows_2], device), _mask(inf, device))
+
+
+def _add_slots(add, steps: int, rows, what: str) -> np.ndarray:
+    """The add-step rows the port keeps: the JAX package's arrays hold one
+    slot per ladder step (``steps``), of which the rows ``rows`` are read."""
+    add = np.asarray(add)
+    if add.shape[0] != steps:
+        raise ValueError(f"{what}: expected {steps} add-step slots, got {add.shape[0]}")
+    return add[list(rows)]
+
+
+def mnt_g1_prepared_from_numpy(x, y, x_twist, y_twist, inf, device=DEFAULT_DEVICE) -> "mnt.G1Prepared":
+    """The JAX package's MNT G1Prepared arrays -> the port's."""
+    return mnt.G1Prepared(*(limbs_from_numpy(v, device) for v in (x, y, x_twist, y_twist)),
+                          _mask(inf, device))
+
+
+def mnt_g2_prepared_from_numpy(mspec, x_over_twist, y_over_twist, dbl, add, final_add, inf,
+                               device=DEFAULT_DEVICE) -> "mnt.G2Prepared":
+    """The JAX package's MNT G2Prepared arrays -> the port's: its add-step
+    coefficients hold a slot per digit of the loop count, of which the port
+    keeps the nonzero digits' (``MNTSpec.add_rows``)."""
+    add = _add_slots(add, len(mspec.digits), mspec.add_rows, "mnt_g2_prepared_from_numpy")
+    return mnt.G2Prepared(limbs_from_numpy(x_over_twist, device), limbs_from_numpy(y_over_twist, device),
+                          limbs_from_numpy(dbl, device), limbs_from_numpy(add, device),
+                          limbs_from_numpy(final_add, device), _mask(inf, device))
+
+
+def mnt_g2_prepared_to_numpy(Qp: "mnt.G2Prepared"):
+    """-> (x_over_twist, y_over_twist, dbl_coeffs, add_coeffs at the nonzero
+    digits, final_add, inf) as numpy arrays."""
+    return tuple(limbs_to_numpy(v) for v in Qp[:5]) + (Qp.inf.detach().cpu().numpy(),)
+
+
+def cp6_g2_prepared_from_numpy(spec, dbl_gro, dbl_gt, add_gro, add_gt, inf,
+                               device=DEFAULT_DEVICE) -> "cp6.CP6G2Prepared":
+    """The JAX package's CP6G2Prepared arrays -> the port's: its add-step
+    lines hold a slot per ladder step (zeros at a clear bit), of which the
+    port keeps the set bits' (``CP6Spec.add_rows``); the JAX package's
+    ``bits`` mask is the spec's own (``CP6Spec.steps_bits``)."""
+    steps = len(spec.steps_bits)
+    add_gro = _add_slots(add_gro, steps, spec.add_rows, "cp6_g2_prepared_from_numpy")
+    add_gt = _add_slots(add_gt, steps, spec.add_rows, "cp6_g2_prepared_from_numpy")
+    return cp6.CP6G2Prepared(*(limbs_from_numpy(v, device) for v in (dbl_gro, dbl_gt, add_gro, add_gt)),
+                             _mask(inf, device))
+
+
+def cp6_g2_prepared_to_numpy(Qp: "cp6.CP6G2Prepared"):
+    """-> (dbl_gro, dbl_gt, add_gro, add_gt at the set bits, inf) as numpy
+    arrays."""
+    return tuple(limbs_to_numpy(v) for v in Qp[:4]) + (Qp.inf.detach().cpu().numpy(),)
 
 
 def gt_from_numpy(ext, arr, device=DEFAULT_DEVICE) -> torch.Tensor:

@@ -1,9 +1,13 @@
 """Build the CUDA sources with nvcc and bind them with ctypes.
 
-Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
-``build/lib<name>-<digest>.so`` beside this file (the directory is listed in
-``.gitignore``). The digest covers every source under ``csrc/``, so an edited
-source is rebuilt and a built one is reused. Nothing is built at import time:
+Each library ``<name>`` is one ``csrc/<file>.cu`` built into a shared
+library with a plain C interface, ``build/lib<name>-<digest>.so`` beside this
+file (the directory is listed in ``.gitignore``). Most libraries are one
+source each; ``csrc/mont.cu`` is built three times, once per group of field
+widths (``FIELD_LIBS``), so that its wide instantiations compile in
+parallel. The digest covers every source under ``csrc/`` and every
+library's nvcc flags, so an edited source or width group is rebuilt and a
+built one is reused. Nothing is built at import time:
 the first kernel launch builds what it needs, and ``build()`` builds several
 sources in parallel, one ``nvcc`` process each.
 
@@ -24,7 +28,18 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("mont", "sw", "ntt", "madd", "xyzz", "twiddle", "fadd")
+SOURCES = ("mont", "mont_w24", "mont_w26", "sw", "ntt", "madd", "xyzz", "twiddle", "fadd")
+# library -> (source stem, extra nvcc flags) where the two differ
+VARIANTS = {
+    "mont": ("mont", ("-DZK_FIELD_WIDTHS=1",)),
+    "mont_w24": ("mont", ("-DZK_FIELD_WIDTHS=24",)),
+    "mont_w26": ("mont", ("-DZK_FIELD_WIDTHS=26",)),
+}
+# Word counts NW = L/2 of the element-wise field kernels (csrc/field.cuh:
+# ZK_DISPATCH_NW_FIELD) and the mont.cu library that holds each; fadd.cu
+# holds all of them. The XYZZ, MSM, NTT and twiddle kernels take NW = 8
+# and 12 only.
+FIELD_LIBS = {8: "mont", 10: "mont", 12: "mont", 24: "mont_w24", 26: "mont_w26"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -74,7 +89,23 @@ LAUNCHES = {"mont_mul": 0, "mont_sqr": 0, "xyzz_accum": 0, "horner_windows": 0,
             "xyzz_add": 0, "xyzz_double": 0, "xyzz_tree_sum": 0, "mont_pow": 0, "pow_table": 0,
             "twiddle_mul": 0, "mont_inv": 0, "xyzz_bit_horner": 0, "fp_add": 0, "fp_sub": 0}
 
+EXPORTS["mont_w24"] = EXPORTS["mont_w26"] = EXPORTS["mont"]
+
 _libs = {}
+
+
+def source_of(name: str):
+    """(source stem, extra nvcc flags) of library ``name``."""
+    return VARIANTS.get(name, (name, ()))
+
+
+def field_lib(nw: int) -> str:
+    """The mont.cu library that holds the field kernels at NW words; raises
+    for a width that no library builds."""
+    try:
+        return FIELD_LIBS[nw]
+    except KeyError:
+        raise ValueError(f"field kernels take NW in {sorted(FIELD_LIBS)}, not {nw}") from None
 
 
 def reset_launches():
@@ -88,6 +119,7 @@ def _digest() -> str:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(VARIANTS.items())).encode())  # a library's own flags
     return h.hexdigest()[:16]
 
 
@@ -119,16 +151,26 @@ def build(names=SOURCES) -> dict:
     procs = {}
     for n in todo:
         tmp = lib_path(n).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (tmp, time.perf_counter(), subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        stem, flags = source_of(n)
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+        log_file = tmp.with_suffix(".log")
+        with open(log_file, "w") as fh:  # a file, not a pipe: the processes are polled
+            procs[n] = (tmp, log_file, subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT))
+    t0 = time.perf_counter()
+    done = {}
+    while len(done) < len(procs):  # each library's own build time
+        for n, (_, _, proc) in procs.items():
+            if n not in done and proc.poll() is not None:
+                done[n] = time.perf_counter() - t0
+        time.sleep(0.05)
     out = {}
     errors = []
-    for n, (tmp, t0, proc) in procs.items():
-        log, _ = proc.communicate()
-        secs = time.perf_counter() - t0
+    for n, (tmp, log_file, proc) in procs.items():
+        log = log_file.read_text()
+        log_file.unlink()
+        secs = done[n]
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {n}.cu (rc {proc.returncode}):\n{log}")
+            errors.append(f"nvcc failed for {n} ({source_of(n)[0]}.cu, rc {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, lib_path(n))
         lib_path(n).with_suffix(".ptxas.txt").write_text(log)
@@ -139,7 +181,7 @@ def build(names=SOURCES) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of ``csrc/<name>.cu``, built on first use."""
+    """The ctypes handle of library ``name``, built on first use."""
     lib = _libs.get(name)
     if lib is None:
         build((name,))

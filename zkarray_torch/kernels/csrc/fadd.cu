@@ -9,8 +9,10 @@
 // Bound on an H100: bytes. An L = 24 addition reads 2 x 96 B and writes
 // 96 B per element (16-bit limbs held in int32) and does ~3 NW 32-bit
 // operations; an L = 48 one (BW6's 761- and 767-bit fields, NW = 24 through
-// ZK_DISPATCH_NW_FIELD) reads 2 x 192 B and writes 192 B for ~72
-// operations, 0.375 a byte, so bytes bound it at every width. The operands and the output go through field.cuh's strided
+// ZK_DISPATCH_NW_FIELD, which also builds NW = 10 and 26 for the MNT-298 and
+// CP6-782 fields) reads 2 x 192 B and writes 192 B for ~72 operations, 0.375
+// a byte, so bytes bound it at every width. The file is small enough to
+// build all five widths in one unit. The operands and the output go through field.cuh's strided
 // map (Operand: base, ld, inner, outer), so a tower element's coefficient
 // axes, a stride-0 constant or a coefficient slice of a stacked tensor are
 // read and written in place.

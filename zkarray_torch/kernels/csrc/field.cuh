@@ -568,28 +568,49 @@ __device__ __forceinline__ Xyzz<NW> xyzz_add(const PA& P, const PB& Q, const Fie
   }
 
 // The same for the element-wise field kernels (mont.cu's four, fadd.cu's
-// two), which also take NW = 24: the 761- and 767-bit fields of BW6 (and
-// MNT4/6-753). The XYZZ, MSM and NTT kernels keep ZK_DISPATCH_NW, so they
-// are not built at 768 bits and reject NW = 24 with cudaErrorInvalidValue.
-#define ZK_DISPATCH_NW_FIELD(nw, ...) \
-  switch (nw) {                       \
-    case 8: {                         \
-      constexpr int NW = 8;           \
-      __VA_ARGS__;                    \
-      break;                          \
-    }                                 \
-    case 12: {                        \
-      constexpr int NW = 12;          \
-      __VA_ARGS__;                    \
-      break;                          \
-    }                                 \
-    case 24: {                        \
-      constexpr int NW = 24;          \
-      __VA_ARGS__;                    \
-      break;                          \
-    }                                 \
-    default:                          \
-      return (int)cudaErrorInvalidValue; \
+// two), which also take NW = 10 (the 298-bit fields of MNT4/6-298), 24 (the
+// 753- to 767-bit fields of MNT4/6-753 and BW6) and 26 (CP6-782's 782-bit
+// field). A translation unit builds the widths its ZK_FIELD_WIDTHS names:
+// 1 for NW = 8, 10 and 12, 24 or 26 alone, 0 (the default) for all five;
+// the build compiles mont.cu once per group, in parallel (kernels/_build.py).
+// The XYZZ, MSM and NTT kernels keep ZK_DISPATCH_NW, so they are not built
+// at these widths and reject them with cudaErrorInvalidValue; so does a
+// unit asked for a width outside its group.
+#ifndef ZK_FIELD_WIDTHS
+#define ZK_FIELD_WIDTHS 0
+#endif
+
+#define ZK_NW_CASE(W, ...)   \
+  case W: {                  \
+    constexpr int NW = W;    \
+    __VA_ARGS__;             \
+    break;                   \
+  }
+
+#if ZK_FIELD_WIDTHS == 0 || ZK_FIELD_WIDTHS == 1
+#define ZK_FIELD_CASES_NARROW(...) \
+  ZK_NW_CASE(8, __VA_ARGS__) ZK_NW_CASE(10, __VA_ARGS__) ZK_NW_CASE(12, __VA_ARGS__)
+#else
+#define ZK_FIELD_CASES_NARROW(...)
+#endif
+#if ZK_FIELD_WIDTHS == 0 || ZK_FIELD_WIDTHS == 24
+#define ZK_FIELD_CASES_24(...) ZK_NW_CASE(24, __VA_ARGS__)
+#else
+#define ZK_FIELD_CASES_24(...)
+#endif
+#if ZK_FIELD_WIDTHS == 0 || ZK_FIELD_WIDTHS == 26
+#define ZK_FIELD_CASES_26(...) ZK_NW_CASE(26, __VA_ARGS__)
+#else
+#define ZK_FIELD_CASES_26(...)
+#endif
+
+#define ZK_DISPATCH_NW_FIELD(nw, ...)     \
+  switch (nw) {                           \
+    ZK_FIELD_CASES_NARROW(__VA_ARGS__)    \
+    ZK_FIELD_CASES_24(__VA_ARGS__)        \
+    ZK_FIELD_CASES_26(__VA_ARGS__)        \
+    default:                              \
+      return (int)cudaErrorInvalidValue;  \
   }
 
 extern "C" const char* zk_error_string(int err) {

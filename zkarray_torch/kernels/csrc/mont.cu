@@ -33,16 +33,22 @@
 // iterations and the dependent instructions in each bound it; see
 // mont_inv_kernel.
 //
-// Each kernel is built for NW = 8, 12 and 24 (ZK_DISPATCH_NW_FIELD): 254-
-// to 384-bit fields, and the 761- and 767-bit fields of BW6, where fmul's
-// CIOS holds a, b and t[NW + 2], ~74 live words, and mont_inv's loop u, v,
-// b, c, d, e and the two fsub_cc results, ~190 (ptxas' registers and spills
-// at each width: chip_smoke.py's build line). The simple one-thread-per-
-// element design is kept at every width. At NW = 24 a product reads 2 x
-// 192 B and writes 192 B per element and does ~4 NW^2 = 2,304 32-bit
-// operations, ~4 a byte against the card's ~5 (16.7 T int32 ops/s over
-// 3.35 TB/s): still bound by bytes, nearly balanced, where a 254- to
-// 384-bit product has 1 to 2 operations a byte.
+// Each kernel is built for NW = 8, 10, 12, 24 and 26 (ZK_DISPATCH_NW_FIELD):
+// 254- to 384-bit fields, MNT4/6-298's 298-bit fields (NW = 10), the 753- to
+// 767-bit fields of MNT4/6-753 and BW6 (NW = 24) and CP6-782's 782-bit field
+// (NW = 26), where fmul's CIOS holds a, b and t[NW + 2], ~80 live words, and
+// mont_inv's loop u, v, b, c, d, e and the two fsub_cc results, ~210
+// (ptxas' registers and spills at each width: chip_smoke.py's build line).
+// The file is compiled once per width group (ZK_FIELD_WIDTHS: 8/10/12, 24,
+// 26), the groups in parallel, as the wide groups' unrolled loops take most
+// of the build. The simple one-thread-per-element design is kept at every
+// width. At NW = 24 a product reads 2 x 192 B and writes 192 B per element
+// and does ~4 NW^2 = 2,304 32-bit operations, ~4 a byte against the card's
+// ~5 (16.7 T int32 ops/s over 3.35 TB/s): still bound by bytes, nearly
+// balanced (NW = 26: ~4.3 a byte), where a 254- to 384-bit product has 1 to
+// 2 operations a byte. mont_pow's exponent (MAX_EXP_WORDS words, 2,048
+// bits) holds p - 2 at every width, and mont_inv's loop cap of 64 NW
+// iterations stays above bits(a) + bits(p) <= 64 NW.
 //
 // Operands are read through field.cuh's strided map (Operand); outputs are
 // contiguous, ld = n.

@@ -290,7 +290,7 @@ def operand_words(ops) -> np.ndarray:
 
 def launch_strided(source: str, kernel: str, L: int, consts: np.ndarray, ins, out_lead=(),
                    extra=()) -> torch.Tensor:
-    """Run the element-wise kernel ``kernel`` of csrc/<source>.cu (C entry
+    """Run the element-wise kernel ``kernel`` of library ``source`` (C entry
     zk_<kernel>(operand descriptors, out, n, *extra, NW, consts, stream)) on
     (L, *batch) inputs of one shape, strided as ``_operand`` allows; returns
     its contiguous output of shape out_lead + (L, *batch)."""
@@ -321,7 +321,8 @@ def _r2_words(spec: FieldSpec) -> np.ndarray:
 def _launch(kernel: str, spec: FieldSpec, *ins: torch.Tensor,
             exponent: int | None = None) -> torch.Tensor:
     """Run the element-wise kernel ``kernel`` of csrc/mont.cu on (L, *batch)
-    inputs of one shape; ``exponent`` is mont_pow's."""
+    inputs of one shape, from the library built for its width (raises for
+    a width outside _build.FIELD_LIBS); ``exponent`` is mont_pow's."""
     extra = ()
     if kernel == "mont_inv":
         extra = (words_ptr(_r2_words(spec)),)
@@ -330,7 +331,8 @@ def _launch(kernel: str, spec: FieldSpec, *ins: torch.Tensor,
         words = np.asarray([(exponent >> (32 * i)) & 0xFFFFFFFF for i in range(-(-nbits // 32))]
                            or [0], dtype=np.uint32)
         extra = (words_ptr(words), nbits)
-    return launch_strided("mont", kernel, spec.num_limbs, field_words(spec), ins, extra=extra)
+    return launch_strided(_build.field_lib(spec.num_limbs // 2), kernel, spec.num_limbs,
+                          field_words(spec), ins, extra=extra)
 
 
 def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

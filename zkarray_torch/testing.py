@@ -7,9 +7,11 @@ window Horner, built with the oracle; and for the group path, seeded points
 and scalars with known answers at sampled indices, Jacobian edge-class
 pairs, and curve points outside the prime-order subgroup, that the CPU
 tests and chip_smoke.py share; for the pairing path, host G2 arithmetic
-over Fp2, the known answers E = e(G1, G2) of BLS12-381, BLS12-377, BN254,
-BW6-761 and BW6-767 and their powers (HostExt), tiled pairing and GT
-inputs, and edge words for the field additions.
+over Fp2 (and over any tower with a curve coefficient a, for MNT4/6 and
+CP6), the known answers E = e(G1, G2) of BLS12-381, BLS12-377, BN254,
+BW6-761, BW6-767, MNT4/6-298, MNT4/6-753 and CP6-782 and their powers
+(HostExt), tiled pairing and GT inputs, and edge words for the field
+additions.
 """
 
 from __future__ import annotations
@@ -206,6 +208,29 @@ def tiled_inputs(curve: SWCurveSpec, n: int, rng: np.random.Generator, base_n: i
     sc = rng.integers(0, 1 << 16, size=(Ls, n), dtype=np.uint32)
     sc[-1] >>= 2
     return px, py, sc, ks, 16 * Ls - 2
+
+
+def mixed_scalars(spec, n: int, rng: np.random.Generator) -> np.ndarray:
+    """(Ls, n) uint32 limbs of scalars in six magnitude classes, lane i in
+    class i % 6: 0; 1; 2..2^8 - 1; 2^8..2^16 - 1; 2^16..2^64 - 1; and full
+    width (above 2^(16 (Ls - 1)), below r), the shares of a Groth16
+    witness that ec/msm.py:msm_mixed splits them by."""
+    Ls = spec.num_limbs
+    sc = np.zeros((Ls, n), dtype=np.uint32)
+    cls = np.arange(n) % 6
+    sc[0, cls == 1] = 1
+    m = cls == 2
+    sc[0, m] = rng.integers(2, 1 << 8, int(m.sum()), dtype=np.uint32)
+    m = cls == 3
+    sc[0, m] = rng.integers(1 << 8, 1 << 16, int(m.sum()), dtype=np.uint32)
+    m = cls == 4
+    sc[:4, m] = rng.integers(0, 1 << 16, (4, int(m.sum())), dtype=np.uint32)
+    sc[1, m] |= 1  # at least 17 bits
+    m = cls == 5
+    top = spec.modulus >> (16 * (Ls - 1))  # the top limb stays below r's: every scalar < r
+    sc[:, m] = rng.integers(0, 1 << 16, (Ls, int(m.sum())), dtype=np.uint32)
+    sc[Ls - 1, m] = rng.integers(1, top, int(m.sum()), dtype=np.uint32)
+    return sc
 
 
 def expected_msm(curve: SWCurveSpec, ks, sc: np.ndarray):
@@ -549,44 +574,81 @@ E_BW6_767 = (
 )
 
 
-def host_fq2_inv(F2h, a):
-    """a^-1 in a host quadratic extension of a prime field by its norm:
-    (a0 - a1 u) / (a0^2 - beta a1^2); 0 stays 0."""
-    p, beta = F2h.p, F2h.nonresidue
-    norm = (a[0] * a[0] - beta * a[1] * a[1]) % p
-    if norm == 0:
-        return (0, 0)
-    ni = pow(norm, -1, p)
-    return (a[0] * ni % p, -a[1] * ni % p)
+# E = e(G1 generator, G2 generator) of MNT4/6-298, MNT4/6-753 (Fq4 / Fq6
+# elements: 4 or 6 ints) and CP6-782 (6 ints), taken from the JAX package's
+# words that scripts/pairing_bundle_words.py stores (the "e" entry of
+# tests/vectors/<curve>_pairing.npz: lane 0 of zkarray.ec.pairing.mnt's or
+# .cp6's pairing_each), never computed by the port; tests/test_torch_mnt.py
+# and test_torch_cp6.py hold the port against those words.
+E_MNT4_298 = (
+    432276070167612018525235193084883266084955198762821276611920840843540618094873840446910721,
+    101971248517505649173861113942507407870665723725535513527060717654342033150677524001859460,
+    295975819140217750701682584987114118955482045628591167970954768365089839196108458538434697,
+    387954805480691604875757929762459378009668619107531506056527770792705449652409423336453304,
+)
+E_MNT6_298 = (
+    164491855725158968338495940419097610118705575147238536983484494646000331752452688209570819,
+    220086337917742206042722124842323034885640268541919387176659467377361813502783162183773075,
+    399671968475311688490138792975767277759339887728978817488708888701369214565341485269277757,
+    404833737127542908621860116396086695089483750507098058466979656777527010710794389093696256,
+    94994545970144067545117807756424313797023398948279447132803719103900467883169113283666836,
+    323393384891955097162027396186621363902393394100316081019725850526951182105132441971039900,
+)
+E_MNT4_753 = (
+    23496587768664530772349392816766338806620754693535260377958672181846956016747302855057683314407236551949280868133945253109140743811831561869168672232565864767038445077563312251158375059616864573220181710278867777029353491434932,
+    5662623359507566047373243634299265066768181406315609631786702529254630191511158313689101527576730214868876683060836849370276607544900382543608849255129225591979034823194207798434451805992157420359533985553927895703084623202637,
+    32785377843773217122531412317065925594306995035076982182552990628003765983376425820971325746772918982130656443591087045400461757472231252879170670948780912763789559414889407992062121355976892825655036367094785597483517964154958,
+    15724666226410637929079983361951570558808397133245812196156753166433358624482531603915820828600076257148411223396184549625990135269333797985089558010856625002218146824168898011205102676414950927940260959828373736601904528410940,
+)
+E_MNT6_753 = (
+    40446824810043828770633412855777433543803228501017571185357108855067148908997363167306397536812929754461394900598830223835119846623465706705577889782385831660090356419521137342636462453182691365316118667415277970148416597926722,
+    23094527657316851575762365703955579765638081500560826895392930775952639876571122969893234188986156024381537677557092219710549535120580852074030086135636347416301814993806388926476329317588883304619415202306175357005442787986849,
+    19399050773684296280390729213174723298730292342599193309324457181921855509670834016675954239946624517828056984352257191231543562282388688576585304510958742408951971952116670825353571197130670435048843260720161843457403600295007,
+    29716648686593234275822093533812131319312803530582982286347990220151810733804574479625104958115818844692742099960571957560388327662894874349344840267782193163411883186612199811966149310289318622293090919035595885603545023628269,
+    16065139289833688421225418617087952398248853376886050815518277369974032017076807163282134930441096406413107692133746396773143566881662665537405176284889098914253177661685274229109031435183244508839970147358545455982734511108392,
+    20339950550648473500734135467713503653387878922934517395177925153098995376316764418244450946745737233201625127245237567488306638464247613451258411200168658165279751321546060453300094410776681931006125742679579396977412648364721,
+)
+E_CP6_782 = (
+    21513276534743943104596713219355341358586713169859452486127897976599692735060616914556926178706235507317114713031047417109370830075346515923127188102759328733824890991490185326609454475610828618953340885995411028181432145405960888527071,
+    3331045930537674940609774936387680192316337121936809450114623293876120286877388404447522199633789741945191865317116369422187070663596622775894893002601805076413995680304431019833374251106695693944386480657543171546768467566748674192911,
+    11447758708454340853313015968641938667166651209217552267064442654250258407084793146756921421255595255556019892491543143366685295176148323137283855161937599871310027107080200095589785395929182290749367795317736865548332342310137473351749,
+    18305928254593090350663007269621686111157160904682660775442009363678857433703535737285194697123029267744208069423075727037464825973232817539531779064628249581537180351629100080334131870318979946350459432200927722187777135789172908399986,
+    13510455650459054066626257897326294736324739865748725149120746804895181966826925043874560288157091482204127755322255295201024511891724356951129961637286053651716706929447854879952641313768535054413995315128456599734218739177820601741005,
+    1528013370049677800502710434937465820797994475938748217555709054687026461470730447934146372982198870493604138298507557692798681057320569912053772326445890407748418760317541865916830267009409988714017415552882338015098719034089622248902,
+)
 
 
-def ext_ec_add(F2h, P, Q):
-    """Affine addition on y^2 = x^3 + b (a = 0) over a host Fp2 (points are
-    ((x0, x1), (y0, y1)) or None)."""
+def ext_ec_add(Fh, P, Q, a=None):
+    """Affine addition on y^2 = x^3 + a x + b over a host tower field ``Fh``
+    (G2 over Fp2, Fq3, ...; points (x, y) of host elements, or None); a
+    defaults to 0. Inverses by ``HostExt.inv`` (one base-field inverse)."""
     if P is None:
         return Q
     if Q is None:
         return P
     (x1, y1), (x2, y2) = P, Q
-    if x1 == x2:
-        if F2h.add(y1, y2) == F2h.zero():
+    if Fh.eq(x1, x2):
+        if Fh.eq(Fh.add(y1, y2), Fh.zero()):
             return None
-        lam = F2h.mul(F2h.mul(F2h.embed(3), F2h.mul(x1, x1)), host_fq2_inv(F2h, F2h.add(y1, y1)))
+        num = Fh.mul(Fh.embed(3), Fh.mul(x1, x1))
+        if a is not None:
+            num = Fh.add(num, a)
+        lam = Fh.mul(num, Fh.inv(Fh.add(y1, y1)))
     else:
-        lam = F2h.mul(F2h.sub(y2, y1), host_fq2_inv(F2h, F2h.sub(x2, x1)))
-    x3 = F2h.sub(F2h.sub(F2h.mul(lam, lam), x1), x2)
-    return (x3, F2h.sub(F2h.mul(lam, F2h.sub(x1, x3)), y1))
+        lam = Fh.mul(Fh.sub(y2, y1), Fh.inv(Fh.sub(x2, x1)))
+    x3 = Fh.sub(Fh.sub(Fh.mul(lam, lam), x1), x2)
+    return (x3, Fh.sub(Fh.mul(lam, Fh.sub(x1, x3)), y1))
 
 
-def ext_ec_mul(F2h, P, k: int):
-    """k P (double-and-add, high bit first; k < 0 negates) over a host Fp2."""
+def ext_ec_mul(Fh, P, k: int, a=None):
+    """k P (double-and-add, high bit first; k < 0 negates) with ext_ec_add."""
     if k < 0:
-        P, k = (None if P is None else (P[0], F2h.neg(P[1]))), -k
+        P, k = (None if P is None else (P[0], Fh.neg(P[1]))), -k
     acc = None
     for bit in bin(k)[2:] if k else "":
-        acc = ext_ec_add(F2h, acc, acc)
+        acc = ext_ec_add(Fh, acc, acc, a)
         if bit == "1":
-            acc = ext_ec_add(F2h, acc, P)
+            acc = ext_ec_add(Fh, acc, P, a)
     return acc
 
 
@@ -614,21 +676,25 @@ def host_fq2_sqrt(F2h, a):
 
 
 def g2_affine_from_ints(curve, pts, device="cpu"):
-    """Host G2 points (((x0, x1), (y0, y1)) or None) -> ExtAffine (2, L, n)
+    """Host G2 points ((x, y) of host elements of the twist field, e.g.
+    ((x0, x1), (y0, y1)) over Fp2, or None) -> ExtAffine (deg, L, n)
     coordinates; infinity as zeros."""
     F = curve.ops
-    xy = [((0, 0), (0, 0)) if q is None else q for q in pts]
-    x = F.from_ints([[q[0][j] for q in xy] for j in range(2)], device)
-    y = F.from_ints([[q[1][j] for q in xy] for j in range(2)], device)
+    zero = F.host.zero()
+    xy = [(zero, zero) if q is None else q for q in pts]
+    x = F.from_ints([[q[0][j] for q in xy] for j in range(F.deg)], device)
+    y = F.from_ints([[q[1][j] for q in xy] for j in range(F.deg)], device)
     return ExtAffine(x, y, torch.tensor([q is None for q in pts], dtype=torch.bool, device=device))
 
 
 def g2_affine_to_ints(curve, A) -> list:
-    """ExtAffine over Fp2 -> host points (None at infinity)."""
+    """ExtAffine over a twist field of a prime field -> host points (None at
+    infinity)."""
     F = curve.ops
     x, y = F.to_ints(A.x), F.to_ints(A.y)
     inf = A.inf.reshape(-1).tolist()
-    return [None if inf[i] else ((x[0][i], x[1][i]), (y[0][i], y[1][i])) for i in range(len(inf))]
+    return [None if inf[i] else (tuple(c[i] for c in x), tuple(c[i] for c in y))
+            for i in range(len(inf))]
 
 
 def g2_off_subgroup_points(curve, n: int, rng: np.random.Generator) -> list:
@@ -700,16 +766,26 @@ def fp12_tensor(F12, rows, device="cpu"):
 
 
 def pairing_inputs(bspec, n: int, rng: np.random.Generator, base_n: int = 64, inf_every: int = 1024,
-                   device="cpu"):
-    """Seeded pairs (a_j G1, b_j G2), j < base_n (G2 over Fp2, or over the
-    prime field for BW6), tiled to n lanes (lane i
-    holds pair i % base_n), with lane i's G1 point at infinity where
-    i % inf_every == inf_every - 1 (every inf_every-th lane). Returns (P, Q, ab, inf): port points on ``device``,
-    the products a_j b_j mod r and the lanes' infinity mask (numpy)."""
+                   device="cpu", scalar_bits=None):
+    """Seeded pairs (a_j G1, b_j G2), j < base_n (G2 over an extension with
+    its coefficient a, or over the prime field for BW6), tiled to n lanes
+    (lane i holds pair i % base_n), with lane i's G1 point at infinity where
+    i % inf_every == inf_every - 1 (every inf_every-th lane). a_j and b_j
+    are full-size below r, or below 2^scalar_bits: the host's G2 ladder
+    inverts in the tower at every step and the known answers E^(a_j b_j)
+    take a host product per bit, so on MNT4/6 and CP6 full-size scalars
+    would cost seconds a pair at 753 bits; the points are as random either
+    way. Returns (P, Q, ab, inf): port points on ``device``, the products
+    a_j b_j mod r and the lanes' infinity mask (numpy)."""
     g1, g2 = bspec.g1, bspec.g2
     r = g1.scalar.modulus
-    ks = [(int.from_bytes(rng.bytes(40), "little") % (r - 1) + 1,
-           int.from_bytes(rng.bytes(40), "little") % (r - 1) + 1) for _ in range(base_n)]
+
+    def draw():
+        if scalar_bits is None:
+            return int.from_bytes(rng.bytes(40), "little") % (r - 1) + 1
+        return int.from_bytes(rng.bytes((scalar_bits + 7) // 8), "little") % ((1 << scalar_bits) - 1) + 1
+
+    ks = [(draw(), draw()) for _ in range(base_n)]
     p1 = [ec_mul((g1.gen_x, g1.gen_y), a, g1.a_int, g1.base.modulus) for a, _ in ks]
     A1 = affine_from_ints(g1, p1, device)
     t = torch.arange(n, device=device) % base_n
@@ -721,7 +797,8 @@ def pairing_inputs(bspec, n: int, rng: np.random.Generator, base_n: int = 64, in
         A2 = affine_from_ints(g2, p2, device)
         Q = AffinePoints(A2.x[:, t], A2.y[:, t], no_inf)
     else:
-        p2 = [ext_ec_mul(g2.ops.host, (g2.gen_x, g2.gen_y), b) for _, b in ks]
+        a = None if g2.a_is_zero else g2.a_host
+        p2 = [ext_ec_mul(g2.ops.host, (g2.gen_x, g2.gen_y), b, a) for _, b in ks]
         A2 = g2_affine_from_ints(g2, p2, device)
         Q = ExtAffine(A2.x[..., t], A2.y[..., t], no_inf)
     return P, Q, [a * b % r for a, b in ks], inf
