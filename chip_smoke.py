@@ -186,7 +186,21 @@ Phases, each printing one JSON line and raising on any failure:
    held against the plain version, with bounds, the widest launch of each
    width's paths and ptxas' registers, stack and spills (nw10_kernels,
    nw26_kernels).
-12. the kernels line: per kernel its launches on its path (phase 3 for the
+12. fp_lin (csrc/flin.cu, the linear maps around every tower product:
+   ff/linmap.py's route, fp_lin -> mont_mul -> fp_lin) against its plain
+   version bit for bit: on edge words at NW = 8, 10, 12, 24 and 26 (BN254,
+   MNT4-298, BLS12-381, BW6-761 and CP6-782 Fq; maps whose rows reach the
+   coefficient bound, broadcast and strided sources, a strided output; the
+   first 64 lanes also against Python ints) and on the first input of every
+   (field, map, shape, strides) key recorded on the first counted calls of
+   phases 9-11 (replayed where each phase replays its own keys, one
+   kernel_lin_shapes line); each width's widest recorded path launch and
+   BLS12-381 pairing_each's widest (the kernels line's figures) timed
+   against their byte bounds, with the device time per launch in a trace
+   of their own; the host's us per launch at 64 lanes for fp_lin's two BLS12-381
+   Fp12-product maps, fp_add and a whole Fp12 product (fp_lin_host); and
+   BLS12-381 pairing_each's launches per call held at most 12,000.
+13. the kernels line: per kernel its launches on its path (phase 3 for the
    MSM kernels, 5 for butterfly_dit, twiddle_mul and pow_table, 6 and 7 for
    the entries of butterfly_stage, xyzz_add_affine and mont_sqr, 3 for the
    entries of mont_pow and xyzz_double, which left the MSM path), error
@@ -203,8 +217,10 @@ Phases, each printing one JSON line and raising on any failure:
    fp_sub also carry phase 10's launches per call under "bn254", "gt"
    (gt_mul_scalar and gt_msm), "bw6_761" and "bw6_767", and their NW = 24
    figures under "nw24"; phase 11's launches per call under "phase11" and
-   their NW = 10 and 26 figures under "nw10" and "nw26". Every row lists
-   the word counts NW its kernel is built for ("nw_widths").
+   their NW = 10 and 26 figures under "nw10" and "nw26". fp_lin's path is
+   phase 9's pairing_each too; its row carries every path's launches per
+   call (per_path_launches) and each width's widest path launch. Every row
+   lists the word counts NW its kernel is built for ("nw_widths").
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
@@ -894,13 +910,20 @@ def replica(torch, t, copy=True):
 
 
 def install_recorders(torch, km):
-    """Wrap kernels.mont's launchers so that, while ``rec.on``, every launch
-    of fp_add/fp_sub is counted by (kernel, field, shape, the strides of a,
-    b and the output) and every product launch by (kernel, field, shape,
-    exponent), each key's first inputs kept with their strides. Phases 8
-    and 9 read and replay them. Returns (rec, restore)."""
-    rec = types.SimpleNamespace(on=False, keys=collections.Counter(), first={})
-    addsub, launch = km._launch_addsub, km._launch
+    """Wrap kernels.mont's launchers and kernels.lin's so that, while
+    ``rec.on``, every launch of fp_add/fp_sub is counted by (kernel, field,
+    shape, the strides of a, b and the output), every product launch by
+    (kernel, field, shape, exponent) and every fp_lin launch by (field,
+    output shape, map, the used sources' shapes and strides, the output's
+    strides), each key's first inputs kept with their strides. Phases 8 to
+    11 read and replay them (fp_lin's rows gather in ``rec.lin_rows`` for
+    phase 12; ``rec.path_launches`` takes each path's launches per call).
+    Returns (rec, restore)."""
+    from zkarray_torch.kernels import lin
+
+    rec = types.SimpleNamespace(on=False, keys=collections.Counter(), first={}, lin_rows=[],
+                                path_launches={})
+    addsub, launch, lin_launch = km._launch_addsub, km._launch, lin._launch_lin
 
     def rec_addsub(kernel, spec, a, b, out):
         if rec.on:
@@ -920,12 +943,71 @@ def install_recorders(torch, km):
                 rec.first[key] = (spec, tuple(replica(torch, t) for t in ins), None)
         return launch(kernel, spec, *ins, exponent=exponent)
 
-    km._launch_addsub, km._launch = rec_addsub, rec_launch
+    def rec_lin(spec, lmap, srcs, out):
+        if rec.on:
+            used = [srcs[s] for s in lmap.used]
+            key = ("fp_lin", spec.name, (lmap.m, spec.num_limbs) + lin.common_batch(used), lmap,
+                   tuple((tuple(t.shape), tuple(t.stride())) for t in used),
+                   None if out is None else tuple(out.stride()))
+            rec.keys[key] += 1
+            if key not in rec.first:
+                ins = tuple(replica(torch, t) if s in lmap.used else None for s, t in enumerate(srcs))
+                rec.first[key] = (spec, ins, None if out is None else replica(torch, out, copy=False))
+        return lin_launch(spec, lmap, srcs, out)
+
+    km._launch_addsub, km._launch, lin._launch_lin = rec_addsub, rec_launch, rec_lin
 
     def restore():
-        km._launch_addsub, km._launch = addsub, launch
+        km._launch_addsub, km._launch, lin._launch_lin = addsub, launch, lin_launch
 
     return rec, restore
+
+
+def lin_bytes(row_map, ins, n_out, L, h):
+    """fp_lin's bytes: each slot the map reads, once per distinct batch
+    element of its source (a stride-0 constant is read once), and each
+    output row written once per element."""
+    reads = sum(len({k for r in row_map.rows for s_, k, _ in r if s_ == s})
+                * h.distinct_elems(ins[s][0]) for s in row_map.used)
+    return L * 4 * (reads + row_map.m * n_out)
+
+
+def lin_ops(lmap, L):
+    """fp_lin's 32-bit operations per element: per term L multiply-adds (and
+    L complements for a negative one), per row the carry pass (3 L) and
+    kbits conditional subtractions of NW + 1 words (4 each)."""
+    return sum(L * sum(2 if c < 0 else 1 for _, _, c in r) + 3 * L + 4 * (L // 2 + 1) * kb
+               for r, kb in zip(lmap.rows, lmap.kbits))
+
+
+def replay_lin(h, rec, key, count, spec, ins, out, path_keys, err):
+    """One recorded fp_lin key launched again and held against
+    fp_lin_plain (raises on a difference), its row appended to
+    ``rec.lin_rows``; the inputs are kept for the widest row of each field
+    width and for the rows of BLS12-381's pairing_each (the kernels line's
+    path) only: phase 12 times those."""
+    from zkarray_torch.kernels import lin
+
+    lmap = key[3]
+    got = lin._launch_lin(spec, lmap, list(ins), out)
+    want, plain_ms = h.once_ms(lambda: lin.fp_lin_plain(spec, lmap, list(ins)))
+    e_row = h.check_equal(f"fp_lin {key[1]} {lmap.name} {key[2]}", got, want)
+    err["fp_lin"] = max(err["fp_lin"], e_row)
+    L = spec.num_limbs
+    n_out = math.prod(key[2][2:])
+    row = dict(field=key[1], map=lmap.name, shape=list(key[2]), sources=[list(x) for x in key[4]],
+               out_strides=key[5], launches=count,
+               paths=[c for c, ks_ in path_keys.items() if key in ks_], max_abs_err=e_row,
+               plain_ms=plain_ms, bytes=lin_bytes(lmap, ins, n_out, L, h),
+               ops=n_out * lin_ops(lmap, L), _spec=spec, _map=lmap, _ins=ins, _out=out)
+    widest = next((r for r in rec.lin_rows if r["_widest"] and r["_spec"].num_limbs == L), None)
+    row["_widest"] = widest is None or row["bytes"] > widest["bytes"]
+    narrower = widest if row["_widest"] else row
+    if narrower is not None:
+        narrower["_widest"] = False
+        if "bls12_381" not in narrower["paths"]:
+            narrower["_ins"] = narrower["_out"] = None
+    rec.lin_rows.append(row)
 
 
 MSM_KERNELS = ("xyzz_accum", "horner_windows", "xyzz_bit_horner", "xyzz_add", "xyzz_double",
@@ -1121,6 +1203,7 @@ def pairing_phase(torch, h, rec):
         raise AssertionError(f"bls12_377 pairing_each 2^{PAIR_LOG_N}: lanes differ from E^(ab)")
     h.emit("pairing_each_bls12_377", curve=s377.name, pairs=n, correct=True, ms=ms7,
            pairings_per_s=n / ms7 * 1e3, launches=launches7)
+    rec.path_launches.update(bls12_381=per_pairing, bls12_377=launches7)
     del P7, Q7, got7, want7
 
     # -- one pairing_each at 2^PAIR_BIG_LOG_N: its peak memory -------------------
@@ -1211,6 +1294,9 @@ def pairing_phase(torch, h, rec):
     for key, count in sorted(rec.keys.items(), key=lambda kv: -math.prod(kv[0][2])):
         spec_k, ins, out = rec.first[key]
         name = key[0]
+        if name == "fp_lin":
+            replay_lin(h, rec, key, count, spec_k, ins, out, {"bls12_381": path_keys}, err)
+            continue
         if name in plain:
             got = km._launch_addsub(name, spec_k, ins[0], ins[1], out)
             want_k, plain_ms = h.once_ms(lambda: plain[name](spec_k, *ins))
@@ -1436,7 +1522,8 @@ def replay_recorded(h, rec, path_keys, err):
     first, launched again and held against the plain version (raises on a
     difference; ``err`` takes each kernel's largest error). Returns per
     kernel its rows: field, shape, key, launches, the paths that launched
-    it, error, plain ms, and the inputs under _-keys for timing."""
+    it, error, plain ms, and the inputs under _-keys for timing. fp_lin's
+    keys go to ``replay_lin`` (rec.lin_rows) instead."""
     from zkarray_torch.kernels import mont as km
 
     plain, _ = field_kernel_calls()
@@ -1444,6 +1531,9 @@ def replay_recorded(h, rec, path_keys, err):
     for key, count in sorted(rec.keys.items(), key=lambda kv: -math.prod(kv[0][2])):
         spec, ins, out = rec.first.pop(key)
         name = key[0]
+        if name == "fp_lin":
+            replay_lin(h, rec, key, count, spec, ins, out, path_keys, err)
+            continue
         e = key[3] if name not in ("fp_add", "fp_sub") else None
         if name in ("fp_add", "fp_sub"):
             got = km._launch_addsub(name, spec, ins[0], ins[1], out)
@@ -1668,6 +1758,7 @@ def bn_gt_bw6_phase(torch, h, rec):
     refusals = refused_launches(torch, h, bw6_761.G1)
     h.emit("nw24_refused", kernels=refusals, correct=True)
     h.emit("phase10_launches", per_call=paths)
+    rec.path_launches.update(paths)
     return report
 
 
@@ -1890,6 +1981,140 @@ def mixed_mnt_cp6_phase(torch, h, rec):
     for name, r_ in msm_vs_plain.items():
         report[name] = {"msm_mixed": r_}
     h.emit("phase11_launches", per_call=paths)
+    rec.path_launches.update(paths)
+    return report
+
+
+# ---- 12. fp_lin: the tower products' linear maps ----------------------------------
+
+LIN_CURVES = ("bn254", "mnt4_298", "bls12_381", "bw6_761", "cp6_782")  # Fq at NW = 8 ... 26
+LIN_HOST_CALLS = 200  # calls per host-time measurement (small batch: the host's cost per launch)
+LIN_HOST_LANES = 64
+
+
+def lin_phase(torch, h, rec):
+    """Phase 12: fp_lin (csrc/flin.cu) against fp_lin_plain on the card, bit
+    for bit: on edge words at NW = 8, 10, 12, 24 and 26 (every map row at
+    the coefficient bound, broadcast and strided sources, a strided output;
+    also against Python ints), and on the first input of every (field, map,
+    shape, strides) key recorded on the first counted calls of phases 9-11
+    (``rec.lin_rows``, replayed there). Times at each width's widest recorded
+    path launch and at BLS12-381 pairing_each's widest against their byte
+    bounds, the device time per launch in a trace of its own, and the host's
+    us per launch beside fp_add's. Returns the kernels line's fp_lin row."""
+    import importlib
+
+    from zkarray_torch.curves import bls12_381 as B
+    from zkarray_torch.ff import fp, linmap
+    from zkarray_torch.kernels import lin
+    from zkarray_torch.kernels import mont as km
+    from zkarray_torch.testing import lin_edge_rows, lin_edge_words
+
+    dev = h.dev
+    err = collections.defaultdict(int)
+    rows = rec.lin_rows
+    if not rows:
+        raise AssertionError("fp_lin: no launch recorded on phases 9-11")
+    h.emit("kernel_lin_shapes", rows=[{k: v for k, v in r.items() if not k.startswith("_")}
+                                      for r in rows], keys=len(rows))
+    for r in rows:
+        err["fp_lin"] = max(err["fp_lin"], r["max_abs_err"])
+
+    # -- edge words at every width, held against the plain version and Python ints
+    sizes = (3, 2, 1)
+    edge, widths = {}, {}
+    for curve in LIN_CURVES:
+        f = importlib.import_module(f"zkarray_torch.curves.{curve}").FQ
+        p, L = f.modulus, f.num_limbs
+        rng = np.random.default_rng(L)
+        words = lin_edge_words(f, rng)
+        k = len(words)
+        lmap = lin.LinMap(lin_edge_rows(sizes, rng), sizes, f"{f.name} edge")
+        ii = torch.arange(k * k, device=dev)  # every pair of words in slots 0 and 1
+        x = fp.from_ints(f, words, mont=False, device=dev)
+        a = torch.stack([x[:, ii // k], x[:, ii % k], x[:, (ii * 7) % k]])
+        wide = torch.stack([x[:, (ii * 5) % k], x[:, ii % k]]).repeat_interleave(2, dim=-1)
+        b = wide[..., ::2]  # a strided batch
+        c = x[None, :, k - 1]  # a ()-batch constant
+        got = lin.fp_lin(f, lmap, [a, b, c])
+        want = lin.fp_lin_plain(f, lmap, [a, b, c])
+        e = h.check_equal(f"fp_lin {f.name} edge words", got, want)
+        slab = torch.full((L, 2 * lmap.m, k * k), -1, dtype=torch.int32, device=dev)
+        lin.fp_lin(f, lmap, [a, b, c], out=slab[:, ::2].movedim(1, 0))
+        e = max(e, h.check_equal(f"fp_lin {f.name} edge words, strided out",
+                                 slab[:, ::2].movedim(1, 0), want))
+        if not bool((slab[:, 1::2] == -1).all()):
+            raise AssertionError(f"fp_lin {f.name}: a strided output wrote outside its view")
+        src = [[fp.to_ints(f, t[j, :, :64], mont=False) for j in range(t.shape[0])] for t in (a, b)]
+        src.append([[words[-1]] * 64])
+        if [fp.to_ints(f, got[i, :, :64], mont=False) for i in range(lmap.m)] != [
+                [sum(cf * src[s_][j][e_] for s_, j, cf in r) % p for e_ in range(64)]
+                for r in lmap.rows]:
+            raise AssertionError(f"fp_lin {f.name}: edge words differ from Python ints")
+        err["fp_lin"] = max(err["fp_lin"], e)
+        edge[f.name] = dict(words=k, lanes=k * k, rows=lmap.m, max_abs_err=e)
+        widths[L // 2] = f
+
+    # -- each width's widest recorded path launch and BLS12-381 pairing_each's:
+    # time, plain time, bound ----------------------------------------------------
+    def timed(r):
+        spec, lmap, ins, out = r["_spec"], r["_map"], list(r["_ins"]), r["_out"]
+        ms = h.time_ms(lambda: lin._launch_lin(spec, lmap, ins, out), 20)
+        dev_ms, dev_n = traced_device_ms(torch, "fp_lin", lambda: lin._launch_lin(spec, lmap, ins, out),
+                                         20, dev)
+        b_ms, b_by = h.bound(r["bytes"], r["ops"])
+        return dict({k: v for k, v in r.items() if not k.startswith("_")}, ms=ms, bound_ms=b_ms,
+                    bound_by=b_by, share_of_bound=b_ms / ms, device_ms_per_launch_traced=dev_ms,
+                    traced_launches=dev_n)
+
+    widest = {f"nw{r['_spec'].num_limbs // 2}": timed(r) for r in rows if r["_widest"]}
+    missing = sorted(set(widths) - {int(k[2:]) for k in widest})
+    if missing:
+        raise AssertionError(f"fp_lin: no path launch recorded at NW = {missing}")
+    main = timed(max((r for r in rows if "bls12_381" in r["paths"]), key=lambda r: r["bytes"]))
+    for r in rows:
+        r["_ins"] = r["_out"] = None
+
+    # -- the host's cost per launch: fp_lin against fp_add on the same element --
+    F12 = B.FQ12
+    L = B.FQ.num_limbs
+    g = torch.stack([h.rand_field(B.FQ, LIN_HOST_LANES) for _ in range(12)]).reshape(
+        (2, 3, 2, L, LIN_HOST_LANES))
+    route = linmap.route(F12, "mul", type(F12)._mul_sched, (F12, F12))
+    prod = torch.stack([h.rand_field(B.FQ, LIN_HOST_LANES) for _ in range(route.s)])
+    flat = g.flatten(0, 2)
+
+    def host_us(fn):
+        fn()
+        h.sync()
+        t = time.perf_counter()
+        for _ in range(LIN_HOST_CALLS):
+            fn()
+        host = (time.perf_counter() - t) * 1e6 / LIN_HOST_CALLS
+        h.sync()
+        return host
+
+    host = dict(lanes=LIN_HOST_LANES, calls=LIN_HOST_CALLS,
+                fp_lin_post_map_us=host_us(lambda: lin.fp_lin(B.FQ, route.post, [prod, flat])),
+                fp_lin_pre_map_us=host_us(lambda: lin.fp_lin(B.FQ, route.pre, [flat, flat])),
+                fp_add_fq12_us=host_us(lambda: F12.add(g, g)),
+                fp_add_us=host_us(lambda: km.fp_add(B.FQ, g[0, 0, 0], g[1, 0, 0])),
+                fq12_mul_us=host_us(lambda: F12.mul(g, g)))
+    h.emit("fp_lin_host", **host)
+
+    per_path = {lbl: v.get("fp_lin", 0) for lbl, v in rec.path_launches.items() if v.get("fp_lin")}
+    totals = {lbl: sum(v.values()) for lbl, v in rec.path_launches.items()}
+    if totals.get("bls12_381", 0) > 12000:
+        raise AssertionError(f"BLS12-381 pairing_each: {totals['bls12_381']} launches, above 12,000")
+    report = dict(max_abs_err=err["fp_lin"], launches=per_path.get("bls12_381", 0),
+                  per_path_launches=per_path, per_path_launches_all_kernels=totals,
+                  ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                  bound_by=main["bound_by"], share_of_bound=main["share_of_bound"],
+                  device_ms_per_launch_traced=main["device_ms_per_launch_traced"],
+                  shape=main["shape"], map=main["map"], path_launch_timed=main,
+                  widest_path_launch=widest,
+                  recorded_keys=len(rows), edge_words=edge, host_us_per_launch=host)
+    h.emit("fp_lin_kernel", **{k: v for k, v in report.items() if k != "edge_words"})
     return report
 
 
@@ -3238,6 +3463,10 @@ def main():
         new_report = mixed_mnt_cp6_phase(torch, helpers, rec)
     finally:
         restore()
+
+    # ---- 12. fp_lin on edge words and on every recorded path input -----------
+    report["fp_lin"] = lin_phase(torch, helpers, rec)
+    del rec
     for name in ("mont_mul", "mont_sqr", "mont_inv", "mont_pow"):
         report[name]["pairing"] = pair_report.pop(name)
     report.update(pair_report)
@@ -3250,7 +3479,7 @@ def main():
             report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
                                               r["msm_mixed"]["max_abs_err"])
 
-    # ---- 12. kernels line ----------------------------------------------------
+    # ---- 13. kernels line ----------------------------------------------------
     sources = {
         "mont_mul": ("zkarray_torch/kernels/csrc/mont.cu", "zkarray/kernels/mont.py:235"),
         "mont_sqr": ("zkarray_torch/kernels/csrc/mont.cu", "zkarray/kernels/mont.py:254"),
@@ -3290,6 +3519,9 @@ def main():
                    "none: zkarray/ff/fp.py:257 add (and :264 double), which XLA fuses"),
         "fp_sub": ("zkarray_torch/kernels/csrc/fadd.cu",
                    "none: zkarray/ff/fp.py:268 sub and :277 neg, which XLA fuses"),
+        "fp_lin": ("zkarray_torch/kernels/csrc/flin.cu",
+                   "none: the additions of zkarray/ff/towers.py's tower products (fp.py:257 add, "
+                   ":268 sub), which XLA fuses; a redesign of fp_add/fp_sub for tower glue"),
     }
     paths = {k: (f"msm 2^{LOG_N}", launches[k]) for k in msm_kernels}
     paths["mont_sqr"] = ("ec.sw.xyzz_double_affine", sqr_launches)
@@ -3299,7 +3531,7 @@ def main():
         paths[k] = (f"fft 2^{NTT_LOG_N}", ntt_launches[k])
     paths["butterfly_stage"] = ("kernels.mont.butterfly_stage", stage_launches)
     paths["xyzz_add_affine"] = ("ec.sw.xyzz_add_affine", madd_launches)
-    for k in ("fp_add", "fp_sub"):
+    for k in ("fp_add", "fp_sub", "fp_lin"):
         paths[k] = (f"ec.pairing.bls12.pairing_each (BLS12-381, 2^{PAIR_LOG_N} pairs)",
                     report[k]["launches"])
     idle = [k for k, (_, n_l) in paths.items() if n_l == 0]
@@ -3308,7 +3540,7 @@ def main():
     rows = []
     for name, (src, repl) in sources.items():
         r = report[name]
-        widths = sorted(_build.FIELD_LIBS) if name in FIELD_KERNELS else [8, 12]
+        widths = sorted(_build.FIELD_LIBS) if name in FIELD_KERNELS + ("fp_lin",) else [8, 12]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
                      "path": paths[name][0], "launches": paths[name][1], "library_ms": None,
                      "nw_widths": widths, **r})

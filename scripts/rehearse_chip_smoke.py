@@ -7,7 +7,8 @@ a chip call; it says nothing about the CUDA sources. About 35 minutes
 (phase 8's group path runs its full-length scalar chains at 64 points,
 phase 9 nine pairing calls of 8 to 16 pairs, ~10 s each on the CPU, phase
 10 twenty-two BN254, GT and BW6 calls of 8 to 16 lanes, phase 11 msm_mixed
-at 2^8 points and twenty-five MNT and CP6 calls of 2 to 8 lanes). The XYZZ,
+at 2^8 points and twenty-five MNT and CP6 calls of 2 to 8 lanes, phase 12
+fp_lin's edge words and recorded inputs). The XYZZ,
 MSM, NTT and twiddle kernels' stand-ins refuse every width but L = 16 and
 24 (NW = 8 and 12) as their C entries do on the card:
 
@@ -26,6 +27,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 import chip_smoke as cs  # noqa: E402
 from zkarray_torch import kernels  # noqa: E402
 from zkarray_torch.kernels import _build  # noqa: E402
+from zkarray_torch.kernels import lin  # noqa: E402
 from zkarray_torch.kernels import mont as km  # noqa: E402
 from zkarray_torch.kernels import sw as ksw  # noqa: E402
 from zkarray_torch.poly import domain as dm  # noqa: E402
@@ -96,6 +98,11 @@ def launch_addsub(kernel, spec, a, b, out):
     return r if out is None else out.copy_(r)
 
 
+def launch_lin(spec, lmap, srcs, out):
+    LAUNCHES["fp_lin"] += 1
+    return lin.fp_lin_plain(spec, lmap, srcs, out)
+
+
 def accum(curve, state, coords, valid, what):
     LAUNCHES["xyzz_accum"] += 1
     return ksw.xyzz_accum_plain(curve, state, coords, valid)
@@ -144,6 +151,7 @@ def setup():
     km.on_cpu = lambda *ts: False
     km._launch = launch_mont
     km._launch_addsub = launch_addsub
+    lin._launch_lin = launch_lin
     km._launch_dit = field_only("butterfly_dit", counted("butterfly_dit", km.butterfly_dit_plain),
                                 lambda spec, *a: spec.num_limbs)
     km.butterfly_stage = counted("butterfly_stage", km.butterfly_stage_plain)

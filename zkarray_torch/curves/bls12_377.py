@@ -6,8 +6,6 @@ Fq6 = Fq2[v]/(v^3 - u), Fq12 = Fq6[w]/(w^2 - v). G2 is the D-twist
 y^2 = x^3 + b/u over Fq2, so the Miller loop takes the mul_by_034 lines.
 """
 
-import torch
-
 from zkarray_torch.core.fieldspec import FieldSpec
 from zkarray_torch.ec.sw import SWCurveSpec
 
@@ -44,7 +42,7 @@ FQ2 = ExtOps("bls12_377.Fq2", FQ_OPS, 2, FQ_MODULUS - 5)  # beta = -5
 def _nr6_hook(fq2, x):
     """x u = -5 c1 + c0 u for x = c0 + c1 u in Fq2."""
     fq = fq2.base
-    return torch.stack([fq.neg(fq.add(fq.double(fq.double(x[1])), x[1])), x[0]])
+    return fq2._stack([fq.neg(fq.add(fq.double(fq.double(x[1])), x[1])), x[0]])
 
 
 FQ6 = ExtOps("bls12_377.Fq6", FQ2, 3, (0, 1), mul_nonresidue_hook=_nr6_hook)

@@ -6,8 +6,6 @@ Fq6 = Fq2[v]/(v^3 - (u + 1)), Fq12 = Fq6[w]/(w^2 - v). G2 is the M-twist
 y^2 = x^3 + 4(u + 1) over Fq2.
 """
 
-import torch
-
 from zkarray_torch.core.fieldspec import FieldSpec
 from zkarray_torch.ec.sw import SWCurveSpec
 
@@ -41,7 +39,7 @@ FQ2 = ExtOps("bls12_381.Fq2", FQ_OPS, 2, FQ_MODULUS - 1)  # beta = -1
 
 def _nr6_hook(fq2, x):
     """x (u + 1) = (c0 - c1) + (c0 + c1) u for x in Fq2."""
-    return torch.stack([fq2.base.sub(x[0], x[1]), fq2.base.add(x[0], x[1])])
+    return fq2._stack([fq2.base.sub(x[0], x[1]), fq2.base.add(x[0], x[1])])
 
 
 FQ6 = ExtOps("bls12_381.Fq6", FQ2, 3, (1, 1), mul_nonresidue_hook=_nr6_hook)

@@ -6,8 +6,6 @@ y^2 = x^3 + 3/(9 + u) over Fq2, so the Miller loop takes the mul_by_034
 lines.
 """
 
-import torch
-
 from zkarray_torch.core.fieldspec import FieldSpec
 from zkarray_torch.ec.sw import SWCurveSpec
 
@@ -36,7 +34,7 @@ def _nr6_hook(fq2, x):
     launches)."""
     fq = fq2.base
     x9 = fq2.add(fq2.double(fq2.double(fq2.double(x))), x)
-    return torch.stack([fq.sub(x9[0], x[1]), fq.add(x[0], x9[1])])
+    return fq2._stack([fq.sub(x9[0], x[1]), fq.add(x[0], x9[1])])
 
 
 FQ6 = ExtOps("bn254.Fq6", FQ2, 3, (9, 1), mul_nonresidue_hook=_nr6_hook)

@@ -2,9 +2,11 @@
 
 Counterpart of zkarray/ff/cyclotomic.py: the fast inverse (the conjugate,
 for quadratic-topped towers) and the Granger-Scott cyclotomic square for
-2over3over2 degree-12 towers (9 Fp2 products, one mont_mul launch, in place
-of a full square). After the easy part of the final exponentiation the
-Miller value lies in the cyclotomic subgroup, where these apply.
+2over3over2 degree-12 towers (6 Fp2 products, 18 Fp products in one
+mont_mul launch, in place of a full square; its additions are two fp_lin
+launches, the route ff/linmap.py derives from ``_gs_sched``). After the
+easy part of the final exponentiation the Miller value lies in the
+cyclotomic subgroup, where these apply.
 
 The powers by a constant exponent run the JAX package's ladders bit by
 bit, but where the JAX package computes the product on every bit and
@@ -15,6 +17,8 @@ same, and |X| of BLS12-381 costs 5 products instead of 63.
 
 from __future__ import annotations
 
+from zkarray_torch.ff import linmap
+
 
 def char_sq_mod_6_is_one(modulus: int) -> bool:
     """p^2 = 1 (mod 6): where the Granger-Scott square applies."""
@@ -23,8 +27,13 @@ def char_sq_mod_6_is_one(modulus: int) -> bool:
 
 def gs_cyclotomic_sqr(fq12, f):
     """Granger-Scott cyclotomic square in an Fp12 = 2over3over2 tower; ``f``
-    must lie in the cyclotomic subgroup. The coefficient shuffle
-    (r0, r4, r3, r2, r1, r5) is the reference's z-ordering."""
+    must lie in the cyclotomic subgroup: fp_lin -> mont_mul -> fp_lin."""
+    return linmap.run(fq12, "gs_sqr", _gs_sched, (f,), (fq12,))
+
+
+def _gs_sched(fq12, f):
+    """The schedule: the coefficient shuffle (r0, r4, r3, r2, r1, r5) is the
+    reference's z-ordering."""
     fq6 = fq12.base
     B = fq6.base  # Fp2
     nr = fq6.mul_nonresidue

@@ -5,9 +5,17 @@ a tensor of shape (d,) + base.shape + (L, *batch): an Fp12 element is
 (2, 3, 2, L, *batch), the JAX package's layout, so arrays compare directly.
 Products keep the JAX package's schedules (Karatsuba for quadratic levels,
 the 6-product Toom-style schedule for cubic ones, the complex and CH-SQR2
-squarings) and its fold: every base-field product of one tower product is
-stacked on a fresh batch axis and computed by ONE ``mont_mul`` launch
-(``_mul_many``), operands aligned to one batch shape before the stack.
+squarings; ``_mul_sched``, ``_sqr_sched``, ``_mul_base_sched``), and every
+base-field product of one tower product is computed by ONE ``mont_mul``
+launch. The schedules are not run on tensors: ff/linmap.py traces each
+once per tower into the linear map before the products (their operands)
+and the one after them (the result), so ``mul``, ``sqr`` and ``mul_base``
+are fp_lin -> mont_mul -> fp_lin, three launches (kernels/lin.py; the same
+route on the CPU through the plain versions), where the schedule on tensors
+issued ~30 fp_add/fp_sub launches and ~13 stacks around its mont_mul for an
+Fp12 product. ``mul_base`` over a prime field needs no map: its operands
+and products are strided views, one mont_mul. ``_mul_many`` (the direct
+callers' fold: Frobenius, MNT's ladder) still stacks its operands.
 
 Linear ops (``add``, ``sub``, ``neg``, ``double``, ``select``) run as one
 call over the whole element: the coefficient axes are moved behind the limb
@@ -19,7 +27,8 @@ coefficient (12 for an Fp12 add), this is one launch.
 Values that are fully reduced field elements may be computed by another
 exact route than the JAX package's, with the same words: Fp12's
 multiplication by its nonresidue v is a coefficient shuffle plus the Fp6
-hook here, where the JAX package multiplies by v as a full Fp6 product.
+hook here, where the JAX package multiplies by v as a full Fp6 product, and
+a tower product's additions are one map.
 """
 
 from __future__ import annotations
@@ -220,14 +229,23 @@ class ExtOps:
         return torch.where(mask.reshape((1,) * (len(self.shape) + 1) + tuple(mask.shape)), a, b)
 
     def mul_base(self, a, s):
-        """a * s with s a base-field tensor: one tower product of the base."""
+        """a * s with s a base-field tensor. Over a prime field, one
+        mont_mul of a's coefficients (an (L, deg, *batch) view) by s, the
+        result a (deg, L, *batch) view of its output; else the traced route
+        of ``_mul_base_sched``."""
+        if isinstance(self.base, PrimeOps):
+            a, s = _pad_batch([a, s[None]], 1)  # a ()-batch constant meets an (n,) batch
+            return fp.mont_mul(self.spec, a.movedim(0, 1), s.movedim(0, 1)).movedim(1, 0)
+        return linmap.run(self, "mul_base", ExtOps._mul_base_sched, (a, s), (self, self.base))
+
+    def _mul_base_sched(self, a, s):
         return self._stack(self._mul_many([(a[j], s) for j in range(self.deg)]))
 
     def mul_nonresidue(self, x):
         """x * beta for x a BASE-field tensor (hot path in mul and sqr)."""
         if self._nr_hook is not None:
             return self._nr_hook(self.base, x)
-        if isinstance(self.base, PrimeOps):
+        if not isinstance(self.base, ExtOps):
             return self.base.mul_const(x, self.nonresidue_host)
         return self.base.mul(x, self.base.const(self.nonresidue_host, (), x.device))
 
@@ -238,7 +256,8 @@ class ExtOps:
     # ---- multiplication and squaring ----
 
     def _mul_many(self, pairs):
-        """k base-level products as ONE recursive product: the operands are
+        """k base-level products as ONE recursive product (the schedules'
+        fold; on tensors only where a caller runs it directly): the operands are
         aligned to one batch shape (a ()-batch constant meets an (n,)-batch
         coordinate without an (n, n) cross product) and stacked on a fresh
         batch axis, so the whole tower product bottoms out in one mont_mul."""
@@ -256,6 +275,14 @@ class ExtOps:
         return [prod.select(ax, i) for i in range(len(pairs))]
 
     def mul(self, a, b):
+        """a * b: fp_lin -> mont_mul -> fp_lin, the route of ``_mul_sched``."""
+        return linmap.run(self, "mul", ExtOps._mul_sched, (a, b), (self, self))
+
+    def sqr(self, a):
+        """a^2: the route of ``_sqr_sched``."""
+        return linmap.run(self, "sqr", ExtOps._sqr_sched, (a,), (self,))
+
+    def _mul_sched(self, a, b):
         B = self.base
         if self.deg == 2:
             # Karatsuba (reference quadratic_extension.rs mul)
@@ -276,7 +303,7 @@ class ExtOps:
         c2 = B.add(B.sub(B.sub(m02, v0), v2), v1)
         return self._stack([c0, c1, c2])
 
-    def sqr(self, a):
+    def _sqr_sched(self, a):
         B = self.base
         if self.deg == 2:
             # complex squaring: 2 base products (reference square_in_place)
@@ -412,3 +439,6 @@ def quad_sqrt(F2: ExtOps, a):
     cand = torch.stack([c0, c1])
     ok = F2.eq(F2.sqr(cand), a)
     return F2.select(ok, cand, F2.zero(batch, dev)), ok
+
+
+from zkarray_torch.ff import linmap  # noqa: E402  (linmap subclasses ExtOps)

@@ -22,6 +22,7 @@ and binds them with ctypes. ``LAUNCHES`` counts each kernel's launches.
     twiddle_mul      twiddle.cu  mont.twiddle_mul                      (none: poly/domain.py's table launch chains)
     fp_add           fadd.cu   mont.fp_add                             (none: ff/fp.py:add and :double, plain torch chains)
     fp_sub           fadd.cu   mont.fp_sub, mont.fp_neg                (none: ff/fp.py:sub and :neg, plain torch chains)
+    fp_lin           flin.cu   lin.fp_lin                              (none: a tower product's fp_add/fp_sub chains, ff/linmap.py)
 """
 
 from zkarray_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401

@@ -28,7 +28,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("mont", "mont_w24", "mont_w26", "sw", "ntt", "madd", "xyzz", "twiddle", "fadd")
+SOURCES = ("mont", "mont_w24", "mont_w26", "sw", "ntt", "madd", "xyzz", "twiddle", "fadd",
+           "flin")
 # library -> (source stem, extra nvcc flags) where the two differ
 VARIANTS = {
     "mont": ("mont", ("-DZK_FIELD_WIDTHS=1",)),
@@ -37,7 +38,7 @@ VARIANTS = {
 }
 # Word counts NW = L/2 of the element-wise field kernels (csrc/field.cuh:
 # ZK_DISPATCH_NW_FIELD) and the mont.cu library that holds each; fadd.cu
-# holds all of them. The XYZZ, MSM, NTT and twiddle kernels take NW = 8
+# and flin.cu hold all of them. The XYZZ, MSM, NTT and twiddle kernels take NW = 8
 # and 12 only.
 FIELD_LIBS = {8: "mont", 10: "mont", 12: "mont", 24: "mont_w24", 26: "mont_w26"}
 NVCC_FLAGS = (
@@ -81,13 +82,17 @@ EXPORTS = {
         "zk_fp_add": [_P, _LL, _I, _P, _P],
         "zk_fp_sub": [_P, _LL, _I, _P, _P],
     },
+    "flin": {
+        "zk_fp_lin": [_P, _I, _P, _I, _LL, _I, _P, _P],
+    },
 }
 
 # Launches per kernel, counted by each wrapper where it launches its kernel.
 LAUNCHES = {"mont_mul": 0, "mont_sqr": 0, "xyzz_accum": 0, "horner_windows": 0,
             "butterfly_dit": 0, "butterfly_stage": 0, "xyzz_add_affine": 0,
             "xyzz_add": 0, "xyzz_double": 0, "xyzz_tree_sum": 0, "mont_pow": 0, "pow_table": 0,
-            "twiddle_mul": 0, "mont_inv": 0, "xyzz_bit_horner": 0, "fp_add": 0, "fp_sub": 0}
+            "twiddle_mul": 0, "mont_inv": 0, "xyzz_bit_horner": 0, "fp_add": 0, "fp_sub": 0,
+            "fp_lin": 0}
 
 EXPORTS["mont_w24"] = EXPORTS["mont_w26"] = EXPORTS["mont"]
 

@@ -1,0 +1,226 @@
+"""Linear maps over field elements: the csrc/flin.cu kernel and its plain
+PyTorch version.
+
+``fp_lin(spec, lmap, srcs, out)`` computes out[i] = sum_j c[i][j] src[j] mod
+p, fully reduced, for a ``LinMap`` c of small signed integers: the linear
+glue of a tower product (ff/linmap.py derives the maps) in one launch, where
+each addition was one fp_add or fp_sub launch. It replaces no Pallas kernel.
+
+A source is a (k_j, L, *batch_j) tensor (k_j coefficient slots, the limb
+axis, the batch), read in place through a slot stride on top of the
+operand map of kernels/mont.py:_operand; the batches broadcast as the tower
+code aligns them (trailing axes padded with 1s). The output is a new
+contiguous (m, L, *batch) tensor, or ``out``, any view of that shape that
+the map can write in place (not aliasing a source). Inputs must be words
+below p: every value on the paths is a kernel's reduced output or a reduced
+constant. CPU tensors take ``fp_lin_plain``; CUDA tensors launch the kernel
+or raise.
+"""
+
+from __future__ import annotations
+
+import array
+import functools
+import math
+
+import numpy as np
+import torch
+
+from zkarray_torch.core.fieldspec import FieldSpec
+from zkarray_torch.core.limbs import int_to_limbs_np, normalize, sub_with_borrow
+from zkarray_torch.kernels import _build
+from zkarray_torch.kernels import mont as km
+
+# csrc/flin.cu: LIN_MAX_SRC sources a map may read; a row's sum of |c| stays below
+# COEF_SUM_LIMIT, so its 16-bit columns stay below 2^32; rows are a grid axis
+MAX_SRC = 4
+COEF_SUM_LIMIT = 1 << 16
+MAX_ROWS = 65535
+
+
+class LinMap:
+    """A linear map with small integer coefficients: ``rows[i]`` is output
+    row i as (source, slot, coefficient) terms over sources of ``sizes[j]``
+    slots. Raises ValueError on a map outside the kernel's bounds. The
+    device table and the plain version's matrix are built once per device."""
+
+    def __init__(self, rows, sizes, name: str = ""):
+        self.name = name
+        self.sizes = tuple(int(s) for s in sizes)
+        merged = []
+        for r in rows:
+            terms = {}
+            for s, k, c in r:
+                if not (0 <= s < len(self.sizes) and 0 <= k < self.sizes[s]):
+                    raise ValueError(f"{name}: term ({s}, {k}) outside sources {self.sizes}")
+                terms[(s, k)] = terms.get((s, k), 0) + int(c)
+            merged.append(tuple((s, k, c) for (s, k), c in sorted(terms.items()) if c))
+        self.rows = tuple(merged)
+        self.m = len(self.rows)
+        self.used = tuple(sorted({s for r in self.rows for s, _, _ in r}))
+        if not 0 < self.m <= MAX_ROWS or not 0 < len(self.used) <= MAX_SRC:
+            raise ValueError(f"{name}: {self.m} rows over {len(self.used)} sources; the kernel "
+                             f"takes 1 to {MAX_ROWS} rows over 1 to {MAX_SRC} sources")
+        if max(self.sizes[s] for s in self.used) >= 1 << 16:
+            raise ValueError(f"{name}: a source of {max(self.sizes)} slots; at most 2^16 - 1")
+        self.sum_abs = [sum(abs(c) for _, _, c in r) for r in self.rows]
+        if max(self.sum_abs) >= COEF_SUM_LIMIT:
+            raise ValueError(f"{name}: a row's sum of |c| is {max(self.sum_abs)}; the bound is "
+                             f"below {COEF_SUM_LIMIT}")
+        self.cneg = [sum(-c for _, _, c in r if c < 0) for r in self.rows]
+        self.kbits = [s.bit_length() for s in self.sum_abs]
+        self._tables = {}
+        self._plain = {}
+
+    def __repr__(self):
+        return f"LinMap({self.name}, {self.m} rows, sources {self.sizes})"
+
+    def table(self, device) -> torch.Tensor:
+        """The int32 table csrc/flin.cu reads: per row (first term's word
+        offset, terms, cneg, kbits), then per term (position of the source
+        among the used ones << 16 | slot, coefficient)."""
+        t = self._tables.get(device)
+        if t is None:
+            pos = {s: i for i, s in enumerate(self.used)}
+            head, terms = [], []
+            for r, cn, kb in zip(self.rows, self.cneg, self.kbits):
+                head.append((4 * self.m + 2 * len(terms), len(r), cn, kb))
+                terms.extend((pos[s] << 16 | k, c) for s, k, c in r)
+            words = np.asarray(head, dtype=np.int32).reshape(-1)
+            if terms:
+                words = np.concatenate([words, np.asarray(terms, dtype=np.int32).reshape(-1)])
+            t = self._tables[device] = torch.from_numpy(words).to(device)
+        return t
+
+    def plain_matrix(self, device):
+        """(W, cneg, kmax): W the (m, 2K) float64 matrix [positive c | -negative
+        c] over the used sources' K slots in order, cneg (m, 1) int64."""
+        got = self._plain.get(device)
+        if got is None:
+            off, o = {}, 0
+            for s in self.used:
+                off[s], o = o, o + self.sizes[s]
+            w = np.zeros((self.m, 2 * o), dtype=np.float64)
+            for i, r in enumerate(self.rows):
+                for s, k, c in r:
+                    w[i, off[s] + k + (o if c < 0 else 0)] = abs(c)
+            got = self._plain[device] = (
+                torch.from_numpy(w).to(device),
+                torch.tensor(self.cneg, dtype=torch.int64, device=device)[:, None],
+                max(self.kbits))
+        return got
+
+
+def _sources(lmap: LinMap, srcs, L: int):
+    """The map's used sources, each (k_j, L, *batch) with one broadcast
+    batch shape (the tower code's trailing alignment), and that shape."""
+    ts = [srcs[s] for s in lmap.used]
+    shapes = [t.shape for t in ts]
+    for s, sh in zip(lmap.used, shapes):
+        if len(sh) < 2 or sh[0] != lmap.sizes[s] or sh[1] != L:
+            raise ValueError(f"fp_lin {lmap.name}: source {s} is {tuple(sh)}, not "
+                             f"({lmap.sizes[s]}, L={L}, *batch)")
+    batch = shapes[0][2:]
+    if all(sh[2:] == batch for sh in shapes[1:]):  # broadcast_shapes costs host time
+        return ts, batch
+    batch = common_batch(ts)
+    return [t.reshape(tuple(t.shape) + (1,) * (len(batch) - t.dim() + 2))
+            .expand(tuple(t.shape[:2]) + batch) for t in ts], batch
+
+
+def common_batch(ts) -> tuple:
+    """The broadcast batch of (k, L, *batch) tensors, each padded with
+    trailing 1s to one count of batch axes (the towers' alignment)."""
+    batch = ts[0].shape[2:]
+    if all(t.shape[2:] == batch for t in ts[1:]):  # broadcast_shapes costs host time
+        return batch
+    nb = max(t.dim() - 2 for t in ts)
+    return tuple(torch.broadcast_shapes(*(tuple(t.shape[2:]) + (1,) * (nb - t.dim() + 2)
+                                          for t in ts)))
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_consts(spec: FieldSpec, kmax: int, device: str):
+    """(L, 1, 1) int64 limbs of p + 1 and the (L + 1, 1, 1) limbs of p 2^b,
+    b < kmax."""
+    L = spec.num_limbs
+    p = spec.modulus
+
+    def col(x, n):
+        return torch.from_numpy(int_to_limbs_np(x, n).astype(np.int64)).to(device).reshape(n, 1, 1)
+
+    return col(p + 1, L), [col(p << b, L + 1) for b in range(kmax)]
+
+
+def fp_lin_plain(spec: FieldSpec, lmap: LinMap, srcs, out: torch.Tensor | None = None):
+    """``fp_lin`` in plain PyTorch on the tensors' device: the signed column
+    sums of all rows as one float64 matrix product of [c > 0 | -c for c < 0]
+    with the limbs and their complements 2^16 - 1 - x (exact: every sum is
+    an integer below 2^32), plus cneg (p + 1) as in the kernel; the carries in
+    one normalize, then kbits conditional subtractions of p 2^b."""
+    L = spec.num_limbs
+    ts, batch = _sources(lmap, srcs, L)
+    dev = ts[0].device
+    n = math.prod(batch)
+    w, cneg, kmax = lmap.plain_matrix(dev)
+    x = torch.cat([t.reshape(t.shape[0], L * n) for t in ts]).to(torch.float64)
+    cols = (w @ torch.cat([x, 65535.0 - x])).to(torch.int64).reshape(lmap.m, L, n)
+    p1, pb = _plain_consts(spec, kmax, str(dev))
+    limbs, top = normalize(cols.permute(1, 0, 2) + cneg[None] * p1, L, carry_out=True)
+    t_ = torch.cat([limbs, (top - cneg)[None]])  # T on L + 1 limbs, below 2^kmax p
+    for b in reversed(range(kmax)):
+        d, borrow = sub_with_borrow(t_, pb[b])
+        t_ = torch.where(borrow[None], t_, d)
+    res = t_[:L].permute(1, 0, 2).to(torch.int32).reshape((lmap.m, L) + batch)
+    return res if out is None else out.copy_(res)
+
+
+def _operand(t: torch.Tensor):
+    """(tensor, slot stride, ld, inner, outer) of a (k, L, *batch) tensor:
+    slot s, limb k, batch element i at offset s*slot + k*ld + map(i), map as
+    kernels/mont.py:batch_map; copied first where no such map exists."""
+    st = t.stride()
+    m = km.batch_map(t.shape[2:], st[2:])
+    if m is None:
+        t = t.contiguous()
+        st = t.stride()
+        m = (math.prod(t.shape[2:]), 0)
+    return (t, st[0] if t.shape[0] > 1 else 0, st[1]) + m
+
+
+def _launch_lin(spec: FieldSpec, lmap: LinMap, srcs, out: torch.Tensor | None) -> torch.Tensor:
+    """Launch csrc/flin.cu:fp_lin_kernel over the map's used sources, each
+    read in place as ``_operand`` allows (or copied, the copy held until
+    the launch), into ``out`` or a new contiguous (m, L, *batch) tensor."""
+    L = spec.num_limbs
+    ts, batch = _sources(lmap, srcs, L)
+    if out is None:
+        out = torch.empty((lmap.m, L) + batch, dtype=torch.int32, device=ts[0].device)
+    elif tuple(out.shape) != (lmap.m, L) + batch:
+        raise ValueError(f"fp_lin {lmap.name}: out {tuple(out.shape)} is not "
+                         f"{(lmap.m, L) + batch}")
+    km.check_cuda_int32("fp_lin", *ts, out, contiguous=False)
+    ops = [_operand(t) for t in ts] + [_operand(out)]  # held until the launch
+    if ops[-1][0] is not out:
+        raise ValueError(f"fp_lin {lmap.name}: out's strides {out.stride()} cannot be written "
+                         "in place")
+    desc = array.array("q", [w for o in ops for w in (o[0].data_ptr(),) + o[1:]])
+    table = lmap.table(out.device)
+    lib = _build.load("flin")
+    with torch.cuda.device(out.device):
+        err = lib.zk_fp_lin(desc.buffer_info()[0], len(ts), table.data_ptr(), lmap.m,
+                            math.prod(batch), L // 2, km.words_ptr(km.field_words(spec)),
+                            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "fp_lin")
+    _build.LAUNCHES["fp_lin"] += 1
+    return out
+
+
+def fp_lin(spec: FieldSpec, lmap: LinMap, srcs, out: torch.Tensor | None = None) -> torch.Tensor:
+    """out[i] = sum_j c[i][j] src[j] mod p for the map ``lmap`` over the
+    (k_j, L, *batch_j) sources ``srcs`` (an unused source may be None).
+    CPU tensors: ``fp_lin_plain``; CUDA tensors: csrc/flin.cu, one launch."""
+    used = [srcs[s] for s in lmap.used]
+    if km.on_cpu(*used, *(() if out is None else (out,))):
+        return fp_lin_plain(spec, lmap, srcs, out)
+    return _launch_lin(spec, lmap, srcs, out)

@@ -256,17 +256,13 @@ def butterfly_stage_plain(spec: FieldSpec, lo: torch.Tensor, hi: torch.Tensor,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _operand(t: torch.Tensor):
-    """(tensor, ld, inner, outer) such that batch element i (row-major), limb
-    k, of ``t`` sits at offset k*ld + (i // inner)*outer + i % inner from its
-    data pointer (csrc/field.cuh:Operand). That holds for a contiguous tensor
-    (inner = n), a slice along the first batch axis, a constant broadcast over
-    leading batch axes (outer = 0) and the last-axis halves v[..., :h],
-    v[..., h:2h] of a (..., m) tensor (inner = h, outer = m): the innermost
-    contiguous run of batch axes is ``inner``, and the axes outside it must
-    step through memory as one axis of stride ``outer``. Anything else is
-    copied first."""
-    dims = [(s, st) for s, st in zip(t.shape[1:], t.stride()[1:]) if s != 1]
+def batch_map(shape, strides):
+    """(inner, outer) such that batch element i (row-major) of batch axes
+    ``shape`` with element strides ``strides`` sits at (i // inner)*outer +
+    i % inner, or None where no such map exists: the innermost contiguous
+    run of batch axes is ``inner``, and the axes outside it must step
+    through memory as one axis of stride ``outer``."""
+    dims = [(s, st) for s, st in zip(shape, strides) if s != 1]
     inner, j = 1, len(dims)
     while j > 0 and dims[j - 1][1] == inner:
         inner *= dims[j - 1][0]
@@ -275,10 +271,24 @@ def _operand(t: torch.Tensor):
     span = outer
     for s, st in reversed(dims[:j]):
         if st != span:
-            t = t.contiguous()
-            return t, t[0].numel(), t[0].numel(), 0
+            return None
         span *= s
-    return t, t.stride(0), inner, outer
+    return inner, outer
+
+
+def _operand(t: torch.Tensor):
+    """(tensor, ld, inner, outer) such that batch element i (row-major), limb
+    k, of ``t`` sits at offset k*ld + (i // inner)*outer + i % inner from its
+    data pointer (csrc/field.cuh:Operand; ``batch_map``). That holds for a
+    contiguous tensor (inner = n), a slice along the first batch axis, a
+    constant broadcast over leading batch axes (outer = 0) and the last-axis
+    halves v[..., :h], v[..., h:2h] of a (..., m) tensor (inner = h, outer =
+    m). Anything else is copied first."""
+    m = batch_map(t.shape[1:], t.stride()[1:])
+    if m is None:
+        t = t.contiguous()
+        return t, t[0].numel(), t[0].numel(), 0
+    return (t, t.stride(0)) + m
 
 
 def operand_words(ops) -> np.ndarray:

@@ -11,7 +11,7 @@ over Fp2 (and over any tower with a curve coefficient a, for MNT4/6 and
 CP6), the known answers E = e(G1, G2) of BLS12-381, BLS12-377, BN254,
 BW6-761, BW6-767, MNT4/6-298, MNT4/6-753 and CP6-782 and their powers
 (HostExt), tiled pairing and GT inputs, and edge words for the field
-additions.
+additions and for fp_lin with maps at its coefficient bound.
 """
 
 from __future__ import annotations
@@ -838,3 +838,36 @@ def gt_inputs(F, e_flat, scalar, n: int, rng: np.random.Generator, base_n: int =
     t = torch.arange(n, device=device) % base_n
     sc = torch.from_numpy(ints_to_limbs_np(ss, scalar.num_limbs).astype(np.int32)).to(device)
     return table[..., t], sc[:, t], ks, ss
+
+
+def lin_edge_words(spec, rng: np.random.Generator, n_random: int = 6) -> list:
+    """Ints below p (fp_lin's inputs) for its edge cases: 0, 1, 2, p - 1,
+    p - 2, (p - 1)/2, (p + 1)/2, 2^(32 k) - 1 and 2^(32 k) below p at every
+    32-bit word boundary, then random words below p."""
+    p = spec.modulus
+    words = [0, 1, 2, p - 2, p - 1, (p - 1) // 2, (p + 1) // 2]
+    for k in range(1, spec.num_limbs // 2):
+        words += [(1 << (32 * k)) - 1, 1 << (32 * k)]
+    width = max(64, 2 * spec.num_limbs)
+    words += [int.from_bytes(rng.bytes(width), "little") % p for _ in range(n_random)]
+    return sorted(set(w for w in words if 0 <= w < p))
+
+
+def lin_edge_rows(sizes, rng: np.random.Generator, n_random: int = 6) -> list:
+    """Rows of a LinMap over sources of ``sizes`` slots for fp_lin's edges:
+    a row's sum of |c| at the bound 2^16 - 1 all positive, all negative and
+    mixed; a copy, a negation, an empty row (0) and a lone -1; then random
+    rows of 1 to 6 terms whose |c| sum near the bound."""
+    limit = (1 << 16) - 1
+    ref = [(s, k) for s, n in enumerate(sizes) for k in range(n)]
+    rows = [[(0, 0, limit)], [(0, 0, -limit)], [(0, 0, 1)], [(0, 0, -1)], [],
+            [(*ref[0], 1 << 15), (*ref[-1], -((1 << 15) - 1))],
+            [(*ref[-1], 3), (*ref[0], -2), (*ref[len(ref) // 2], limit - 5)]]
+    for _ in range(n_random):
+        t = int(rng.integers(1, min(6, len(ref)) + 1))
+        picks = rng.choice(len(ref), t, replace=False)
+        cuts = np.sort(rng.integers(1, limit - t, t - 1)) if t > 1 else np.array([], dtype=int)
+        mags = np.diff(np.concatenate([[0], cuts, [limit - int(rng.integers(0, 4))]]))
+        rows.append([(*ref[i], int(m) * (1 if rng.random() < 0.5 else -1))
+                     for i, m in zip(picks, mags) if m])
+    return rows
