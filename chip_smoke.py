@@ -200,7 +200,23 @@ Phases, each printing one JSON line and raising on any failure:
    of their own; the host's us per launch at 64 lanes for fp_lin's two BLS12-381
    Fp12-product maps, fp_add and a whole Fp12 product (fp_lin_host); and
    BLS12-381 pairing_each's launches per call held at most 12,000.
-13. the kernels line: per kernel its launches on its path (phase 3 for the
+13. the polynomial layer and the scalar-multiplication family
+   (``poly_scalar_phase``): the Groth16 quotient at 2^20 (dense.mul, then
+   divide_by_vanishing_poly) and dense.evaluate at 64 points against host
+   Horner; divide_with_q_and_r; a 2^20-entry MLE's eq_table,
+   fix_variables and evaluate against host sums; the sparse evaluations;
+   the largest mixed-radix domains of MNT6-753 Fr (NW = 24) and MNT4-298 Fq
+   (NW = 10) and a GeneralDomain against host closed forms, with their
+   round trips; fft_group on BLS12-381 G1 at 2^12 against (DFT c)_k G and
+   its round trip at 2^8; glv_mul, glv_mul_ext, WnafContext.mul and
+   FixedBaseTable.batch_mul at 2^12-2^20 lanes against the host's ec_mul;
+   msm_chunks at 2^21 and the two Pippengers. Each path's launches,
+   wall ms, peak memory (traces for the quotient and the mixed-radix
+   ffts); every field- and NTT-kernel input recorded on a path's first
+   call, and every Pippenger MSM-kernel launch, held against the plain
+   versions; the NTT kernels' widest launch at NW = 10 and 24 timed
+   against its bound.
+14. the kernels line: per kernel its launches on its path (phase 3 for the
    MSM kernels, 5 for butterfly_dit, twiddle_mul and pow_table, 6 and 7 for
    the entries of butterfly_stage, xyzz_add_affine and mont_sqr, 3 for the
    entries of mont_pow and xyzz_double, which left the MSM path), error
@@ -219,8 +235,11 @@ Phases, each printing one JSON line and raising on any failure:
    figures under "nw24"; phase 11's launches per call under "phase11" and
    their NW = 10 and 26 figures under "nw10" and "nw26". fp_lin's path is
    phase 9's pairing_each too; its row carries every path's launches per
-   call (per_path_launches) and each width's widest path launch. Every row
-   lists the word counts NW its kernel is built for ("nw_widths").
+   call (per_path_launches) and each width's widest path launch. Every
+   kernel phase 13 launched carries its launches per path and error there
+   under "phase13" (the NTT kernels also their NW = 8, 10 and 24 rows).
+   Every row lists the word counts NW its kernel is built for
+   ("nw_widths").
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
@@ -1754,7 +1773,7 @@ def bn_gt_bw6_phase(torch, h, rec):
     h.emit("nw24_kernels", rows={k: {kk: vv for kk, vv in v.items() if kk != "edge_words"}
                                  for k, v in report.items()}, edge_words=edge)
 
-    # the XYZZ, MSM and NTT kernels are not built at NW = 24: each refuses it
+    # the XYZZ and MSM kernels are not built at NW = 24: each refuses it
     refusals = refused_launches(torch, h, bw6_761.G1)
     h.emit("nw24_refused", kernels=refusals, correct=True)
     h.emit("phase10_launches", per_call=paths)
@@ -1763,10 +1782,13 @@ def bn_gt_bw6_phase(torch, h, rec):
 
 
 def refused_launches(torch, h, C):
-    """xyzz_add, xyzz_add_affine, horner_windows, butterfly_dit and pow_table
-    at curve C's field width, which their C entries are not built for: each
-    must raise, with no launch counted. Returns the messages."""
+    """xyzz_add, xyzz_add_affine and horner_windows at curve C's field width,
+    which their C entries are not built for, and butterfly_dit and pow_table
+    where no NTT library holds that width (NW = 26; phase 13 runs them at
+    NW = 10 and 24): each must raise, with no launch counted. Returns the
+    messages."""
     from zkarray_torch import kernels
+    from zkarray_torch.kernels import _build
     from zkarray_torch.kernels import mont as km
     from zkarray_torch.kernels import sw as ksw
 
@@ -1783,11 +1805,13 @@ def refused_launches(torch, h, C):
             ("butterfly_dit", lambda: km.butterfly_dit(f, pts[0].reshape(L, 1, 2, 4, 8).clone(),
                                                        pts[1], 1)),
             ("pow_table", lambda: km.pow_table(f, 5, 64, dev))):
+        if kernel in ("butterfly_dit", "pow_table") and L // 2 in _build.NTT_LIBS:
+            continue
         before = kernels.LAUNCHES[kernel]
         try:
             call()
             h.sync()
-        except RuntimeError as exc:
+        except (RuntimeError, ValueError) as exc:
             refusals[kernel] = str(exc)[:120]
         else:
             raise AssertionError(f"{kernel} ran at NW = {L // 2}")
@@ -1973,7 +1997,7 @@ def mixed_mnt_cp6_phase(torch, h, rec):
                                            for lbl in pr.path_keys}
             report[name][f"nw{nw}"] = r_
         h.emit(f"nw{nw}_kernels", rows=rep, edge_words=edge)
-    # the XYZZ, MSM and NTT kernels are not built at NW = 10 or 26 either
+    # nor at NW = 10 or 26; the NTT kernels not at NW = 26
     h.emit("nw10_nw26_refused", correct=True,
            kernels={C.name: refused_launches(torch, h, C) for C in (mnt4_298.G1, cp6_782.G1)})
     for name in FIELD_KERNELS:
@@ -2116,6 +2140,680 @@ def lin_phase(torch, h, rec):
                   recorded_keys=len(rows), edge_words=edge, host_us_per_launch=host)
     h.emit("fp_lin_kernel", **{k: v for k, v in report.items() if k != "edge_words"})
     return report
+
+
+# ---- 13. the polynomial layer, mixed-radix and group domains, scalar multiplication --
+
+POLY_LOG_N = 20  # Groth16 quotient: two degree 2^20 - 1 polynomials, Z_H of 2^20 points
+EVAL_POINTS = 64  # dense.evaluate of a 2^20-coefficient polynomial: a batch of KZG openings
+HORNER_KAT = 2  # host points for the quotient's identity and dense.evaluate
+DIV_DEGREES = (1023, 3)  # divide_with_q_and_r: dividend and divisor degrees
+MLE_VARS, MLE_FIXED, MLE_KAT = 20, 10, 257  # a 2^20-entry sumcheck table
+SPARSE_TERMS, SPARSE_KAT = 16, 257  # uv_evaluate_over_domain on the 2^POLY_LOG_N domain
+MV_VARS, MV_TERMS, MV_LOG_POINTS, MV_KAT = 3, 32, 16, 64
+# (curve module, field, 2-adic exponent, q^b): each MNT base's largest mixed domain
+MIXED_DOMAINS = (("mnt6_753", "FR", 15, 25), ("mnt4_298", "FQ", 17, 49))
+GENERAL_TARGET, GENERAL_SIZE = 3 * 10 ** 5, 409_600  # tests/test_torch_mixed_radix.py holds the size
+POLY_KAT = 16  # transform indices held against the host
+GFFT_LOG_N, GFFT_RT_LOG_N, GFFT_KAT = 12, 8, 16  # fft_group: forward size, round-trip size
+GLV_LOG_N, GLV_SMALL_LOG_N, G2_GLV_LOG_N = 16, 12, 12
+WNAF_LOG_N, WNAF_WINDOW = 16, 4
+FIXED_LOG_N, FIXED_WINDOW = 20, 8  # the powers of tau of a 2^20 setup
+STREAM_LOG_N, STREAM_CHUNK_LOG_N = 21, 20  # msm_chunks: 2^21 points in chunks of 2^20
+PIPPENGER_LOG_N, PIPPENGER_CHUNK = 12, 1 << 10
+SCALAR_KAT = 64  # scalar-multiplication lanes held against the host
+NTT_KERNELS = ("butterfly_dit", "butterfly_stage", "pow_table", "twiddle_mul")
+
+
+def install_ntt_recorders(torch, km):
+    """Wrap kernels.mont's NTT launchers so that, while ``nrec.on``, every
+    launch of butterfly_dit is counted by (field, shape, table length,
+    stride), of pow_table by (field, entries, packed, scaled) and of
+    twiddle_mul by (field, shape, strides, r0, c0, the output's layout,
+    the tables' sizes), each key's first inputs kept (butterfly_dit's and an
+    in-place twiddle_mul's before the launch writes them). Returns (nrec,
+    restore)."""
+    nrec = types.SimpleNamespace(on=False, keys=collections.Counter(), first={})
+    dit, pow_table, twiddle_mul = km._launch_dit, km.pow_table, km.twiddle_mul
+
+    def keep(key, value):
+        nrec.keys[key] += 1
+        if key not in nrec.first:
+            nrec.first[key] = value()
+
+    def rec_dit(spec, x, tw, stride):
+        if nrec.on:
+            keep(("butterfly_dit", spec.name, tuple(x.shape), tw.shape[1], stride),
+                 lambda: (spec, (x.clone(), tw), stride))
+        return dit(spec, x, tw, stride)
+
+    def rec_pow(spec, w_int, n, device, scale_int=None, packed=False):
+        if nrec.on:
+            keep(("pow_table", spec.name, n, packed, scale_int is not None),
+                 lambda: (spec, (w_int, n, torch.device(device), scale_int, packed), None))
+        return pow_table(spec, w_int, n, device, scale_int, packed)
+
+    def rec_twiddle(spec, x, tw, r0=0, c0=0, out=None):
+        if nrec.on:
+            inplace = out is not None and out.data_ptr() == x.data_ptr()
+            layout = None if out is None else ("in place" if inplace else tuple(out.stride()))
+            keep(("twiddle_mul", spec.name, tuple(x.shape), tuple(x.stride()), r0, c0, layout,
+                  tw.h, tw.lo.shape[0], tw.hi.shape[0]),
+                 lambda: (spec, (replica(torch, x), tw, r0, c0),
+                          None if out is None or inplace else replica(torch, out, copy=False)))
+        return twiddle_mul(spec, x, tw, r0, c0, out)
+
+    km._launch_dit, km.pow_table, km.twiddle_mul = rec_dit, rec_pow, rec_twiddle
+
+    def restore():
+        km._launch_dit, km.pow_table, km.twiddle_mul = dit, pow_table, twiddle_mul
+
+    return nrec, restore
+
+
+def ntt_bytes_ops(h, key, spec):
+    """(bytes, 32-bit operations) of one recorded NTT-kernel launch: each
+    input read and each output written once."""
+    L, Lw = spec.num_limbs, spec.num_limbs * 4
+    name = key[0]
+    if name == "butterfly_dit":
+        _, C, _, H, R = key[2]
+        pairs = C * H * R
+        return 4 * pairs * Lw + H * Lw, pairs * (h.mul_ops(spec) + 2 * h.add_ops(spec))
+    if name == "pow_table":
+        n = key[2]
+        return n * Lw, n * max(n - 1, 0).bit_length() * h.mul_ops(spec) // 2
+    n = math.prod(key[2][1:])
+    return 2 * n * Lw + (key[8] + key[9]) * Lw, 2 * n * h.mul_ops(spec)
+
+
+def replay_ntt(torch, h, nrec, label, err, rows):
+    """Every NTT-kernel key ``nrec`` recorded on path ``label`` launched again
+    on its first inputs and held against the plain version (raises on a
+    difference; ``err`` takes each kernel's largest error); one row per key
+    appended to ``rows[kernel]``, its inputs kept (timed later for the
+    widest per width) with its bytes and operations. The keys are then
+    forgotten."""
+    from zkarray_torch.kernels import mont as km
+
+    for key, count in sorted(nrec.keys.items(), key=lambda kv: str(kv[0])):
+        spec, args, extra = nrec.first.pop(key)
+        name = key[0]
+        if name == "butterfly_dit":
+            x, tw = args
+            got = km._launch_dit(spec, x.clone(), tw, extra)
+            want, plain_ms = h.once_ms(lambda: km.butterfly_dit_plain(spec, x.clone(), tw, extra))
+
+            def again(spec=spec, x=x, tw=tw, stride=extra):  # in place on x: no fresh input needed
+                return km._launch_dit(spec, x, tw, stride)
+        elif name == "pow_table":
+            w_int, n, dev, scale, packed = args
+            got = km.pow_table(spec, w_int, n, dev, scale, packed)
+            want, plain_ms = h.once_ms(lambda: km.pow_table_plain(spec, w_int, n, dev, scale, packed))
+
+            def again(spec=spec, args=args):
+                return km.pow_table(spec, *args)
+        else:
+            x, tw, r0, c0 = args
+            want, plain_ms = h.once_ms(lambda: km.twiddle_mul_plain(
+                spec, x, tw, r0, c0, torch.empty(x.shape, dtype=torch.int32, device=x.device)))
+            out = extra if extra is not None else (x.clone() if key[6] == "in place" else None)
+            if key[6] == "in place":
+                x = out  # the launch reads and writes its own copy
+            got = km.twiddle_mul(spec, x, tw, r0, c0, out)
+
+            def again(spec=spec, x=x, tw=tw, r0=r0, c0=c0, out=out):
+                return km.twiddle_mul(spec, x, tw, r0, c0, out)
+        e = h.check_equal(f"{name} {key[1:]}", got, want)
+        err[name] = max(err[name], e)
+        nbytes, ops = ntt_bytes_ops(h, key, spec)
+        row = dict(key=[str(k) for k in key[1:]], field=key[1], nw=spec.num_limbs // 2,
+                   launches=count, path=label, max_abs_err=e, plain_ms=plain_ms, bytes=nbytes,
+                   ops=ops, _again=again)
+        # keep the inputs of each kernel's widest row per width only (timed later)
+        wide = [r for r in rows[name] if r["nw"] == row["nw"] and r["_again"] is not None]
+        if wide and wide[0]["bytes"] >= nbytes:
+            row["_again"] = None
+        elif wide:
+            wide[0]["_again"] = None
+        rows[name].append(row)
+        del got, want
+    nrec.keys.clear()
+    nrec.first.clear()
+
+
+def ntt_width_report(torch, h, rows, err):
+    """Per NTT kernel and width NW: launches on phase 13's paths, the widest
+    recorded launch timed (CUDA events, 10 launches) against its bound,
+    its plain ms; butterfly_stage, which no path runs, at (L, 2^POLY_LOG_N)
+    random words per width against its plain version. Every row's inputs
+    are dropped after."""
+    from zkarray_torch.curves import mnt4_298, mnt6_753
+    from zkarray_torch.kernels import mont as km
+
+    report = {k: {} for k in NTT_KERNELS}
+    for name in ("butterfly_dit", "pow_table", "twiddle_mul"):
+        by_nw = collections.defaultdict(list)
+        for r in rows[name]:
+            by_nw[r["nw"]].append(r)
+        for nw, rs in sorted(by_nw.items()):
+            w = next(r for r in rs if r["_again"] is not None)
+            ms = h.time_ms(w["_again"], 10)
+            b_ms, b_by = h.bound(w["bytes"], w["ops"])
+            report[name][f"nw{nw}"] = dict(
+                launches=sum(r["launches"] for r in rs), keys=len(rs),
+                launches_by_path=dict(collections.Counter(
+                    r["path"] for r in rs for _ in range(r["launches"]))),
+                widest_key=w["key"], widest_path=w["path"], ms=ms, plain_ms=w["plain_ms"],
+                bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+                max_abs_err=max(r["max_abs_err"] for r in rs), library_ms=None)
+        for r in rows[name]:
+            r.pop("_again")
+    n = 1 << POLY_LOG_N
+    for spec in (mnt4_298.FQ, mnt6_753.FR):
+        lo, hi, w = (h.rand_field(spec, n) for _ in range(3))
+        got = km.butterfly_stage(spec, lo, hi, w)
+        want, plain_ms = h.once_ms(lambda: km.butterfly_stage_plain(spec, lo, hi, w))
+        e = max(h.check_equal(f"butterfly_stage {spec.name} output {i}", g, w_)
+                for i, (g, w_) in enumerate(zip(got, want)))
+        err["butterfly_stage"] = max(err["butterfly_stage"], e)
+        ms = h.time_ms(lambda: km.butterfly_stage(spec, lo, hi, w), 10)
+        Lw = spec.num_limbs * 4
+        b_ms, b_by = h.bound(5 * n * Lw, n * (h.mul_ops(spec) + 2 * h.add_ops(spec)))
+        report["butterfly_stage"][f"nw{spec.num_limbs // 2}"] = dict(
+            launches=0, entry="kernels.mont.butterfly_stage (no phase-13 path runs it)",
+            shape=[spec.num_limbs, n], ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            share_of_bound=b_ms / ms, max_abs_err=e, library_ms=None)
+    return report
+
+
+def host_horner(cs, x, p):
+    acc = 0
+    for c in reversed(cs):
+        acc = (acc * x + c) % p
+    return acc
+
+
+def poly_scalar_phase(torch, h, rec):
+    """Phase 13: the rest of the polynomial layer and the scalar-multiplication
+    family, each path through its entry points and against host known
+    answers: the Groth16 quotient (dense.mul of two degree 2^20 - 1
+    polynomials, divide_by_vanishing_poly by X^(2^20) - 1) and dense.evaluate
+    at EVAL_POINTS points; divide_with_q_and_r; an MLE's eq_table,
+    fix_variables and evaluate over 2^20 entries; the sparse evaluations;
+    the largest mixed-radix domains of MNT6-753 Fr (NW = 24) and MNT4-298
+    Fq (NW = 10) and a GeneralDomain; fft_group over BLS12-381 G1; glv_mul
+    (BLS12-381, BN254, BLS12-377 G1), glv_mul_ext (BLS12-381 G2),
+    WnafContext.mul and FixedBaseTable.batch_mul; msm_chunks and the two
+    Pippengers. Each path's launches by kernel on its first counted call
+    (its field-kernel and NTT-kernel inputs recorded, then replayed against
+    the plain versions), its wall ms and peak memory; one trace each of the
+    Groth16 quotient and the mixed-radix ffts. Then the NTT kernels at
+    NW = 10 and 24: launches, the widest launch timed against its bound.
+    Returns the kernels line's phase-13 figures."""
+    import importlib
+
+    from zkarray_torch import testing as tt
+    from zkarray_torch.curves import bls12_377, bls12_381 as B, bn254
+    from zkarray_torch.ec import fixed_base, glv, stream_msm, wnaf
+    from zkarray_torch.ec import sw as tsw
+    from zkarray_torch.ff import fp
+    from zkarray_torch.interop import affine_from_numpy, limbs_from_numpy
+    from zkarray_torch.kernels import mont as km
+    from zkarray_torch.poly import dense, mle, sparse
+    from zkarray_torch.poly import domain as tdm
+    from zkarray_torch.poly import mixed_radix as tmr
+    from zkarray_torch.poly.group_domain import SWJacobianCoeff, fft_group
+
+    dev, sync = h.dev, h.sync
+    pr = PathRuns(torch, h, rec)
+    nrec, restore_ntt = install_ntt_recorders(torch, km)
+    err = collections.defaultdict(int)
+    ntt_rows = collections.defaultdict(list)
+    paths, lines = {}, {}
+    rng = np.random.default_rng(13)
+    t_phase = time.perf_counter()
+
+    def ints(spec, t, mont=True):
+        return fp.to_ints(spec, t, mont=mont)
+
+    def rand_ints(spec, k):
+        return [int.from_bytes(rng.bytes(spec.num_limbs * 2), "little") % spec.modulus
+                for _ in range(k)]
+
+    def path(label, fn, check, timed=1, trace=False, record=True):
+        """One path: its first call counted with its inputs recorded, then
+        ``timed`` timed calls and, with ``trace``, one traced call, every
+        result checked; the recorded keys replayed against the plain
+        versions."""
+        nrec.on = record
+        try:
+            if timed:
+                res = pr.measure(fn, check, record=record, timed=timed, trace=trace)
+            else:  # one counted call only (the group ladders take seconds)
+                sync()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                got, ms, launches = pr.run(fn, record)
+                peak = torch.cuda.max_memory_allocated() - base
+                check(got, "the first call")
+                res = dict(ms=ms, first_call_ms=ms, launches_per_call=launches,
+                           launches_total=sum(launches.values()),
+                           peak_bytes_above_inputs_recording=peak, trace=None)
+        finally:
+            nrec.on = False
+        if record:
+            pr.replay(label, err)
+            replay_ntt(torch, h, nrec, label, err, ntt_rows)
+        paths[label] = res["launches_per_call"]
+        return res
+
+    def emit(label, **kw):
+        lines[label] = kw
+        h.emit(label, **kw)
+
+    # -- Groth16's quotient: a(X) b(X) = q(X) (X^n - 1) + r(X), BLS12-381 Fr --------
+    fr, p = B.FR, B.FR.modulus
+    n = 1 << POLY_LOG_N
+    a, b = h.rand_field(fr, n), h.rand_field(fr, n)
+    taus = rand_ints(fr, HORNER_KAT)
+    t0 = time.perf_counter()
+    a_i, b_i = ints(fr, a), ints(fr, b)
+    ab_tau = [host_horner(a_i, x, p) * host_horner(b_i, x, p) % p for x in taus]
+    host_s = time.perf_counter() - t0
+
+    first_words = {}
+
+    def quotient():
+        return dense.divide_by_vanishing_poly(fr, dense.mul(fr, a, b), n)
+
+    def check_quotient(res, when):
+        q, r = res
+        if tuple(q.shape) != (fr.num_limbs, n - 1) or tuple(r.shape) != (fr.num_limbs, n):
+            raise AssertionError(f"Groth16 quotient: {when} has shapes {q.shape}, {r.shape}")
+        if when == "the first call":
+            q_i, r_i = ints(fr, q), ints(fr, r)
+            for x, want in zip(taus, ab_tau):
+                if (host_horner(q_i, x, p) * (pow(x, n, p) - 1) + host_horner(r_i, x, p)) % p != want:
+                    raise AssertionError("Groth16 quotient: q(tau)(tau^n - 1) + r(tau) differs from "
+                                         "a(tau) b(tau)")
+            first_words["quotient"] = res
+        elif not all(torch.equal(u, v) for u, v in zip(res, first_words["quotient"])):
+            raise AssertionError(f"Groth16 quotient: {when} differs from the first")
+
+    res = path("groth16_quotient", quotient, check_quotient, trace=True)
+    first_words.clear()
+    emit("groth16_quotient", field=fr.name, n=n, product_coefficients=2 * n - 1, correct=True,
+         host_points=len(taus), host_known_answer_s=host_s, **res)
+
+    tau_t = h.rand_field(fr, EVAL_POINTS)
+    tau_i = ints(fr, tau_t[:, :HORNER_KAT])
+    want_eval = [host_horner(a_i, x, p) for x in tau_i]
+
+    def check_eval(res, when):
+        if tuple(res.shape) != (fr.num_limbs, EVAL_POINTS) or ints(fr, res[:, :HORNER_KAT]) != want_eval:
+            raise AssertionError(f"dense.evaluate: {when} differs from the host Horner")
+
+    res = path("dense_evaluate", lambda: dense.evaluate(fr, a, tau_t), check_eval)
+    emit("dense_evaluate", field=fr.name, coefficients=n, points=EVAL_POINTS, correct=True,
+         host_points=HORNER_KAT, **res)
+    del a, b, a_i, b_i
+
+    # -- divide_with_q_and_r: one serial step per quotient coefficient ------------
+    da, db = DIV_DEGREES
+    num, den = h.rand_field(fr, da + 1), h.rand_field(fr, db + 1)
+    den[:, db] = fp.one(fr, (), dev)  # a nonzero leading coefficient
+    num_i, den_i = ints(fr, num), ints(fr, den)
+
+    def check_div(res, when):
+        q, r = res
+        if tuple(q.shape) != (fr.num_limbs, da - db + 1) or tuple(r.shape) != (fr.num_limbs, db):
+            raise AssertionError(f"divide_with_q_and_r: {when} has shapes {q.shape}, {r.shape}")
+        q_i, r_i = ints(fr, q), ints(fr, r)
+        for x in taus:
+            if (host_horner(q_i, x, p) * host_horner(den_i, x, p) + host_horner(r_i, x, p)) % p != \
+                    host_horner(num_i, x, p):
+                raise AssertionError(f"divide_with_q_and_r: {when}: q b + r differs from a")
+
+    res = path("divide_with_q_and_r", lambda: dense.divide_with_q_and_r(fr, num, den), check_div)
+    emit("divide_with_q_and_r", field=fr.name, degrees=list(DIV_DEGREES), correct=True, **res)
+
+    # -- MLE: a 2^20-entry table (20 variables) -----------------------------------
+    f_t = h.rand_field(fr, 1 << MLE_VARS)
+    r_t = h.rand_field(fr, MLE_VARS)
+    t0 = time.perf_counter()
+    f_i, r_i = ints(fr, f_t), ints(fr, r_t)
+    eq_h = [1]
+    for rj in r_i:  # bit j of the index is x_j
+        eq_h = [e * (1 - rj) % p for e in eq_h] + [e * rj % p for e in eq_h]
+    want_val = sum(e * v for e, v in zip(eq_h, f_i)) % p
+    fold_idx = sorted({0, (1 << (MLE_VARS - MLE_FIXED)) - 1} | {
+        int(i) for i in rng.integers(0, 1 << (MLE_VARS - MLE_FIXED), size=POLY_KAT)})
+    eq_low = [1]
+    for rj in r_i[:MLE_FIXED]:
+        eq_low = [e * (1 - rj) % p for e in eq_low] + [e * rj % p for e in eq_low]
+    want_fold = [sum(e * f_i[(y << MLE_FIXED) + x] for x, e in enumerate(eq_low)) % p for y in fold_idx]
+    eq_idx = sorted({0, 1, (1 << MLE_VARS) - 1} | {int(i) for i in rng.integers(0, 1 << MLE_VARS,
+                                                                               size=MLE_KAT - 3)})
+    host_s = time.perf_counter() - t0
+
+    def mle_run():
+        return (mle.eq_table(fr, r_t), mle.fix_variables(fr, f_t, r_t[:, :MLE_FIXED]),
+                mle.evaluate(fr, f_t, r_t))
+
+    def check_mle(res, when):
+        eq, fold, val = res
+        if ints(fr, eq[:, eq_idx]) != [eq_h[i] for i in eq_idx]:
+            raise AssertionError(f"mle.eq_table: {when} differs from the host at sampled indices")
+        if ints(fr, fold[:, fold_idx]) != want_fold:
+            raise AssertionError(f"mle.fix_variables: {when} differs from the host")
+        if ints(fr, val) != [want_val]:
+            raise AssertionError(f"mle.evaluate: {when} differs from sum_x eq(r, x) f(x)")
+
+    res = path("mle", mle_run, check_mle)
+    emit("mle", field=fr.name, variables=MLE_VARS, fixed=MLE_FIXED, eq_indices=len(eq_idx),
+         fold_indices=len(fold_idx), correct=True, host_known_answer_s=host_s, **res)
+    del f_t, f_i, eq_h
+
+    # -- sparse: 16 terms over the 2^20 domain; 32 terms at 2^16 points -------------
+    dom = tdm.Radix2Domain(fr, n)
+    terms = [(int(d), c) for d, c in zip(rng.integers(0, 2 * n, size=SPARSE_TERMS),
+                                         rand_ints(fr, SPARSE_TERMS))]
+    degs, cs = sparse.uv_from_terms(fr, terms, dev)
+    sp_idx = sorted({0, n - 1} | {int(i) for i in rng.integers(0, n, size=SPARSE_KAT - 2)})
+    g = dom.group_gen_int
+    want_sp = [sum(c * pow(g, d * j, p) for d, c in terms) % p for j in sp_idx]
+
+    def check_sp(res, when):
+        if tuple(res.shape) != (fr.num_limbs, n) or ints(fr, res[:, sp_idx]) != want_sp:
+            raise AssertionError(f"uv_evaluate_over_domain: {when} differs from the host")
+
+    res = path("sparse_uv_over_domain", lambda: sparse.uv_evaluate_over_domain(fr, degs, cs, dom),
+               check_sp)
+    emit("sparse_uv_over_domain", field=fr.name, terms=SPARSE_TERMS, n=n, indices=len(sp_idx),
+         correct=True, **res)
+    mv_terms = [(c, [(v, int(e)) for v, e in enumerate(rng.integers(0, 8, size=MV_VARS))])
+                for c in rand_ints(fr, MV_TERMS)]
+    powers, mcs = sparse.mv_from_terms(fr, MV_VARS, mv_terms, dev)
+    m_pts = 1 << MV_LOG_POINTS
+    pts = h.rand_field(fr, MV_VARS * m_pts).reshape(fr.num_limbs, MV_VARS, m_pts)
+    cols = [int(i) for i in rng.integers(0, m_pts, size=MV_KAT)]
+    xs = [ints(fr, pts[:, :, c]) for c in cols]
+    want_mv = [sum(c * math.prod(pow(x[v], e, p) for v, e in t) for c, t in mv_terms) % p for x in xs]
+
+    def check_mv(res, when):
+        if tuple(res.shape) != (fr.num_limbs, m_pts) or ints(fr, res[:, cols]) != want_mv:
+            raise AssertionError(f"mv_evaluate: {when} differs from the host")
+
+    res = path("sparse_mv_evaluate", lambda: sparse.mv_evaluate(fr, powers, mcs, pts), check_mv)
+    emit("sparse_mv_evaluate", field=fr.name, variables=MV_VARS, terms=MV_TERMS, points=m_pts,
+         columns=len(cols), correct=True, **res)
+    del pts
+
+    # -- mixed-radix domains at NW = 24 and 10; a GeneralDomain ---------------------
+    def geometric_case(spec, dom_, label, trace):
+        """fft of c r^j with a few entries replaced, against the closed form
+        plus the replaced entries' terms at POLY_KAT indices; the ifft round
+        trip."""
+        q = spec.modulus
+        size = dom_.size
+        r_, c_ = rand_ints(spec, 2)
+        x = fp.mont_mul(spec, tdm.power_table(spec, r_, size, dev), fp.const_array(spec, c_, (1,), dev))
+        spikes = sorted({int(i) for i in rng.integers(0, size, size=4)})
+        vals = rand_ints(spec, len(spikes))
+        x[:, spikes] = fp.from_ints(spec, vals, device=dev)
+        w = dom_.group_gen_int
+        ks = sorted({0, size - 1} | {int(i) for i in rng.integers(0, size, size=POLY_KAT - 2)})
+        want = []
+        for k in ks:
+            z = r_ * pow(w, k, q) % q
+            v = c_ * (1 - pow(z, size, q)) * pow(1 - z, -1, q) % q if z != 1 else c_ * size % q
+            for j, s in zip(spikes, vals):
+                v += (s - c_ * pow(r_, j, q)) * pow(w, j * k, q)
+            want.append(v % q)
+
+        def check(res, when):
+            if tuple(res.shape) != (spec.num_limbs, size) or ints(spec, res[:, ks]) != want:
+                raise AssertionError(f"{label}: fft {when} differs from the host at sampled indices")
+
+        res = path(label, lambda: dom_.fft(x), check, trace=trace)
+        ev = dom_.fft(x)
+        back = dom_.ifft(ev)
+        if not torch.equal(back, x):
+            raise AssertionError(f"{label}: the ifft does not return the fft's input")
+        ms_rt = h.once_ms(lambda: dom_.ifft(ev))[1]
+        return res, ms_rt, len(ks)
+
+    for curve, fname, s2, qb in MIXED_DOMAINS:
+        spec = getattr(importlib.import_module(f"zkarray_torch.curves.{curve}"), fname)
+        size = (1 << s2) * qb
+        label = f"mixed_radix_{curve}_{fname.lower()}"
+        res, ms_rt, nk = geometric_case(spec, tmr.MixedRadixDomain(spec, size), label, True)
+        emit(label, field=spec.name, nw=spec.num_limbs // 2, n=size, factors=[1 << s2, qb],
+             correct=True, round_trip=True, indices=nk, ifft_ms=ms_rt, **res)
+    spec = importlib.import_module("zkarray_torch.curves.mnt6_753").FR
+    gd = tdm.GeneralDomain(spec, GENERAL_TARGET)
+    if not isinstance(gd, tmr.MixedRadixDomain) or gd.size != GENERAL_SIZE:
+        raise AssertionError(f"GeneralDomain({spec.name}, {GENERAL_TARGET}): {gd!r}, not the "
+                             f"mixed-radix domain of {GENERAL_SIZE}")
+    res, ms_rt, nk = geometric_case(spec, gd, "general_domain", False)
+    emit("general_domain", field=spec.name, target=GENERAL_TARGET, n=gd.size, correct=True,
+         round_trip=True, indices=nk, ifft_ms=ms_rt, **res)
+
+    # -- fft_group over BLS12-381 G1: P_j = c_j G ------------------------------------
+    G1 = B.G1
+    gops = SWJacobianCoeff(G1)
+    gen = (G1.gen_x, G1.gen_y)
+    ng = 1 << GFFT_LOG_N
+    c_ints = rand_ints(fr, ng)
+    Pg = tsw.scalar_mul(G1, G1.generator((ng,), dev), fp.from_ints(fr, c_ints, mont=False, device=dev))
+    gdom = tdm.Radix2Domain(fr, ng)
+    g_idx = sorted({0, ng - 1} | {int(i) for i in rng.integers(0, ng, size=GFFT_KAT - 2)})
+    wg = gdom.group_gen_int
+    want_g = [tt.ec_mul(gen, sum(c * pow(wg, j * k, p) for j, c in enumerate(c_ints)) % p,
+                        G1.a_int, G1.base.modulus) for k in g_idx]
+    stage_s = []
+    scale_rows = gops.scale_rows
+
+    def timed_scale_rows(a_, ks_):
+        sync()
+        t = time.perf_counter()
+        out = scale_rows(a_, ks_)
+        sync()
+        stage_s.append(time.perf_counter() - t)
+        return out
+
+    gops.scale_rows = timed_scale_rows
+
+    def check_gfft(res, when):
+        aff = tsw.to_affine(G1, gops.take(res, g_idx))
+        if tsw.affine_to_ints(G1, aff) != want_g:
+            raise AssertionError(f"fft_group 2^{GFFT_LOG_N}: {when} differs from (DFT c)_k G")
+
+    res = path("fft_group", lambda: fft_group(gdom, gops, Pg), check_gfft, timed=0)
+    ladder_s = list(stage_s)
+    nrt = 1 << GFFT_RT_LOG_N
+    rdom = tdm.Radix2Domain(fr, nrt)
+    P8 = gops.take(Pg, list(range(nrt)))
+
+    def round_trip():
+        return fft_group(rdom, gops, fft_group(rdom, gops, P8), inverse=True)
+
+    def check_rt(res, when):
+        got, want = tsw.to_affine(G1, res), tsw.to_affine(G1, P8)
+        if not all(torch.equal(u, v) for u, v in zip(got, want)):
+            raise AssertionError(f"fft_group 2^{GFFT_RT_LOG_N}: {when}: ifft(fft(P)) is not P")
+
+    stage_s.clear()
+    res_rt = path("fft_group_round_trip", round_trip, check_rt, timed=0)
+    gops.scale_rows = scale_rows
+    emit("fft_group", curve=G1.name, n=ng, indices=len(g_idx), correct=True,
+         ladder_s=ladder_s, ladders=len(ladder_s), round_trip_n=nrt,
+         round_trip_ms=res_rt["ms"], round_trip_launches=res_rt["launches_per_call"],
+         round_trip_ladder_s=list(stage_s), **res)
+    del Pg, P8
+
+    # -- scalar multiplication: GLV, wNAF, fixed base -------------------------------
+    def check_lanes(curve, pts_host, ks, lanes, what):
+        a_, mod = curve.a_int, curve.base.modulus
+        want = [tt.ec_mul(pts_host[i], ks[i], a_, mod) for i in lanes]
+
+        def check(res, when):
+            got = tsw.affine_to_ints(curve, tsw.to_affine(curve, tsw.JacobianPoints(
+                *(v[:, lanes] for v in res))))
+            if got != want:
+                raise AssertionError(f"{what}: {when} differs from the host at sampled lanes")
+        return check
+
+    def lanes_of(m):
+        return sorted({0, m - 1} | {int(i) for i in rng.integers(0, m, size=SCALAR_KAT - 2)})
+
+    for name, curve, spec_fn, log_m in (("bls12_381", B.G1, glv.bls12_381_g1_glv, GLV_LOG_N),
+                                        ("bn254", bn254.G1, glv.bn254_g1_glv, GLV_SMALL_LOG_N),
+                                        ("bls12_377", bls12_377.G1, glv.bls12_377_g1_glv,
+                                         GLV_SMALL_LOG_N)):
+        m = 1 << log_m
+        px, py, _, kb, _ = tt.tiled_inputs(curve, m, rng)
+        A = affine_from_numpy(px, py, np.zeros(m, dtype=bool), dev)
+        base = [tt.ec_mul((curve.gen_x, curve.gen_y), k, curve.a_int, curve.base.modulus) for k in kb]
+        pts_host = [base[i % len(base)] for i in range(m)]
+        ks = rand_ints(curve.scalar, m)
+        gs = spec_fn()
+        res = path(f"glv_mul_{name}", lambda: glv.glv_mul(gs, A, ks),
+                   check_lanes(curve, pts_host, ks, lanes_of(m), f"glv_mul {name}"))
+        emit(f"glv_mul_{name}", curve=curve.name, n=m, lanes=SCALAR_KAT, correct=True, **res)
+        del A, px, py
+
+    G2 = B.G2
+    m = 1 << G2_GLV_LOG_N
+    H = G2.generator((m,), dev)
+    ks = rand_ints(G2.scalar, m)
+    g2s = glv.bls12_381_g2_glv()
+    F2h = G2.ops.host
+    lanes = lanes_of(m)
+    want2 = [tt.ext_ec_mul(F2h, (G2.gen_x, G2.gen_y), ks[i]) for i in lanes]
+
+    def check_g2(res, when):
+        got = tt.g2_affine_to_ints(G2, sw_ext_to_affine(G2, res, lanes))
+        if got != want2:
+            raise AssertionError(f"glv_mul_ext bls12_381 G2: {when} differs from the host")
+
+    res = path("glv_mul_ext_bls12_381_g2", lambda: glv.glv_mul_ext(g2s, H, ks), check_g2)
+    emit("glv_mul_ext_bls12_381_g2", curve=G2.name, n=m, lanes=len(lanes), correct=True, **res)
+    del H
+
+    m = 1 << WNAF_LOG_N
+    ks = rand_ints(fr, m)
+    ctx = wnaf.WnafContext(G1, gen, WNAF_WINDOW, dev)
+    res = path("wnaf_mul", lambda: ctx.mul(ks),
+               check_lanes(G1, [gen] * m, ks, lanes_of(m), "WnafContext.mul"))
+    emit("wnaf_mul", curve=G1.name, n=m, window=WNAF_WINDOW, lanes=SCALAR_KAT, correct=True, **res)
+
+    m = 1 << FIXED_LOG_N
+    t0 = time.perf_counter()
+    tbl = fixed_base.FixedBaseTable(G1, gen, FIXED_WINDOW, dev)
+    table_s = time.perf_counter() - t0
+    sc = h.rand_field(fr, m)  # canonical scalars below r
+    lanes = lanes_of(m)
+    ks = ints(fr, sc[:, lanes], mont=False)
+    chk = check_lanes(G1, [gen] * len(lanes), ks, list(range(len(lanes))), "FixedBaseTable.batch_mul")
+
+    def check_fixed(res, when):
+        chk(tsw.JacobianPoints(*(v[:, lanes] for v in res)), when)
+
+    res = path("fixed_base_batch_mul", lambda: tbl.batch_mul(sc), check_fixed)
+    res_fb = tbl.batch_mul(sc)
+    sm = tsw.scalar_mul(G1, G1.generator((len(lanes),), dev), sc[:, lanes])
+    if not all(torch.equal(u, v) for u, v in zip(tsw.to_affine(G1, sm), tsw.to_affine(
+            G1, tsw.JacobianPoints(*(v[:, lanes] for v in res_fb))))):
+        raise AssertionError("FixedBaseTable.batch_mul differs from ec.sw.scalar_mul at sampled lanes")
+    emit("fixed_base_batch_mul", curve=G1.name, n=m, window=FIXED_WINDOW, rows=tbl.outerc,
+         host_table_s=table_s, lanes=len(lanes), against_scalar_mul=True, correct=True, **res)
+    del sc, res_fb, tbl
+
+    # -- streaming MSM ---------------------------------------------------------------
+    ns = 1 << STREAM_LOG_N
+    chunk = 1 << STREAM_CHUNK_LOG_N
+    px, py, ssc, kb, _ = tt.tiled_inputs(G1, ns, rng)
+    want_pt = tt.expected_msm(G1, kb, ssc)
+    A = affine_from_numpy(px, py, np.zeros(ns, dtype=bool), dev)
+    s_t = limbs_from_numpy(ssc, dev)
+    del px, py
+
+    def chunks():
+        for lo in range(0, ns, chunk):
+            yield tsw.AffinePoints(A.x[:, lo:lo + chunk], A.y[:, lo:lo + chunk],
+                                   A.inf[lo:lo + chunk]), s_t[:, lo:lo + chunk]
+
+    def check_xyzz(want, what):
+        def check(res, when):
+            aff = tsw.xyzz_to_affine(G1, tsw.XYZZPoints(*(v[:, None] for v in res)))
+            if tsw.affine_to_ints(G1, aff) != [want]:
+                raise AssertionError(f"{what}: {when} differs from the host known answer")
+        return check
+
+    res = path("msm_chunks", lambda: stream_msm.msm_chunks(G1, chunks(), device=dev),
+               check_xyzz(want_pt, "msm_chunks"))
+    emit("msm_chunks", curve=G1.name, n=ns, chunk=chunk, correct=True, **res)
+    del A, s_t
+
+    npp = 1 << PIPPENGER_LOG_N
+    base = [tt.ec_mul(gen, k, G1.a_int, G1.base.modulus) for k in kb]
+    feed_pts = [base[i % len(base)] for i in range(npp)]
+    feed_ks = rand_ints(fr, npp)
+    # P_i = kb_(i mod 64) G, so sum_i k_i P_i = (sum_i kb_(i mod 64) k_i) G: one host ec_mul
+    want_pp = tt.ec_mul(gen, sum(kb[i % len(kb)] * k for i, k in enumerate(feed_ks)) % p,
+                        G1.a_int, G1.base.modulus)
+    restore_msm = install_msm_recorders(torch, rec)
+    try:
+        for label, make in (("chunked_pippenger",
+                             lambda: stream_msm.ChunkedPippenger(G1, PIPPENGER_CHUNK, device=dev)),
+                            ("hashmap_pippenger", lambda: stream_msm.HashMapPippenger(G1, device=dev))):
+            feed_s = []
+
+            def run_feed():
+                acc = make()
+                t = time.perf_counter()
+                for pt, k in zip(feed_pts, feed_ks):
+                    acc.add(pt, k)
+                feed_s.append(time.perf_counter() - t)
+                return acc.finalize()
+
+            res = path(label, run_feed, check_xyzz(want_pp, label))
+            msm_rows = replay_msm_launches(h, G1, rec.msm)
+            rec.msm = []
+            for r_ in msm_rows:
+                err[r_["kernel"]] = max(err[r_["kernel"]], r_["max_abs_err"])
+            emit(label, curve=G1.name, points=npp, distinct_points=len(base), correct=True,
+                 host_feed_s=feed_s, host_us_per_add=feed_s[0] / npp * 1e6,
+                 msm_kernel_launches_vs_plain=len(msm_rows), **res)
+    finally:
+        restore_msm()
+    restore_ntt()
+
+    # -- the NTT kernels at NW = 10 and 24 ---------------------------------------------
+    ntt_report = ntt_width_report(torch, h, ntt_rows, err)
+    for name, rep in ntt_report.items():
+        if name != "butterfly_stage" and not {"nw10", "nw24"} <= set(rep):
+            raise AssertionError(f"{name}: no phase-13 launch at NW = 10 and 24 ({sorted(rep)})")
+    h.emit("kernel_ntt_phase13_shapes", rows=ntt_rows)
+    h.emit("ntt_nw10_nw24", kernels=ntt_report)
+    h.emit("phase13_launches", per_call=paths, max_abs_err=dict(err),
+           seconds=time.perf_counter() - t_phase)
+    report = {}
+    for name in set(err) | set(NTT_KERNELS):
+        report[name] = dict(phase13_launches={lbl: v[name] for lbl, v in paths.items() if v.get(name)},
+                            phase13_max_abs_err=err.get(name, 0))
+    for name, rep in ntt_report.items():
+        report[name].update(rep)
+    return report
+
+
+def sw_ext_to_affine(curve, P, lanes):
+    """Lanes ``lanes`` of an ExtJacobian batch as ExtAffine."""
+    from zkarray_torch.ec import sw_ext
+
+    return sw_ext.to_affine(curve, sw_ext.ExtJacobian(*(v[..., lanes] for v in P)))
 
 
 def main():
@@ -3479,7 +4177,17 @@ def main():
             report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
                                               r["msm_mixed"]["max_abs_err"])
 
-    # ---- 13. kernels line ----------------------------------------------------
+    # ---- 13. the polynomial layer and the scalar-multiplication family ---------
+    rec13, restore13 = install_recorders(torch, km)
+    try:
+        phase13 = poly_scalar_phase(torch, helpers, rec13)
+    finally:
+        restore13()
+    del rec13
+    for name, r in phase13.items():
+        report.setdefault(name, {})["phase13"] = r
+
+    # ---- 14. kernels line ----------------------------------------------------
     sources = {
         "mont_mul": ("zkarray_torch/kernels/csrc/mont.cu", "zkarray/kernels/mont.py:235"),
         "mont_sqr": ("zkarray_torch/kernels/csrc/mont.cu", "zkarray/kernels/mont.py:254"),
@@ -3540,7 +4248,8 @@ def main():
     rows = []
     for name, (src, repl) in sources.items():
         r = report[name]
-        widths = sorted(_build.FIELD_LIBS) if name in FIELD_KERNELS + ("fp_lin",) else [8, 12]
+        widths = (sorted(_build.FIELD_LIBS) if name in FIELD_KERNELS + ("fp_lin",) else
+                  sorted(_build.NTT_LIBS) if name in NTT_KERNELS else [8, 12])
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
                      "path": paths[name][0], "launches": paths[name][1], "library_ms": None,
                      "nw_widths": widths, **r})

@@ -8,9 +8,9 @@ a chip call; it says nothing about the CUDA sources. About 35 minutes
 phase 9 nine pairing calls of 8 to 16 pairs, ~10 s each on the CPU, phase
 10 twenty-two BN254, GT and BW6 calls of 8 to 16 lanes, phase 11 msm_mixed
 at 2^8 points and twenty-five MNT and CP6 calls of 2 to 8 lanes, phase 12
-fp_lin's edge words and recorded inputs). The XYZZ,
-MSM, NTT and twiddle kernels' stand-ins refuse every width but L = 16 and
-24 (NW = 8 and 12) as their C entries do on the card:
+fp_lin's edge words and recorded inputs). The XYZZ and MSM kernels'
+stand-ins refuse every width but L = 16 and 24 (NW = 8 and 12), and the
+NTT and twiddle kernels' L = 52 (NW = 26), as on the card:
 
     python3 scripts/rehearse_chip_smoke.py > rehearsal.out
 """
@@ -77,9 +77,15 @@ def refuse_nw24(kernel, limbs):
         raise RuntimeError(f"{kernel}: CUDA launch failed (1: invalid argument)")
 
 
-def field_only(kernel, fn, limbs_of):
+def refuse_ntt(kernel, limbs):
+    """The card's NTT and twiddle kernels are built for NW = 8, 10, 12 and
+    24: at L = 52 the wrapper finds no library and raises."""
+    _build.ntt_lib(kernel, limbs // 2)
+
+
+def field_only(kernel, fn, limbs_of, refuse=refuse_nw24):
     def call(*args, **kw):
-        refuse_nw24(kernel, limbs_of(*args))
+        refuse(kernel, limbs_of(*args))
         return fn(*args, **kw)
     return call
 
@@ -153,7 +159,7 @@ def setup():
     km._launch_addsub = launch_addsub
     lin._launch_lin = launch_lin
     km._launch_dit = field_only("butterfly_dit", counted("butterfly_dit", km.butterfly_dit_plain),
-                                lambda spec, *a: spec.num_limbs)
+                                lambda spec, *a: spec.num_limbs, refuse_ntt)
     km.butterfly_stage = counted("butterfly_stage", km.butterfly_stage_plain)
     ksw._accum = accum
     ksw._launch_xyzz = launch_xyzz
@@ -165,7 +171,7 @@ def setup():
     ksw.xyzz_tree_sum = counted("xyzz_tree_sum", ksw.xyzz_tree_sum_plain)
     ksw.xyzz_bit_horner = counted("xyzz_bit_horner", ksw.xyzz_bit_horner_plain)
     km.pow_table = field_only("pow_table", counted("pow_table", km.pow_table),  # the plain version
-                              lambda spec, *a, **kw: spec.num_limbs)
+                              lambda spec, *a, **kw: spec.num_limbs, refuse_ntt)
     twiddle_mul = km.twiddle_mul
 
     def twiddle_on_cpu(*args, **kw):

@@ -233,8 +233,9 @@ def test_l20_l52_field_kernels_plain_match_python_ints(curve):
 def test_field_kernel_widths():
     """The six field kernels are built at NW = 8, 10, 12, 24 and 26
     (csrc/field.cuh:ZK_DISPATCH_NW_FIELD, mont.cu once per width group) and
-    every other width raises before a launch; the XYZZ, MSM, NTT and
-    twiddle kernels keep NW = 8 and 12 (ZK_DISPATCH_NW)."""
+    every other width raises before a launch; the XYZZ and MSM kernels keep
+    NW = 8 and 12 (ZK_DISPATCH_NW); the NTT and twiddle kernels take
+    NW = 8, 10, 12 and 24 from two width groups each."""
     import re
     from pathlib import Path
 
@@ -253,8 +254,17 @@ def test_field_kernel_widths():
     assert sorted(map(int, re.findall(r"case (\d+):", body))) == [8, 12]
     field = src[src.index("#ifndef ZK_FIELD_WIDTHS"):src.index("#define ZK_DISPATCH_NW_FIELD")]
     assert sorted(map(int, re.findall(r"ZK_NW_CASE\((\d+),", field))) == [8, 10, 12, 24, 26]
-    for name in ("sw", "xyzz", "madd", "ntt", "twiddle"):
+    for name in ("sw", "xyzz", "madd"):
         assert "ZK_DISPATCH_NW_FIELD" not in (Path(_build.CSRC) / f"{name}.cu").read_text(), name
+    for name in ("ntt", "twiddle"):  # the field widths but 26, from two width groups
+        text = (Path(_build.CSRC) / f"{name}.cu").read_text()
+        assert "ZK_DISPATCH_NW_FIELD(" in text and "ZK_DISPATCH_NW(" not in text, name
+        assert {nw: _build.ntt_lib(name, nw) for nw in (8, 10, 12, 24)} == {
+            8: name, 10: name, 12: name, 24: f"{name}_w24"}
+        for lib in (name, f"{name}_w24"):
+            assert lib in _build.SOURCES and _build.EXPORTS[lib] == _build.EXPORTS[name]
+        with pytest.raises(ValueError):
+            _build.ntt_lib(name, 26)
 
 
 def interop_same(ts, js):

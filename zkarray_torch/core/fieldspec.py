@@ -1,6 +1,6 @@
 """Per-field Montgomery constants (the port's own copy of the subset it needs).
 
-Counterpart of zkarray/core/fieldspec.py:FieldSpec, less the small-subgroup
+Counterpart of zkarray/core/fieldspec.py:FieldSpec, with the small-subgroup
 roots of mixed-radix domains. Base-2^16 limbs, L =
 4·ceil(bits/64), so R = 2^(16 L) equals arkworks' 64-bit-limb radix and
 Montgomery-form values match the JAX package's bit for bit.
@@ -9,7 +9,7 @@ Montgomery-form values match the JAX package's bit for bit.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 LIMB_BITS = 16
 LIMB_MASK = (1 << LIMB_BITS) - 1
@@ -18,7 +18,14 @@ LIMB_MASK = (1 << LIMB_BITS) - 1
 class FieldSpec:
     """Constants of one prime field, as plain Python ints."""
 
-    def __init__(self, modulus: int, generator: int, name: str = ""):
+    def __init__(
+        self,
+        modulus: int,
+        generator: int,
+        name: str = "",
+        small_subgroup_base: Optional[int] = None,
+        small_subgroup_base_adicity: Optional[int] = None,
+    ):
         if modulus < 3 or modulus % 2 == 0:
             raise ValueError("modulus must be an odd prime >= 3")
         self.modulus = modulus
@@ -45,6 +52,20 @@ class FieldSpec:
         self.two_adicity = s
         self.trace = t
         self.two_adic_root_int = pow(self.generator_int, t, modulus)
+        # optional small subgroup of order q^b dividing p - 1 (mixed-radix
+        # domains; zkarray/core/fieldspec.py:82-99)
+        self.small_subgroup_base = small_subgroup_base
+        self.small_subgroup_base_adicity = small_subgroup_base_adicity
+        self.large_subgroup_root_int: Optional[int] = None
+        if small_subgroup_base is not None:
+            if small_subgroup_base_adicity is None:
+                a, tt = 0, t
+                while tt % small_subgroup_base == 0:
+                    tt //= small_subgroup_base
+                    a += 1
+                self.small_subgroup_base_adicity = a
+            full = (1 << s) * small_subgroup_base ** self.small_subgroup_base_adicity
+            self.large_subgroup_root_int = pow(self.generator_int, (modulus - 1) // full, modulus)
 
         # square-root route (zkarray/core/fieldspec.py:105-126): one power
         # for p = 3 mod 4, Atkin's for p = 5 mod 8, else Tonelli-Shanks with
@@ -101,14 +122,26 @@ class FieldSpec:
         return (x * self._rinv) % self.modulus
 
     def root_of_unity(self, n: int) -> int:
-        """Canonical n-th root of unity for a power of two n <= 2^s, or raise
-        (zkarray/core/fieldspec.py:root_of_unity, power-of-two branch)."""
-        if n <= 0 or n & (n - 1):
-            raise ValueError(f"n must be a power of two, got {n}")
-        k = n.bit_length() - 1
-        if k > self.two_adicity:
-            raise ValueError(f"no 2^{k}-th root of unity in {self.name}")
-        w = self.two_adic_root_int
-        for _ in range(self.two_adicity - k):
-            w = (w * w) % self.modulus
-        return w
+        """Canonical n-th root of unity for n | 2^s (* q^b), or raise
+        (zkarray/core/fieldspec.py:root_of_unity)."""
+        if n <= 0:
+            raise ValueError("n must be positive")
+        k = (n & -n).bit_length() - 1
+        rest = n >> k
+        if rest == 1:
+            if k > self.two_adicity:
+                raise ValueError(f"no 2^{k}-th root of unity in {self.name}")
+            w = self.two_adic_root_int
+            for _ in range(self.two_adicity - k):
+                w = (w * w) % self.modulus
+            return w
+        if self.small_subgroup_base is None:
+            raise ValueError(f"domain size {n} unsupported in {self.name}")
+        q, a = self.small_subgroup_base, 0
+        while rest % q == 0:
+            rest //= q
+            a += 1
+        if rest != 1 or a > self.small_subgroup_base_adicity or k > self.two_adicity:
+            raise ValueError(f"domain size {n} unsupported in {self.name}")
+        e = (1 << (self.two_adicity - k)) * q ** (self.small_subgroup_base_adicity - a)
+        return pow(self.large_subgroup_root_int, e, self.modulus)

@@ -32,11 +32,15 @@ def int_to_limbs_np(x: int, num_limbs: int) -> np.ndarray:
 
 
 def ints_to_limbs_np(xs: Sequence[int], num_limbs: int) -> np.ndarray:
-    """Python ints -> (L, len(xs)) uint32 planar limb array."""
-    out = np.empty((num_limbs, len(xs)), dtype=np.uint32)
-    for j, x in enumerate(xs):
-        out[:, j] = int_to_limbs_np(x, num_limbs)
-    return out
+    """Python ints -> (L, len(xs)) uint32 planar limb array (through each
+    int's little-endian bytes)."""
+    nbytes = 2 * num_limbs
+    try:
+        raw = b"".join(int(x).to_bytes(nbytes, "little") for x in xs)
+    except OverflowError:  # negative, or too wide for num_limbs
+        raise ValueError("integer does not fit in given limb count") from None
+    words = np.frombuffer(raw, dtype="<u2").reshape(len(xs), num_limbs)
+    return np.ascontiguousarray(words.T.astype(np.uint32))
 
 
 def limbs_to_int(limbs) -> int:
@@ -70,8 +74,9 @@ def normalize(cols: torch.Tensor, out_limbs: int, carry_out: bool = False):
     Returns (out_limbs, *batch) int64 limbs in [0, 2^16); the final carry is
     dropped (callers guarantee it is zero), or with ``carry_out`` returned
     beside them: (limbs, the carry out of the top limb (*batch), which may
-    pass 1). Four carry-save passes bring every column to at most 2^16
-    (each pass moves all columns' high bits up one limb at once); the last
+    pass 1). Three carry-save passes (each moves all columns' high bits up
+    one limb at once) bring every column below 2^46 + 2^16, then 2^30 + 2^16
+    + 1, then 2^16 + 2^14 + 1, so each sends at most one carry on; the last
     carries then follow from one binary add of the limbs' generate and
     propagate bits (``_lookahead``)."""
     x = cols.to(torch.int64)
@@ -80,7 +85,7 @@ def normalize(cols: torch.Tensor, out_limbs: int, carry_out: bool = False):
     else:
         x = x[:out_limbs].clone()
     top = torch.zeros_like(x[0])
-    for _ in range(4):
+    for _ in range(3):
         c = x >> LIMB_BITS
         x &= LIMB_MASK
         x[1:] += c[:-1]

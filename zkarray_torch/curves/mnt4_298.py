@@ -16,7 +16,8 @@ from zkarray_torch.ff.towers import ExtOps, PrimeOps, mul_by_quadratic_generator
 FQ_MODULUS = 475922286169261325753349249653048451545124879242694725395555128576210262817955800483758081
 FR_MODULUS = 475922286169261325753349249653048451545124878552823515553267735739164647307408490559963137
 
-FQ = FieldSpec(FQ_MODULUS, generator=17, name="mnt4_298.Fq")
+FQ = FieldSpec(FQ_MODULUS, generator=17, name="mnt4_298.Fq",
+               small_subgroup_base=7, small_subgroup_base_adicity=2)
 FR = FieldSpec(FR_MODULUS, generator=10, name="mnt4_298.Fr")
 
 FQ_OPS = PrimeOps(FQ)

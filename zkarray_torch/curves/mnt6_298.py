@@ -16,7 +16,8 @@ FQ_MODULUS = 4759222861692613257533492496530484515451248785528235155532677357391
 FR_MODULUS = 475922286169261325753349249653048451545124879242694725395555128576210262817955800483758081
 
 FQ = FieldSpec(FQ_MODULUS, generator=10, name="mnt6_298.Fq")
-FR = FieldSpec(FR_MODULUS, generator=17, name="mnt6_298.Fr")
+FR = FieldSpec(FR_MODULUS, generator=17, name="mnt6_298.Fr",
+               small_subgroup_base=7, small_subgroup_base_adicity=2)
 
 FQ_OPS = PrimeOps(FQ)
 FQ3 = ExtOps("mnt6_298.Fq3", FQ_OPS, 3, 5)  # u^3 = 5

@@ -190,6 +190,53 @@ def gt_from_numpy(ext, arr, device=DEFAULT_DEVICE) -> torch.Tensor:
     return limbs_from_numpy(a, device)
 
 
+def _index_tensor(arr, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(arr).astype(np.int64)).to(device)
+
+
+def sparse_uv_from_numpy(degrees, coeffs, device=DEFAULT_DEVICE):
+    """A JAX package sparse univariate polynomial (uint32 degrees (k,),
+    coefficient limbs (L, k)) -> the port's (int64 degrees, int32 limbs)."""
+    return _index_tensor(degrees, device), limbs_from_numpy(coeffs, device)
+
+
+def sparse_mv_from_numpy(powers, coeffs, device=DEFAULT_DEVICE):
+    """A JAX package sparse multivariate polynomial (uint32 powers
+    (k, num_vars), coefficient limbs (L, k)) -> the port's."""
+    return _index_tensor(powers, device), limbs_from_numpy(coeffs, device)
+
+
+def fixed_base_table_from_numpy(curve: SWCurveSpec, tx, ty, tinf, window: int,
+                                device=DEFAULT_DEVICE):
+    """A JAX package FixedBaseTable's arrays (tx, ty (L, outerc, 2^window)
+    Montgomery limbs, tinf (outerc, 2^window) bool) -> the port's table,
+    with no host construction."""
+    from zkarray_torch.ec.fixed_base import FixedBaseTable
+
+    t = FixedBaseTable.__new__(FixedBaseTable)
+    t.curve, t.window = curve, window
+    t.tx, t.ty = limbs_from_numpy(tx, device), limbs_from_numpy(ty, device)
+    t.tinf = torch.from_numpy(np.asarray(tinf, dtype=bool).copy()).to(device)
+    t.outerc = t.tx.shape[1]
+    if t.outerc != -(-curve.scalar.bits // window) or t.tx.shape[2] != 1 << window:
+        raise ValueError(f"table {tuple(t.tx.shape)} does not fit window {window} of {curve.name}")
+    return t
+
+
+def wnaf_context_from_numpy(curve: SWCurveSpec, tx, ty, device=DEFAULT_DEVICE):
+    """A JAX package WnafContext's table (tx, ty (L, 2^(w-1)) Montgomery
+    limbs of the odd multiples) -> the port's context."""
+    from zkarray_torch.ec.wnaf import WnafContext
+
+    ctx = WnafContext.__new__(WnafContext)
+    ctx.curve = curve
+    ctx.tx, ctx.ty = limbs_from_numpy(tx, device), limbs_from_numpy(ty, device)
+    ctx.window = ctx.tx.shape[1].bit_length()
+    if 1 << (ctx.window - 1) != ctx.tx.shape[1]:
+        raise ValueError(f"{ctx.tx.shape[1]} table entries is not 2^(w-1)")
+    return ctx
+
+
 def same_field(spec: FieldSpec, modulus: int, generator: int, r_int: int, r2_int: int,
                inv16: int) -> bool:
     """True when the port's field constants equal the given ints."""

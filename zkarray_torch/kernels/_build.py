@@ -4,8 +4,8 @@ Each library ``<name>`` is one ``csrc/<file>.cu`` built into a shared
 library with a plain C interface, ``build/lib<name>-<digest>.so`` beside this
 file (the directory is listed in ``.gitignore``). Most libraries are one
 source each; ``csrc/mont.cu`` is built three times, once per group of field
-widths (``FIELD_LIBS``), so that its wide instantiations compile in
-parallel. The digest covers every source under ``csrc/`` and every
+widths (``FIELD_LIBS``), and ``ntt.cu`` and ``twiddle.cu`` twice each
+(``NTT_LIBS``), so that their wide instantiations compile in parallel. The digest covers every source under ``csrc/`` and every
 library's nvcc flags, so an edited source or width group is rebuilt and a
 built one is reused. Nothing is built at import time:
 the first kernel launch builds what it needs, and ``build()`` builds several
@@ -28,19 +28,25 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("mont", "mont_w24", "mont_w26", "sw", "ntt", "madd", "xyzz", "twiddle", "fadd",
-           "flin")
+SOURCES = ("mont", "mont_w24", "mont_w26", "sw", "ntt", "ntt_w24", "madd", "xyzz", "twiddle",
+           "twiddle_w24", "fadd", "flin")
 # library -> (source stem, extra nvcc flags) where the two differ
 VARIANTS = {
     "mont": ("mont", ("-DZK_FIELD_WIDTHS=1",)),
     "mont_w24": ("mont", ("-DZK_FIELD_WIDTHS=24",)),
     "mont_w26": ("mont", ("-DZK_FIELD_WIDTHS=26",)),
+    "ntt": ("ntt", ("-DZK_FIELD_WIDTHS=1",)),
+    "ntt_w24": ("ntt", ("-DZK_FIELD_WIDTHS=24",)),
+    "twiddle": ("twiddle", ("-DZK_FIELD_WIDTHS=1",)),
+    "twiddle_w24": ("twiddle", ("-DZK_FIELD_WIDTHS=24",)),
 }
 # Word counts NW = L/2 of the element-wise field kernels (csrc/field.cuh:
 # ZK_DISPATCH_NW_FIELD) and the mont.cu library that holds each; fadd.cu
-# and flin.cu hold all of them. The XYZZ, MSM, NTT and twiddle kernels take NW = 8
-# and 12 only.
+# and flin.cu hold all of them. The NTT and twiddle kernels take the same
+# widths but 26, from their own width groups (NTT_LIBS); the XYZZ and MSM
+# kernels take NW = 8 and 12 only.
 FIELD_LIBS = {8: "mont", 10: "mont", 12: "mont", 24: "mont_w24", 26: "mont_w26"}
+NTT_LIBS = {8: "", 10: "", 12: "", 24: "_w24"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -95,6 +101,8 @@ LAUNCHES = {"mont_mul": 0, "mont_sqr": 0, "xyzz_accum": 0, "horner_windows": 0,
             "fp_lin": 0}
 
 EXPORTS["mont_w24"] = EXPORTS["mont_w26"] = EXPORTS["mont"]
+EXPORTS["ntt_w24"] = EXPORTS["ntt"]
+EXPORTS["twiddle_w24"] = EXPORTS["twiddle"]
 
 _libs = {}
 
@@ -111,6 +119,15 @@ def field_lib(nw: int) -> str:
         return FIELD_LIBS[nw]
     except KeyError:
         raise ValueError(f"field kernels take NW in {sorted(FIELD_LIBS)}, not {nw}") from None
+
+
+def ntt_lib(source: str, nw: int) -> str:
+    """The library of ``source`` (ntt or twiddle) that holds its kernels at
+    NW words; raises for a width that no library builds."""
+    try:
+        return source + NTT_LIBS[nw]
+    except KeyError:
+        raise ValueError(f"{source} kernels take NW in {sorted(NTT_LIBS)}, not {nw}") from None
 
 
 def reset_launches():

@@ -568,14 +568,16 @@ __device__ __forceinline__ Xyzz<NW> xyzz_add(const PA& P, const PB& Q, const Fie
   }
 
 // The same for the element-wise field kernels (mont.cu's four, fadd.cu's
-// two), which also take NW = 10 (the 298-bit fields of MNT4/6-298), 24 (the
+// two, flin.cu's) and the NTT kernels, which also take NW = 10 (the 298-bit fields of MNT4/6-298), 24 (the
 // 753- to 767-bit fields of MNT4/6-753 and BW6) and 26 (CP6-782's 782-bit
 // field). A translation unit builds the widths its ZK_FIELD_WIDTHS names:
 // 1 for NW = 8, 10 and 12, 24 or 26 alone, 0 (the default) for all five;
 // the build compiles mont.cu once per group, in parallel (kernels/_build.py).
-// The XYZZ, MSM and NTT kernels keep ZK_DISPATCH_NW, so they are not built
-// at these widths and reject them with cudaErrorInvalidValue; so does a
-// unit asked for a width outside its group.
+// ntt.cu and twiddle.cu dispatch here too, built per group the same way
+// (NW = 26 is not built for them). The XYZZ and MSM kernels keep
+// ZK_DISPATCH_NW, so they are not built at these widths and reject them
+// with cudaErrorInvalidValue; so does a unit asked for a width outside its
+// group.
 #ifndef ZK_FIELD_WIDTHS
 #define ZK_FIELD_WIDTHS 0
 #endif

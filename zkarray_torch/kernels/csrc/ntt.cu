@@ -22,6 +22,11 @@
 // coalesce whenever R or H is at least a warp wide; a stage's H twiddles are
 // few and shared by the R threads of a row, so they are served from L1/L2.
 // Offsets are 64-bit: one 2^24-element Fr array is 2^28 int32 words.
+//
+// Widths: the field kernels' (ZK_DISPATCH_NW_FIELD), so the mixed-radix and
+// radix-2 domains of the 298-bit (NW = 10) and 753-bit (NW = 24) MNT fields
+// run here too; the build compiles this file once per width group
+// (kernels/_build.py: ntt for NW = 8, 10, 12, ntt_w24 for NW = 24).
 #include "field.cuh"
 
 template <int NW>
@@ -70,7 +75,7 @@ extern "C" int zk_butterfly_dit(void* x, const void* tw, long long C, long long 
   if (pairs <= 0) return 0;
   if (pairs >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((pairs + 255) / 256);
-  ZK_DISPATCH_NW(nw, butterfly_dit_kernel<NW><<<blocks, 256, 0, (cudaStream_t)stream>>>(
+  ZK_DISPATCH_NW_FIELD(nw, butterfly_dit_kernel<NW><<<blocks, 256, 0, (cudaStream_t)stream>>>(
                           (int32_t*)x, (const int32_t*)tw, (unsigned)H, (unsigned)R,
                           (unsigned)pairs, tw_len, stride, consts_from_host<NW>(consts)));
   return (int)cudaGetLastError();
@@ -82,7 +87,7 @@ extern "C" int zk_butterfly_stage(const void* lo, const void* hi, const void* w,
                                   void* stream) {
   if (n <= 0) return 0;
   const unsigned blocks = (unsigned)((n + 255) / 256);
-  ZK_DISPATCH_NW(nw, butterfly_stage_kernel<NW><<<blocks, 256, 0, (cudaStream_t)stream>>>(
+  ZK_DISPATCH_NW_FIELD(nw, butterfly_stage_kernel<NW><<<blocks, 256, 0, (cudaStream_t)stream>>>(
                           (const int32_t*)lo, (const int32_t*)hi, (const int32_t*)w,
                           (int32_t*)out_a, (int32_t*)out_b, n, consts_from_host<NW>(consts)));
   return (int)cudaGetLastError();

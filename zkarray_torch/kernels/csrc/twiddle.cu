@@ -41,6 +41,12 @@
 // loads) rather than 16 scattered limb loads, which is why the tables are
 // packed. The products are field.cuh's fmul_wide, so the C entries refuse a
 // field with p >= R/2, as sw.cu's do (every field of the port has p < R/2).
+//
+// Widths: the field kernels' (ZK_DISPATCH_NW_FIELD), built once per width
+// group (kernels/_build.py: twiddle for NW = 8, 10, 12, twiddle_w24 for
+// NW = 24). A packed entry is NW words, 4 NW bytes: at NW = 10 that is 40,
+// not a multiple of 16, so entries are moved as 16-byte vectors where NW is
+// a multiple of 4 and as 8-byte ones otherwise (Vec<NW>).
 #include "field.cuh"
 
 // Set bits a table index may have: n <= 2^POW_TABLE_BITS entries.
@@ -52,18 +58,41 @@ struct Powers {
   uint32_t w[POW_TABLE_BITS][NW];   // w^(2^b) in Montgomery form
 };
 
+// The widest vector that every packed entry's start is aligned to.
+template <int NW, bool WIDE = (NW % 4 == 0)>
+struct Vec {
+  static constexpr int K = 4;
+  __device__ static void load(const int32_t* t, uint32_t* w, int k) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(t) + k);
+    w[4 * k] = v.x;
+    w[4 * k + 1] = v.y;
+    w[4 * k + 2] = v.z;
+    w[4 * k + 3] = v.w;
+  }
+  __device__ static void store(int32_t* t, const uint32_t* w, int k) {
+    reinterpret_cast<uint4*>(t)[k] = make_uint4(w[4 * k], w[4 * k + 1], w[4 * k + 2], w[4 * k + 3]);
+  }
+};
+
+template <int NW>
+struct Vec<NW, false> {
+  static_assert(NW % 2 == 0, "packed entries need an even word count");
+  static constexpr int K = 2;
+  __device__ static void load(const int32_t* t, uint32_t* w, int k) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(t) + k);
+    w[2 * k] = v.x;
+    w[2 * k + 1] = v.y;
+  }
+  __device__ static void store(int32_t* t, const uint32_t* w, int k) {
+    reinterpret_cast<uint2*>(t)[k] = make_uint2(w[2 * k], w[2 * k + 1]);
+  }
+};
+
 template <int NW>
 __device__ __forceinline__ Fe<NW> load_words(const int32_t* __restrict__ t, unsigned long long j) {
-  const uint4* q = reinterpret_cast<const uint4*>(t + j * NW);
   Fe<NW> r;
 #pragma unroll
-  for (int k = 0; k < NW / 4; ++k) {
-    const uint4 v = __ldg(q + k);
-    r.w[4 * k] = v.x;
-    r.w[4 * k + 1] = v.y;
-    r.w[4 * k + 2] = v.z;
-    r.w[4 * k + 3] = v.w;
-  }
+  for (int k = 0; k < NW / Vec<NW>::K; ++k) Vec<NW>::load(t + j * NW, r.w, k);
   return r;
 }
 
@@ -86,10 +115,8 @@ pow_table_kernel(int32_t* __restrict__ out, int n, int nbits, int packed, Powers
     }
   }
   if (packed) {
-    uint4* q = reinterpret_cast<uint4*>(out + (size_t)j * NW);
 #pragma unroll
-    for (int k = 0; k < NW / 4; ++k)
-      q[k] = make_uint4(r.w[4 * k], r.w[4 * k + 1], r.w[4 * k + 2], r.w[4 * k + 3]);
+    for (int k = 0; k < NW / Vec<NW>::K; ++k) Vec<NW>::store(out + (size_t)j * NW, r.w, k);
   } else {
     store16<NW>(out, (size_t)n, (size_t)j, r);
   }
@@ -147,7 +174,7 @@ extern "C" int zk_pow_table(void* out, long long n, int packed, const uint32_t* 
   if (nbits < 0 || nbits > POW_TABLE_BITS || n > (1LL << nbits) ||
       (packed && ((uintptr_t)out & 15)) || !p_fits_cc(consts, nw))
     return (int)cudaErrorInvalidValue;
-  ZK_DISPATCH_NW(nw, launch_pow_table<NW>((int32_t*)out, (int)n, nbits, packed, words, consts,
+  ZK_DISPATCH_NW_FIELD(nw, launch_pow_table<NW>((int32_t*)out, (int)n, nbits, packed, words, consts,
                                           (cudaStream_t)stream));
   return (int)cudaGetLastError();
 }
@@ -169,7 +196,7 @@ extern "C" int zk_twiddle_mul(const long long* x, void* out, long long out_ld, l
   const unsigned long long lo_need = e_max < (1ull << h) ? e_max : (1ull << h) - 1;
   if ((long long)(e_max >> h) >= hi_len || (long long)lo_need >= lo_len)
     return (int)cudaErrorInvalidValue;
-  ZK_DISPATCH_NW(nw, launch_twiddle_mul<NW>(operand_from_host(x), (int32_t*)out, out_ld, out_row,
+  ZK_DISPATCH_NW_FIELD(nw, launch_twiddle_mul<NW>(operand_from_host(x), (int32_t*)out, out_ld, out_row,
                                             (const int32_t*)lo, (const int32_t*)hi, h, rows, cols,
                                             r0, c0, consts, (cudaStream_t)stream));
   return (int)cudaGetLastError();

@@ -181,19 +181,25 @@ def _by_blocks(spec: FieldSpec, fn, *cols: torch.Tensor) -> torch.Tensor:
     return torch.cat(out, 1) if len(out) > 1 else out[0]
 
 
-def _redc_block(spec: FieldSpec, cols: torch.Tensor) -> torch.Tensor:
-    """Montgomery reduction of (2L+1, m) int64 columns T < R p: with T's low
-    half lo + c R, m = lo (-p^-1) mod R makes lo + m p a multiple of R,
-    (lo + m p)/R = c2, and T R^-1 mod p is (T + m p)/R, below 2p: the high
-    columns plus those of m p plus c + c2, one conditional subtract."""
+def _redc_block(spec: FieldSpec, cols: torch.Tensor, products: bool = False) -> torch.Tensor:
+    """Montgomery reduction of (2L+1, m) int64 columns T < R p (each below
+    2^58): with lo = T mod R, m = lo (-p^-1) mod R makes T + m p a multiple
+    of R, and T R^-1 mod p is (T + m p)/R, below 2p: one carry pass over the
+    columns of T + m p, their high L+1 limbs, one conditional subtract.
+    ``products``: the columns are one product's (each below L 2^32 < 2^38),
+    so the low ones go into m's product without a carry pass of their own
+    (its columns then stay below 2^60)."""
     L = spec.num_limbs
     dev = str(cols.device)
-    lo, c = normalize(cols[:L], L, carry_out=True)
+    lo = cols[:L] if products else normalize(cols[:L], L)
     m = normalize(_columns(lo, limb_col(spec, spec.p_inv_neg_r, dev, 1), L), L)
     mp = _columns(m, limb_col(spec, spec.modulus, dev, 1), 2 * L)
-    _, c2 = normalize(lo + mp[:L], L, carry_out=True)
-    high = cols[L:] + torch.cat([mp[L:], torch.zeros_like(mp[:1])])
-    high[0] += c + c2
+    total = cols + torch.cat([mp, torch.zeros_like(mp[:1])])
+    if 2 * L + 1 <= 61:  # one carry lookahead over every limb
+        return cond_sub_p_plain(spec, normalize(total, 2 * L + 1)[L:])
+    _, c = normalize(total[:L], L, carry_out=True)  # the low half is a multiple of R
+    high = total[L:]
+    high[0] += c
     return cond_sub_p_plain(spec, normalize(high, L + 1))
 
 
@@ -224,7 +230,7 @@ def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.T
     batch = tuple(a.shape[1:])
     a64 = a.reshape(L, -1).to(torch.int64)
     b64 = b.reshape(L, -1).to(torch.int64)
-    out = _by_blocks(spec, lambda x, y: _redc_block(spec, _columns(x, y, 2 * L + 1)), a64, b64)
+    out = _by_blocks(spec, lambda x, y: _redc_block(spec, _columns(x, y, 2 * L + 1), True), a64, b64)
     return out.to(torch.int32).reshape((L,) + batch)
 
 
@@ -484,7 +490,7 @@ def _launch_dit(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor, stride: int)
     if stride < 1 or (H - 1) * stride >= tw.shape[1] or C * H * R >= 1 << 31:
         raise ValueError(f"butterfly_dit: stride {stride} over {tw.shape[1]} twiddles "
                          f"for H = {H}, or {C * H * R} pairs, is out of range")
-    lib = _build.load("ntt")
+    lib = _build.load(_build.ntt_lib("ntt", L // 2))
     with torch.cuda.device(x.device):
         err = lib.zk_butterfly_dit(x.data_ptr(), tw.data_ptr(), C, H, R, tw.shape[1], stride,
                                    L // 2, words_ptr(field_words(spec)),
@@ -516,7 +522,7 @@ def butterfly_stage(spec: FieldSpec, lo: torch.Tensor, hi: torch.Tensor, w: torc
     lo, hi, w = lo.contiguous(), hi.contiguous(), w.contiguous()
     check_cuda_int32("butterfly_stage", lo, hi, w)
     out_a, out_b = torch.empty_like(lo), torch.empty_like(lo)
-    lib = _build.load("ntt")
+    lib = _build.load(_build.ntt_lib("ntt", L // 2))
     with torch.cuda.device(lo.device):
         err = lib.zk_butterfly_stage(lo.data_ptr(), hi.data_ptr(), w.data_ptr(), out_a.data_ptr(),
                                      out_b.data_ptr(), lo.numel() // L, L // 2,
@@ -579,7 +585,7 @@ def pow_table(spec: FieldSpec, w_int: int, n: int, device, scale_int=None,
     words, nbits = _pow_words(spec, w_int, n, scale_int)
     out = torch.empty((n, L // 2) if packed else (L, n), dtype=torch.int32, device=device)
     check_cuda_int32("pow_table", out)
-    lib = _build.load("twiddle")
+    lib = _build.load(_build.ntt_lib("twiddle", L // 2))
     with torch.cuda.device(device):
         err = lib.zk_pow_table(out.data_ptr(), n, int(packed), words_ptr(words), nbits, L // 2,
                                words_ptr(field_words(spec)), torch.cuda.current_stream().cuda_stream)
@@ -647,7 +653,7 @@ def twiddle_mul(spec: FieldSpec, x: torch.Tensor, tw: Twiddles, r0: int = 0, c0:
         return twiddle_mul_plain(spec, x, tw, r0, c0, out)
     check_cuda_int32("twiddle_mul", x, out, tw.lo, tw.hi, contiguous=False)
     desc = operand_words([_operand(x)])
-    lib = _build.load("twiddle")
+    lib = _build.load(_build.ntt_lib("twiddle", L // 2))
     with torch.cuda.device(out.device):
         err = lib.zk_twiddle_mul(words_ptr(desc), out.data_ptr(), out.stride(0), out.stride(1),
                                  tw.lo.data_ptr(), tw.lo.shape[0], tw.hi.data_ptr(), tw.hi.shape[0],

@@ -17,9 +17,9 @@ output in place. The JAX package builds the same tables by doubling chains
 of products; every product is fully reduced, so the words are the same.
 Tables are built on the device of the tensor they serve.
 
-Not ported yet: ``vanishing_polynomial``, ``filter_polynomial`` and
-``evaluate_filter_polynomial`` (they need poly/sparse.py) and
-``GeneralDomain`` (it needs poly/mixed_radix.py).
+``vanishing_polynomial`` and ``filter_polynomial`` build their sparse
+terms with poly/sparse.py; ``GeneralDomain`` picks a mixed-radix domain
+(poly/mixed_radix.py) where the 2-adicity is too small.
 """
 
 from __future__ import annotations
@@ -274,6 +274,48 @@ class Radix2Domain:
     def mul_polynomials_in_evaluation_domain(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return fp.mont_mul(self.spec, a, b)
 
+    # ---- vanishing and filter polynomials ----
+
+    def vanishing_polynomial(self, device=DEFAULT_DEVICE):
+        """Z(X) = X^n - offset^n as sparse (degrees, coeffs)."""
+        from zkarray_torch.poly import sparse
+
+        p = self.spec.modulus
+        return sparse.uv_from_terms(
+            self.spec, [(0, (-self.offset_pow_size_int) % p), (self.size, 1)], device)
+
+    def filter_polynomial(self, subdomain: "Radix2Domain", device=DEFAULT_DEVICE) -> torch.Tensor:
+        """Dense coefficients of the polynomial that is 1 on ``subdomain`` and
+        0 on the rest of this domain: sum_i b^(k-1-i) X^(i M) scaled, with
+        b = offset_S^M and k = n/M (both vanishing polynomials are
+        binomials, so no long division)."""
+        from zkarray_torch.poly import sparse
+
+        p = self.spec.modulus
+        N, M = self.size, subdomain.size
+        if N % M:
+            raise ValueError("subdomain size must divide domain size")
+        k = N // M
+        b = subdomain.offset_pow_size_int
+        if pow(b, k, p) != self.offset_pow_size_int:
+            raise ValueError("subdomain is not contained in this domain")
+        scale = (M * b) % p * pow(N % p, -1, p) % p
+        terms = [(i * M, pow(b, k - 1 - i, p) * scale % p) for i in range(k)]
+        degrees, coeffs = sparse.uv_from_terms(self.spec, terms, device)
+        return sparse.uv_to_dense(self.spec, degrees, coeffs, (k - 1) * M + 1)
+
+    def evaluate_filter_polynomial(self, subdomain: "Radix2Domain", tau: torch.Tensor) -> torch.Tensor:
+        """The filter polynomial at tau (L, *batch): 1 where tau is in the
+        subdomain, else (M/n) Z_self(tau) / Z_sub(tau)."""
+        spec = self.spec
+        dev = tau.device
+        v_sub = subdomain.evaluate_vanishing_polynomial(tau)
+        v_self = self.evaluate_vanishing_polynomial(tau)
+        c_int = (subdomain.size * pow(self.size, -1, spec.modulus)) % spec.modulus
+        val = fp.mont_mul(spec, fp.mont_mul(spec, fp.const_array(spec, c_int, (), dev), v_self),
+                          fp.inv(spec, v_sub))
+        return fp.select(fp.is_zero(spec, v_sub), fp.one(spec, val.shape[1:], dev), val)
+
     def reindex_by_subdomain(self, other: "Radix2Domain", index: int) -> int:
         """Index translation when the first |S| elements are a subdomain's."""
         if self.size < other.size:
@@ -287,3 +329,15 @@ class Radix2Domain:
 
     def __repr__(self):
         return f"Radix2Domain({self.spec.name}, 2^{self.log_size}, offset={self.offset_int})"
+
+
+def GeneralDomain(spec: FieldSpec, min_size: int, offset_int: int = 1):
+    """The domain for at least ``min_size`` evaluations: radix-2 where the
+    2-adicity allows, else the smallest mixed-radix domain
+    (zkarray/poly/domain.py:GeneralDomain)."""
+    n = 1 << max(0, min_size - 1).bit_length()
+    if n.bit_length() - 1 <= spec.two_adicity:
+        return Radix2Domain(spec, n, offset_int)
+    from zkarray_torch.poly.mixed_radix import MixedRadixDomain, best_mixed_domain_size
+
+    return MixedRadixDomain(spec, best_mixed_domain_size(spec, min_size), offset_int)
