@@ -207,8 +207,9 @@ Phases, each printing one JSON line and raising on any failure:
    fix_variables and evaluate against host sums; the sparse evaluations;
    the largest mixed-radix domains of MNT6-753 Fr (NW = 24) and MNT4-298 Fq
    (NW = 10) and a GeneralDomain against host closed forms, with their
-   round trips; fft_group on BLS12-381 G1 at 2^12 against (DFT c)_k G and
-   its round trip at 2^8; glv_mul, glv_mul_ext, WnafContext.mul and
+   round trips; fft_group on BLS12-381 G1 at 2^10 against (DFT c)_k G and
+   its round trip at 2^4 (sizes cut to keep the script inside its time
+   limit: each stage is one host-bound ladder); glv_mul, glv_mul_ext, WnafContext.mul and
    FixedBaseTable.batch_mul at 2^12-2^20 lanes against the host's ec_mul;
    msm_chunks at 2^21 and the two Pippengers. Each path's launches,
    wall ms, peak memory (traces for the quotient and the mixed-radix
@@ -216,7 +217,27 @@ Phases, each printing one JSON line and raising on any failure:
    call, and every Pippenger MSM-kernel launch, held against the plain
    versions; the NTT kernels' widest launch at NW = 10 and 24 timed
    against its bound.
-14. the kernels line: per kernel its launches on its path (phase 3 for the
+14. the other curve models and hashing to curves (``curves_h2c_phase``):
+   hash to BLS12-381 G1 of 2^15 seeded messages (hash_to_field on the host,
+   one bls12_381_g1_wb_map at (24, 2^16), the pairwise add, the h_eff
+   ladder and to_affine, composed as hash_to_curve_bls12_381_g1; three u
+   on SWU's exceptional branch) and to G2 of 2^13 (clear_cofactor_g2),
+   every lane on the curve and in the subgroup, sampled lanes against
+   testing.host_hash_to_g1/g2, the RFC 9380 vectors' u, Q0, Q1 and P
+   through hash_to_curve_bls12_381_g1/g2; twisted Edwards scalar_mul and
+   to_affine on Jubjub and Bandersnatch at 2^16 and ed_on_mnt4_298,
+   ed_on_cp6_782, ed_on_mnt4_753 (NW = 10, 12, 24) at 2^12 against the
+   host TE law, with r P the identity; Elligator2 at 2^16 (Jubjub,
+   Bandersnatch; y' = 0 and x' = -1 lanes); the TE encodings' round trip
+   on Jubjub; jq255s scalar_mul against the curve's own affine law and
+   get_e_from_u; secp256k1 scalar_mul, glv_mul on Pallas, msm of 2^20
+   Pallas and 2^16 secp256r1 points against the host; xyzz_accum,
+   horner_windows, xyzz_bit_horner, xyzz_add and xyzz_double at a = -3 on
+   edge feeds. Each path's launches by kernel, one timed call, peak
+   memory (traces of the G1 hash and Jubjub's scalar_mul); every
+   field-kernel key and every MSM-kernel launch of the paths held against
+   the plain versions.
+15. the kernels line: per kernel its launches on its path (phase 3 for the
    MSM kernels, 5 for butterfly_dit, twiddle_mul and pow_table, 6 and 7 for
    the entries of butterfly_stage, xyzz_add_affine and mont_sqr, 3 for the
    entries of mont_pow and xyzz_double, which left the MSM path), error
@@ -237,7 +258,8 @@ Phases, each printing one JSON line and raising on any failure:
    phase 9's pairing_each too; its row carries every path's launches per
    call (per_path_launches) and each width's widest path launch. Every
    kernel phase 13 launched carries its launches per path and error there
-   under "phase13" (the NTT kernels also their NW = 8, 10 and 24 rows).
+   under "phase13" (the NTT kernels also their NW = 8, 10 and 24 rows),
+   and every row phase 14's launches per path and error under "phase14".
    Every row lists the word counts NW its kernel is built for
    ("nw_widths").
 
@@ -248,6 +270,7 @@ before printing any result.
 
 import collections
 import ctypes
+import functools
 import gc
 import json
 import math
@@ -2155,7 +2178,7 @@ MV_VARS, MV_TERMS, MV_LOG_POINTS, MV_KAT = 3, 32, 16, 64
 MIXED_DOMAINS = (("mnt6_753", "FR", 15, 25), ("mnt4_298", "FQ", 17, 49))
 GENERAL_TARGET, GENERAL_SIZE = 3 * 10 ** 5, 409_600  # tests/test_torch_mixed_radix.py holds the size
 POLY_KAT = 16  # transform indices held against the host
-GFFT_LOG_N, GFFT_RT_LOG_N, GFFT_KAT = 12, 8, 16  # fft_group: forward size, round-trip size
+GFFT_LOG_N, GFFT_RT_LOG_N, GFFT_KAT = 10, 4, 16  # fft_group: forward size, round-trip size
 GLV_LOG_N, GLV_SMALL_LOG_N, G2_GLV_LOG_N = 16, 12, 12
 WNAF_LOG_N, WNAF_WINDOW = 16, 4
 FIXED_LOG_N, FIXED_WINDOW = 20, 8  # the powers of tau of a 2^20 setup
@@ -2816,6 +2839,509 @@ def sw_ext_to_affine(curve, P, lanes):
     return sw_ext.to_affine(curve, sw_ext.ExtJacobian(*(v[..., lanes] for v in P)))
 
 
+H2C_G1_LOG_N = 15  # BLS signatures (min-pubkey-size): messages hashed to G1 in one batch
+H2C_G2_LOG_N = 13  # BLS signatures as Ethereum hashes them: messages hashed to G2 in one batch
+H2C_G1_KAT, H2C_G2_KAT = 64, 16  # lanes held against the host hash-to-curve models
+TE_LOG_N, TE_WIDE_LOG_N = 16, 12  # Jubjub and Bandersnatch lanes; the NW = 10, 12, 24 curves'
+TE_KAT, TE_ORDER_LANES = 64, 16  # lanes against the host TE law; lanes multiplied by r
+DO_LOG_N, ZOO_LOG_N = 16, 16  # jq255s; secp256k1 scalar_mul and Pallas glv_mul lanes
+PALLAS_MSM_LOG_N, R1_MSM_LOG_N = 20, 16  # a Halo2 prover's MSM; an a = -3 MSM
+ZOO_KAT = 64
+R1_EDGE_SLOTS, R1_EDGE_ROUNDS = 4099, 8  # xyzz_accum edge rounds at a = -3
+R1_EDGE_LOG_N = 16  # xyzz_add / xyzz_double edge classes at a = -3
+
+
+def curves_h2c_phase(torch, h, rec):
+    """Phase 14: the other curve models and hashing to curves on one card,
+    each path through its entry points and against host known answers:
+    hash to BLS12-381 G1 (2^15 messages: hash_to_field on the host, one
+    bls12_381_g1_wb_map at (24, 2^16), the pairwise add, the h_eff ladder and
+    to_affine, as hash_to_curve_bls12_381_g1 composes them; every lane on
+    the curve and in G1, 64 lanes against testing.host_hash_to_g1; the RFC
+    9380 vectors through hash_to_curve_bls12_381_g1) and to G2 (2^13
+    messages, clear_cofactor_g2; 16 lanes against testing.host_hash_to_g2;
+    the G2 vectors); twisted Edwards scalar_mul and to_affine (Jubjub and
+    Bandersnatch at 2^16, ed_on_mnt4_298, ed_on_cp6_782 and ed_on_mnt4_753
+    at 2^12), Elligator2 and the TE encodings; jq255s scalar_mul and
+    get_e_from_u; the SW zoo: secp256k1 scalar_mul, a 2^20 Pallas msm,
+    pallas_glv's glv_mul, a 2^16 secp256r1 msm and the XYZZ edge feeds at
+    a = -3. Each path's launches by kernel on its first call (its
+    field-kernel inputs recorded and replayed against the plain versions),
+    one timed call, peak memory; traces of the G1 hash and Jubjub's
+    scalar_mul; every MSM-kernel launch of the two MSMs and every edge feed
+    held against the plain versions. Returns the kernels line's phase-14
+    figures."""
+    from zkarray_torch import testing as tt
+    from zkarray_torch.core.limbs import unpack_pairs
+    from zkarray_torch.curves import bls12_381 as B
+    from zkarray_torch.curves import ed_on_bls12_381, te_zoo, zoo
+    from zkarray_torch.ec import double_odd as tdo
+    from zkarray_torch.ec import fast_checks, glv, msm, point_serde
+    from zkarray_torch.ec import sw as tsw
+    from zkarray_torch.ec import sw_ext
+    from zkarray_torch.ec import te as tte
+    from zkarray_torch.ec.h2c import elligator2, wb, wb_g2
+    from zkarray_torch.ff import fp
+    from zkarray_torch.ff.hash_to_field import hash_to_field_ints
+    from zkarray_torch.interop import affine_from_numpy, limbs_from_numpy
+    from zkarray_torch.kernels import sw as ksw
+
+    dev = h.dev
+    pr = PathRuns(torch, h, rec)
+    err = collections.defaultdict(int)
+    paths = {}
+    rng = np.random.default_rng(14)
+    t_phase = time.perf_counter()
+    vec_dir = os.path.join(REPO, "tests", "vectors")
+    emit = h.emit
+
+    def first_then_same(what, verify):
+        """check(res, when): the first call's result through ``verify``
+        (host known answers; raises), every later one equal to it word for
+        word."""
+        first = []
+
+        def check(res, when):
+            if not first:
+                verify(res, when)
+                first.append(res)
+            elif not all(torch.equal(u, v) for u, v in zip(res, first[0])):
+                raise AssertionError(f"{what}: {when} differs from the first call")
+        return check
+
+    def path(label, fn, verify, trace=False):
+        res = pr.measure(fn, first_then_same(label, verify), record=True, trace=trace)
+        pr.replay(label, err)
+        paths[label] = res["launches_per_call"]
+        return res
+
+    def lanes_of(m, k):
+        return sorted({i for i in (0, 1, 2, m - 1) if i < m}
+                      | {int(i) for i in rng.integers(0, m, size=max(k - 4, 0))})
+
+    def vectors(name):
+        with open(os.path.join(vec_dir, name)) as fh:
+            return json.load(fh)
+
+    def pt_of(x):
+        return json.loads(x.replace("'", '"')) if isinstance(x, str) else x
+
+    def fq2_pair(s):
+        c0, c1 = s.split(",")
+        return int(c0, 16), int(c1, 16)
+
+    # -- hash to G1: 2^15 messages, u on the host, the map and pipeline batched ------
+    G1, FQ, FR = B.G1, B.FQ, B.FR
+    p = FQ.modulus
+    v1 = vectors("BLS12381G1_XMD-SHA-256_SSWU_RO_.json")
+    dst1 = v1["dst"].encode()
+    n1 = 1 << H2C_G1_LOG_N
+    msgs = [rng.bytes(32) for _ in range(n1)]
+    t0 = time.perf_counter()
+    vals = [hash_to_field_ints(FQ, m, dst1, 2) for m in msgs]
+    hash_s = time.perf_counter() - t0
+    us = [v[0][0] for v in vals] + [v[1][0] for v in vals]
+    s11 = tt.sqrt_mod(-pow(11, -1, p) % p, p)
+    us[0], us[n1 + 1], us[2] = 0, s11, p - s11  # SWU's exceptional x1 = b/(Z a): u = 0, Z u^2 = -1
+    u1 = fp.from_ints(FQ, us, device=dev)
+    lanes1 = lanes_of(n1, H2C_G1_KAT)
+    t0 = time.perf_counter()
+    want1 = [tt.host_hash_to_g1(us[i], us[n1 + i]) for i in lanes1]
+    host1_s = time.perf_counter() - t0
+
+    def verify_g1(P, when):
+        if tuple(P.x.shape) != (FQ.num_limbs, n1) or bool(P.inf.any()):
+            raise AssertionError(f"hash to G1: {when} has shape {tuple(P.x.shape)} or infinity")
+        got = tsw.affine_to_ints(G1, tsw.AffinePoints(P.x[:, lanes1], P.y[:, lanes1], P.inf[lanes1]))
+        if got != want1:
+            raise AssertionError(f"hash to G1: {when} differs from the host model at sampled lanes")
+        if not bool(tsw.is_on_curve(G1, P).all()) or not bool(
+                fast_checks.bls12_381_g1_subgroup_check(G1, P).all()):
+            raise AssertionError(f"hash to G1: {when}: a lane off the curve or outside G1")
+
+    res = path("hash_to_g1", lambda: wb.map_to_g1_pairs(u1), verify_g1, trace=True)
+    rfc1 = []
+    for v in v1["vectors"]:
+        m = v["msg"].encode()
+        u_want = [int(x, 16) for x in v["u"]]
+        if [e[0] for e in hash_to_field_ints(FQ, m, dst1, 2)] != u_want:
+            raise AssertionError(f"hash_to_field G1 {v['msg'][:16]!r} differs from the vector's u")
+        q = tsw.affine_to_ints(G1, wb.bls12_381_g1_wb_map(fp.from_ints(FQ, u_want, device=dev)))
+        P = tsw.affine_to_ints(G1, wb.hash_to_curve_bls12_381_g1(m, dst1, device=dev))
+        want = [(int(pt_of(v[k])["x"], 16), int(pt_of(v[k])["y"], 16)) for k in ("Q0", "Q1", "P")]
+        if q + P != want:
+            raise AssertionError(f"hash_to_curve_bls12_381_g1 {v['msg'][:16]!r} differs from the vector")
+        rfc1.append(v["msg"][:16])
+    emit("hash_to_g1", messages=n1, map_lanes=2 * n1, host_hash_to_field_s=hash_s,
+         host_model_lanes=len(lanes1), host_model_s=host1_s, exceptional_u=3,
+         rfc9380_vectors=len(rfc1), correct=True, **res)
+    del u1
+
+    # -- hash to G2: 2^13 messages ----------------------------------------------------
+    G2, F2 = B.G2, B.FQ2
+    v2 = vectors("BLS12381G2_XMD-SHA-256_SSWU_RO_.json")
+    dst2 = v2["dst"].encode()
+    n2 = 1 << H2C_G2_LOG_N
+    msgs = [rng.bytes(32) for _ in range(n2)]
+    t0 = time.perf_counter()
+    vals = [hash_to_field_ints(FQ, m, dst2, 2, ext_degree=2) for m in msgs]
+    hash2_s = time.perf_counter() - t0
+    us2 = [tuple(v[0]) for v in vals] + [tuple(v[1]) for v in vals]
+    us2[0] = (0, 0)  # SWU's exceptional x1 = b/(Z a)
+    u2 = F2.from_ints([[c[0] for c in us2], [c[1] for c in us2]], dev)
+    lanes2 = lanes_of(n2, H2C_G2_KAT)
+    t0 = time.perf_counter()
+    want2 = [tt.host_hash_to_g2(us2[i], us2[n2 + i]) for i in lanes2]
+    host2_s = time.perf_counter() - t0
+
+    def verify_g2(P, when):
+        got = tt.g2_affine_to_ints(G2, sw_ext.ExtAffine(P.x[..., lanes2], P.y[..., lanes2],
+                                                         P.inf[lanes2]))
+        if got != want2:
+            raise AssertionError(f"hash to G2: {when} differs from the host model at sampled lanes")
+        if bool(P.inf.any()) or not bool(sw_ext.is_on_curve(G2, P).all()) or not bool(
+                fast_checks.bls12_381_g2_subgroup_check(G2, P).all()):
+            raise AssertionError(f"hash to G2: {when}: a lane at infinity, off the twist or outside G2")
+
+    res = path("hash_to_g2", lambda: wb_g2.map_to_g2_pairs(u2), verify_g2)
+    rfc2 = []
+    for v in v2["vectors"]:
+        m = v["msg"].encode()
+        u_want = [fq2_pair(x) for x in v["u"]]
+        if [tuple(e) for e in hash_to_field_ints(FQ, m, dst2, 2, ext_degree=2)] != u_want:
+            raise AssertionError(f"hash_to_field G2 {v['msg'][:16]!r} differs from the vector's u")
+        q = tt.g2_affine_to_ints(G2, wb_g2.bls12_381_g2_wb_map(
+            F2.from_ints([[c[0] for c in u_want], [c[1] for c in u_want]], dev)))
+        P = tt.g2_affine_to_ints(G2, wb_g2.hash_to_curve_bls12_381_g2(m, dst2, device=dev))
+        want = [(fq2_pair(pt_of(v[k])["x"]), fq2_pair(pt_of(v[k])["y"])) for k in ("Q0", "Q1", "P")]
+        if q + P != want:
+            raise AssertionError(f"hash_to_curve_bls12_381_g2 {v['msg'][:16]!r} differs from the vector")
+        rfc2.append(v["msg"][:16])
+    emit("hash_to_g2", messages=n2, map_lanes=2 * n2, host_hash_to_field_s=hash2_s,
+         host_model_lanes=len(lanes2), host_model_s=host2_s, exceptional_u=1,
+         rfc9380_vectors=len(rfc2), correct=True, **res)
+    del u2
+
+    # -- twisted Edwards: scalar_mul and to_affine ---------------------------------------
+    te_curves = (("jubjub", ed_on_bls12_381.EDWARDS, TE_LOG_N),
+                 ("bandersnatch", te_zoo.BANDERSNATCH, TE_LOG_N),
+                 ("ed_on_mnt4_298", te_zoo.ED_ON_MNT4_298, TE_WIDE_LOG_N),
+                 ("ed_on_cp6_782", te_zoo.ED_ON_CP6_782, TE_WIDE_LOG_N),
+                 ("ed_on_mnt4_753", te_zoo.ED_ON_MNT4_753, TE_WIDE_LOG_N))
+    te_out = {}
+    for name, curve, log_m in te_curves:
+        m = 1 << log_m
+        g = (curve.gen_x, curve.gen_y)
+        kb = [int(k) for k in rng.integers(1, 1 << 30, size=64)]
+        base = [tt.te_mul_host(curve, g, k) for k in kb]
+        idx = torch.arange(m, device=dev) % 64
+        A64 = curve.affine_from_ints(base, device=dev)
+        A = tte.TEAffine(A64.x[:, idx], A64.y[:, idx])
+        sc = h.rand_field(curve.scalar, m)
+        lanes = lanes_of(m, TE_KAT)
+        ks = fp.to_ints(curve.scalar, sc[:, lanes], mont=False)
+        want = [tt.te_mul_host(curve, base[i % 64], k) for i, k in zip(lanes, ks)]
+
+        def verify_te(P, when, curve=curve, lanes=lanes, want=want, name=name):
+            te_out[name] = P
+            if curve.affine_to_ints(tte.TEAffine(P.x[:, lanes], P.y[:, lanes])) != want:
+                raise AssertionError(f"{name} scalar_mul: {when} differs from the host at sampled lanes")
+            if not bool(tte.is_on_curve(curve, P).all()):
+                raise AssertionError(f"{name} scalar_mul: {when}: a lane off the curve")
+            o = TE_ORDER_LANES
+            head = tte.from_affine(curve, tte.TEAffine(P.x[:, :o], P.y[:, :o]))
+            rP = tte.scalar_mul_const(curve, head, curve.scalar.modulus)
+            if not bool(tte.is_zero(curve, rP).all()):
+                raise AssertionError(f"{name} scalar_mul: {when}: r P is not the identity")
+
+        res = path(f"te_scalar_mul_{name}", lambda: tte.to_affine(curve, tte.scalar_mul(curve, A, sc)),
+                   verify_te, trace=name == "jubjub")
+        emit(f"te_scalar_mul_{name}", curve=curve.name, n=m, nw=curve.base.num_limbs // 2,
+             a_is_minus_one=curve.a_is_minus_one, ladder_steps=curve.scalar.num_limbs * 16,
+             lanes=len(lanes), order_lanes=TE_ORDER_LANES, correct=True, **res)
+        del A, A64, sc
+    jubjub_affine = te_out.pop("jubjub")
+    te_out.clear()
+
+    for name, curve in (("jubjub", ed_on_bls12_381.EDWARDS), ("bandersnatch", te_zoo.BANDERSNATCH)):
+        m = 1 << TE_LOG_N
+        f = curve.base
+        zeta = f.sqrt_qnr
+        u = h.rand_field(f, m)
+        u[:, 0] = 0  # y' = 0 (-A/B is no square on both curves); x' = -1 never occurs (d no square)
+        lanes = lanes_of(m, TE_KAT)
+        u_i = fp.to_ints(f, u[:, lanes])
+        want = [tt.host_elligator2(curve, x, zeta) for x in u_i]
+
+        def verify_ell(P, when, curve=curve, lanes=lanes, want=want, name=name):
+            if curve.affine_to_ints(tte.TEAffine(P.x[:, lanes], P.y[:, lanes])) != want:
+                raise AssertionError(f"elligator2 {name}: {when} differs from the host at sampled lanes")
+            if not bool(tte.is_on_curve(curve, P).all()):
+                raise AssertionError(f"elligator2 {name}: {when}: a lane off the curve")
+
+        res = path(f"elligator2_{name}", lambda: elligator2.elligator2_map(curve, u, zeta), verify_ell)
+        emit(f"elligator2_{name}", curve=curve.name, n=m, zeta=zeta, sqrt_route=f.sqrt_mode,
+             two_adicity=f.two_adicity, lanes=len(lanes), correct=True, **res)
+        del u
+
+    JJ = ed_on_bls12_381.EDWARDS
+
+    def serde_round_trip():
+        out = []
+        for compress in (True, False):
+            data = point_serde.serialize_te(JJ, jubjub_affine, compress)
+            back, ok = point_serde.deserialize_te(JJ, data, compress, device=dev)
+            out += [back.x, back.y, torch.from_numpy(ok).to(dev)]
+        return tuple(out)
+
+    def verify_serde(res, when):
+        for k in (0, 3):
+            if not (torch.equal(res[k], jubjub_affine.x) and torch.equal(res[k + 1], jubjub_affine.y)
+                    and bool(res[k + 2].all())):
+                mode = "compressed" if k == 0 else "uncompressed"
+                raise AssertionError(f"TE serde: {when}: the {mode} round trip differs or is not ok")
+
+    res = path("te_serde_jubjub", serde_round_trip, verify_serde)
+    emit("te_serde_jubjub", curve=JJ.name, n=jubjub_affine.x.shape[1], modes=2, correct=True, **res)
+    del jubjub_affine
+
+    # -- double-odd: jq255s scalar_mul and get_e_from_u ----------------------------------
+    JQ = zoo.JQ255S
+    m = 1 << DO_LOG_N
+    g = (JQ.gen_e, JQ.gen_u)
+    r_jq = JQ.scalar.modulus
+    kb = [int(k) for k in rng.integers(1, 1 << 30, size=64)]
+    base = [tt.do_mul_host(JQ, g, k) for k in kb]
+    idx = torch.arange(m, device=dev) % 64
+    A64 = JQ.affine_from_ints(base, device=dev)
+    A = tdo.DOAffine(A64.e[:, idx], A64.u[:, idx])
+    sc = h.rand_field(JQ.scalar, m)
+    lanes = lanes_of(m, ZOO_KAT)
+    ks = fp.to_ints(JQ.scalar, sc[:, lanes], mont=False)
+    t0 = time.perf_counter()
+    want = [tt.do_mul_host(JQ, g, kb[i % 64] * k % r_jq) for i, k in zip(lanes, ks)]
+    do_host_s = time.perf_counter() - t0
+
+    def verify_do(P, when):
+        got = JQ.affine_to_ints(tdo.DOAffine(P.e[:, lanes], P.u[:, lanes]))
+        if not all(tt.do_same(JQ, a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"jq255s scalar_mul: {when} differs from the host group at sampled lanes")
+        if not bool(tdo.is_on_curve(JQ, P).all()):
+            raise AssertionError(f"jq255s scalar_mul: {when}: a lane off the curve")
+
+    res = path("do_scalar_mul_jq255s", lambda: tdo.to_affine(JQ, tdo.scalar_mul(JQ, A, sc)), verify_do)
+    emit("do_scalar_mul_jq255s", curve=JQ.name, n=m, lanes=len(lanes), host_model="the curve's affine law",
+         host_model_s=do_host_s, correct=True, **res)
+    D = tdo.to_affine(JQ, tdo.scalar_mul(JQ, A, sc))
+    pj = JQ.base.modulus
+    bad = [x for x in range(2, 400)
+           if pow((JQ.c_int * x ** 4 - 2 * JQ.a_int * x * x + 1) % pj, (pj - 1) // 2, pj) == pj - 1][:4]
+    u_do = D.u.clone()
+    u_do[:, 3:7] = fp.from_ints(JQ.base, bad, device=dev)
+    u_i = fp.to_ints(JQ.base, u_do[:, lanes])
+    e_i = fp.to_ints(JQ.base, D.e[:, lanes])
+
+    def verify_e(res_, when):
+        e, ok = res_
+        got_e, got_ok = fp.to_ints(JQ.base, e[:, lanes]), ok[lanes].tolist()
+        for x, ee, ge, gok, i in zip(u_i, e_i, got_e, got_ok, lanes):
+            rhs = (JQ.c_int * x ** 4 - 2 * JQ.a_int * x * x + 1) % pj
+            square = pow(rhs, (pj - 1) // 2, pj) != pj - 1
+            if gok != square or (gok and ge * ge % pj != rhs) or (not gok and ge != 0) or (
+                    gok and not 3 <= i < 7 and ge not in (ee, (-ee) % pj)):
+                raise AssertionError(f"jq255s get_e_from_u: {when} differs from the host at lane {i}")
+        if int((~ok).sum()) != 4:
+            raise AssertionError(f"jq255s get_e_from_u: {when}: {int((~ok).sum())} lanes refused, not 4")
+
+    res = path("do_get_e_from_u_jq255s", lambda: tdo.get_e_from_u(JQ, u_do), verify_e)
+    emit("do_get_e_from_u_jq255s", curve=JQ.name, n=m, lanes=len(lanes), non_squares=4, correct=True, **res)
+    del A, A64, sc, D, u_do
+
+    # -- the short-Weierstrass zoo ---------------------------------------------------
+    def sw_tiled(curve, m):
+        px, py, _, kb_, _ = tt.tiled_inputs(curve, m, rng)
+        return affine_from_numpy(px, py, np.zeros(m, dtype=bool), dev), kb_
+
+    K1 = zoo.SECP256K1
+    m = 1 << ZOO_LOG_N
+    A, kb = sw_tiled(K1, m)
+    sc = h.rand_field(K1.scalar, m)
+    lanes = lanes_of(m, ZOO_KAT)
+    gk = (K1.gen_x, K1.gen_y)
+    want = [tt.ec_mul(gk, kb[i % 64] * k % K1.scalar.modulus, K1.a_int, K1.base.modulus)
+            for i, k in zip(lanes, fp.to_ints(K1.scalar, sc[:, lanes], mont=False))]
+
+    def verify_k1(P, when):
+        if tsw.affine_to_ints(K1, tsw.AffinePoints(P.x[:, lanes], P.y[:, lanes], P.inf[lanes])) != want:
+            raise AssertionError(f"secp256k1 scalar_mul: {when} differs from the host at sampled lanes")
+
+    res = path("scalar_mul_secp256k1", lambda: tsw.to_affine(K1, tsw.scalar_mul(K1, A, sc)), verify_k1)
+    emit("scalar_mul_secp256k1", curve=K1.name, n=m, lanes=len(lanes), correct=True, **res)
+    del A, sc
+
+    gp = glv.pallas_glv()
+    PA = gp.curve
+    A, kb = sw_tiled(PA, m)
+    ks = [int.from_bytes(rng.bytes(32), "little") % PA.scalar.modulus for _ in range(m)]
+    gpa = (PA.gen_x, PA.gen_y)
+    want = [tt.ec_mul(gpa, kb[i % 64] * ks[i] % PA.scalar.modulus, 0, PA.base.modulus) for i in lanes]
+
+    def verify_glv(P, when):
+        sampled = tsw.JacobianPoints(*(v[:, lanes] for v in P))
+        if tsw.affine_to_ints(PA, tsw.to_affine(PA, sampled)) != want:
+            raise AssertionError(f"pallas glv_mul: {when} differs from the host at sampled lanes")
+
+    res = path("glv_mul_pallas", lambda: glv.glv_mul(gp, A, ks), verify_glv)
+    emit("glv_mul_pallas", curve=PA.name, n=m, lanes=len(lanes), correct=True, **res)
+    del A
+
+    restore_msm = install_msm_recorders(torch, rec)
+    msm_rows = {}
+    try:
+        for label, curve, log_m in (("msm_pallas", PA, PALLAS_MSM_LOG_N),
+                                    ("msm_secp256r1", zoo.SECP256R1, R1_MSM_LOG_N)):
+            mm = 1 << log_m
+            px, py, ssc, kb, bits = tt.tiled_inputs(curve, mm, rng)
+            want_pt = tt.expected_msm(curve, kb, ssc)
+            A = affine_from_numpy(px, py, np.zeros(mm, dtype=bool), dev)
+            s_t = limbs_from_numpy(ssc, dev)
+
+            def verify_msm(res_, when, curve=curve, want_pt=want_pt, label=label):
+                aff = tsw.xyzz_to_affine(curve, tsw.XYZZPoints(*(v[:, None] for v in res_)))
+                if tsw.affine_to_ints(curve, aff) != [want_pt]:
+                    raise AssertionError(f"{label}: {when} differs from the host known answer")
+
+            res = path(label, lambda: msm.msm(curve, A, s_t, max_scalar_bits=bits), verify_msm)
+            rows = replay_msm_launches(h, curve, rec.msm)
+            rec.msm = []
+            for r_ in rows:
+                err[r_["kernel"]] = max(err[r_["kernel"]], r_["max_abs_err"])
+            msm_rows[label] = rows
+            a_signed = curve.a_int - (curve.base.modulus if curve.a_int > curve.base.modulus // 2 else 0)
+            emit(label, curve=curve.name, n=mm, a=a_signed, correct=True,
+                 msm_kernel_launches_vs_plain=len(rows), **res)
+            del A, s_t, px, py
+    finally:
+        restore_msm()
+    h.emit("kernel_phase14_msm_shapes", rows={k: v for k, v in msm_rows.items()})
+
+    # -- the XYZZ kernels at a = -3 on edge feeds, each against its plain version --------
+    R1 = zoo.SECP256R1
+    f = R1.base
+    L = f.num_limbs
+    mod = f.modulus
+    edge = {}
+    P0, rounds = tt.accum_edge_rounds(R1, R1_EDGE_SLOTS, R1_EDGE_ROUNDS, rng)
+    state, coords, valid = tt.accum_feed(R1, P0, rounds, dev)
+    for route, fn in (("grid", ksw.xyzz_accum_grid), ("tiles", ksw.xyzz_accum_tiles)):
+        got = fn(R1, state, coords, valid)
+        want_w, plain_ms = h.once_ms(lambda: ksw.xyzz_accum_plain(R1, state, coords, valid))
+        e = h.check_equal(f"xyzz_accum ({route}) secp256r1 edge rounds", got, want_w)
+        err["xyzz_accum"] = max(err["xyzz_accum"], e)
+        edge[f"xyzz_accum_{route}"] = dict(slots=R1_EDGE_SLOTS, rounds=R1_EDGE_ROUNDS, max_abs_err=e,
+                                           plain_ms=plain_ms)
+    res_pts = tsw.XYZZPoints(*(unpack_pairs(got[i * L // 2:(i + 1) * L // 2]) for i in range(4)))
+    k_chk = list(range(0, R1_EDGE_SLOTS, 97))[:64]
+    want_acc = []
+    for s in k_chk:
+        acc = P0[s]
+        for pts, sign, skip in rounds:
+            if not skip[s]:
+                acc = tt.ec_add(acc, pts[s] if not sign[s] else tt.ec_neg(pts[s], mod), R1.a_int, mod)
+        want_acc.append(acc)
+    got_acc = tsw.affine_to_ints(R1, tsw.xyzz_to_affine(
+        R1, tsw.XYZZPoints(*(v[:, k_chk] for v in res_pts))))
+    if got_acc != want_acc:
+        raise AssertionError("xyzz_accum secp256r1 edge rounds: sampled slots differ from the host oracle")
+    W, c = 8, 4  # the path's own windows at a = -3 (W = 24, c = 11) are the msm's
+    win, total = tt.horner_edge_windows(R1, W, c, rng, dev)
+    got = ksw.horner_windows(R1, win, c)
+    want_w, plain_ms = h.once_ms(lambda: ksw.horner_windows_plain(R1, win, c))
+    e = h.check_equal("horner_windows secp256r1 edge windows", got, want_w)
+    err["horner_windows"] = max(err["horner_windows"], e)
+    tot = tsw.XYZZPoints(*(got[i * L:(i + 1) * L, None] for i in range(4)))
+    if tsw.affine_to_ints(R1, tsw.xyzz_to_affine(R1, tot)) != [total]:
+        raise AssertionError("horner_windows secp256r1 edge windows: the total differs from the host")
+    edge["horner_windows"] = dict(W=W, c=c, max_abs_err=e, plain_ms=plain_ms)
+    parts = tt.bit_horner_edge_parts(R1, 13, 20, rng, dev)
+    got = ksw.xyzz_bit_horner(R1, parts)
+    want_w, plain_ms = h.once_ms(lambda: ksw.xyzz_bit_horner_plain(R1, parts))
+    e = max(h.check_equal(f"xyzz_bit_horner secp256r1 edge parts {i}", g_, w_)
+            for i, (g_, w_) in enumerate(zip(got, want_w)))
+    err["xyzz_bit_horner"] = max(err["xyzz_bit_horner"], e)
+    edge["xyzz_bit_horner"] = dict(shape=[L, 13, 20], max_abs_err=e, plain_ms=plain_ms)
+    # xyzz_add / xyzz_double on real points in two Z representatives: classes
+    # generic, P == Q (the doubling, with a), P == -Q, P = inf, Q = inf
+    ne = 1 << R1_EDGE_LOG_N
+    gr = (R1.gen_x, R1.gen_y)
+    pool = [tt.ec_mul(gr, int(k), R1.a_int, mod) for k in rng.integers(1, 1 << 30, size=32)]
+    ps, qs = [], []
+    for i in range(64):
+        a_, b_ = pool[i % 32], pool[(i * 7 + 3) % 32]
+        cls = i % 5
+        ps.append(None if cls == 3 else a_)
+        qs.append(a_ if cls == 1 else tt.ec_neg(a_, mod) if cls == 2 else None if cls == 4 else b_)
+
+    def xyzz_of(pts, seed):
+        draws = np.random.default_rng(seed).integers(1, 1 << 62, size=len(pts))
+        lam = [int(x) % (mod - 1) + 1 for x in draws]
+        cs = [(1, 1, 0, 0) if q is None else (q[0] * l * l % mod, q[1] * l * l * l % mod, l * l % mod,
+                                              l * l * l % mod) for q, l in zip(pts, lam)]
+        t64 = [fp.from_ints(f, [c_[k] for c_ in cs], device=dev) for k in range(4)]
+        tile = torch.arange(ne, device=dev) % len(pts)
+        return tsw.XYZZPoints(*(v[:, tile] for v in t64))
+
+    XP, XQ = xyzz_of(ps, 1), xyzz_of(qs, 2)
+    got = ksw.xyzz_add(R1, XP, XQ)
+    want_w, plain_ms = h.once_ms(lambda: ksw._fadd_plain(R1, tuple(XP), tuple(XQ)))
+    e = max(h.check_equal(f"xyzz_add secp256r1 edge classes {i}", g_, w_)
+            for i, (g_, w_) in enumerate(zip(got, want_w)))
+    err["xyzz_add"] = max(err["xyzz_add"], e)
+    if tsw.affine_to_ints(R1, tsw.xyzz_to_affine(R1, tsw.XYZZPoints(*(v[:, :64] for v in got)))) != [
+            tt.ec_add(a_, b_, R1.a_int, mod) for a_, b_ in zip(ps, qs)]:
+        raise AssertionError("xyzz_add secp256r1 edge classes differ from the host oracle")
+    edge["xyzz_add"] = dict(n=ne, classes=5, max_abs_err=e, plain_ms=plain_ms)
+    got = ksw.xyzz_double(R1, XP)
+    want_w, plain_ms = h.once_ms(lambda: ksw._dbl_plain(R1, tuple(XP)))
+    e = max(h.check_equal(f"xyzz_double secp256r1 {i}", g_, w_)
+            for i, (g_, w_) in enumerate(zip(got, want_w)))
+    err["xyzz_double"] = max(err["xyzz_double"], e)
+    if tsw.affine_to_ints(R1, tsw.xyzz_to_affine(R1, tsw.XYZZPoints(*(v[:, :64] for v in got)))) != [
+            tt.ec_add(a_, a_, R1.a_int, mod) for a_ in ps]:
+        raise AssertionError("xyzz_double secp256r1 differs from the host oracle")
+    edge["xyzz_double"] = dict(n=ne, max_abs_err=e, plain_ms=plain_ms)
+    h.emit("xyzz_general_a_edges", curve=R1.name, a=-3, feeds=edge, correct=True)
+    del state, coords, valid, XP, XQ, got, want_w
+
+    h.emit("phase14_launches", per_call=paths, max_abs_err=dict(err),
+           seconds=time.perf_counter() - t_phase)
+    report = {}
+    for name in set(err) | {k for v in paths.values() for k in v}:
+        report[name] = dict(launches={lbl: v[name] for lbl, v in paths.items() if v.get(name)},
+                            max_abs_err=err.get(name, 0))
+    return report
+
+
+def xyzz_ops(mul, sqr, add, kind, a_is_zero=True):
+    """32-bit operations of one XYZZ formula (csrc/field.cuh), given those
+    of one Montgomery product (``mul``), square (``sqr``) and field addition
+    (``add``); a square counts as a square, as mont_sqr's bound does. Kinds:
+    "madd" (mmadd-xyzz: 8 products, 2 squares, 7 additions), "mdbl" (the
+    madd's doubling branch: finding P == A, 2 products and 2 additions, then
+    mdbl-2008-s-1, 4 products and 3 squares), "cancel" (finding P == -A),
+    "dbl" (dbl-2008-s-1: 6 products, 3 squares, 7 additions), "add"
+    (add-2008-s: 12 products, 2 squares, 7 additions), "find" (add-2008-s
+    up to P == +-Q: 4 products, 2 additions). a != 0 adds to "dbl" the
+    square of ZZ, its product by a and one addition, to "mdbl" one addition."""
+    m, s, a = {"madd": (8, 2, 7), "mdbl": (6, 3, 9), "cancel": (2, 0, 2), "dbl": (6, 3, 7),
+               "add": (12, 2, 7), "find": (4, 0, 2)}[kind]
+    if not a_is_zero and kind == "dbl":
+        m, s, a = m + 1, s + 1, a + 1
+    elif not a_is_zero and kind == "mdbl":
+        a += 1
+    return m * mul + s * sqr + a * add
+
+
 def main():
     import torch
 
@@ -2893,11 +3419,11 @@ def main():
     sw_sass = sass_functions(_build.lib_path("sw"))
 
     def sw_kernel(stem):
-        hits = [(k, v) for k, v in sw_sass.items() if f"{stem}ILi12E" in k]
+        hits = [(k, v) for k, v in sw_sass.items() if f"{stem}ILi12E" in k and "PlainOps" not in k]
         return dict(function=hits[0][0], **hits[0][1]) if hits else None
 
     def ptxas_of(stem):
-        return next((v for k, v in ptxas.items() if f"{stem}ILi12E" in k), {})
+        return next((v for k, v in ptxas.items() if f"{stem}ILi12E" in k and "PlainOps" not in k), {})
 
     # the xyzz.cu and madd.cu kernels, NW = 12: registers, spills, SASS size
     xyzz_kernels = {}
@@ -2905,7 +3431,7 @@ def main():
                        ("madd", ("xyzz_add_affine_kernel",))):
         code = sass_functions(_build.lib_path(src))
         for stem in stems:
-            hit = next((v for k, v in code.items() if f"{stem}ILi12E" in k), {})
+            hit = next((v for k, v in code.items() if f"{stem}ILi12E" in k and "PlainOps" not in k), {})
             xyzz_kernels[stem] = dict(ptxas_of(stem), sass_instructions=hit.get("instructions"),
                                       imad=hit.get("imad"))
     sass = dict(per_op_nw12=per_op, horner_serial_code=probes["probe_horner_serial"],
@@ -3033,9 +3559,10 @@ def main():
     # resident blocks per SM and waves
     f = FQ
     L = f.num_limbs
-    madd_ops = 10 * mul_ops(f) + 7 * add_ops(f)
-    dbl_ops = 9 * mul_ops(f) + 7 * add_ops(f)
-    fadd_ops = 14 * mul_ops(f) + 7 * add_ops(f)  # generic windows: no doubling branch
+    ops_of = functools.partial(xyzz_ops, mul_ops(f), sqr_ops(f), add_ops(f),
+                               a_is_zero=G1.a_is_zero)
+    madd_ops, dbl_ops = ops_of("madd"), ops_of("dbl")
+    fadd_ops = ops_of("add")  # generic windows: no doubling branch
     sw_lib = _build.load("sw")
     occ_blocks, occ_threads = ctypes.c_int(0), ctypes.c_int(0)
     _build.check(sw_lib, sw_lib.zk_xyzz_accum_occupancy(nw(f), ctypes.addressof(occ_blocks),
@@ -3322,8 +3849,7 @@ def main():
     # operations those inputs need, lane by lane
     f = FQ
     Lq = f.num_limbs
-    dbl_ops = 9 * mul_ops(f) + 7 * add_ops(f)
-    find_ops = 4 * mul_ops(f) + 2 * add_ops(f)  # U1, U2, S1, S2, P', R
+    dbl_ops, find_ops = ops_of("dbl"), ops_of("find")  # find: U1, U2, S1, S2, P', R
 
     def add_lane_ops(P, Q):
         """xyzz_add's operations on these inputs: none on a lane at
@@ -4070,9 +4596,10 @@ def main():
               enumerate(zip(got, want)))
     ms = time_ms(lambda: ksw.xyzz_add_affine(G1, P, AX, AY, a_inf), 20)
     n_of = lambda cs: int(on(cs).sum())  # noqa: E731
-    madd_ops = 10 * mul_ops(f) + 7 * add_ops(f)
-    ops = (n_of([0]) * madd_ops + n_of([1]) * (8 * mul_ops(f) + 9 * add_ops(f))
-           + n_of([2, 6]) * (2 * mul_ops(f) + 2 * add_ops(f)))
+    ops_of = functools.partial(xyzz_ops, mul_ops(f), sqr_ops(f), add_ops(f),
+                               a_is_zero=G1.a_is_zero)
+    madd_ops = ops_of("madd")
+    ops = n_of([0]) * madd_ops + n_of([1]) * ops_of("mdbl") + n_of([2, 6]) * ops_of("cancel")
     b_ms, b_by = bound((10 * Lq * 4 + 1) * ne, ops)
     emit("kernel", kernel="xyzz_add_affine", field=f.name, n=ne, feed="edge classes",
          known_answer_pairs=len(ps), max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -4187,7 +4714,15 @@ def main():
     for name, r in phase13.items():
         report.setdefault(name, {})["phase13"] = r
 
-    # ---- 14. kernels line ----------------------------------------------------
+    # ---- 14. the other curve models and hashing to curves -----------------------
+    rec14, restore14 = install_recorders(torch, km)
+    try:
+        phase14 = curves_h2c_phase(torch, helpers, rec14)
+    finally:
+        restore14()
+    del rec14
+
+    # ---- 15. kernels line ----------------------------------------------------
     sources = {
         "mont_mul": ("zkarray_torch/kernels/csrc/mont.cu", "zkarray/kernels/mont.py:235"),
         "mont_sqr": ("zkarray_torch/kernels/csrc/mont.cu", "zkarray/kernels/mont.py:254"),
@@ -4248,6 +4783,7 @@ def main():
     rows = []
     for name, (src, repl) in sources.items():
         r = report[name]
+        r["phase14"] = phase14.get(name, dict(launches={}, max_abs_err=None))
         widths = (sorted(_build.FIELD_LIBS) if name in FIELD_KERNELS + ("fp_lin",) else
                   sorted(_build.NTT_LIBS) if name in NTT_KERNELS else [8, 12])
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": repl,

@@ -2,7 +2,8 @@
 """Rehearse chip_smoke.py's phase 13 alone on the CPU at small sizes, with
 scripts/rehearse_chip_smoke.py's stubs (every kernel launch a counted call
 of its plain version): it finds wrong paths, shapes, counts and control
-flow before a chip call, and says nothing about the CUDA sources.
+flow before a chip call, and says nothing about the CUDA sources. ``run``
+takes another phase and its sizes (scripts/rehearse_phase14.py).
 
     python3 scripts/rehearse_phase13.py   # ~10 minutes on a CPU
 """
@@ -17,21 +18,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent / "scripts
 import rehearse_chip_smoke as R  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
-R.setup()
-torch.set_num_threads(2)
-cs.POLY_LOG_N, cs.EVAL_POINTS, cs.DIV_DEGREES = 8, 4, (31, 3)
-cs.MLE_VARS, cs.MLE_FIXED, cs.MLE_KAT = 8, 4, 20
-cs.SPARSE_TERMS, cs.SPARSE_KAT, cs.MV_TERMS, cs.MV_LOG_POINTS, cs.MV_KAT = 4, 10, 4, 4, 4
-cs.MIXED_DOMAINS = (("mnt6_753", "FR", 3, 25), ("mnt4_298", "FQ", 2, 49))
-cs.GENERAL_TARGET, cs.GENERAL_SIZE = (1 << 15) + 1, 40960
-cs.POLY_KAT = 4
-cs.GFFT_LOG_N, cs.GFFT_RT_LOG_N, cs.GFFT_KAT = 2, 1, 2
-cs.GLV_LOG_N = cs.GLV_SMALL_LOG_N = 6
-cs.G2_GLV_LOG_N = 2
-cs.WNAF_LOG_N, cs.FIXED_LOG_N = 2, 2
-cs.STREAM_LOG_N, cs.STREAM_CHUNK_LOG_N = 8, 7
-cs.PIPPENGER_LOG_N, cs.PIPPENGER_CHUNK = 6, 16
-cs.SCALAR_KAT = 2
+from zkarray_torch.kernels import mont as km  # noqa: E402
+
 dev = torch.device("cpu")
 gen = torch.Generator().manual_seed(1)
 
@@ -66,7 +54,6 @@ def check_equal(what, got, want):
     return e
 
 
-from zkarray_torch.kernels import mont as km  # noqa: E402
 nw = lambda s: s.num_limbs // 2  # noqa: E731
 h = types.SimpleNamespace(
     dev=dev, sync=lambda: None, time_ms=time_ms, once_ms=once_ms, rand_field=rand_field,
@@ -74,9 +61,30 @@ h = types.SimpleNamespace(
     sqr_ops=lambda s: 3 * nw(s) ** 2 + 4 * nw(s), pow_ops=None, add_ops=lambda s: 3 * nw(s),
     bound=lambda b, o: (max(b / 3.35e12, o / 16.7e12) * 1e3, "bytes"), emit=cs.emit,
     distinct_elems=lambda t: (lambda m: m[2] if m[3] == 0 else t[0].numel())(km._operand(t)))
-rec, restore = cs.install_recorders(torch, km)
-t = time.perf_counter()
-rep = cs.poly_scalar_phase(torch, h, rec)
-restore()
-print("REPORT", {k: sorted(v) for k, v in rep.items()})
-print("rehearsal seconds", time.perf_counter() - t)
+
+
+def run(phase: str, sizes: dict):
+    """Stub the kernels (rehearse_chip_smoke.setup), shrink chip_smoke's
+    module sizes to ``sizes``, run chip_smoke.<phase> with the recorders."""
+    R.setup()
+    torch.set_num_threads(2)
+    for name, value in sizes.items():
+        setattr(cs, name, value)
+    rec, restore = cs.install_recorders(torch, km)
+    t = time.perf_counter()
+    rep = getattr(cs, phase)(torch, h, rec)
+    restore()
+    print("REPORT", {k: sorted(v) for k, v in rep.items()})
+    print("rehearsal seconds", time.perf_counter() - t)
+
+
+SIZES = dict(
+    POLY_LOG_N=8, EVAL_POINTS=4, DIV_DEGREES=(31, 3), MLE_VARS=8, MLE_FIXED=4, MLE_KAT=20,
+    SPARSE_TERMS=4, SPARSE_KAT=10, MV_TERMS=4, MV_LOG_POINTS=4, MV_KAT=4,
+    MIXED_DOMAINS=(("mnt6_753", "FR", 3, 25), ("mnt4_298", "FQ", 2, 49)),
+    GENERAL_TARGET=(1 << 15) + 1, GENERAL_SIZE=40960, POLY_KAT=4, GFFT_LOG_N=2, GFFT_RT_LOG_N=1,
+    GFFT_KAT=2, GLV_LOG_N=6, GLV_SMALL_LOG_N=6, G2_GLV_LOG_N=2, WNAF_LOG_N=2, FIXED_LOG_N=2,
+    STREAM_LOG_N=8, STREAM_CHUNK_LOG_N=7, PIPPENGER_LOG_N=6, PIPPENGER_CHUNK=16, SCALAR_KAT=2)
+
+if __name__ == "__main__":
+    run("poly_scalar_phase", SIZES)

@@ -119,7 +119,12 @@ def test_import_pulls_in_no_jax():
         "zkarray_torch.ec.pairing.bw6, zkarray_torch.ec.pairing.mnt, zkarray_torch.curves.bw6_761, "
         "zkarray_torch.curves.bw6_767, zkarray_torch.ec.pairing.cp6, zkarray_torch.curves.mnt4_298, "
         "zkarray_torch.curves.mnt6_298, zkarray_torch.curves.mnt4_753, "
-        "zkarray_torch.curves.mnt6_753, zkarray_torch.curves.cp6_782; "
+        "zkarray_torch.curves.mnt6_753, zkarray_torch.curves.cp6_782, zkarray_torch.curves.zoo, "
+        "zkarray_torch.curves.te_zoo, zkarray_torch.curves.ed_on_bls12_381, zkarray_torch.ec.te, "
+        "zkarray_torch.ec.double_odd, zkarray_torch.ec.cycles, zkarray_torch.ec.glv, "
+        "zkarray_torch.ff.hash_to_field, zkarray_torch.ec.h2c, zkarray_torch.ec.h2c.swu, "
+        "zkarray_torch.ec.h2c.wb, zkarray_torch.ec.h2c.swu_ext, zkarray_torch.ec.h2c.wb_g2, "
+        "zkarray_torch.ec.h2c.elligator2; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'zkarray')]; "
         "assert not bad, bad"
     )
@@ -153,7 +158,15 @@ def test_source_scan_finds_no_jax_or_zkarray_import():
             "zkarray_torch/curves/bw6_767.py", "zkarray_torch/ec/pairing/cp6.py",
             "zkarray_torch/curves/mnt4_298.py", "zkarray_torch/curves/mnt6_298.py",
             "zkarray_torch/curves/mnt4_753.py", "zkarray_torch/curves/mnt6_753.py",
-            "zkarray_torch/curves/cp6_782.py", "zkarray_torch/ec/msm.py"} <= names
+            "zkarray_torch/curves/cp6_782.py", "zkarray_torch/ec/msm.py",
+            "zkarray_torch/curves/zoo.py", "zkarray_torch/curves/te_zoo.py",
+            "zkarray_torch/curves/ed_on_bls12_381.py", "zkarray_torch/ec/te.py",
+            "zkarray_torch/ec/double_odd.py", "zkarray_torch/ec/cycles.py",
+            "zkarray_torch/ff/hash_to_field.py", "zkarray_torch/ec/h2c/__init__.py",
+            "zkarray_torch/ec/h2c/swu.py", "zkarray_torch/ec/h2c/wb.py",
+            "zkarray_torch/ec/h2c/swu_ext.py", "zkarray_torch/ec/h2c/wb_g2.py",
+            "zkarray_torch/ec/h2c/elligator2.py", "zkarray_torch/ec/h2c/_bls12_381_g1_iso.py",
+            "zkarray_torch/ec/h2c/_bls12_381_g2_iso.py"} <= names
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "zkarray"}
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
@@ -168,10 +181,15 @@ def test_pairing_path_constants_and_default_device():
     from zkarray_torch import DEFAULT_DEVICE
     from zkarray_torch.curves import bls12_377 as t377
     from zkarray_torch.curves import bls12_381_zcash as tzc
+    from zkarray_torch.ec import double_odd as tdo
     from zkarray_torch.ec import point_serde as tps
     from zkarray_torch.ec import sw_ext as tsw_ext
+    from zkarray_torch.ec import te as tte
+    from zkarray_torch.ec.h2c import wb as twb
+    from zkarray_torch.ec.h2c import wb_g2 as twb_g2
     from zkarray_torch.ec.pairing import cp6 as tcp6
     from zkarray_torch.ec.pairing import gt as tgt
+    from zkarray_torch.ff import hash_to_field as thtf
     from zkarray_torch.ff import towers as ttowers
 
     assert DEFAULT_DEVICE == "cuda"
@@ -196,5 +214,9 @@ def test_pairing_path_constants_and_default_device():
                interop.bn_g2_prepared_from_numpy, interop.bw6_g2_prepared_from_numpy,
                interop.gt_from_numpy, interop.mnt_g1_prepared_from_numpy,
                interop.mnt_g2_prepared_from_numpy, interop.cp6_g2_prepared_from_numpy,
-               tcp6.g2_prepare_host):
+               tcp6.g2_prepare_host, tte.TECurveSpec.generator, tte.TECurveSpec.affine_from_ints,
+               tte.zero, tdo.DOCurveSpec.generator, tdo.DOCurveSpec.affine_from_ints, tdo.zero,
+               thtf.hash_to_field, twb.hash_to_curve_bls12_381_g1,
+               twb_g2.hash_to_curve_bls12_381_g2, tps.deserialize_te,
+               interop.te_extended_from_numpy, interop.do_projective_from_numpy):
         assert inspect.signature(fn).parameters["device"].default == DEFAULT_DEVICE, fn

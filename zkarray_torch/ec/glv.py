@@ -8,8 +8,8 @@ half-length scalars shared by the batch, the addend picked per point from
 ladder step is a chain of field kernel launches (ec/sw.py, ec/sw_ext.py);
 the ladder is about half as long as ec/sw.py:scalar_mul's.
 
-The specs of BLS12-381, BN254, BLS12-377 and BW6-761 G1 and BLS12-381 G2
-are here; Pallas and Vesta wait for curves/zoo.py.
+The specs of BLS12-381, BN254, BLS12-377, BW6-761, Pallas and Vesta G1
+and of BLS12-381 G2 are here.
 """
 
 from __future__ import annotations
@@ -206,6 +206,34 @@ def bw6_761_g1_glv() -> GLVSpec:
                 (False, 293634935485640680722085584138834120315328839056164388863),
                 (True, 293634935485640680722085584138834120315328839056164388863),
                 (True, 587269870971281361444171168277668240640243801025419411456)],
+    )
+
+
+def pallas_glv() -> GLVSpec:
+    from zkarray_torch.curves import zoo
+
+    return GLVSpec(
+        zoo.PALLAS,
+        endo_coeff=20444556541222657078399132219657928148671392403212669005631716460534733845831,
+        lam=26005156700822196841419187675678338661165322343552424574062261873906994770353,
+        decomp=[(False, 98231058071100081932162823354453065728),
+                (True, 98231058071186745657228807397848383489),
+                (False, 196462116142286827589391630752301449217),
+                (False, 98231058071100081932162823354453065728)],
+    )
+
+
+def vesta_glv() -> GLVSpec:
+    from zkarray_torch.curves import zoo
+
+    return GLVSpec(
+        zoo.VESTA,
+        endo_coeff=26005156700822196841419187675678338661165322343552424574062261873906994770353,
+        lam=20444556541222657078399132219657928148671392403212669005631716460534733845831,
+        decomp=[(False, 98231058071100081932162823354453065729),
+                (True, 98231058071186745657228807397848383488),
+                (False, 196462116142286827589391630752301449217),
+                (False, 98231058071100081932162823354453065729)],
     )
 
 

@@ -1,13 +1,16 @@
-"""Short-Weierstrass point serialization in arkworks' canonical format.
+"""Point serialization (short-Weierstrass and twisted-Edwards) in arkworks'
+canonical format.
 
-Counterpart of zkarray/ec/point_serde.py's short-Weierstrass parts
+Counterpart of zkarray/ec/point_serde.py: short-Weierstrass points
 (serialize_sw, deserialize_sw, and for points over an extension field
-serialize_sw_ext, deserialize_sw_ext); the twisted-Edwards formats wait for
-the Edwards curves. Compressed = x bytes with SWFlags in the top 2 bits of
-the last byte (y negative when y > -y as integers; over an extension,
-coefficient by coefficient from the highest); uncompressed = x bytes ++ y
-bytes with the flags; infinity = zeros and the infinity flag. An extension
-element is its coefficients c0..c_{d-1} in order, the flags in the last.
+serialize_sw_ext, deserialize_sw_ext) and twisted-Edwards points
+(serialize_te, deserialize_te). SW compressed = x bytes with SWFlags in the
+top 2 bits of the last byte (y negative when y > -y as integers; over an
+extension, coefficient by coefficient from the highest); uncompressed = x
+bytes ++ y bytes with the flags; infinity = zeros and the infinity flag.
+An extension element is its coefficients c0..c_{d-1} in order, the flags
+in the last. TE compressed = y bytes with the sign of x in the top bit
+(TEFlags); uncompressed = x bytes ++ that.
 """
 
 from __future__ import annotations
@@ -22,9 +25,12 @@ from zkarray_torch.core import limbs as lb
 from zkarray_torch.core.fieldspec import FieldSpec
 from zkarray_torch.ec import sw as sw_mod
 from zkarray_torch.ec import sw_ext
+from zkarray_torch.ec import te as te_mod
 from zkarray_torch.ec.sw import AffinePoints, SWCurveSpec
+from zkarray_torch.ec.te import TEAffine, TECurveSpec
 from zkarray_torch.ff import fp
-from zkarray_torch.serialize.canonical import (SW_FLAG_INFINITY, SW_FLAG_NEGATIVE, deserialize_fp,
+from zkarray_torch.serialize.canonical import (SW_FLAG_INFINITY, SW_FLAG_NEGATIVE,
+                                               TE_FLAG_NEGATIVE, deserialize_fp,
                                                field_byte_size, serialize_fp)
 
 
@@ -83,6 +89,51 @@ def deserialize_sw(curve: SWCurveSpec, data: np.ndarray, compress: bool = True,
             ok = ok & sw_mod.is_on_curve(curve, pts).cpu().numpy()
     if validate:
         ok = ok & sw_mod.subgroup_check(curve, pts).cpu().numpy()
+    return pts, ok
+
+
+def serialize_te(curve: TECurveSpec, pts: TEAffine, compress: bool = True) -> np.ndarray:
+    """TE points -> (n, nb) compressed (y with the sign of x) or (n, 2 nb)
+    uncompressed bytes."""
+    f = curve.base
+    flags = np.where(y_is_negative(f, pts.x).reshape(-1).cpu().numpy(),
+                     np.uint8(TE_FLAG_NEGATIVE), np.uint8(0))
+    if compress:
+        return serialize_fp(f, pts.y, flag_bits=1, flags=flags)
+    return np.concatenate([serialize_fp(f, pts.x), serialize_fp(f, pts.y, flag_bits=1, flags=flags)],
+                          axis=1)
+
+
+def deserialize_te(curve: TECurveSpec, data: np.ndarray, compress: bool = True,
+                   validate: bool = True, device=DEFAULT_DEVICE) -> Tuple[TEAffine, np.ndarray]:
+    """-> (points on ``device``, valid mask). Compressed: x^2 = (y^2 - 1) /
+    (d y^2 - a), the root with x's sign; invalid where that is no square.
+    Under ``validate`` the points must lie on the curve; no subgroup check
+    (zkarray/ec/point_serde.py:deserialize_te)."""
+    f = curve.base
+    data = np.asarray(data, dtype=np.uint8)
+    if data.ndim == 1:
+        data = data[None]
+    if compress:
+        y, flags, ok = deserialize_fp(f, data, flag_bits=1, device=device)
+        neg = torch.from_numpy((flags & TE_FLAG_NEGATIVE) != 0).to(device)
+        batch = y.shape[1:]
+        y2 = fp.mont_sqr(f, y)
+        num = fp.sub(f, y2, fp.one(f, batch, device))
+        den = fp.sub(f, fp.mont_mul(f, fp.const_array(f, curve.d_int, (), device), y2),
+                     fp.const_array(f, curve.a_int, batch, device))
+        root, is_sq = fp.sqrt(f, fp.mont_mul(f, num, fp.batch_inv(f, den)))
+        x_pos = fp.select(y_is_negative(f, root), fp.neg(f, root), root)
+        pts = TEAffine(fp.select(neg, fp.neg(f, x_pos), x_pos), y)
+        ok = ok & is_sq.cpu().numpy()
+    else:
+        nb = field_byte_size(f)
+        x, _, okx = deserialize_fp(f, data[:, :nb], device=device)
+        y, _, oky = deserialize_fp(f, data[:, nb:], flag_bits=1, device=device)
+        pts = TEAffine(x, y)
+        ok = okx & oky
+    if validate:
+        ok = ok & te_mod.is_on_curve(curve, pts).cpu().numpy()
     return pts, ok
 
 

@@ -317,18 +317,22 @@ def is_on_curve(curve: SWCurveSpec, A: AffinePoints) -> torch.Tensor:
     return fp.eq(y2, rhs) | A.inf
 
 
-def scalar_mul(curve: SWCurveSpec, A: AffinePoints, scalars: torch.Tensor) -> JacobianPoints:
-    """Per-element k_i P_i by double-and-add over the scalar limbs' 16 Ls
-    bits, most significant first. ``scalars``: canonical (not Montgomery)
-    (Ls, *batch) limbs of the scalar field."""
-    nbits = curve.scalar.num_limbs * 16
+def scalar_bits(scalars: torch.Tensor, nbits: int) -> torch.Tensor:
+    """(nbits, *batch) bool bits of canonical (Ls, *batch) scalar limbs,
+    most significant first."""
     i = torch.arange(nbits - 1, -1, -1, device=scalars.device)
     idx = (i // 16).reshape((nbits,) + (1,) * (scalars.dim() - 1)).expand(
         (nbits,) + tuple(scalars.shape[1:]))
     shift = (i % 16).reshape((nbits,) + (1,) * (scalars.dim() - 1))
-    bits = ((scalars.to(torch.int64).gather(0, idx) >> shift) & 1).bool()
+    return ((scalars.to(torch.int64).gather(0, idx) >> shift) & 1).bool()
+
+
+def scalar_mul(curve: SWCurveSpec, A: AffinePoints, scalars: torch.Tensor) -> JacobianPoints:
+    """Per-element k_i P_i by double-and-add over the scalar limbs' 16 Ls
+    bits, most significant first. ``scalars``: canonical (not Montgomery)
+    (Ls, *batch) limbs of the scalar field."""
     acc = jac_zero(curve, A.x.shape[1:], A.x.device)
-    for b in bits:
+    for b in scalar_bits(scalars, curve.scalar.num_limbs * 16):
         acc = jac_double(curve, acc)
         acc = select_jac(b, jac_add_mixed(curve, acc, A), acc)
     return acc

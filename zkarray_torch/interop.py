@@ -13,11 +13,13 @@ import torch
 
 from zkarray_torch import DEFAULT_DEVICE
 from zkarray_torch.core.fieldspec import FieldSpec
+from zkarray_torch.ec.double_odd import DOCurveSpec, DOProjective
 from zkarray_torch.ec.pairing import bw6, cp6, mnt
 from zkarray_torch.ec.pairing.bls12 import G2Prepared
 from zkarray_torch.ec.pairing.bn import BnG2Prepared, BnSpec
 from zkarray_torch.ec.sw import AffinePoints, JacobianPoints, SWCurveSpec, XYZZPoints
 from zkarray_torch.ec.sw_ext import ExtAffine, ExtJacobian
+from zkarray_torch.ec.te import TECurveSpec, TEExtended
 
 
 def limbs_from_numpy(arr, device=DEFAULT_DEVICE) -> torch.Tensor:
@@ -59,6 +61,24 @@ def xyzz_from_numpy(coords, device=DEFAULT_DEVICE) -> XYZZPoints:
 
 
 def xyzz_to_numpy(P: XYZZPoints):
+    return tuple(limbs_to_numpy(v) for v in P)
+
+
+def te_extended_from_numpy(coords, device=DEFAULT_DEVICE) -> TEExtended:
+    """Four (L, *batch) uint32 arrays (x, y, t, z) -> TEExtended."""
+    return TEExtended(*(limbs_from_numpy(v, device) for v in coords))
+
+
+def te_extended_to_numpy(P: TEExtended):
+    return tuple(limbs_to_numpy(v) for v in P)
+
+
+def do_projective_from_numpy(coords, device=DEFAULT_DEVICE) -> DOProjective:
+    """Four (L, *batch) uint32 arrays (e, z, u, t) -> DOProjective."""
+    return DOProjective(*(limbs_from_numpy(v, device) for v in coords))
+
+
+def do_projective_to_numpy(P: DOProjective):
     return tuple(limbs_to_numpy(v) for v in P)
 
 
@@ -249,3 +269,20 @@ def same_curve(curve: SWCurveSpec, a: int, b: int, gen_x: int, gen_y: int,
     """True when the port's curve constants equal the given ints."""
     return (curve.a_int, curve.b_int, curve.gen_x, curve.gen_y, curve.cofactor) == (
         a % curve.base.modulus, b % curve.base.modulus, gen_x, gen_y, cofactor)
+
+
+def same_te_curve(curve: TECurveSpec, a: int, d: int, gen_x: int, gen_y: int, cofactor: int,
+                  mont_coeff_a, mont_coeff_b) -> bool:
+    """True when the port's twisted Edwards constants equal the given ints."""
+    return (curve.a_int, curve.d_int, curve.gen_x, curve.gen_y, curve.cofactor,
+            curve.mont_coeff_a, curve.mont_coeff_b) == (
+        a % curve.base.modulus, d % curve.base.modulus, gen_x, gen_y, cofactor, mont_coeff_a,
+        mont_coeff_b)
+
+
+def same_do_curve(curve: DOCurveSpec, a: int, b: int, gen_e: int, gen_u: int,
+                  cofactor: int) -> bool:
+    """True when the port's double-odd constants equal the given ints."""
+    p = curve.base.modulus
+    return (curve.a_int, curve.b_int, curve.gen_e, curve.gen_u, curve.cofactor) == (
+        a % p, b % p, gen_e % p, gen_u % p, cofactor)

@@ -207,6 +207,18 @@ __device__ __forceinline__ uint32_t subc(uint32_t a, uint32_t b) {
 // Host words p[NW]: true when p < R/2, as the carry-chain routines need.
 static inline bool p_fits_cc(const uint32_t* consts, int nw) { return (consts[nw - 1] >> 31) == 0; }
 
+// In a C entry (consts and nw in scope, NW fixed by ZK_DISPATCH_NW): launch
+// kernel<NW, FastOps<NW>> where p < R/2 and kernel<NW, FullOps<NW>> where p's
+// top bit is set (FullOps: PlainOps or PlainCallOps, below). The rest is the
+// launch configuration, the closing ">>>" and the arguments.
+#define ZK_LAUNCH_OPS(kernel, FastOps, FullOps, ...) \
+  do {                                               \
+    if (p_fits_cc(consts, nw))                       \
+      kernel<NW, FastOps<NW>><<<__VA_ARGS__;         \
+    else                                             \
+      kernel<NW, FullOps<NW>><<<__VA_ARGS__;         \
+  } while (0)
+
 // t (< 2p) minus p if that does not borrow, else t: the select is a mask.
 template <int NW>
 __device__ __forceinline__ Fe<NW> cond_sub_p_cc(const uint32_t* t, const FieldConsts<NW>& F) {
@@ -349,6 +361,22 @@ struct CallOps : WideOps<NW> {
   static __device__ __forceinline__ Fe<NW> mul(const Fe<NW>& a, const Fe<NW>& b,
                                                const FieldConsts<NW>& F) {
     return fmul_wide_call<NW>(a, b, &F);
+  }
+};
+
+// PlainOps with every product through one non-inlined copy of fmul: CallOps'
+// counterpart for a modulus with its top bit set, which the carry-chain
+// routines cannot take.
+template <int NW>
+__device__ __noinline__ Fe<NW> fmul_call(const Fe<NW> a, const Fe<NW> b, const FieldConsts<NW>* F) {
+  return fmul<NW>(a, b, *F);
+}
+
+template <int NW>
+struct PlainCallOps : PlainOps<NW> {
+  static __device__ __forceinline__ Fe<NW> mul(const Fe<NW>& a, const Fe<NW>& b,
+                                               const FieldConsts<NW>& F) {
+    return fmul_call<NW>(a, b, &F);
   }
 };
 

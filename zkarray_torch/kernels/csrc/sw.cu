@@ -51,6 +51,11 @@
 // horner_windows is. Design: horner_windows' chain, unchanged, one warp
 // (one block) per window, so the W chains run side by side on W SMs in
 // one launch.
+//
+// The carry-chain routines (WideOps) need p < R/2. A modulus with its top bit
+// set (secp256k1, secp256r1, secq256k1, secp384r1) takes each kernel's
+// PlainOps instantiation instead (fmul, fadd, fsub: the same words, every
+// result fully reduced); the C entries pick it from p's top word.
 #include "field.cuh"
 
 #define ACCUM_THREADS 64
@@ -68,7 +73,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-template <int NW>
+template <int NW, class Ops>
 __global__ void __launch_bounds__(ACCUM_THREADS, ACCUM_MIN_BLOCKS)
 xyzz_accum_kernel(const int32_t* __restrict__ st_in, int32_t* __restrict__ st_out,
                   const int32_t* __restrict__ coords, const int32_t* __restrict__ valid,
@@ -109,8 +114,8 @@ xyzz_accum_kernel(const int32_t* __restrict__ st_in, int32_t* __restrict__ st_ou
       AX.w[j] = feed[b][j][tid];
       AY.w[j] = feed[b][NW + j][tid];
     }
-    if (v & 2) AY = fsub_cc<NW>(fe_zero<NW>(), AY, F);  // negative digit: -y (0 stays 0)
-    xyzz_madd<NW, WideOps<NW>>(P, AX, AY, F);
+    if (v & 2) AY = Ops::sub(fe_zero<NW>(), AY, F);  // negative digit: -y (0 stays 0)
+    xyzz_madd<NW, Ops>(P, AX, AY, F);
   }
   store32<NW>(st_out, n, (size_t)s, P.x);
   store32<NW>(st_out + (size_t)NW * n, n, (size_t)s, P.y);
@@ -155,14 +160,14 @@ __device__ __forceinline__ void st(ChainSmem<NW>* sh, int k, const Fe<NW>& x) {
 
 // One product of a level: slot d = slot a * slot b. The chain's only copy of
 // the product code (not inlined), so every level runs the same instructions.
-template <int NW>
+template <int NW, class Ops>
 __device__ __noinline__ void chain_mul(ChainSmem<NW>* sh, uint32_t code) {
   FieldConsts<NW> F;
 #pragma unroll
   for (int j = 0; j < NW; ++j) F.p[j] = sh->p[j];
   F.inv = sh->inv;
   const int d = code & 0xFF, a = (code >> 8) & 0xFF, b = (code >> 16) & 0xFF;
-  st<NW>(sh, d, fmul_wide<NW>(ld<NW>(sh, a), ld<NW>(sh, b), F));
+  st<NW>(sh, d, Ops::mul(ld<NW>(sh, a), ld<NW>(sh, b), F));
 }
 
 // A product for one lane of a level: d = a * b (nonzero code).
@@ -172,12 +177,12 @@ __host__ __device__ constexpr uint32_t mul(int d, int a, int b) {
 
 // One level of independent products: lane k < 4 runs product k, then the
 // warp meets.
-template <int NW>
+template <int NW, class Ops>
 __device__ __forceinline__ void products(ChainSmem<NW>* sh, uint32_t o0, uint32_t o1 = 0,
                                          uint32_t o2 = 0, uint32_t o3 = 0) {
   const int lane = threadIdx.x;
   const uint32_t code = lane == 0 ? o0 : lane == 1 ? o1 : lane == 2 ? o2 : lane == 3 ? o3 : 0;
-  if (code) chain_mul<NW>(sh, code);
+  if (code) chain_mul<NW, Ops>(sh, code);
   __syncwarp();
 }
 
@@ -214,7 +219,7 @@ __device__ __forceinline__ void set_inf(ChainSmem<NW>* sh) {
 
 // P = 2P (dbl-2008-s-1, _dbl_core): inf or y == 0 -> inf. Products run a
 // level at a time across lanes; the additions between them run on lane 0.
-template <int NW>
+template <int NW, class Ops>
 __device__ __forceinline__ void chain_dbl(ChainSmem<NW>* sh, const FieldConsts<NW>& F) {
   if (slot_is_zero<NW>(sh, PZZ) || slot_is_zero<NW>(sh, PY)) {
     set_inf<NW>(sh);
@@ -223,42 +228,43 @@ __device__ __forceinline__ void chain_dbl(ChainSmem<NW>* sh, const FieldConsts<N
   const bool lead = threadIdx.x == 0;
   if (lead) {
     const Fe<NW> y = ld<NW>(sh, PY);
-    st<NW>(sh, DU, fadd_cc<NW>(y, y, F));
+    st<NW>(sh, DU, Ops::add(y, y, F));
   }
   __syncwarp();
   if (F.a_is_zero) {
-    products<NW>(sh, mul(DV, DU, DU), mul(DXX, PX, PX));
+    products<NW, Ops>(sh, mul(DV, DU, DU), mul(DXX, PX, PX));
     if (lead) {
       const Fe<NW> xx = ld<NW>(sh, DXX);
-      st<NW>(sh, DM, fadd_cc<NW>(fadd_cc<NW>(xx, xx, F), xx, F));
+      st<NW>(sh, DM, Ops::add(Ops::add(xx, xx, F), xx, F));
     }
     __syncwarp();
-    products<NW>(sh, mul(DW, DU, DV), mul(DS, PX, DV), mul(DZZ3, DV, PZZ), mul(DMM, DM, DM));
+    products<NW, Ops>(sh, mul(DW, DU, DV), mul(DS, PX, DV), mul(DZZ3, DV, PZZ), mul(DMM, DM, DM));
   } else {  // M = 3 XX + a ZZ^2
-    products<NW>(sh, mul(DV, DU, DU), mul(DXX, PX, PX), mul(DZSQ, PZZ, PZZ));
-    products<NW>(sh, mul(DAZ, ACOEF, DZSQ), mul(DW, DU, DV), mul(DS, PX, DV), mul(DZZ3, DV, PZZ));
+    products<NW, Ops>(sh, mul(DV, DU, DU), mul(DXX, PX, PX), mul(DZSQ, PZZ, PZZ));
+    products<NW, Ops>(sh, mul(DAZ, ACOEF, DZSQ), mul(DW, DU, DV), mul(DS, PX, DV),
+                      mul(DZZ3, DV, PZZ));
     if (lead) {
       const Fe<NW> xx = ld<NW>(sh, DXX);
-      st<NW>(sh, DM, fadd_cc<NW>(fadd_cc<NW>(fadd_cc<NW>(xx, xx, F), xx, F), ld<NW>(sh, DAZ), F));
+      st<NW>(sh, DM, Ops::add(Ops::add(Ops::add(xx, xx, F), xx, F), ld<NW>(sh, DAZ), F));
     }
     __syncwarp();
-    products<NW>(sh, mul(DMM, DM, DM));
+    products<NW, Ops>(sh, mul(DMM, DM, DM));
   }
   if (lead) {
     const Fe<NW> s = ld<NW>(sh, DS);
-    const Fe<NW> x3 = fsub_cc<NW>(ld<NW>(sh, DMM), fadd_cc<NW>(s, s, F), F);
+    const Fe<NW> x3 = Ops::sub(ld<NW>(sh, DMM), Ops::add(s, s, F), F);
     st<NW>(sh, DX3, x3);
-    st<NW>(sh, DSX, fsub_cc<NW>(s, x3, F));
+    st<NW>(sh, DSX, Ops::sub(s, x3, F));
   }
   __syncwarp();
-  products<NW>(sh, mul(DT, DM, DSX), mul(DWY, DW, PY), mul(DZZZ3, DW, PZZZ));
-  if (lead) st<NW>(sh, DY3, fsub_cc<NW>(ld<NW>(sh, DT), ld<NW>(sh, DWY), F));
+  products<NW, Ops>(sh, mul(DT, DM, DSX), mul(DWY, DW, PY), mul(DZZZ3, DW, PZZZ));
+  if (lead) st<NW>(sh, DY3, Ops::sub(ld<NW>(sh, DT), ld<NW>(sh, DWY), F));
   set_point<NW>(sh, PX, DX3, DY3, DZZ3, DZZZ3);
 }
 
 // P = P + Q (add-2008-s, _fadd_core): Q = inf -> P; P = inf -> Q;
 // P == Q -> 2P; P == -Q -> inf.
-template <int NW>
+template <int NW, class Ops>
 __device__ __forceinline__ void chain_add(ChainSmem<NW>* sh, const FieldConsts<NW>& F) {
   if (slot_is_zero<NW>(sh, QZZ)) return;
   if (slot_is_zero<NW>(sh, PZZ)) {
@@ -266,31 +272,32 @@ __device__ __forceinline__ void chain_add(ChainSmem<NW>* sh, const FieldConsts<N
     return;
   }
   const int lane = threadIdx.x;
-  products<NW>(sh, mul(AU1, PX, QZZ), mul(AU2, QX, PZZ), mul(AS1, PY, QZZZ), mul(AS2, QY, PZZZ));
+  products<NW, Ops>(sh, mul(AU1, PX, QZZ), mul(AU2, QX, PZZ), mul(AS1, PY, QZZZ),
+                    mul(AS2, QY, PZZZ));
   if (lane < 2)  // P' = U2 - U1 on lane 0, R = S2 - S1 on lane 1
     st<NW>(sh, lane ? AR : APD,
-           fsub_cc<NW>(ld<NW>(sh, lane ? AS2 : AU2), ld<NW>(sh, lane ? AS1 : AU1), F));
+           Ops::sub(ld<NW>(sh, lane ? AS2 : AU2), ld<NW>(sh, lane ? AS1 : AU1), F));
   __syncwarp();
   if (slot_is_zero<NW>(sh, APD)) {
     if (slot_is_zero<NW>(sh, AR))
-      chain_dbl<NW>(sh, F);
+      chain_dbl<NW, Ops>(sh, F);
     else
       set_inf<NW>(sh);
     return;
   }
-  products<NW>(sh, mul(APP, APD, APD), mul(ARR, AR, AR), mul(AZZ12, PZZ, QZZ),
-               mul(AZZZ12, PZZZ, QZZZ));
-  products<NW>(sh, mul(APPP, APD, APP), mul(AQ, AU1, APP), mul(AZZ3, AZZ12, APP));
+  products<NW, Ops>(sh, mul(APP, APD, APD), mul(ARR, AR, AR), mul(AZZ12, PZZ, QZZ),
+                    mul(AZZZ12, PZZZ, QZZZ));
+  products<NW, Ops>(sh, mul(APPP, APD, APP), mul(AQ, AU1, APP), mul(AZZ3, AZZ12, APP));
   if (lane == 0) {
     const Fe<NW> q = ld<NW>(sh, AQ);
     const Fe<NW> x3 =
-        fsub_cc<NW>(fsub_cc<NW>(ld<NW>(sh, ARR), ld<NW>(sh, APPP), F), fadd_cc<NW>(q, q, F), F);
+        Ops::sub(Ops::sub(ld<NW>(sh, ARR), ld<NW>(sh, APPP), F), Ops::add(q, q, F), F);
     st<NW>(sh, AX3, x3);
-    st<NW>(sh, AQX, fsub_cc<NW>(q, x3, F));
+    st<NW>(sh, AQX, Ops::sub(q, x3, F));
   }
   __syncwarp();
-  products<NW>(sh, mul(AT, AR, AQX), mul(ASP, AS1, APPP), mul(AZZZ3, AZZZ12, APPP));
-  if (lane == 0) st<NW>(sh, AY3, fsub_cc<NW>(ld<NW>(sh, AT), ld<NW>(sh, ASP), F));
+  products<NW, Ops>(sh, mul(AT, AR, AQX), mul(ASP, AS1, APPP), mul(AZZZ3, AZZZ12, APPP));
+  if (lane == 0) st<NW>(sh, AY3, Ops::sub(ld<NW>(sh, AT), ld<NW>(sh, ASP), F));
   set_point<NW>(sh, PX, AX3, AY3, AZZ3, AZZZ3);
 }
 
@@ -318,7 +325,7 @@ __device__ __forceinline__ void load_window(ChainSmem<NW>* sh, const int32_t* wi
   __syncwarp();
 }
 
-template <int NW>
+template <int NW, class Ops>
 __global__ void __launch_bounds__(32)
 horner_windows_kernel(const int32_t* __restrict__ win, int32_t* __restrict__ out, int W, int c,
                       FieldConsts<NW> F) {
@@ -327,9 +334,9 @@ horner_windows_kernel(const int32_t* __restrict__ win, int32_t* __restrict__ out
   chain_init<NW>(&sh, F);
   load_window<NW>(&sh, win, W - 1, PX);
   for (int wi = W - 2; wi >= 0; --wi) {
-    for (int k = 0; k < c; ++k) chain_dbl<NW>(&sh, F);
+    for (int k = 0; k < c; ++k) chain_dbl<NW, Ops>(&sh, F);
     load_window<NW>(&sh, win, wi, QX);
-    chain_add<NW>(&sh, F);
+    chain_add<NW, Ops>(&sh, F);
   }
   for (int k = lane; k < 4 * NW; k += 32) {
     const uint32_t w = sh.v[PX + k / NW][k % NW];
@@ -361,7 +368,7 @@ __device__ __forceinline__ void load_part(ChainSmem<NW>* sh, const PartCoords& P
 }
 
 // out: int32[4, L, W], X | Y | ZZ | ZZZ of every window.
-template <int NW>
+template <int NW, class Ops>
 __global__ void __launch_bounds__(32)
 xyzz_bit_horner_kernel(PartCoords P, int32_t* __restrict__ out, int nbits, int W,
                        FieldConsts<NW> F) {
@@ -370,9 +377,9 @@ xyzz_bit_horner_kernel(PartCoords P, int32_t* __restrict__ out, int nbits, int W
   chain_init<NW>(&sh, F);
   load_part<NW>(&sh, P, nbits - 1, nbits, W, w, PX);
   for (int k = nbits - 2; k >= 0; --k) {
-    chain_dbl<NW>(&sh, F);
+    chain_dbl<NW, Ops>(&sh, F);
     load_part<NW>(&sh, P, k, nbits, W, w, QX);
-    chain_add<NW>(&sh, F);
+    chain_add<NW, Ops>(&sh, F);
   }
   for (int i = lane; i < 4 * NW; i += 32) {
     const uint32_t x = sh.v[PX + i / NW][i % NW];
@@ -387,28 +394,30 @@ extern "C" int zk_xyzz_accum(const void* st_in, void* st_out, const void* coords
                              const void* valid, int R, long long S, int nw,
                              const uint32_t* consts, void* stream) {
   if (S <= 0) return 0;
-  if (!p_fits_cc(consts, nw)) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((S + ACCUM_THREADS - 1) / ACCUM_THREADS);
-  ZK_DISPATCH_NW(nw, xyzz_accum_kernel<NW><<<blocks, ACCUM_THREADS, 0, (cudaStream_t)stream>>>(
-                         (const int32_t*)st_in, (int32_t*)st_out, (const int32_t*)coords,
-                         (const int32_t*)valid, R, S, consts_from_host<NW>(consts)));
+  ZK_DISPATCH_NW(nw, ZK_LAUNCH_OPS(xyzz_accum_kernel, WideOps, PlainOps, blocks, ACCUM_THREADS,
+                                   0, (cudaStream_t)stream>>>(
+                                       (const int32_t*)st_in, (int32_t*)st_out,
+                                       (const int32_t*)coords, (const int32_t*)valid, R, S,
+                                       consts_from_host<NW>(consts))));
   return (int)cudaGetLastError();
 }
 
-// Resident xyzz_accum blocks per SM and threads per block at word count nw.
+// Resident xyzz_accum blocks per SM (its WideOps instantiation) and threads
+// per block at word count nw.
 extern "C" int zk_xyzz_accum_occupancy(int nw, int* blocks_per_sm, int* threads_per_block) {
   *threads_per_block = ACCUM_THREADS;
   ZK_DISPATCH_NW(nw, return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         blocks_per_sm, xyzz_accum_kernel<NW>, ACCUM_THREADS, 0));
+                         blocks_per_sm, xyzz_accum_kernel<NW, WideOps<NW>>, ACCUM_THREADS, 0));
   return 0;
 }
 
 extern "C" int zk_horner_windows(const void* win, void* out, int W, int c, int nw,
                                  const uint32_t* consts, void* stream) {
-  if (W <= 0 || !p_fits_cc(consts, nw)) return (int)cudaErrorInvalidValue;
-  ZK_DISPATCH_NW(nw, horner_windows_kernel<NW><<<1, 32, 0, (cudaStream_t)stream>>>(
-                         (const int32_t*)win, (int32_t*)out, W, c,
-                         consts_from_host<NW>(consts)));
+  if (W <= 0) return (int)cudaErrorInvalidValue;
+  ZK_DISPATCH_NW(nw, ZK_LAUNCH_OPS(horner_windows_kernel, WideOps, PlainOps, 1, 32, 0,
+                                   (cudaStream_t)stream>>>((const int32_t*)win, (int32_t*)out, W,
+                                                           c, consts_from_host<NW>(consts))));
   return (int)cudaGetLastError();
 }
 
@@ -416,10 +425,11 @@ extern "C" int zk_horner_windows(const void* win, void* out, int W, int c, int n
 extern "C" int zk_xyzz_bit_horner(const void* x, const void* y, const void* zz, const void* zzz,
                                   void* out, int nbits, int W, int nw, const uint32_t* consts,
                                   void* stream) {
-  if (nbits <= 0 || W <= 0 || !p_fits_cc(consts, nw)) return (int)cudaErrorInvalidValue;
+  if (nbits <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
   const PartCoords P{{(const int32_t*)x, (const int32_t*)y, (const int32_t*)zz,
                       (const int32_t*)zzz}};
-  ZK_DISPATCH_NW(nw, xyzz_bit_horner_kernel<NW><<<W, 32, 0, (cudaStream_t)stream>>>(
-                         P, (int32_t*)out, nbits, W, consts_from_host<NW>(consts)));
+  ZK_DISPATCH_NW(nw, ZK_LAUNCH_OPS(xyzz_bit_horner_kernel, WideOps, PlainOps, W, 32, 0,
+                                   (cudaStream_t)stream>>>(P, (int32_t*)out, nbits, W,
+                                                           consts_from_host<NW>(consts))));
   return (int)cudaGetLastError();
 }

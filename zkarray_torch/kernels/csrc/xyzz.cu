@@ -50,6 +50,11 @@
 // per-level launches paid a launch and the wrapper's host time per level.
 // Its add needs 255 registers, so one 256-thread block runs on an SM: the
 // reduce's 260 rows of 1,024 are two waves on an H100's 132 SMs.
+//
+// A modulus with its top bit set (p >= R/2: secp256k1, secp256r1, secq256k1,
+// secp384r1) takes xyzz_add's and xyzz_tree_sum's PlainCallOps instantiation
+// (field.cuh:ZK_LAUNCH_OPS): the carry-chain routines need p < R/2, and the
+// non-inlined fmul keeps that code in the instruction cache too.
 #include "field.cuh"
 
 struct PointOperands {
@@ -91,13 +96,13 @@ __device__ __forceinline__ void store_point(int32_t* out, long long n, long long
   store16<NW>(out + 3 * c, s, k, P.zzz);
 }
 
-template <int NW>
+template <int NW, class Ops>
 __global__ void __launch_bounds__(128)
 xyzz_add_kernel(const __grid_constant__ PointOperands p, const __grid_constant__ PointOperands q,
                 int32_t* __restrict__ out, long long n, const __grid_constant__ FieldConsts<NW> F) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  store_point<NW>(out, n, i, xyzz_add<NW, CallOps<NW>>(DevicePoint{&p, i}, DevicePoint{&q, i}, F));
+  store_point<NW>(out, n, i, xyzz_add<NW, Ops>(DevicePoint{&p, i}, DevicePoint{&q, i}, F));
 }
 
 template <int NW>
@@ -139,7 +144,7 @@ struct SharedPoint {
   }
 };
 
-template <int NW>
+template <int NW, class Ops>
 __global__ void __launch_bounds__(TREE_THREADS, 1)
 xyzz_tree_sum_kernel(const __grid_constant__ PointOperands p, int32_t* __restrict__ out,
                      long long rows, int m, const __grid_constant__ FieldConsts<NW> F) {
@@ -149,16 +154,15 @@ xyzz_tree_sum_kernel(const __grid_constant__ PointOperands p, int32_t* __restric
   int h = m / 2;
   for (int k = threadIdx.x; k < h; k += TREE_THREADS)
     smem_put<NW>(row_pts, cap, k,
-                 xyzz_add<NW, CallOps<NW>>(DevicePoint{&p, base + k}, DevicePoint{&p, base + k + h},
-                                           F));
+                 xyzz_add<NW, Ops>(DevicePoint{&p, base + k}, DevicePoint{&p, base + k + h}, F));
   if ((m & 1) && threadIdx.x == 0)
     smem_put<NW>(row_pts, cap, h, get_point<NW>(DevicePoint{&p, base + m - 1}));
   __syncthreads();
   for (int w = cap; w > 1; w -= w / 2) {
     h = w / 2;
     for (int k = threadIdx.x; k < h; k += TREE_THREADS) {
-      const Xyzz<NW> r = xyzz_add<NW, CallOps<NW>>(SharedPoint{row_pts, cap, k},
-                                                   SharedPoint{row_pts, cap, k + h}, F);
+      const Xyzz<NW> r =
+          xyzz_add<NW, Ops>(SharedPoint{row_pts, cap, k}, SharedPoint{row_pts, cap, k + h}, F);
       if (k == 0 && (w & 1))  // slot h has been read: the odd last slot moves there
         smem_put<NW>(row_pts, cap, h, get_point<NW>(SharedPoint{row_pts, cap, w - 1}));
       smem_put<NW>(row_pts, cap, k, r);
@@ -178,10 +182,11 @@ static inline unsigned blocks_for(long long n, int threads) {
 extern "C" int zk_xyzz_add(const long long* ops, void* out, long long n, int nw,
                            const uint32_t* consts, void* stream) {
   if (n <= 0) return 0;
-  if (!operands_ok(ops, 8) || !p_fits_cc(consts, nw)) return (int)cudaErrorInvalidValue;
+  if (!operands_ok(ops, 8)) return (int)cudaErrorInvalidValue;
   const PointOperands p = point_from_host(ops), q = point_from_host(ops + 16);
-  ZK_DISPATCH_NW(nw, xyzz_add_kernel<NW><<<blocks_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
-                          p, q, (int32_t*)out, n, consts_from_host<NW>(consts)));
+  ZK_DISPATCH_NW(nw, ZK_LAUNCH_OPS(xyzz_add_kernel, CallOps, PlainCallOps, blocks_for(n, 128),
+                                   128, 0, (cudaStream_t)stream>>>(p, q, (int32_t*)out, n,
+                                                                   consts_from_host<NW>(consts))));
   return (int)cudaGetLastError();
 }
 
@@ -195,27 +200,40 @@ extern "C" int zk_xyzz_double(const long long* ops, void* out, long long n, int 
   return (int)cudaGetLastError();
 }
 
+// One instantiation of the tree sum: its dynamic shared memory raised to
+// the largest row's once, then the launch.
+template <int NW, class Ops>
+static int launch_tree_sum(const PointOperands& p, int32_t* out, long long rows, int m,
+                           const FieldConsts<NW>& F, cudaStream_t stream) {
+  static bool sized = false;
+  if (!sized) {
+    const int err = (int)cudaFuncSetAttribute(xyzz_tree_sum_kernel<NW, Ops>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              16 * NW * (TREE_MAX_WIDTH - TREE_MAX_WIDTH / 2));
+    if (err) return err;
+    sized = true;
+  }
+  const size_t smem = (size_t)16 * NW * (m - m / 2);
+  xyzz_tree_sum_kernel<NW, Ops><<<(unsigned)rows, TREE_THREADS, smem, stream>>>(p, out, rows, m, F);
+  return 0;
+}
+
 // ops: host descriptors of P's X, Y, ZZ, ZZZ, each (L, rows * m) row-major
 // with the tree axis last; out: int32[4, L, rows] contiguous, each row's sum.
 extern "C" int zk_xyzz_tree_sum(const long long* ops, void* out, long long rows, int m, int nw,
                                 const uint32_t* consts, void* stream) {
   if (rows <= 0) return 0;
-  if (m < 1 || m > TREE_MAX_WIDTH || rows > 0x7FFFFFFFLL || !operands_ok(ops, 4) ||
-      !p_fits_cc(consts, nw))
+  if (m < 1 || m > TREE_MAX_WIDTH || rows > 0x7FFFFFFFLL || !operands_ok(ops, 4))
     return (int)cudaErrorInvalidValue;
   const PointOperands p = point_from_host(ops);
   ZK_DISPATCH_NW(nw, {
-    const size_t smem = (size_t)16 * NW * (m - m / 2);
-    static bool sized = false;  // once per NW: the largest row's shared memory
-    if (!sized) {
-      const int err = (int)cudaFuncSetAttribute(
-          xyzz_tree_sum_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          16 * NW * (TREE_MAX_WIDTH - TREE_MAX_WIDTH / 2));
-      if (err) return err;
-      sized = true;
-    }
-    xyzz_tree_sum_kernel<NW><<<(unsigned)rows, TREE_THREADS, smem, (cudaStream_t)stream>>>(
-        p, (int32_t*)out, rows, m, consts_from_host<NW>(consts));
+    const FieldConsts<NW> F = consts_from_host<NW>(consts);
+    const int err = p_fits_cc(consts, nw)
+                        ? launch_tree_sum<NW, CallOps<NW>>(p, (int32_t*)out, rows, m, F,
+                                                           (cudaStream_t)stream)
+                        : launch_tree_sum<NW, PlainCallOps<NW>>(p, (int32_t*)out, rows, m, F,
+                                                            (cudaStream_t)stream);
+    if (err) return err;
   });
   return (int)cudaGetLastError();
 }

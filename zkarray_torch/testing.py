@@ -11,7 +11,10 @@ over Fp2 (and over any tower with a curve coefficient a, for MNT4/6 and
 CP6), the known answers E = e(G1, G2) of BLS12-381, BLS12-377, BN254,
 BW6-761, BW6-767, MNT4/6-298, MNT4/6-753 and CP6-782 and their powers
 (HostExt), tiled pairing and GT inputs, and edge words for the field
-additions and for fp_lin with maps at its coefficient bound.
+additions and for fp_lin with maps at its coefficient bound; for the other
+curve models and hashing, affine twisted Edwards and double-odd group laws
+on Python ints and host models of the BLS12-381 G1 and G2 hash to curve
+(SWU, the isogenies, the cofactor multiples).
 """
 
 from __future__ import annotations
@@ -871,3 +874,205 @@ def lin_edge_rows(sizes, rng: np.random.Generator, n_random: int = 6) -> list:
         rows.append([(*ref[i], int(m) * (1 if rng.random() < 0.5 else -1))
                      for i, m in zip(picks, mags) if m])
     return rows
+
+
+# ---------------------------------------------------------------------------
+# twisted Edwards and double-odd group laws on Python ints
+# ---------------------------------------------------------------------------
+
+def te_add_host(spec, P, Q):
+    """Affine a x^2 + y^2 = 1 + d x^2 y^2 addition (complete on these curves)."""
+    p, a, d = spec.base.modulus, spec.a_int, spec.d_int
+    (x1, y1), (x2, y2) = P, Q
+    dxy = d * x1 * x2 * y1 * y2 % p
+    return ((x1 * y2 + y1 * x2) * pow(1 + dxy, -1, p) % p,
+            (y1 * y2 - a * x1 * x2) * pow(1 - dxy, -1, p) % p)
+
+
+def te_mul_host(spec, P, k: int):
+    acc = (0, 1)
+    for bit in bin(k)[2:] if k else "":
+        acc = te_add_host(spec, acc, acc)
+        if bit == "1":
+            acc = te_add_host(spec, acc, P)
+    return acc
+
+
+def do_to_xy(spec, eu):
+    """Double-odd (e, u) -> a point (x, y) of y^2 = x (x^2 + a x + b) in its
+    class {P, P + N}: x = (e + 1 - a u^2) / (2 u^2), y = x / u; the identity
+    class (u = 0) -> None."""
+    p, a = spec.base.modulus, spec.a_int
+    e, u = eu
+    if u % p == 0:
+        return None
+    x = (e + 1 - a * u * u) * pow(2 * u * u, -1, p) % p
+    return (x, x * pow(u, -1, p) % p)
+
+
+def do_from_xy(spec, P):
+    """(x, y) -> (e, u) = (u^2 (x - b/x), x/y); None and N = (0, 0) -> (1, 0)."""
+    p, b = spec.base.modulus, spec.b_int
+    if P is None or P[0] % p == 0:
+        return (1, 0)
+    x, y = P
+    u = x * pow(y, -1, p) % p
+    return (u * u * (x - b * pow(x, -1, p)) % p, u)
+
+
+def do_add_xy(spec, P, Q):
+    """Addition on y^2 = x^3 + a x^2 + b x (affine, None = infinity)."""
+    p, a, b = spec.base.modulus, spec.a_int, spec.b_int
+    if P is None:
+        return Q
+    if Q is None:
+        return P
+    (x1, y1), (x2, y2) = P, Q
+    if x1 == x2:
+        if (y1 + y2) % p == 0:
+            return None
+        lam = (3 * x1 * x1 + 2 * a * x1 + b) * pow(2 * y1, -1, p) % p
+    else:
+        lam = (y2 - y1) * pow(x2 - x1, -1, p) % p
+    x3 = (lam * lam - a - x1 - x2) % p
+    return (x3, (lam * (x1 - x3) - y1) % p)
+
+
+def do_mul_host(spec, eu, k: int):
+    """k (e, u) in the double-odd group through the curve's own law; the
+    result's (e, u) is defined up to the sign of both (P and P + N)."""
+    P, acc = do_to_xy(spec, eu), None
+    for bit in bin(k)[2:] if k else "":
+        acc = do_add_xy(spec, acc, acc)
+        if bit == "1":
+            acc = do_add_xy(spec, acc, P)
+    return do_from_xy(spec, acc)
+
+
+def do_same(spec, eu1, eu2) -> bool:
+    """Equal as group elements: (e, u) == +-(e', u')."""
+    p = spec.base.modulus
+    (e1, u1), (e2, u2) = eu1, eu2
+    return (e1 - e2) % p == 0 and (u1 - u2) % p == 0 or (
+        (e1 + e2) % p == 0 and (u1 + u2) % p == 0)
+
+
+# ---------------------------------------------------------------------------
+# hash to curve on Python ints (RFC 9380 suites for BLS12-381)
+# ---------------------------------------------------------------------------
+
+H_EFF_G2 = 0xBC69F08F2EE75B3584C6A0EA91B352888E2A8E9145AD7689986FF031508FFE1329C2F178731DB956D82BF015D1212B02EC0EC69D7477C1AE954CBC06689F6A359894C0ADEBBF6B4E8020005AAA95551
+
+
+def host_swu(a, b, z, u, p):
+    """Simplified SWU to y^2 = x^3 + a x + b over F_p on ints (RFC 9380
+    §6.6.2, straight-line): (x, y) with sgn0(y) = sgn0(u)."""
+    tv = (z * z * pow(u, 4, p) + z * u * u) % p
+    x1 = b * pow(z * a, -1, p) % p if tv == 0 else (-b) * pow(a, -1, p) * (1 + pow(tv, -1, p)) % p
+    gx1 = (x1 ** 3 + a * x1 + b) % p
+    y = sqrt_mod(gx1, p)
+    x = x1
+    if y is None:
+        x = z * u * u * x1 % p
+        y = sqrt_mod((x ** 3 + a * x + b) % p, p)
+    if y % 2 != u % 2:
+        y = (-y) % p
+    return x, y
+
+
+def _host_poly(cs, x, p):
+    acc = 0
+    for c in reversed(cs):
+        acc = (acc * x + c) % p
+    return acc
+
+
+def host_hash_to_g1(u0: int, u1: int):
+    """to_affine(h_eff (iso(swu(u0)) + iso(swu(u1)))) on BLS12-381 G1 (None
+    at infinity)."""
+    from zkarray_torch.curves import bls12_381 as b381
+    from zkarray_torch.ec.h2c import _bls12_381_g1_iso as iso
+
+    p = b381.FQ.modulus
+
+    def mapped(u):
+        x, y = host_swu(iso.ISO_A, iso.ISO_B, iso.ZETA, u, p)
+        xn, xd = _host_poly(iso.X_MAP_NUMERATOR, x, p), _host_poly(iso.X_MAP_DENOMINATOR, x, p)
+        yn, yd = _host_poly(iso.Y_MAP_NUMERATOR, x, p), _host_poly(iso.Y_MAP_DENOMINATOR, x, p)
+        return (xn * pow(xd, -1, p) % p, y * yn * pow(yd, -1, p) % p)
+
+    return ec_mul(ec_add(mapped(u0), mapped(u1), 0, p), 0xD201000000010001, 0, p)
+
+
+def _host_sgn0_m2(e, p):
+    return e[1] % 2 if e[0] % p == 0 else e[0] % 2
+
+
+def host_hash_to_g2(u0, u1):
+    """to_affine(h_eff (iso(swu(u0)) + iso(swu(u1)))) on BLS12-381 G2, u0 and
+    u1 host Fq2 pairs, with RFC 9380's h_eff for G2 (which the psi schedule
+    computes); None at infinity."""
+    from zkarray_torch.curves import bls12_381 as b381
+    from zkarray_torch.ec.h2c import _bls12_381_g2_iso as iso
+
+    F = b381.FQ2.host
+    p = b381.FQ.modulus
+
+    def poly(cs, x):
+        acc = F.zero()
+        for c in reversed(cs):
+            acc = F.add(F.mul(acc, x), tuple(c))
+        return acc
+
+    def g(x):
+        return F.add(F.add(F.mul(F.mul(x, x), x), F.mul(iso.ISO_A, x)), iso.ISO_B)
+
+    def mapped(u):
+        u = tuple(c % p for c in u)
+        zu2 = F.mul(iso.ZETA, F.mul(u, u))
+        tv = F.add(F.mul(zu2, zu2), zu2)
+        if F.eq(tv, F.zero()):
+            x1 = iso.B_OVER_ZA
+        else:
+            x1 = F.mul(iso.NEG_B_OVER_A, F.add(F.one(), F.inv(tv)))
+        x, y = x1, host_fq2_sqrt(F, g(x1))
+        if y is None:
+            x = F.mul(zu2, x1)
+            y = host_fq2_sqrt(F, g(x))
+        if _host_sgn0_m2(y, p) != _host_sgn0_m2(u, p):
+            y = F.neg(y)
+        inv_xd = F.inv(poly(iso.X_MAP_DENOMINATOR, x))
+        inv_yd = F.inv(poly(iso.Y_MAP_DENOMINATOR, x))
+        return (F.mul(poly(iso.X_MAP_NUMERATOR, x), inv_xd),
+                F.mul(y, F.mul(poly(iso.Y_MAP_NUMERATOR, x), inv_yd)))
+
+    return ext_ec_mul(F, ext_ec_add(F, mapped(u0), mapped(u1)), H_EFF_G2)
+
+
+def host_elligator2(spec, u: int, zeta: int):
+    """Elligator2 (RFC 9380 §6.7.1) on ints for a TE curve with Montgomery
+    constants (A, B): x1 = -A / (1 + Z u^2) (-A where Z u^2 = -1), the first
+    of x1, -x1 - A with (x^3 + A x^2 + x) / B a square, sgn0(y) = sgn0(u),
+    then (s x/y, (x - 1)/(x + 1)) with s^2 = ((A + 2)/B)/a; y = 0 or x = -1
+    gives the identity (0, 1)."""
+    p = spec.base.modulus
+    A, B = spec.mont_coeff_a % p, spec.mont_coeff_b % p
+    zu2 = zeta * u * u % p
+    if (1 + zu2) % p == 0:
+        return (0, 1)
+    x1 = -A * pow(1 + zu2, -1, p) % p
+
+    def g(x):
+        return (x * x * x + A * x * x + x) * pow(B, -1, p) % p
+
+    x, y = x1, sqrt_mod(g(x1), p)
+    if y is None:
+        x = (-x1 - A) % p
+        y = sqrt_mod(g(x), p)
+    if y % 2 != u % p % 2:
+        y = (-y) % p
+    if y == 0 or (x + 1) % p == 0:
+        return (0, 1)
+    val = (A + 2) * pow(B, -1, p) * pow(spec.a_int, -1, p) % p
+    s = sqrt_mod(val, p)
+    return (s * x * pow(y, -1, p) % p, (x - 1) * pow(x + 1, -1, p) % p)
