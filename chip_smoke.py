@@ -237,7 +237,27 @@ Phases, each printing one JSON line and raising on any failure:
    memory (traces of the G1 hash and Jubjub's scalar_mul); every
    field-kernel key and every MSM-kernel launch of the paths held against
    the plain versions.
-15. the kernels line: per kernel its launches on its path (phase 3 for the
+15. the small fields, the multi-device layer and serialization
+   (``smallfield_dist_phase``): BabyBear ntt over (2^20, 64) and KoalaBear
+   over (2^20, 16) (the forward transform at 4 indices of 2 columns against
+   the host DFT, the inverse round trip word for word), Goldilocks fp64.ntt
+   at 2^24 (a geometric input with replaced entries against the closed
+   form, the round trip); the element-wise ops at 2^24 (BabyBear mont_mul,
+   add, sub, neg, inv; m31_mul; Goldilocks and smallfp64 p62 and
+   mersenne61 mul and inv), 4,096 sampled indices against Python ints;
+   every sf_op and sf_butterfly launch of those first calls replayed against
+   its plain version; each kernel's launches and times against its bounds;
+   msm_sharded (BLS12-381 G1, 2^20) and fft_sharded (Fr, 2^24) on a
+   one-rank NCCL group (a FileStore in the build directory), equal to msm's
+   and Radix2Domain.fft's words and to the host known answer;
+   sw_from_random_bytes (BLS12-381 G1) and te_from_random_bytes (Jubjub)
+   on 2^16 byte strings, sampled lanes on the curve with the reference's
+   root rule; a derived struct of 2^16 G1 points, 2^16 Fr elements and a
+   string, both encodings round trip; xyzz_add_affine and xyzz_add on
+   PlainCallOps (secp256r1, secp256k1: p >= R/2) on 2^20 edge-class lanes
+   against the plain versions and the host; the secp256r1 2^16 msm's
+   PlainOps launches, each timed against its bound.
+16. the kernels line: per kernel its launches on its path (phase 3 for the
    MSM kernels, 5 for butterfly_dit, twiddle_mul and pow_table, 6 and 7 for
    the entries of butterfly_stage, xyzz_add_affine and mont_sqr, 3 for the
    entries of mont_pow and xyzz_double, which left the MSM path), error
@@ -259,7 +279,10 @@ Phases, each printing one JSON line and raising on any failure:
    call (per_path_launches) and each width's widest path launch. Every
    kernel phase 13 launched carries its launches per path and error there
    under "phase13" (the NTT kernels also their NW = 8, 10 and 24 rows),
-   and every row phase 14's launches per path and error under "phase14".
+   and every row phase 14's launches per path and error under "phase14"
+   and phase 15's under "phase15". sf_op's path is phase 15's element-wise
+   ops, sf_butterfly's the BabyBear ntt; their rows' figures are their
+   widest byte-bound launch, with every timed launch under "rows".
    Every row lists the word counts NW its kernel is built for
    ("nw_widths").
 
@@ -3322,6 +3345,633 @@ def curves_h2c_phase(torch, h, rec):
     return report
 
 
+SF_NTT_LOG_N = 20  # BabyBear ntt over (2^20, 64): a Plonky3 trace's LDE column block, 256 MiB
+SF_NTT_COLS = 64
+KB_NTT_COLS = 16  # KoalaBear at (2^20, 16)
+GL_NTT_LOG_N = 24  # Goldilocks fp64.ntt: Plonky2's 2^21 x 8 blowup, rounded up
+SF_ELEM_LOG_N = 24  # element-wise small-field ops
+SF_KAT = 4096  # element-wise results held against Python ints at this many sampled indices
+SF_DFT_KAT = 4  # NTT outputs held against the host at this many indices (of 2 columns)
+DIST_MSM_LOG_N = 20  # msm_sharded on a one-rank NCCL group: the main path's size
+DIST_FFT_LOG_N = 24  # fft_sharded on one rank, BLS12-381 Fr
+RB_LOG_N = 16  # sw/te_from_random_bytes byte strings
+DERIVE_LOG_N = 16  # points and field elements in the derived struct
+MADD_TOP_LOG_N = 20  # the xyzz_add_affine (and xyzz_add) feeds at p >= R/2
+R1_TIME_LOG_N = 16  # the secp256r1 msm whose PlainOps launches are timed
+RB_KAT = 64
+# 32-bit multiply instructions (IMAD, IMAD.WIDE, IMAD.HI) of one small-field
+# product as csrc/smallfp.cu writes it: u32 Montgomery a b, m = lo inv and
+# m p; M31 a b; Goldilocks a 64 x 64 -> 128 product (~7) and w2 eps; u64
+# Montgomery the product and two steps' m and m p. The other instructions
+# are left out, so the operation bound is a lower bound. Additions cost no
+# multiply: their bound is their bytes.
+SF_MUL_COST = {"u32": 3, "m31": 1, "gl64": 8, "u64": 16}
+
+
+def sf_ops(fam, op, n, exponent=None):
+    """Multiply instructions of one sf_op launch over n elements (pow: its
+    ladder's products)."""
+    if op in ("mul", "sqr"):
+        return n * SF_MUL_COST[fam]
+    if op != "pow":
+        return 0
+    e = exponent or 0
+    return n * SF_MUL_COST[fam] * (e.bit_length() + bin(e).count("1"))
+
+
+def install_sf_recorders(torch, ks):
+    """Wrap kernels.smallfp's two launchers so that, while ``rec.on``, every
+    launch's inputs and output are kept: rec.ops as (fam, consts, op, a, b,
+    exponent, out) and rec.stages as (fam, consts, y before, tw, m, y
+    after). Returns (rec, restore)."""
+    rec = types.SimpleNamespace(on=False, ops=[], stages=[])
+    launch_op, launch_bf = ks._launch_op, ks._launch_butterfly
+
+    def op(fam, c, op_, a, b, exponent, out):
+        res = launch_op(fam, c, op_, a, b, exponent, out)
+        if rec.on:
+            rec.ops.append((fam, c, op_, replica(torch, a), None if b is None else replica(torch, b),
+                            exponent, res.clone()))
+        return res
+
+    def stage(fam, c, y, tw, m):
+        before = y.clone() if rec.on else None
+        launch_bf(fam, c, y, tw, m)
+        if rec.on:
+            rec.stages.append((fam, c, before, tw, m, y.clone()))
+        return y
+
+    ks._launch_op, ks._launch_butterfly = op, stage
+
+    def restore():
+        ks._launch_op, ks._launch_butterfly = launch_op, launch_bf
+
+    return rec, restore
+
+
+def replay_sf(torch, h, ks, rec, err):
+    """Every recorded sf_op and sf_butterfly launch against its plain
+    version on the same inputs (raises on a difference); the records are
+    dropped. Returns the number of launches replayed and the plain
+    versions' wall ms, launch by launch."""
+    n, plain_ms = 0, []
+    for fam, c, op, a, b, e, out in rec.ops:
+        want, ms = h.once_ms(lambda: ks.sf_op_plain(fam, c, op, a, b, e))
+        plain_ms.append(ms)
+        err["sf_op"] = max(err["sf_op"], h.check_equal(f"sf_op {fam} {op} {tuple(a.shape)}",
+                                                       out.to(torch.int64), want.to(torch.int64)))
+        n += 1
+    for fam, c, before, tw, m, after in rec.stages:
+        want, ms = h.once_ms(lambda: ks.sf_butterfly_plain(fam, c, before, tw, m))
+        plain_ms.append(ms)
+        err["sf_butterfly"] = max(err["sf_butterfly"], h.check_equal(
+            f"sf_butterfly {fam} m = {m} {tuple(before.shape)}", after.to(torch.int64),
+            want.to(torch.int64)))
+        n += 1
+    rec.ops, rec.stages = [], []
+    return n, plain_ms
+
+
+def msm_launch_ops(curve, kernel, ins, extra, mul, sqr, add):
+    """Operations of one recorded MSM-kernel launch, every lane counted as
+    the generic formula (the tiled inputs' lanes are generic but for a
+    few): xyzz_accum one mixed add per valid entry; horner_windows W - 1
+    steps of c doublings and an add; xyzz_bit_horner B - 1 doublings and
+    adds per window; xyzz_add, xyzz_double one formula per lane;
+    xyzz_tree_sum m - 1 adds per row."""
+    ops = functools.partial(xyzz_ops, mul, sqr, add, a_is_zero=curve.a_is_zero)
+    L = curve.base.num_limbs
+    if kernel == "xyzz_accum":
+        return int(ins[2].sum()) * ops("madd")
+    if kernel == "horner_windows":
+        return (ins[0].shape[0] - 1) * (extra * ops("dbl") + ops("add"))
+    if kernel == "xyzz_bit_horner":
+        B, W = ins[0].shape[-2], ins[0].shape[-1]
+        return W * (B - 1) * (ops("dbl") + ops("add"))
+    lanes = ins[0].numel() // L
+    if kernel == "xyzz_add":
+        return lanes * ops("add")
+    if kernel == "xyzz_double":
+        return lanes * ops("dbl")
+    m = ins[0].shape[-1]  # xyzz_tree_sum
+    return lanes // m * (m - 1) * ops("add")
+
+
+def smallfield_dist_phase(torch, h, rec=None):
+    """Phase 15: the small fields and their NTTs on csrc/smallfp.cu
+    (sf_op, sf_butterfly), the multi-device layer on a one-rank NCCL
+    group, the rest of serialization, the xyzz_add_affine feeds at
+    p >= R/2 and the secp256r1 msm's PlainOps launches timed against their
+    bounds. Every result against a host known answer; every sf_op and
+    sf_butterfly launch of the paths' first calls replayed against its
+    plain version. ``rec`` is unused (the phase keeps its own recorders).
+    Returns the kernels line's phase-15 figures (and its sf_op /
+    sf_butterfly rows under "rows")."""
+    import torch.distributed as tdist
+
+    from zkarray_torch import kernels
+    from zkarray_torch import testing as tt
+    from zkarray_torch.curves import bls12_381 as B
+    from zkarray_torch.curves import ed_on_bls12_381, zoo
+    from zkarray_torch.dist import fft_sharded, gather_shards, make_mesh, msm_sharded
+    from zkarray_torch.ec import msm as tmsm
+    from zkarray_torch.ec import sw as tsw
+    from zkarray_torch.ff import fp
+    from zkarray_torch.ff import fp64 as tfp64
+    from zkarray_torch.ff import smallfp as tsf
+    from zkarray_torch.ff import smallfp64 as tsf64
+    from zkarray_torch.interop import affine_from_numpy, limbs_from_numpy
+    from zkarray_torch.kernels import _build
+    from zkarray_torch.kernels import sw as ksw
+    from zkarray_torch.kernels import smallfp as ks
+    from zkarray_torch.poly.domain import Radix2Domain
+    from zkarray_torch.serialize import derive as D
+    from zkarray_torch.serialize import random_bytes as rb
+    from zkarray_torch.serialize.canonical import field_byte_size
+    from zkarray_torch.serialize.wrappers import COMPRESSED_CHECKED, UNCOMPRESSED_CHECKED
+
+    dev, emit = h.dev, h.emit
+    rng = np.random.default_rng(15)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    err = collections.defaultdict(int)
+    paths = {}
+    rows = {"sf_op": [], "sf_butterfly": []}
+    t_phase = time.perf_counter()
+    rec, restore = install_sf_recorders(torch, ks)
+
+    def counted(fn, record=False):
+        h.sync()
+        kernels.reset_launches()
+        rec.on = record
+        try:
+            out, ms = h.once_ms(fn)
+        finally:
+            rec.on = False
+        return out, ms, {k: v for k, v in kernels.LAUNCHES.items() if v}
+
+    def pick(t, idx, dim=0):
+        """Words of t at the indices ``idx`` (a device tensor) along ``dim``,
+        as int64 (the gather runs on the int32 view)."""
+        return t.view(torch.int32).index_select(dim, idx).to(torch.int64) & 0xFFFFFFFF
+
+    def same(u, v):
+        return torch.equal(u.view(torch.int32), v.view(torch.int32))
+
+    def u32_rand(p, shape):
+        return torch.randint(0, p, shape, generator=gen, device=dev, dtype=torch.int64).to(torch.uint32)
+
+    def u64_rand(p, n):
+        lo = torch.randint(0, 1 << 32, (n,), generator=gen, device=dev, dtype=torch.int64)
+        hi = torch.randint(0, p >> 32, (n,), generator=gen, device=dev, dtype=torch.int64)
+        return torch.stack([lo, hi]).to(torch.uint32)
+
+    def host_u64(t, idx):
+        w = pick(t, torch.as_tensor(idx, device=dev), 1).cpu().numpy()
+        return [int(lo) | (int(hi) << 32) for lo, hi in zip(w[0], w[1])]
+
+    def op_row(fam, c, op, args, label, n, plain_ms, exponent=None):
+        """One sf_op at n elements: kernel ms (CUDA events), the plain
+        version's ms (from its replay), the bound from its bytes and
+        operations."""
+        planes = ks.PLANES[fam]
+        ms = h.time_ms(lambda: ks.sf_op(fam, c, op, *args, exponent=exponent), 5)
+        b_ms, b_by = h.bound((len(args) + 1) * planes * 4 * n, sf_ops(fam, op, n, exponent))
+        row = dict(path=label, family=fam, op=op, n=n, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, share_of_bound=b_ms / ms)
+        rows["sf_op"].append(row)
+        return row
+
+    try:
+        # -- small-field NTTs --------------------------------------------------------
+        def ntt_path(label, spec, n, cols):
+            p = spec.modulus
+            x = u32_rand(p, (n, cols))
+            w = spec.root_of_unity(n)
+            tsf.twiddle_table.cache_clear()
+            y, first_ms, first = counted(lambda: tsf.ntt(spec, x, w), record=True)
+            replayed = replay_sf(torch, h, ks, rec, err)[0]
+            _, ms, steady = counted(lambda: tsf.ntt(spec, x, w))
+            back, inv_ms, inv_launches = counted(lambda: tsf.ntt(spec, y, w, inverse=True), record=True)
+            replayed += replay_sf(torch, h, ks, rec, err)[0]
+            if not same(back, x):
+                raise AssertionError(f"{label}: the inverse round trip differs from the input")
+            _, inv_steady_ms, _ = counted(lambda: tsf.ntt(spec, y, w, inverse=True))
+            # the forward transform at SF_DFT_KAT indices of 2 columns, by host
+            # modular arithmetic (exact: p < 2^31, products < 2^62)
+            rinv = pow(spec.r_int, -1, p)
+            ks_idx = sorted({0, 1, n - 1} | {int(k) for k in rng.integers(0, n, SF_DFT_KAT)})[:SF_DFT_KAT]
+            for col in (0, cols - 1):
+                col_t = torch.tensor([col], device=dev)
+                xc = (pick(x, col_t, 1)[:, 0].cpu().numpy().astype(np.uint64) * np.uint64(rinv)) % np.uint64(p)
+                yc = pick(y, torch.tensor(ks_idx, device=dev))[:, col]
+                got = [spec.from_mont_int(int(v)) for v in yc.cpu().numpy()]
+                for k, g in zip(ks_idx, got):
+                    wk = pow(w, k, p)
+                    pw = np.ones(n, dtype=np.uint64)
+                    m = 1
+                    while m < n:
+                        pw[m:2 * m] = pw[:m] * np.uint64(pow(wk, m, p)) % np.uint64(p)
+                        m *= 2
+                    want = int((xc * pw % np.uint64(p)).sum() % np.uint64(p))
+                    if g != want:
+                        raise AssertionError(f"{label}: output {k} of column {col} differs from the host DFT")
+            # the widest sf_butterfly launch (every stage moves the same bytes)
+            yy, tw = y.clone(), tsf.twiddle_table(spec, w, n // 2, str(dev))
+            st_ms = h.time_ms(lambda: ks.sf_butterfly("u32", spec.consts, yy, tw, n), 10)
+            _, st_plain = h.once_ms(lambda: ks.sf_butterfly_plain("u32", spec.consts, yy.clone(), tw, n))
+            b_ms, b_by = h.bound(2 * n * cols * 4 + n // 2 * 4, n // 2 * cols * SF_MUL_COST["u32"])
+            rows["sf_butterfly"].append(dict(path=label, n=n, cols=cols, m=n, ms=st_ms, plain_ms=st_plain,
+                                             bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / st_ms))
+            paths[label] = steady
+            emit(label, field=spec.name, n=n, cols=cols, correct=True, first_call_ms=first_ms,
+                 first_call_launches=first, ms=ms, launches=steady, inverse_first_ms=inv_ms,
+                 inverse_ms=inv_steady_ms, inverse_first_launches=inv_launches, dft_indices=ks_idx,
+                 replayed_launches=replayed,
+                 stage_ms=st_ms, stage_bound_ms=b_ms, stage_bound_by=b_by, stage_plain_ms=st_plain)
+            del x, y, back, yy
+
+        ntt_path("ntt_babybear", tsf.BABYBEAR, 1 << SF_NTT_LOG_N, SF_NTT_COLS)
+        ntt_path("ntt_koalabear", tsf.KOALABEAR, 1 << SF_NTT_LOG_N, KB_NTT_COLS)
+
+        # Goldilocks: a geometric input c r^j (made on the device by the
+        # doubling table) with replaced entries, against the closed form
+        # c (1 - r^n) / (1 - r w^k) + sum (new_j - old_j) w^(jk)
+        G = tfp64.GOLDILOCKS
+        p = G.modulus
+        n = 1 << GL_NTT_LOG_N
+        w = G.root_of_unity(n)
+        cg, r = 7, 3
+        x = tfp64.mul(tfp64.twiddle_table(r, n, str(dev)), tfp64.from_ints([cg], dev).reshape(2, 1))
+        repl = {int(j): int(v) for j, v in zip(rng.integers(2, n - 1, 3), rng.integers(0, 1 << 62, 3))}
+        for j, v in repl.items():
+            x[:, j:j + 1] = tfp64.from_ints([v], dev).reshape(2, 1)
+        jj = sorted(repl)[:1] + [0, 1, n - 1]
+        if host_u64(x, jj) != [repl.get(j, cg * pow(r, j, p) % p) for j in jj]:
+            raise AssertionError("goldilocks ntt: the device geometric input differs from the host")
+        tfp64.twiddle_table.cache_clear()
+        y, first_ms, first = counted(lambda: tfp64.ntt(x, w), record=True)
+        replayed = replay_sf(torch, h, ks, rec, err)[0]
+        _, ms, steady = counted(lambda: tfp64.ntt(x, w))
+        back, inv_ms, inv_launches = counted(lambda: tfp64.ntt(y, w, inverse=True), record=True)
+        replayed += replay_sf(torch, h, ks, rec, err)[0]
+        if not same(back, x):
+            raise AssertionError("goldilocks ntt: the inverse round trip differs from the input")
+        _, inv_steady_ms, _ = counted(lambda: tfp64.ntt(y, w, inverse=True))
+        kk = sorted({0, 1, n - 1} | {int(k) for k in rng.integers(0, n, SF_DFT_KAT)})
+        rn = pow(r, n, p)
+        for k, g in zip(kk, host_u64(y, kk)):
+            wk = pow(w, k, p)
+            want = cg * (1 - rn) * pow((1 - r * wk) % p, -1, p)
+            want += sum((v - cg * pow(r, j, p)) * pow(wk, j, p) for j, v in repl.items())
+            if g != want % p:
+                raise AssertionError(f"goldilocks ntt: output {k} differs from the closed form")
+        yy, tw = y.clone(), tfp64.twiddle_table(w, n // 2, str(dev))
+        st_ms = h.time_ms(lambda: ks.sf_butterfly("gl64", ks.GL64, yy, tw, n), 10)
+        _, st_plain = h.once_ms(lambda: ks.sf_butterfly_plain("gl64", ks.GL64, yy.clone(), tw, n))
+        b_ms, b_by = h.bound(2 * n * 8 + n // 2 * 8, n // 2 * SF_MUL_COST["gl64"])
+        rows["sf_butterfly"].append(dict(path="ntt_goldilocks", n=n, cols=1, m=n, ms=st_ms,
+                                         plain_ms=st_plain, bound_ms=b_ms, bound_by=b_by,
+                                         share_of_bound=b_ms / st_ms))
+        paths["ntt_goldilocks"] = steady
+        emit("ntt_goldilocks", n=n, correct=True, first_call_ms=first_ms, first_call_launches=first,
+             ms=ms, launches=steady, inverse_first_ms=inv_ms, inverse_ms=inv_steady_ms,
+             inverse_first_launches=inv_launches, indices=kk,
+             replayed_launches=replayed, stage_ms=st_ms, stage_bound_ms=b_ms, stage_bound_by=b_by,
+             stage_plain_ms=st_plain)
+        del x, y, back, yy, tw
+        tfp64.twiddle_table.cache_clear()
+        tsf.twiddle_table.cache_clear()
+
+        # -- every public small-field function once on the card against the CPU ----
+        sweep = 0
+        for mod, spec_, cpu_args in (
+                (tsf, tsf.KOALABEAR, None), (tfp64, tfp64.GOLDILOCKS, None),
+                (tsf64, tsf64.SmallFp64Spec((1 << 62) - (1 << 16) + 1, 3, "p62"), None)):
+            vals = [0, 1, spec_.modulus - 1] + [int(v) for v in rng.integers(2, 1 << 31, 13)]
+            if mod is tfp64:
+                xc, yc = tfp64.from_ints(vals, "cpu"), tfp64.from_ints(vals[::-1], "cpu")
+                calls = (("mul", tfp64.mul, 2), ("sqr", tfp64.sqr, 1), ("add", tfp64.add, 2),
+                         ("sub", tfp64.sub, 2), ("neg", tfp64.neg, 1), ("one_like", tfp64.one_like, 1),
+                         ("pow_const", lambda t: tfp64.pow_const(t, 11), 1),
+                         ("inv", lambda t: tfp64.inv(spec_, t), 1),
+                         ("ntt", lambda t: tfp64.ntt(t, spec_.root_of_unity(16)), 1))
+            else:
+                xc, yc = mod.from_ints(spec_, vals, device="cpu"), mod.from_ints(spec_, vals[::-1], device="cpu")
+                mul_ = mod.mont_mul
+                calls = [("mont_mul", functools.partial(mul_, spec_), 2),
+                         ("add", functools.partial(mod.add, spec_), 2),
+                         ("sub", functools.partial(mod.sub, spec_), 2),
+                         ("neg", functools.partial(mod.neg, spec_), 1),
+                         ("pow_const", lambda t, m_=mod, s_=spec_: m_.pow_const(s_, t, 11), 1),
+                         ("inv", functools.partial(mod.inv, spec_), 1)]
+                if mod is tsf:
+                    calls += [("mont_sqr", functools.partial(tsf.mont_sqr, spec_), 1),
+                              ("m31_mul", tsf.m31_mul, 2),
+                              ("ntt", lambda t, s_=spec_: tsf.ntt(s_, t, s_.root_of_unity(16)), 1)]
+                else:
+                    calls += [("one", lambda t, s_=spec_: tsf64.one(s_, tuple(t.shape[1:]), t.device), 1)]
+            for name, fn, arity in calls:
+                args = (xc, yc)[:arity]
+                want_c = fn(*args)
+                got_c = fn(*(t_.to(dev) for t_ in args))
+                if got_c.device.type != dev.type or not torch.equal(got_c.cpu(), want_c):
+                    raise AssertionError(f"{mod.__name__}.{name}: the card's words differ from the CPU's")
+                sweep += 1
+        emit("small_field_api_sweep", calls=sweep, correct=True)
+
+        # -- element-wise ops at 2^24, sampled indices against Python ints -------
+        ne = 1 << SF_ELEM_LOG_N
+        idx = sorted({0, 1, ne - 1} | {int(i) for i in rng.integers(0, ne, SF_KAT)})
+        idx_t = torch.tensor(idx, device=dev)
+        BB = tsf.BABYBEAR
+        pb = BB.modulus
+        a, b = u32_rand(pb, (ne,)), u32_rand(pb, (ne,))
+        a[:3] = torch.tensor([0, BB.r_int, pb - 1], dtype=torch.int64).to(torch.uint32)
+        ha = [BB.from_mont_int(int(v)) for v in pick(a, idx_t).cpu().tolist()]
+        hb = [BB.from_mont_int(int(v)) for v in pick(b, idx_t).cpu().tolist()]
+        checks = (("mont_mul", lambda: tsf.mont_mul(BB, a, b), [x * y % pb for x, y in zip(ha, hb)]),
+                  ("add", lambda: tsf.add(BB, a, b), [(x + y) % pb for x, y in zip(ha, hb)]),
+                  ("sub", lambda: tsf.sub(BB, a, b), [(x - y) % pb for x, y in zip(ha, hb)]),
+                  ("neg", lambda: tsf.neg(BB, a), [-x % pb for x in ha]),
+                  ("inv", lambda: tsf.inv(BB, a), [pow(x, pb - 2, pb) for x in ha]))
+        elem_launches = collections.Counter()
+        for (name, fn, want), (op, args, e) in zip(checks, (
+                ("mul", (a, b), None), ("add", (a, b), None), ("sub", (a, b), None),
+                ("neg", (a,), None), ("pow", (a,), pb - 2))):
+            out, _, launches = counted(fn, record=True)
+            elem_launches.update(launches)
+            if [BB.from_mont_int(int(v)) for v in pick(out, idx_t).cpu().tolist()] != want:
+                raise AssertionError(f"babybear {name} at 2^{SF_ELEM_LOG_N}: sampled indices differ")
+            op_row("u32", BB.consts, op, args, "babybear", ne, replay_sf(torch, h, ks, rec, err)[1][0], e)
+        pm = tsf.M31.modulus
+        am, bm = u32_rand(pm, (ne,)), u32_rand(pm, (ne,))
+        out, _, launches = counted(lambda: tsf.m31_mul(am, bm), record=True)
+        elem_launches.update(launches)
+        hm = pick(am, idx_t).cpu().tolist(), pick(bm, idx_t).cpu().tolist()
+        if pick(out, idx_t).cpu().tolist() != [x * y % pm for x, y in zip(*hm)]:
+            raise AssertionError("m31_mul at 2^24: sampled indices differ from Python ints")
+        op_row("m31", ks.M31, "mul", (am, bm), "m31", ne, replay_sf(torch, h, ks, rec, err)[1][0])
+        del a, b, am, bm, out
+        # Goldilocks and smallfp64 (p62, mersenne61): mul and inv
+        for label, fam, c, mul_fn, inv_fn, dec, pp in (
+                ("goldilocks", "gl64", ks.GL64, tfp64.mul, lambda t: tfp64.inv(G, t), lambda v: v, G.modulus),
+                *((s.name, "u64", s.consts, functools.partial(tsf64.mont_mul, s),
+                   functools.partial(tsf64.inv, s), s.from_mont_int, s.modulus)
+                  for s in (tsf64.SmallFp64Spec((1 << 62) - (1 << 16) + 1, 3, "p62"),
+                            tsf64.SmallFp64Spec((1 << 61) - 1, 37, "mersenne61")))):
+            a, b = u64_rand(pp, ne), u64_rand(pp, ne)
+            ha = [dec(v) for v in host_u64(a, idx_t)]
+            hb = [dec(v) for v in host_u64(b, idx_t)]
+            for name, fn, want, op, args, e in (
+                    ("mul", lambda: mul_fn(a, b), [x * y % pp for x, y in zip(ha, hb)], "mul", (a, b), None),
+                    ("inv", lambda: inv_fn(a), [pow(x, pp - 2, pp) for x in ha], "pow", (a,), pp - 2)):
+                out, _, launches = counted(fn, record=True)
+                elem_launches.update(launches)
+                if [dec(v) for v in host_u64(out, idx_t)] != want:
+                    raise AssertionError(f"{label} {name} at 2^{SF_ELEM_LOG_N}: sampled indices differ")
+                op_row(fam, c, op, args, label, ne, replay_sf(torch, h, ks, rec, err)[1][0], e)
+            del a, b, out
+        paths["small_field_elementwise"] = dict(elem_launches)
+        emit("small_field_elementwise", n=ne, sampled=len(idx), correct=True,
+             launches=dict(elem_launches), rows=rows["sf_op"])
+
+        # -- the multi-device layer on a one-rank group ----------------------------
+        store = _build.BUILD_DIR / f"dist_store_{os.getpid()}"
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        store.unlink(missing_ok=True)
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        tdist.init_process_group(backend, store=tdist.FileStore(str(store), 1), rank=0, world_size=1)
+        try:
+            mesh = make_mesh(1)
+            G1 = B.G1
+            m = 1 << DIST_MSM_LOG_N
+            px, py, ssc, kb, _bits = tt.tiled_inputs(G1, m, rng)
+            want_pt = tt.expected_msm(G1, kb, ssc)
+            A = affine_from_numpy(px, py, np.zeros(m, dtype=bool), dev)
+            s_t = limbs_from_numpy(ssc, dev)
+            got, first_ms, launches = counted(lambda: msm_sharded(G1, A, s_t, mesh))
+            _, ms, _ = counted(lambda: msm_sharded(G1, A, s_t, mesh))
+            ref, ref_ms, _ = counted(lambda: tmsm.msm(G1, A, s_t))
+            if not all(torch.equal(u, v) for u, v in zip(got, ref)):
+                raise AssertionError("msm_sharded on one rank: words differ from msm's")
+            aff = tsw.xyzz_to_affine(G1, tsw.XYZZPoints(*(v[:, None] for v in got)))
+            if tsw.affine_to_ints(G1, aff) != [want_pt]:
+                raise AssertionError("msm_sharded on one rank differs from the host known answer")
+            paths["msm_sharded"] = launches
+            emit("msm_sharded", backend=backend, ranks=mesh.size, n=m, correct=True, first_call_ms=first_ms,
+                 ms=ms, msm_ms=ref_ms, launches=launches)
+            del A, s_t, px, py, got, ref
+            FR = B.FR
+            nf = 1 << DIST_FFT_LOG_N
+            dom = Radix2Domain(FR, nf)
+            xf = h.rand_field(FR, nf)
+            want_f = dom.fft(xf)
+            got_f, ms, launches = counted(lambda: fft_sharded(FR, xf, mesh, dom.group_gen_int))
+            if not torch.equal(got_f, want_f) or not torch.equal(gather_shards(got_f, mesh), want_f):
+                raise AssertionError("fft_sharded on one rank: words differ from Radix2Domain.fft's")
+            _, dom_ms = h.once_ms(lambda: dom.fft(xf))
+            paths["fft_sharded"] = launches
+            emit("fft_sharded", backend=backend, ranks=mesh.size, n=nf, correct=True, ms=ms,
+                 domain_fft_ms=dom_ms, launches=launches)
+            del xf, want_f, got_f
+        finally:
+            tdist.destroy_process_group()
+            store.unlink(missing_ok=True)
+
+        # -- from_random_bytes --------------------------------------------------------
+        nr = 1 << RB_LOG_N
+        lanes = sorted({0, 1, nr - 1} | {int(i) for i in rng.integers(0, nr, RB_KAT)})
+        G1, Fq = B.G1, B.FQ
+        pq = Fq.modulus
+        data = rng.integers(0, 256, size=(nr, field_byte_size(Fq, 2)), dtype=np.uint8)
+        (pts, ok), ms, launches = counted(lambda: rb.sw_from_random_bytes(G1, data, device=dev))
+        xs = fp.to_ints(Fq, pts.x[:, lanes])
+        ys = fp.to_ints(Fq, pts.y[:, lanes])
+        n_ok = 0
+        for i, xv, yv in zip(lanes, xs, ys):
+            v = int.from_bytes(bytes(data[i]), "little") & ((1 << Fq.bits) - 1)
+            flags = int(data[i, -1]) & 0xC0
+            if not ok[i]:
+                continue
+            n_ok += 1
+            greatest = yv >= pq - yv  # the greatest root iff the negative flag is clear
+            if (flags & 0x40 or xv != v or (yv * yv - xv ** 3 - G1.b_int) % pq
+                    or greatest != (not flags & 0x80) and yv != 0):
+                raise AssertionError(f"sw_from_random_bytes lane {i}: off the curve or the wrong root")
+        paths["sw_from_random_bytes"] = launches
+        emit("sw_from_random_bytes", curve=G1.name, n=nr, ok=int(ok.sum()), sampled_ok=n_ok,
+             correct=True, ms=ms, launches=launches)
+        J = ed_on_bls12_381.EDWARDS
+        Fj = J.base
+        pj = Fj.modulus
+        data = rng.integers(0, 256, size=(nr, field_byte_size(Fj, 1)), dtype=np.uint8)
+        (tpts, tok), ms, launches = counted(lambda: rb.te_from_random_bytes(J, data, device=dev))
+        txs = fp.to_ints(Fj, tpts.x[:, lanes])
+        tys = fp.to_ints(Fj, tpts.y[:, lanes])
+        n_ok = 0
+        for i, xv, yv in zip(lanes, txs, tys):
+            if not tok[i]:
+                continue
+            n_ok += 1
+            neg = int(data[i, -1]) & 0x80
+            lhs = (J.a_int * xv * xv + yv * yv) % pj
+            rhs = (1 + J.d_int * xv * xv * yv * yv) % pj
+            if lhs != rhs or (xv >= pj - xv) != bool(neg) and xv != 0:
+                raise AssertionError(f"te_from_random_bytes lane {i}: off the curve or the wrong root")
+        paths["te_from_random_bytes"] = launches
+        emit("te_from_random_bytes", curve=J.name, n=nr, ok=int(tok.sum()), sampled_ok=n_ok,
+             correct=True, ms=ms, launches=launches)
+        del pts, tpts, data
+
+        # -- a derived struct: 2^16 G1 points and 2^16 Fr elements ------------------
+        nd = 1 << DERIVE_LOG_N
+        px, py, _, _, _ = tt.tiled_inputs(G1, nd, rng)
+        P = affine_from_numpy(px, py, np.zeros(nd, dtype=bool), dev)
+        ev = h.rand_field(B.FR, nd)
+
+        @D.canonical(codecs={"pts": D.sw_points(G1, device=dev), "evals": D.fp_vec(B.FR, device=dev),
+                             "label": D.STRING})
+        class Proof:
+            pts: object
+            evals: object
+            label: object
+
+        pr = Proof(pts=P, evals=ev, label="phase15")
+        sizes, walls = {}, {}
+        for mode, tag in ((COMPRESSED_CHECKED, "compressed"), (UNCOMPRESSED_CHECKED, "uncompressed")):
+            raw, ser_ms = h.once_ms(lambda: pr.serialize_with_mode(mode))
+            back, de_ms = h.once_ms(lambda: Proof.deserialize_with_mode(raw, mode))
+            if not (torch.equal(back.pts.x, P.x) and torch.equal(back.pts.y, P.y)
+                    and torch.equal(back.evals, ev) and back.label == "phase15"
+                    and back.serialize_with_mode(mode) == raw):
+                raise AssertionError(f"derive round trip ({tag}) differs")
+            sizes[tag], walls[tag] = len(raw), dict(serialize_ms=ser_ms, deserialize_ms=de_ms)
+        emit("derive_round_trip", points=nd, field_elements=nd, bytes=sizes, ms=walls, correct=True)
+        del P, ev, pr, back
+
+        # -- xyzz_add_affine at p >= R/2: secp256r1 (a = -3) and secp256k1 -----------
+        madd_rows, xyzz_add_rows = {}, {}
+        for curve in (zoo.SECP256R1, zoo.SECP256K1):
+            f = curve.base
+            mod = f.modulus
+            nm = 1 << MADD_TOP_LOG_N
+            g = (curve.gen_x, curve.gen_y)
+            pool = [tt.ec_mul(g, int(k), curve.a_int, mod) for k in rng.integers(1, 1 << 30, size=64)]
+            ps, qs = [], []
+            for i in range(64):
+                u, v = pool[i], pool[(i * 7 + 3) % 64]
+                cls = i % 6
+                ps.append(None if cls in (3, 5) else u)
+                qs.append(u if cls == 1 else tt.ec_neg(u, mod) if cls == 2 else None if cls in (4, 5) else v)
+            tile = torch.arange(nm, device=dev) % 64
+            Pk = tsw.xyzz_from_affine(curve, tsw.affine_from_ints(curve, ps, dev))
+            Ak = tsw.affine_from_ints(curve, qs, dev)
+            Pt = tsw.XYZZPoints(*(v[:, tile].contiguous() for v in Pk))
+            At = tsw.AffinePoints(Ak.x[:, tile].contiguous(), Ak.y[:, tile].contiguous(), Ak.inf[tile])
+            S, ms, launches = counted(lambda: tsw.xyzz_add_affine(curve, Pt, At))
+            head = tsw.XYZZPoints(*(v[:, :64] for v in S))
+            if tsw.affine_to_ints(curve, tsw.xyzz_to_affine(curve, head)) != [
+                    tt.ec_add(u, v, curve.a_int, mod) for u, v in zip(ps, qs)]:
+                raise AssertionError(f"xyzz_add_affine {curve.name}: sums differ from the host oracle")
+            want_s, plain_ms = h.once_ms(lambda: ksw.xyzz_add_affine_plain(curve, Pt, At.x, At.y, At.inf))
+            e = max(h.check_equal(f"xyzz_add_affine {curve.name} coordinate {i}", g_, w_)
+                    for i, (g_, w_) in enumerate(zip(S, want_s)))
+            err["xyzz_add_affine"] = max(err["xyzz_add_affine"], e)
+            k_ms = h.time_ms(lambda: ksw.xyzz_add_affine(curve, Pt, At.x, At.y, At.inf), 10)
+            L = f.num_limbs
+            nw_ = L // 2
+            mul, sqr, add = 4 * nw_ ** 2 + 3 * nw_, 3 * nw_ ** 2 + 4 * nw_, 3 * nw_
+            ops_of = functools.partial(xyzz_ops, mul, sqr, add, a_is_zero=curve.a_is_zero)
+            per = [ops_of("madd"), ops_of("mdbl"), ops_of("cancel"), 0, 0, 0]
+            b_ms, b_by = h.bound((10 * L * 4 + 1) * nm, sum(per[i % 6] for i in range(64)) * nm // 64)
+            madd_rows[curve.name] = dict(n=nm, classes=6, launches=launches, max_abs_err=e, ms=k_ms,
+                                         wall_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                         share_of_bound=b_ms / k_ms, route="PlainCallOps (p >= R/2)")
+            # xyzz_add (PlainCallOps) on the same classes: P + A as XYZZ points
+            Q = tsw.xyzz_from_affine(curve, At)
+            got_a = ksw.xyzz_add(curve, Pt, Q)
+            want_a, a_plain_ms = h.once_ms(lambda: ksw._fadd_plain(curve, tuple(Pt), tuple(Q)))
+            e = max(h.check_equal(f"xyzz_add {curve.name} coordinate {i}", g_, w_)
+                    for i, (g_, w_) in enumerate(zip(got_a, want_a)))
+            err["xyzz_add"] = max(err["xyzz_add"], e)
+            a_ms = h.time_ms(lambda: ksw.xyzz_add(curve, Pt, Q), 10)
+            per_a = [ops_of("add"), ops_of("find") + ops_of("dbl"), ops_of("find"), 0, 0, 0]
+            b_ms, b_by = h.bound(12 * L * 4 * nm, sum(per_a[i % 6] for i in range(64)) * nm // 64)
+            xyzz_add_rows[curve.name] = dict(n=nm, classes=6, max_abs_err=e, ms=a_ms, plain_ms=a_plain_ms,
+                                             bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / a_ms,
+                                             route="PlainCallOps (p >= R/2)")
+            del Q, got_a, want_a
+            paths[f"xyzz_add_affine_{curve.name}"] = launches
+            del Pk, Ak, Pt, At, S, want_s
+        emit("xyzz_add_affine_top_bit", rows=madd_rows, xyzz_add_rows=xyzz_add_rows, correct=True)
+
+        # -- the secp256r1 msm's PlainOps launches, timed against their bounds -----
+        R1 = zoo.SECP256R1
+        mr = 1 << R1_TIME_LOG_N
+        px, py, ssc, kb, bits = tt.tiled_inputs(R1, mr, rng)
+        want_pt = tt.expected_msm(R1, kb, ssc)
+        A = affine_from_numpy(px, py, np.zeros(mr, dtype=bool), dev)
+        s_t = limbs_from_numpy(ssc, dev)
+        mrec = types.SimpleNamespace(on=False)
+        restore_msm = install_msm_recorders(torch, mrec)
+        try:
+            mrec.on = True
+            res, ms, launches = counted(lambda: tmsm.msm(R1, A, s_t, max_scalar_bits=bits))
+            mrec.on = False
+            calls = list(mrec.msm)
+        finally:
+            restore_msm()
+        aff = tsw.xyzz_to_affine(R1, tsw.XYZZPoints(*(v[:, None] for v in res)))
+        if tsw.affine_to_ints(R1, aff) != [want_pt]:
+            raise AssertionError("secp256r1 msm: differs from the host known answer")
+        replayed = replay_msm_launches(h, R1, calls)
+        L = R1.base.num_limbs
+        nw_ = L // 2
+        mul, sqr, add = 4 * nw_ ** 2 + 3 * nw_, 3 * nw_ ** 2 + 4 * nw_, 3 * nw_
+        plain_rows = collections.defaultdict(list)
+        for (kernel, ins, extra), rr in zip(calls, replayed):
+            err[kernel] = max(err[kernel], rr["max_abs_err"])
+            if kernel == "xyzz_accum":
+                fn = lambda: (ksw.xyzz_accum_grid if extra == "grid" else ksw.xyzz_accum_tiles)(R1, *ins)  # noqa: E731
+            elif kernel == "horner_windows":
+                fn = lambda: ksw.horner_windows(R1, ins[0], extra)  # noqa: E731
+            elif kernel == "xyzz_bit_horner":
+                fn = lambda: ksw.xyzz_bit_horner(R1, ins)  # noqa: E731
+            elif kernel == "xyzz_tree_sum":
+                fn = lambda: ksw.xyzz_tree_sum(R1, ins)  # noqa: E731
+            else:
+                fn = lambda: ksw._launch_xyzz(kernel, R1, *ins)  # noqa: E731
+            k_ms = h.time_ms(fn, 5)
+            out = fn()
+            outs = out if isinstance(out, tuple) else (out,)
+            nbytes = sum(t.numel() * t.element_size() for t in ins) + sum(
+                t.numel() * t.element_size() for t in outs)
+            b_ms, b_by = h.bound(nbytes, msm_launch_ops(R1, kernel, ins, extra, mul, sqr, add))
+            plain_rows[kernel].append(dict(shape=rr["shape"], route=rr["route"], ms=k_ms,
+                                           plain_ms=rr["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                                           share_of_bound=b_ms / k_ms, max_abs_err=rr["max_abs_err"]))
+        paths["msm_secp256r1_plainops"] = launches
+        emit("msm_secp256r1_plainops", curve=R1.name, n=mr, correct=True, ms=ms, launches=launches,
+             rows=dict(plain_rows))
+        del A, s_t, calls, replayed
+    finally:
+        restore()
+
+    emit("phase15_launches", per_call=paths, max_abs_err=dict(err),
+         seconds=time.perf_counter() - t_phase)
+    report = {}
+    for name in set(err) | {k for v in paths.values() for k in v}:
+        report[name] = dict(launches={lbl: v[name] for lbl, v in paths.items() if v.get(name)},
+                            max_abs_err=err.get(name, 0))
+    for name in ("xyzz_accum", "horner_windows", "xyzz_bit_horner", "xyzz_add", "xyzz_tree_sum"):
+        if plain_rows.get(name):
+            report.setdefault(name, {})["plainops_secp256r1"] = plain_rows[name]
+    report.setdefault("xyzz_add_affine", {})["plainops"] = madd_rows
+    report.setdefault("xyzz_add", {})["plainops_edge_feed"] = xyzz_add_rows
+    report["rows"] = rows
+    return report
+
+
 def xyzz_ops(mul, sqr, add, kind, a_is_zero=True):
     """32-bit operations of one XYZZ formula (csrc/field.cuh), given those
     of one Montgomery product (``mul``), square (``sqr``) and field addition
@@ -4722,7 +5372,11 @@ def main():
         restore14()
     del rec14
 
-    # ---- 15. kernels line ----------------------------------------------------
+    # ---- 15. the small fields, the multi-device layer, serialization ------------
+    phase15 = smallfield_dist_phase(torch, helpers)
+    sf_rows = phase15.pop("rows")
+
+    # ---- 16. kernels line ----------------------------------------------------
     sources = {
         "mont_mul": ("zkarray_torch/kernels/csrc/mont.cu", "zkarray/kernels/mont.py:235"),
         "mont_sqr": ("zkarray_torch/kernels/csrc/mont.cu", "zkarray/kernels/mont.py:254"),
@@ -4765,6 +5419,13 @@ def main():
         "fp_lin": ("zkarray_torch/kernels/csrc/flin.cu",
                    "none: the additions of zkarray/ff/towers.py's tower products (fp.py:257 add, "
                    ":268 sub), which XLA fuses; a redesign of fp_add/fp_sub for tower glue"),
+        "sf_op": ("zkarray_torch/kernels/csrc/smallfp.cu",
+                  "none: zkarray/ff/smallfp.py:79 mont_mul and its element-wise ops, :158 m31_mul, "
+                  "zkarray/ff/fp64.py:141 mul and zkarray/ff/smallfp64.py:93 mont_mul (and their "
+                  "pow_const scans), which XLA fuses"),
+        "sf_butterfly": ("zkarray_torch/kernels/csrc/smallfp.cu",
+                         "none: a stage of zkarray/ff/smallfp.py:175 ntt and zkarray/ff/fp64.py:253 "
+                         "ntt (mont_mul/mul, add, sub, concatenate), which XLA fuses"),
     }
     paths = {k: (f"msm 2^{LOG_N}", launches[k]) for k in msm_kernels}
     paths["mont_sqr"] = ("ec.sw.xyzz_double_affine", sqr_launches)
@@ -4777,6 +5438,16 @@ def main():
     for k in ("fp_add", "fp_sub", "fp_lin"):
         paths[k] = (f"ec.pairing.bls12.pairing_each (BLS12-381, 2^{PAIR_LOG_N} pairs)",
                     report[k]["launches"])
+    paths["sf_op"] = (f"ff.smallfp/fp64/smallfp64 element-wise ops at 2^{SF_ELEM_LOG_N}",
+                      phase15["sf_op"]["launches"]["small_field_elementwise"])
+    paths["sf_butterfly"] = (f"ff.smallfp.ntt (BabyBear, 2^{SF_NTT_LOG_N} x {SF_NTT_COLS})",
+                             phase15["sf_butterfly"]["launches"]["ntt_babybear"])
+    for name in ("sf_op", "sf_butterfly"):
+        widest = max(sf_rows[name], key=lambda r_: (r_["bound_by"] == "bytes", r_["bound_ms"]))
+        report[name] = dict(max_abs_err=phase15[name]["max_abs_err"], ms=widest["ms"],
+                            plain_ms=widest["plain_ms"], bound_ms=widest["bound_ms"],
+                            bound_by=widest["bound_by"], share_of_bound=widest["share_of_bound"],
+                            shape=f"widest launch: {widest}", rows=sf_rows[name])
     idle = [k for k, (_, n_l) in paths.items() if n_l == 0]
     if idle:
         raise AssertionError(f"kernels never launched on their path: {idle}")
@@ -4784,8 +5455,11 @@ def main():
     for name, (src, repl) in sources.items():
         r = report[name]
         r["phase14"] = phase14.get(name, dict(launches={}, max_abs_err=None))
+        r["phase15"] = phase15.get(name, dict(launches={}, max_abs_err=None))
         widths = (sorted(_build.FIELD_LIBS) if name in FIELD_KERNELS + ("fp_lin",) else
-                  sorted(_build.NTT_LIBS) if name in NTT_KERNELS else [8, 12])
+                  sorted(_build.NTT_LIBS) if name in NTT_KERNELS else
+                  ["u32", "m31", "gl64", "u64"] if name == "sf_op" else ["u32", "gl64"]
+                  if name == "sf_butterfly" else [8, 12])
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
                      "path": paths[name][0], "launches": paths[name][1], "library_ms": None,
                      "nw_widths": widths, **r})

@@ -29,6 +29,7 @@ from zkarray_torch import kernels  # noqa: E402
 from zkarray_torch.kernels import _build  # noqa: E402
 from zkarray_torch.kernels import lin  # noqa: E402
 from zkarray_torch.kernels import mont as km  # noqa: E402
+from zkarray_torch.kernels import smallfp as ksf  # noqa: E402
 from zkarray_torch.kernels import sw as ksw  # noqa: E402
 from zkarray_torch.poly import domain as dm  # noqa: E402
 
@@ -109,6 +110,17 @@ def launch_lin(spec, lmap, srcs, out):
     return lin.fp_lin_plain(spec, lmap, srcs, out)
 
 
+def launch_sf_op(fam, c, op, a, b, exponent, out):
+    LAUNCHES["sf_op"] += 1
+    res = ksf.sf_op_plain(fam, c, op, a, b, exponent)
+    return res if out is None else out.copy_(res)
+
+
+def launch_sf_butterfly(fam, c, y, tw, m):
+    LAUNCHES["sf_butterfly"] += 1
+    return ksf.sf_butterfly_plain(fam, c, y, tw, m)
+
+
 def accum(curve, state, coords, valid, what):
     LAUNCHES["xyzz_accum"] += 1
     return ksw.xyzz_accum_plain(curve, state, coords, valid)
@@ -125,6 +137,9 @@ def setup():
     cs.PAIR_LOG_N, cs.PAIR_BIG_LOG_N, cs.PAIR_BASE, cs.PAIR_INF_EVERY, cs.G2_LOG_N = 3, 4, 4, 4, 5
     cs.FIELD48_LOG_N = 5
     cs.MIXED_LOG_N, cs.MNT_LOG_N, cs.CP6_EACH = 8, 3, 2
+    cs.SF_NTT_LOG_N, cs.SF_NTT_COLS, cs.KB_NTT_COLS, cs.GL_NTT_LOG_N = 6, 4, 2, 7
+    cs.SF_ELEM_LOG_N, cs.SF_KAT, cs.DIST_MSM_LOG_N, cs.DIST_FFT_LOG_N = 8, 32, 8, 8
+    cs.RB_LOG_N, cs.RB_KAT, cs.DERIVE_LOG_N, cs.MADD_TOP_LOG_N, cs.R1_TIME_LOG_N = 6, 16, 6, 7, 7
     dm.FOURSTEP_BIG, dm.FOURSTEP_MIN = 1 << 12, 1 << 9
     ksw.TREE_SUM_MAX = 16  # c = 7 at 2^8 points: trees of 64, two element-wise levels
 
@@ -157,6 +172,8 @@ def setup():
     km.on_cpu = lambda *ts: False
     km._launch = launch_mont
     km._launch_addsub = launch_addsub
+    ksf._launch_op = launch_sf_op
+    ksf._launch_butterfly = launch_sf_butterfly
     lin._launch_lin = launch_lin
     km._launch_dit = field_only("butterfly_dit", counted("butterfly_dit", km.butterfly_dit_plain),
                                 lambda spec, *a: spec.num_limbs, refuse_ntt)

@@ -2,7 +2,9 @@
 
 Same data model as the JAX package beside it: a field array is a planar,
 limb-major tensor ``int32[L, *batch]`` of base-2^16 limbs (values < 2^16),
-with Montgomery radix R = 2^(16 L). Every public function runs on the device
+with Montgomery radix R = 2^(16 L); a small-field array (ff/smallfp.py,
+fp64.py, smallfp64.py) is ``torch.uint32[*batch]`` or, for 64-bit fields,
+``torch.uint32[2, *batch]``, the JAX package's words. Every public function runs on the device
 of its input tensors; constructors take ``device=`` and default to
 ``DEFAULT_DEVICE``. Hot loops run in hand-written CUDA kernels
 (``zkarray_torch/kernels/csrc``); a tensor on the CPU takes each kernel's

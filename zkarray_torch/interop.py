@@ -286,3 +286,33 @@ def same_do_curve(curve: DOCurveSpec, a: int, b: int, gen_e: int, gen_u: int,
     p = curve.base.modulus
     return (curve.a_int, curve.b_int, curve.gen_e, curve.gen_u, curve.cofactor) == (
         a % p, b % p, gen_e % p, gen_u % p, cofactor)
+
+
+def smallfp_from_numpy(arr, device=DEFAULT_DEVICE) -> torch.Tensor:
+    """uint32 numpy words (ff/smallfp.py's (*batch), or ff/fp64.py's and
+    ff/smallfp64.py's (2, *batch) planes) -> torch.uint32, bit for bit."""
+    a = np.ascontiguousarray(np.asarray(arr))
+    if a.dtype.itemsize != 4 or a.dtype.kind not in "iu":
+        raise TypeError(f"expected a 32-bit integer array, got {a.dtype}")
+    return torch.from_numpy(a.view(np.uint32).copy()).to(device)
+
+
+def smallfp_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """torch.uint32 words -> numpy uint32."""
+    return t.detach().cpu().numpy().astype(np.uint32)
+
+
+fp64_from_numpy = smallfp_from_numpy
+fp64_to_numpy = smallfp_to_numpy
+
+
+def same_small_field(spec, modulus: int, generator: int) -> bool:
+    """True when a port SmallFieldSpec, Fp64Spec or SmallFp64Spec names the
+    given prime and generator (and, where it has them, the Montgomery
+    constants they imply)."""
+    ok = (spec.modulus, spec.generator_int) == (modulus, generator)
+    if hasattr(spec, "r_int"):
+        bits = 32 if modulus < 1 << 32 else 64
+        ok = ok and (spec.r_int, spec.inv32) == ((1 << bits) % modulus,
+                                                 (-pow(modulus, -1, 1 << 32)) % (1 << 32))
+    return ok

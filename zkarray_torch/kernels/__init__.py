@@ -23,6 +23,8 @@ and binds them with ctypes. ``LAUNCHES`` counts each kernel's launches.
     fp_add           fadd.cu   mont.fp_add                             (none: ff/fp.py:add and :double, plain torch chains)
     fp_sub           fadd.cu   mont.fp_sub, mont.fp_neg                (none: ff/fp.py:sub and :neg, plain torch chains)
     fp_lin           flin.cu   lin.fp_lin                              (none: a tower product's fp_add/fp_sub chains, ff/linmap.py)
+    sf_op            smallfp.cu  smallfp.sf_op                         (none: ff/smallfp.py, fp64.py, smallfp64.py's element-wise chains)
+    sf_butterfly     smallfp.cu  smallfp.sf_butterfly                  (none: a stage of ff/smallfp.py:ntt and ff/fp64.py:ntt)
 """
 
 from zkarray_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401

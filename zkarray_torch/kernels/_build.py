@@ -29,7 +29,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("mont", "mont_w24", "mont_w26", "sw", "ntt", "ntt_w24", "madd", "xyzz", "twiddle",
-           "twiddle_w24", "fadd", "flin")
+           "twiddle_w24", "fadd", "flin", "smallfp")
 # library -> (source stem, extra nvcc flags) where the two differ
 VARIANTS = {
     "mont": ("mont", ("-DZK_FIELD_WIDTHS=1",)),
@@ -53,6 +53,7 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_U, _ULL = ctypes.c_uint, ctypes.c_ulonglong
 # C entry points of each source and their argument types (every pointer,
 # the stream included, as c_void_p so ctypes does not cut it to 32 bits).
 EXPORTS = {
@@ -91,6 +92,10 @@ EXPORTS = {
     "flin": {
         "zk_fp_lin": [_P, _I, _P, _I, _LL, _I, _P, _P],
     },
+    "smallfp": {
+        "zk_sf_op": [_I, _I, _P, _LL, _P, _I, _LL, _P, _I, _LL, _LL, _ULL, _ULL, _U, _P, _I, _P],
+        "zk_sf_butterfly": [_I, _P, _P, _LL, _LL, _LL, _LL, _ULL, _ULL, _U, _P],
+    },
 }
 
 # Launches per kernel, counted by each wrapper where it launches its kernel.
@@ -98,7 +103,7 @@ LAUNCHES = {"mont_mul": 0, "mont_sqr": 0, "xyzz_accum": 0, "horner_windows": 0,
             "butterfly_dit": 0, "butterfly_stage": 0, "xyzz_add_affine": 0,
             "xyzz_add": 0, "xyzz_double": 0, "xyzz_tree_sum": 0, "mont_pow": 0, "pow_table": 0,
             "twiddle_mul": 0, "mont_inv": 0, "xyzz_bit_horner": 0, "fp_add": 0, "fp_sub": 0,
-            "fp_lin": 0}
+            "fp_lin": 0, "sf_op": 0, "sf_butterfly": 0}
 
 EXPORTS["mont_w24"] = EXPORTS["mont_w26"] = EXPORTS["mont"]
 EXPORTS["ntt_w24"] = EXPORTS["ntt"]

@@ -27,12 +27,16 @@
 //   registers a thread, which the product's call needs without a spill).
 // - Limb k of neighbouring threads sits at neighbouring addresses, so every
 //   load and store coalesces.
+// - A modulus with its top bit set (secp256k1, secp256r1, secq256k1,
+//   secp384r1) cannot take the carry-chain routines (field.cuh:p_fits_cc):
+//   the C entry launches the same kernel on PlainCallOps there
+//   (ZK_LAUNCH_OPS), the same words through fmul/fadd/fsub.
 #include "field.cuh"
 
 #define MADD_THREADS 64
 #define MADD_MIN_BLOCKS 8
 
-template <int NW>
+template <int NW, class Ops>
 __global__ void __launch_bounds__(MADD_THREADS, MADD_MIN_BLOCKS)
 xyzz_add_affine_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ py,
                        const int32_t* __restrict__ pzz, const int32_t* __restrict__ pzzz,
@@ -46,7 +50,7 @@ xyzz_add_affine_kernel(const int32_t* __restrict__ px, const int32_t* __restrict
   const size_t s = (size_t)n, k = (size_t)i;
   Xyzz<NW> P{load16<NW>(px, s, k), load16<NW>(py, s, k), load16<NW>(pzz, s, k),
              load16<NW>(pzzz, s, k)};
-  if (!a_inf[i]) xyzz_madd<NW, CallOps<NW>>(P, load16<NW>(ax, s, k), load16<NW>(ay, s, k), F);
+  if (!a_inf[i]) xyzz_madd<NW, Ops>(P, load16<NW>(ax, s, k), load16<NW>(ay, s, k), F);
   store16<NW>(ox, s, k, P.x);
   store16<NW>(oy, s, k, P.y);
   store16<NW>(ozz, s, k, P.zz);
@@ -59,12 +63,12 @@ extern "C" int zk_xyzz_add_affine(const void* px, const void* py, const void* pz
                                   const void* a_inf, void* ox, void* oy, void* ozz, void* ozzz,
                                   long long n, int nw, const uint32_t* consts, void* stream) {
   if (n <= 0) return 0;
-  if (!p_fits_cc(consts, nw)) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((n + MADD_THREADS - 1) / MADD_THREADS);
-  ZK_DISPATCH_NW(nw, xyzz_add_affine_kernel<NW><<<blocks, MADD_THREADS, 0, (cudaStream_t)stream>>>(
+  ZK_DISPATCH_NW(nw, ZK_LAUNCH_OPS(xyzz_add_affine_kernel, CallOps, PlainCallOps, blocks,
+                                   MADD_THREADS, 0, (cudaStream_t)stream>>>(
                           (const int32_t*)px, (const int32_t*)py, (const int32_t*)pzz,
                           (const int32_t*)pzzz, (const int32_t*)ax, (const int32_t*)ay,
                           (const uint8_t*)a_inf, (int32_t*)ox, (int32_t*)oy, (int32_t*)ozz,
-                          (int32_t*)ozzz, n, consts_from_host<NW>(consts)));
+                          (int32_t*)ozzz, n, consts_from_host<NW>(consts))));
   return (int)cudaGetLastError();
 }
