@@ -59,7 +59,10 @@ Phases, each printing one JSON line and raising on any failure:
    rows, and every horner_windows row's chain bound: its critical-path
    products x mont_pow's time per product in one thread, and the same chain
    bound for xyzz_add's element-wise launches (one add, 4 products deep)
-   and every xyzz_tree_sum row (its longest thread's adds);
+   and every xyzz_tree_sum row (its rounds of TREE_QUADS adds, each 4
+   products deep, and one add a level), each tree row with its share of
+   the operation and chain bounds, resident blocks per SM and waves, and
+   the kernel's registers and spills (CallOps and PlainCallOps);
    xyzz_bit_horner against its plain version on the path's partials
    (L, 13, 20) and on testing.bit_horner_edge_parts, with its chain bound
    (12 doublings and adds, 84 products deep); xyzz_add and
@@ -73,10 +76,14 @@ Phases, each printing one JSON line and raising on any failure:
 4. ChunkedMSM at 2^21 as two 2^20 chunks, known-answer checked.
 5. NTT path: Radix2Domain(Fr, 2^24).fft of geometric coefficients
    a_j = c r^j, held at 256+ output indices against the host closed form
-   c (1 - r^n) / (1 - r w^k); launch counts from that run (no mont_mul or
-   mont_sqr launch, one twiddle_mul per pass-1 block, at most 3 pow_table),
-   with every butterfly_dit launch's (C, H, R, stride) and every pow_table
-   and twiddle_mul call's arguments recorded. fft/ifft round trip of seeded
+   c (1 - r^n) / (1 - r w^k); launch counts from that run, cold (the
+   power-table cache cleared before it: no mont_mul or mont_sqr launch, one
+   twiddle_mul per pass-1 block, at most 3 pow_table), with every
+   butterfly_dit launch's (C, H, R, stride) and every pow_table and
+   twiddle_mul call's arguments recorded; every cached table against the
+   plain version, and the same fft again, warm: no pow_table launch, its
+   words the cold fft's and the closed form's; the cached tables held
+   unchanged after phase 5's, 13's and 15's fft paths. fft/ifft round trip of seeded
    random coefficients at 2^24 (bit for bit, input unchanged); a coset
    (offset 7) round trip and closed-form check at 2^20 (fft_fourstep_core);
    the degree-aware fft of 2^22 coefficients at 2^24, closed-form checked,
@@ -85,7 +92,8 @@ Phases, each printing one JSON line and raising on any failure:
    its plain version at every recorded shape, and pow_table and twiddle_mul
    at every argument set of phase 5's runs (the fft's, the round trip's,
    the coset's and the degree-aware's), with both times; pow_table also
-   with its device time from a trace of its own calls.
+   with its device time from a trace of its own calls and the host time
+   of a build (the wrapper's call; the host words alone).
 6. butterfly_stage through its entry (kernels.mont.butterfly_stage) on 2^20
    Fr elements against its plain version.
 7. xyzz_add_affine through its entry (ec.sw.xyzz_add_affine) on 4096 real
@@ -320,7 +328,7 @@ DEG_LOG_M = 22  # coefficients of the degree-aware fft at 2^NTT_LOG_N
 KAT_POINTS = 256  # output indices held against the host closed form
 ELEM_LOG_N = 20  # butterfly_stage and the xyzz_add_affine edge feed
 MADD_KAT_BASE = 64  # xyzz_add_affine known answer: all pairs of 64 points
-TREE_THREADS = 256  # csrc/xyzz.cu: threads of an xyzz_tree_sum block
+TREE_QUADS = 64  # csrc/xyzz.cu: adds an xyzz_tree_sum block runs at once (4 lanes each)
 ADD_DEPTH = 4  # products on a generic full XYZZ add's critical path
 TREE_EDGE_ROWS = 80  # rows of each xyzz_tree_sum edge feed (the reduce's q x W)
 TREE_EDGE_WIDTHS = (1, 2, 3, 13, 255, 1023, 1024)
@@ -2209,6 +2217,22 @@ STREAM_LOG_N, STREAM_CHUNK_LOG_N = 21, 20  # msm_chunks: 2^21 points in chunks o
 PIPPENGER_LOG_N, PIPPENGER_CHUNK = 12, 1 << 10
 SCALAR_KAT = 64  # scalar-multiplication lanes held against the host
 NTT_KERNELS = ("butterfly_dit", "butterfly_stage", "pow_table", "twiddle_mul")
+
+
+def check_cached_tables(torch, km, snap):
+    """Hold every table in kernels.mont's power-table cache that ``snap``
+    (key -> a copy of its words) holds against its copy, bit for bit
+    (raises on a change: no code may write into a cached table), then add
+    the tables cached since to ``snap``. Returns the counts."""
+    now = km.cached_tables()
+    changed = [k[1:5] for k, v in snap.items() if k in now and not torch.equal(now[k], v)]
+    if changed:
+        raise AssertionError(f"cached power tables changed: {changed}")
+    held = sum(k in now for k in snap)
+    for k, v in now.items():
+        snap.setdefault(k, v.clone())
+    return dict(held_unchanged=held, evicted=len(snap) - len(now), cached=len(now),
+                cached_bytes=sum(v.numel() * v.element_size() for v in now.values()))
 
 
 def install_ntt_recorders(torch, km):
@@ -4590,6 +4614,17 @@ def main():
             P = red
         return ops
 
+    xyzz_lib = _build.load("xyzz")
+
+    def tree_occupancy(m, plain=False):
+        """(resident blocks per SM, threads per block) of xyzz_tree_sum at
+        row width m, its CallOps (or PlainCallOps) instantiation, NW = 12."""
+        blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+        _build.check(xyzz_lib, xyzz_lib.zk_xyzz_tree_sum_occupancy(
+            nw(f), int(plain), m, ctypes.addressof(blocks), ctypes.addressof(threads)),
+            "xyzz_tree_sum occupancy")
+        return blocks.value, threads.value
+
     def tree_row(P, what, launches_=0):
         got, want = ksw.xyzz_tree_sum(G1, P), ksw.xyzz_tree_sum_plain(G1, P)
         err = max(check_equal(f"xyzz_tree_sum {what}, coordinate {i}", g, w_)
@@ -4598,11 +4633,17 @@ def main():
         plain_ms = time_ms(lambda: ksw.xyzz_tree_sum_plain(G1, P), 2)
         m = P[0].shape[-1]
         rows_ = P[0][0].numel() // m
+        blocks, _ = tree_occupancy(m)
+        hs = tree_levels(m)
+        # chain: the kernel's rounds, TREE_QUADS adds a block at once, each
+        # ADD_DEPTH products deep; and one add a level (no design does less)
         return dict(shape=list(P[0].shape), operand_maps=[list(km._operand(t)[1:]) for t in P],
                     rows=rows_, m=m, launches=launches_, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_bytes_ms=4 * Lq * rows_ * (m + 1) * 4 / HBM_BYTES_PER_S * 1e3,
-                    bound_ops_ms=tree_ops(P) / int_ops_per_s * 1e3, levels=len(tree_levels(m)),
-                    chain_products=ADD_DEPTH * sum(-(-h // TREE_THREADS) for h in tree_levels(m)))
+                    bound_ops_ms=tree_ops(P) / int_ops_per_s * 1e3, levels=len(hs),
+                    chain_products=ADD_DEPTH * sum(-(-h // TREE_QUADS) for h in hs),
+                    chain_products_one_add_a_level=ADD_DEPTH * len(hs), blocks_per_sm=blocks,
+                    waves=rows_ / (blocks * props.multi_processor_count))
 
     tree_rows = [tree_row(tree_inputs[key], f"at {key}", count) for key, count in tree_keys.items()]
     del tree_inputs
@@ -4883,16 +4924,35 @@ def main():
         if "chain_products" in row:
             row["chain_bound_ms"] = row["chain_products"] * us_prod / 1e3
             row["share_of_chain_bound"] = row["chain_bound_ms"] / row["ms"]
+            row["chain_bound_one_add_a_level_ms"] = row["chain_products_one_add_a_level"] * us_prod / 1e3
+            row["share_of_operation_bound"] = row["bound_ops_ms"] / row["ms"]
     emit("kernel_main_path_shapes", kernel="xyzz_tree_sum",
          inputs="the main path's own (launches > 0), then edge rows", rows=tree_rows)
     path_tree = [r for r in tree_rows if r["launches"]]
     report.setdefault("xyzz_tree_sum", {}).update(per_launch_means(
         path_tree, f"mean per launch over the main path's {len(path_tree)} shapes"))
+    tree_regs = {ops_: next((v for k, v in ptxas.items()
+                             if "xyzz_tree_sum_kernel" in k and f"ILi12E{len(ops_)}{ops_}" in k), {})
+                 for ops_ in ("CallOps", "PlainCallOps")}
+    n_path = sum(r["launches"] for r in path_tree)
     report["xyzz_tree_sum"].update(
         max_abs_err=max(r["max_abs_err"] for r in tree_rows),
-        chain_bound_ms=sum(r["launches"] * r["chain_bound_ms"] for r in path_tree)
-        / sum(r["launches"] for r in path_tree),
+        chain_bound_ms=sum(r["launches"] * r["chain_bound_ms"] for r in path_tree) / n_path,
+        chain_bound_one_add_a_level_ms=sum(
+            r["launches"] * r["chain_bound_one_add_a_level_ms"] for r in path_tree) / n_path,
+        share_of_operation_bound=sum(r["launches"] * r["bound_ops_ms"] for r in path_tree)
+        / sum(r["launches"] * r["ms"] for r in path_tree),
+        ptxas_nw12=tree_regs, blocks_per_sm=dict(zip(("CallOps", "PlainCallOps"), (
+            tree_occupancy(ksw.TREE_SUM_MAX)[0], tree_occupancy(ksw.TREE_SUM_MAX, plain=True)[0]))),
         edge_rows=[r for r in tree_rows if not r["launches"]])
+    report["xyzz_tree_sum"]["share_of_chain_bound"] = (
+        report["xyzz_tree_sum"]["chain_bound_ms"] / report["xyzz_tree_sum"]["ms"])
+    emit("xyzz_tree_sum_design", ptxas_nw12=tree_regs,
+         blocks_per_sm=report["xyzz_tree_sum"]["blocks_per_sm"], threads_per_block=4 * TREE_QUADS,
+         path_ms=report["xyzz_tree_sum"]["ms"], bound_ms=report["xyzz_tree_sum"]["bound_ms"],
+         share_of_operation_bound=report["xyzz_tree_sum"]["share_of_operation_bound"],
+         chain_bound_ms=report["xyzz_tree_sum"]["chain_bound_ms"],
+         share_of_chain_bound=report["xyzz_tree_sum"]["share_of_chain_bound"], card=card)
     del X, Y, ZZ, ZZZ, X2, Y2, ZZ2, ZZZ2, lam, l2, l3, Ys, P, Q, one, zero, cls, coords, pts
 
     # ---- 4. ChunkedMSM at 2^21 ------------------------------------------------
@@ -4973,6 +5033,7 @@ def main():
     sync()
     torch.cuda.reset_peak_memory_stats()
     ntt_mem_before = torch.cuda.memory_allocated()  # the input and what earlier phases hold
+    km.clear_table_cache()  # a cold fft: it builds its tables (the counts below see them)
     recording(True)
     try:
         kernels.reset_launches()
@@ -4999,7 +5060,29 @@ def main():
             or sum(pow_keys.values()) != ntt_launches["pow_table"]
             or sum(tw_keys.values()) != ntt_launches["twiddle_mul"]):
         raise AssertionError("fft 2^24: recorded launches differ from the counts")
-    del a, ev
+
+    # the same fft warm: its tables come from kernels.mont's cache, so it
+    # launches no pow_table; the cached tables are the plain version's
+    # words, and they stay so through every later fft path (checked after
+    # this phase, phase 13 and phase 15)
+    table_snap = {}
+    tables = km.cached_tables()
+    for (spec_, w_t, n_t, scale_t, packed_t, _), t in tables.items():
+        check_equal(f"cached pow_table n={n_t} packed={packed_t}", t,
+                    km.pow_table_plain(spec_, w_t, n_t, dev, scale_t, packed_t))
+    tables_seen = check_cached_tables(torch, km, table_snap)
+    kernels.reset_launches()
+    ev_w, warm_ms = once_ms(lambda: dom.fft(a))
+    warm_launches = dict(kernels.LAUNCHES)
+    check_closed_form("warm fft 2^24", dom, ev_w, r_int, c_int, N, idx)
+    if warm_launches["pow_table"] or not torch.equal(ev_w, ev):
+        raise AssertionError(f"warm fft 2^24: {warm_launches['pow_table']} pow_table launches "
+                             "(0 expected), or its words differ from the cold fft's")
+    emit("ntt_warm", n=N, correct=True, pow_table_launches=warm_launches["pow_table"],
+         cold_pow_table_launches=ntt_launches["pow_table"],
+         launches={k: v for k, v in warm_launches.items() if v}, ms=warm_ms,
+         cached_tables=tables_seen, tables_equal_plain=True, card=card)
+    del a, ev, ev_w
 
     # fft/ifft round trip of random coefficients; the input stays as it was
     x = rand_field(FR, N)
@@ -5068,6 +5151,8 @@ def main():
     else:
         emit("ntt_trace", ms_fft_untraced_median=ms_fft, **tr)
     del x, ev_x
+    emit("cached_tables", after="phase 5's fft paths",
+         **check_cached_tables(torch, km, table_snap))
 
     def split_rows(kernel, rows, what="argument sets"):
         fft = [r for r in rows if r["run"] == "fft"]
@@ -5119,11 +5204,22 @@ def main():
         plain_ms = time_ms(lambda: km.pow_table_plain(FR, w_int, n_t, dev, scale, packed), 2)
         dev_ms, dev_seen = traced_device_ms(
             torch, "pow_table", lambda: km.pow_table(FR, w_int, n_t, dev, scale, packed), 20, dev)
+        sync()  # host time of a build: the wrapper's call, launch included, no wait for the card
+        t = time.perf_counter()
+        for _ in range(20):
+            km.pow_table(FR, w_int, n_t, dev, scale, packed)
+        host_us = (time.perf_counter() - t) / 20 * 1e6
+        sync()
+        t = time.perf_counter()
+        for _ in range(20):
+            km._pow_words.cache_clear()
+            km._pow_words(FR, w_int, n_t, scale)
+        words_us = (time.perf_counter() - t) / 20 * 1e6
         products = max(n_t - 1, 0)
         pow_rows.append(dict(run=label, n=n_t, packed=packed, scaled=scale is not None,
                              launches=count if label == "fft" else 0, calls=count, max_abs_err=err,
                              ms=ms, plain_ms=plain_ms, device_ms=dev_ms, device_launches_traced=dev_seen,
-                             products=products,
+                             host_us_per_build=host_us, host_words_us=words_us, products=products,
                              bound_bytes_ms=n_t * L * (2 if packed else 4) / HBM_BYTES_PER_S * 1e3,
                              bound_ops_ms=products * mul_ops(FR) / int_ops_per_s * 1e3))
     report["pow_table"] = split_rows("pow_table", pow_rows)
@@ -5364,6 +5460,8 @@ def main():
     for name, r in phase13.items():
         report.setdefault(name, {})["phase13"] = r
 
+    emit("cached_tables", after="phase 13's paths", **check_cached_tables(torch, km, table_snap))
+
     # ---- 14. the other curve models and hashing to curves -----------------------
     rec14, restore14 = install_recorders(torch, km)
     try:
@@ -5375,6 +5473,7 @@ def main():
     # ---- 15. the small fields, the multi-device layer, serialization ------------
     phase15 = smallfield_dist_phase(torch, helpers)
     sf_rows = phase15.pop("rows")
+    emit("cached_tables", after="phase 15's paths", **check_cached_tables(torch, km, table_snap))
 
     # ---- 16. kernels line ----------------------------------------------------
     sources = {

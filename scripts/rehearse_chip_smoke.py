@@ -53,6 +53,11 @@ class StubSwLib:
         ctypes.c_int.from_address(threads).value = 64
         return 0
 
+    def zk_xyzz_tree_sum_occupancy(self, nw, plain, m, blocks, threads):
+        ctypes.c_int.from_address(blocks).value = 2
+        ctypes.c_int.from_address(threads).value = 256
+        return 0
+
 
 def counted(name, fn):
     def call(*args, **kw):

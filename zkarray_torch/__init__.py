@@ -15,4 +15,10 @@ This package imports torch and numpy only: no JAX, and nothing of ``zkarray``.
 
 DEFAULT_DEVICE = "cuda"
 
+# after DEFAULT_DEVICE, which ff/fp.py imports from here
+from zkarray_torch.core.fieldspec import FieldSpec  # noqa: E402
+from zkarray_torch.ff import fp  # noqa: E402
+
 __version__ = "0.1.0"
+
+__all__ = ["FieldSpec", "fp", "__version__"]

@@ -23,7 +23,7 @@ import torch.distributed as dist
 from zkarray_torch.core.fieldspec import FieldSpec
 from zkarray_torch.dist.mesh import Mesh
 from zkarray_torch.ff import fp
-from zkarray_torch.poly.domain import _fft_core, fft_fourstep_core, power_table
+from zkarray_torch.poly.domain import _fft_core, _power_table, fft_fourstep_core
 
 
 def fft_fourstep(spec: FieldSpec, x: torch.Tensor, n1: int, n2: int, w_int: int,
@@ -81,7 +81,7 @@ def fft_sharded(spec: FieldSpec, x: torch.Tensor, mesh: Mesh, w_int: int,
     B = _fft_core(spec, A, n1, w_n1, None)
     # T[k1, j] = w^(k1 (off + j)), off = rank n2/D: the base w^(off + j),
     # then its powers over k1 by doubling
-    base_local = power_table(spec, w_int, n2 // D, dev)
+    base_local = _power_table(spec, w_int, n2 // D, dev)  # read-only
     w_off = fp.pow_u32(spec, fp.const_array(spec, w_int, (1,), dev), me * (n2 // D))
     base = fp.mont_mul(spec, base_local, w_off)  # (L, n2/D)
     T = fp.one(spec, (1, n2 // D), dev)

@@ -1,1 +1,5 @@
 """Pairing engines."""
+
+from zkarray_torch.ec.pairing import bls12, bn
+
+__all__ = ["bls12", "bn"]

@@ -80,6 +80,14 @@ class SWCurveSpec:
                             fp.const_array(self.base, self.gen_y, batch_shape, device),
                             torch.zeros(tuple(batch_shape), dtype=torch.bool, device=device))
 
+    def affine_from_ints(self, xys, device=DEFAULT_DEVICE) -> "AffinePoints":
+        """[(x, y) or None] -> AffinePoints batch (None = infinity)."""
+        return affine_from_ints(self, xys, device)
+
+    def affine_to_ints(self, pts: "AffinePoints"):
+        """AffinePoints -> [(x, y) | None] host list."""
+        return affine_to_ints(self, pts)
+
 
 def affine_from_ints(curve: SWCurveSpec, xys, device=DEFAULT_DEVICE) -> AffinePoints:
     """[(x, y) or None] -> AffinePoints batch (None = infinity)."""

@@ -28,3 +28,6 @@ and binds them with ctypes. ``LAUNCHES`` counts each kernel's launches.
 """
 
 from zkarray_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401
+# the JAX package's re-exports, without its Pallas switches (use_pallas,
+# pallas_enabled, interpret_mode): a tensor's device picks the route here
+from zkarray_torch.kernels.mont import butterfly_stage, mont_mul, mont_sqr  # noqa: F401

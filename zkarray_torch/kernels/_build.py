@@ -80,6 +80,7 @@ EXPORTS = {
         "zk_xyzz_add": [_P, _P, _LL, _I, _P, _P],
         "zk_xyzz_double": [_P, _P, _LL, _I, _P, _P],
         "zk_xyzz_tree_sum": [_P, _P, _LL, _I, _I, _P, _P],
+        "zk_xyzz_tree_sum_occupancy": [_I, _I, _I, _P, _P],
     },
     "twiddle": {
         "zk_pow_table": [_P, _LL, _I, _P, _I, _I, _P, _P],

@@ -12,13 +12,22 @@
 // launch.
 //
 // pow_table writes [s w^0, ..., s w^(n-1)] (s = 1 unless the caller folds a
-// constant in) in one launch: thread j multiplies s by the host constants
-// w^(2^b) for the set bits of j, at most POW_TABLE_BITS products in
-// registers. Every product ends fully reduced, so entry j is the one
-// canonical word pattern of s w^j in Montgomery form, the same bits as any
-// other chain of products (the JAX package's doubling included). It writes
-// the port's planar limbs, or packed words, element-major (entry j's NW
-// 32-bit words contiguous), for twiddle_mul's tables.
+// constant in) in one launch, from the host constants s and w^(2^b). Block
+// b writes entries j = 256 b + t, t < 256, as LO[t] HI_b with LO[t] = s w^t
+// and HI_b = w^(256 b): LO is built in shared memory by doubling rounds
+// (round r: LO[t + 2^r] = LO[t] w^(2^r) for t < 2^r, one product a thread),
+// while the block's last warp, idle in those rounds, multiplies HI_b
+// together from the set bits of b, one product a round; so every warp runs
+// one uniform chain, at most 9 products deep, where a thread forming s w^j
+// from the set bits of j alone ran up to 16 products deep with the lanes of
+// a warp on different bits. Every product ends fully reduced, so entry j is
+// the one canonical word pattern of s w^j in Montgomery form, the same bits
+// as any other chain of products (the JAX package's doubling included). It
+// writes the port's planar limbs, or packed words, element-major (entry j's
+// NW 32-bit words contiguous), for twiddle_mul's tables. The tables are
+// small (at most 2^16 entries) and kernels/mont.py:cached_pow_table keeps
+// each one it builds, so a transform launches this kernel only the first
+// time it needs a table.
 //
 // twiddle_mul computes out[r, c] = x[r, c] w^e with e = (r0 + r)(c0 + c),
 // forming w^e = HI[e >> h] LO[e & (2^h - 1)] from two packed pow_tables:
@@ -96,24 +105,51 @@ __device__ __forceinline__ Fe<NW> load_words(const int32_t* __restrict__ t, unsi
   return r;
 }
 
+#define POW_BLOCK_BITS 8  // a block's entries: LO has 2^POW_BLOCK_BITS slots
+#define POW_THREADS (1 << POW_BLOCK_BITS)
+#define POW_HI_THREAD (POW_THREADS - 32)  // the first thread of the warp that forms HI_b
+
 template <int NW>
-__global__ void __launch_bounds__(256)
-pow_table_kernel(int32_t* __restrict__ out, int n, int nbits, int packed, Powers<NW> P,
-                 FieldConsts<NW> F) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
+__device__ __forceinline__ Fe<NW> const_fe(const uint32_t* w) {
   Fe<NW> r;
 #pragma unroll
-  for (int k = 0; k < NW; ++k) r.w[k] = P.first[k];
-#pragma unroll 1
-  for (int b = 0; b < nbits; ++b) {
-    if ((j >> b) & 1) {
-      Fe<NW> wb;
+  for (int k = 0; k < NW; ++k) r.w[k] = w[k];
+  return r;
+}
+
+template <int NW>
+__global__ void __launch_bounds__(POW_THREADS)
+pow_table_kernel(int32_t* __restrict__ out, int n, int nbits, int packed, Powers<NW> P,
+                 FieldConsts<NW> F) {
+  __shared__ uint32_t lo[POW_THREADS][NW];
+  __shared__ uint32_t hi[NW];
+  const int t = threadIdx.x;
+  const int lo_bits = nbits < POW_BLOCK_BITS ? nbits : POW_BLOCK_BITS;
+  if (t == 0) {
 #pragma unroll
-      for (int k = 0; k < NW; ++k) wb.w[k] = P.w[b][k];
-      r = fmul_wide<NW>(r, wb, F);
+    for (int k = 0; k < NW; ++k) lo[0][k] = P.first[k];
+  }
+  Fe<NW> h = fe_one<NW>(F);  // HI_b, built on the last warp
+#pragma unroll 1
+  for (int r = 0; r < POW_BLOCK_BITS; ++r) {
+    __syncthreads();
+    if (r < lo_bits && t < (1 << r)) {
+      const Fe<NW> v = fmul_wide<NW>(const_fe<NW>(lo[t]), const_fe<NW>(P.w[r]), F);
+#pragma unroll
+      for (int k = 0; k < NW; ++k) lo[t + (1 << r)][k] = v.w[k];
+    } else if (t >= POW_HI_THREAD && POW_BLOCK_BITS + r < nbits && ((blockIdx.x >> r) & 1)) {
+      h = fmul_wide<NW>(h, const_fe<NW>(P.w[POW_BLOCK_BITS + r]), F);
     }
   }
+  if (t == POW_HI_THREAD) {
+#pragma unroll
+    for (int k = 0; k < NW; ++k) hi[k] = h.w[k];
+  }
+  __syncthreads();
+  const int j = blockIdx.x * POW_THREADS + t;
+  if (j >= n) return;
+  Fe<NW> r = const_fe<NW>(lo[t]);
+  if (blockIdx.x) r = fmul_wide<NW>(r, const_fe<NW>(hi), F);
   if (packed) {
 #pragma unroll
     for (int k = 0; k < NW / Vec<NW>::K; ++k) Vec<NW>::store(out + (size_t)j * NW, r.w, k);
@@ -148,8 +184,8 @@ static void launch_pow_table(int32_t* out, int n, int nbits, int packed, const u
   for (int k = 0; k < NW; ++k) P.first[k] = words[k];
   for (int b = 0; b < POW_TABLE_BITS; ++b)
     for (int k = 0; k < NW; ++k) P.w[b][k] = b < nbits ? words[(b + 1) * NW + k] : 0u;
-  pow_table_kernel<NW><<<(n + 255) / 256, 256, 0, stream>>>(out, n, nbits, packed, P,
-                                                                consts_from_host<NW>(consts));
+  pow_table_kernel<NW><<<(n + POW_THREADS - 1) / POW_THREADS, POW_THREADS, 0, stream>>>(
+      out, n, nbits, packed, P, consts_from_host<NW>(consts));
 }
 
 template <int NW>

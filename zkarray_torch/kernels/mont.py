@@ -36,6 +36,7 @@ the card as references.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -539,24 +540,38 @@ def butterfly_stage(spec: FieldSpec, lo: torch.Tensor, hi: torch.Tensor, w: torc
 
 # csrc/twiddle.cu:POW_TABLE_BITS: a pow_table has at most 2^16 entries
 POW_TABLE_MAX = 1 << 16
+# Bytes of built tables that cached_pow_table keeps: a 2^16-entry table is
+# 4 MiB at L = 16 and 12 MiB at L = 48; a 2^24 fft's three are 384 KiB.
+TABLE_CACHE_BYTES = 256 << 20
+
+# (field, w, n, scale, packed, device) -> a built table, least recently used first
+_tables: "collections.OrderedDict[tuple, torch.Tensor]" = collections.OrderedDict()
 
 
+@functools.lru_cache(maxsize=256)
 def _pow_words(spec: FieldSpec, w_int: int, n: int, scale_int) -> tuple:
     """(words, nbits): host words s | w^(2^b) for b < nbits, Montgomery form,
     NW = L/2 32-bit words each (csrc/twiddle.cu:zk_pow_table), nbits the
-    bits of the largest index n - 1."""
+    bits of the largest index n - 1. Cached per arguments, so read-only."""
     p = spec.modulus
     nbits = max(n - 1, 0).bit_length()
-    vals = [1 if scale_int is None else scale_int] + [pow(w_int, 1 << b, p) for b in range(nbits)]
-    nw = spec.num_limbs // 2
-    return np.asarray([(spec.to_mont_int(v % p) >> (32 * i)) & 0xFFFFFFFF
-                       for v in vals for i in range(nw)], dtype=np.uint32), nbits
+    vals = [(1 if scale_int is None else scale_int) % p]
+    v = w_int % p
+    for _ in range(nbits):
+        vals.append(v)
+        v = v * v % p
+    nbytes = 2 * spec.num_limbs
+    words = np.frombuffer(b"".join(spec.to_mont_int(x).to_bytes(nbytes, "little") for x in vals),
+                          dtype="<u4").astype(np.uint32)
+    words.flags.writeable = False
+    return words, nbits
 
 
 def pow_table_plain(spec: FieldSpec, w_int: int, n: int, device, scale_int=None,
                     packed: bool = False) -> torch.Tensor:
     """pow_table in plain PyTorch: entry j is s times w^(2^b) for each set
-    bit b of j, multiplied in bit by bit as the kernel does."""
+    bit b of j, multiplied in bit by bit (the kernel forms the same fully
+    reduced words by another chain of products)."""
     words, nbits = _pow_words(spec, w_int, n, scale_int)
     nw = spec.num_limbs // 2
     consts = unpack_pairs(torch.from_numpy(words.view(np.int32).copy()).reshape(nbits + 1, nw).T)
@@ -572,10 +587,11 @@ def pow_table_plain(spec: FieldSpec, w_int: int, n: int, device, scale_int=None,
 def pow_table(spec: FieldSpec, w_int: int, n: int, device, scale_int=None,
               packed: bool = False) -> torch.Tensor:
     """[s·w^0, ..., s·w^(n-1)] in Montgomery form (s = scale_int, canonical;
-    default 1) for n <= POW_TABLE_MAX, built on ``device``: (L, n) planar
-    limbs, or (n, L/2) packed words when ``packed`` (twiddle_mul's tables).
-    The CPU: plain version; a CUDA device: csrc/twiddle.cu:pow_table_kernel,
-    one launch."""
+    default 1) for n <= POW_TABLE_MAX, built on ``device`` into a new tensor:
+    (L, n) planar limbs, or (n, L/2) packed words when ``packed``
+    (twiddle_mul's tables). The CPU: plain version; a CUDA device:
+    csrc/twiddle.cu:pow_table_kernel, one launch. ``cached_pow_table`` keeps
+    the tables it builds."""
     if not 0 <= n <= POW_TABLE_MAX:
         raise ValueError(f"pow_table: {n} entries; at most {POW_TABLE_MAX}")
     device = torch.device(device)
@@ -584,7 +600,6 @@ def pow_table(spec: FieldSpec, w_int: int, n: int, device, scale_int=None,
     L = spec.num_limbs
     words, nbits = _pow_words(spec, w_int, n, scale_int)
     out = torch.empty((n, L // 2) if packed else (L, n), dtype=torch.int32, device=device)
-    check_cuda_int32("pow_table", out)
     lib = _build.load(_build.ntt_lib("twiddle", L // 2))
     with torch.cuda.device(device):
         err = lib.zk_pow_table(out.data_ptr(), n, int(packed), words_ptr(words), nbits, L // 2,
@@ -592,6 +607,46 @@ def pow_table(spec: FieldSpec, w_int: int, n: int, device, scale_int=None,
     _build.check(lib, err, "pow_table")
     _build.LAUNCHES["pow_table"] += 1
     return out
+
+
+def _device_key(device) -> str:
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return str(d)
+
+
+def cached_pow_table(spec: FieldSpec, w_int: int, n: int, device, scale_int=None,
+                     packed: bool = False) -> torch.Tensor:
+    """pow_table's table for these arguments, built by pow_table on the
+    first call and then kept, keyed by (field, w, n, s, packed, device):
+    the same words a new build would write. Tables beyond TABLE_CACHE_BYTES
+    in all are dropped least recently used first (a table larger than that
+    alone is not kept). READ-ONLY: a caller that hands the table to code
+    that may write into it hands on a copy."""
+    p = spec.modulus
+    dkey = _device_key(device)
+    key = (spec, w_int % p, n, None if scale_int is None else scale_int % p, bool(packed), dkey)
+    t = _tables.get(key)
+    if t is not None:
+        _tables.move_to_end(key)
+        return t
+    t = pow_table(spec, w_int, n, dkey, scale_int, packed)
+    if t.numel() * t.element_size() <= TABLE_CACHE_BYTES:  # else not kept
+        _tables[key] = t
+        while sum(v.numel() * v.element_size() for v in _tables.values()) > TABLE_CACHE_BYTES:
+            _tables.popitem(last=False)
+    return t
+
+
+def clear_table_cache():
+    """Drop every table cached_pow_table keeps (the next call builds anew)."""
+    _tables.clear()
+
+
+def cached_tables() -> dict:
+    """The cached tables by key (a snapshot of the cache's entries)."""
+    return dict(_tables)
 
 
 class Twiddles(NamedTuple):
@@ -607,12 +662,14 @@ class Twiddles(NamedTuple):
 def twiddle_tables(spec: FieldSpec, w_int: int, e_max: int, device, scale_int=None) -> Twiddles:
     """The two pow_tables that cover every exponent 0 <= e <= e_max < 2^32,
     with h = ceil(bits(e_max) / 2), so neither has more than 2^16 entries;
-    ``scale_int`` (canonical), when given, is folded into ``lo``."""
+    ``scale_int`` (canonical), when given, is folded into ``lo``. Both come
+    from cached_pow_table: read-only, as twiddle_mul reads them."""
     if not 0 <= e_max < 1 << 32:
         raise ValueError(f"twiddle_tables: exponents up to {e_max}; at most 2^32 - 1")
     h = (e_max.bit_length() + 1) // 2
-    lo = pow_table(spec, w_int, min(1 << h, e_max + 1), device, scale_int, packed=True)
-    hi = pow_table(spec, pow(w_int, 1 << h, spec.modulus), (e_max >> h) + 1, device, packed=True)
+    lo = cached_pow_table(spec, w_int, min(1 << h, e_max + 1), device, scale_int, packed=True)
+    hi = cached_pow_table(spec, pow(w_int, 1 << h, spec.modulus), (e_max >> h) + 1, device,
+                          packed=True)
     return Twiddles(h, lo, hi, e_max)
 
 

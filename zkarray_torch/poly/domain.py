@@ -8,7 +8,9 @@ Every stage of every transform is one launch of the ``butterfly_dit`` kernel
 (kernels/mont.py), in place. The buffer it writes is always one the
 transform owns, the output of its bit-reversal gather: never the caller's
 coefficients and never a broadcast constant. A power table of up to
-km.POW_TABLE_MAX (2^16) entries is one ``pow_table`` launch. Every multiply by
+km.POW_TABLE_MAX (2^16) entries is one ``pow_table`` launch the first time
+it is needed, then the same tensor from km.cached_pow_table, read-only: a
+warm transform launches no ``pow_table``. Every multiply by
 powers of a base, the four-step k1-twiddles, the degree-aware twist, the
 coset twist and larger power tables, is one ``twiddle_mul`` launch that forms
 w^e from two small tables, with the four-step ifft's n^-1 folded into them;
@@ -55,12 +57,21 @@ def _bitrev_perm(log_n: int, device=DEFAULT_DEVICE) -> torch.Tensor:
     return rev
 
 
-def power_table(spec: FieldSpec, w_int: int, n: int, device=DEFAULT_DEVICE) -> torch.Tensor:
-    """(L, n) Montgomery-form table [w^0, w^1, ..., w^(n-1)]."""
+def _power_table(spec: FieldSpec, w_int: int, n: int, device=DEFAULT_DEVICE) -> torch.Tensor:
+    """(L, n) Montgomery-form table [w^0, w^1, ..., w^(n-1)]; up to
+    km.POW_TABLE_MAX entries the cache's own tensor (km.cached_pow_table):
+    READ-ONLY, for the transforms, which only read it."""
     if n <= km.POW_TABLE_MAX:
-        return km.pow_table(spec, w_int, n, device)
+        return km.cached_pow_table(spec, w_int, n, device)
     tw = km.twiddle_tables(spec, w_int, n - 1, device)
     return km.twiddle_mul(spec, fp.one(spec, (1, n), device), tw, 1, 0).reshape(spec.num_limbs, n)
+
+
+def power_table(spec: FieldSpec, w_int: int, n: int, device=DEFAULT_DEVICE) -> torch.Tensor:
+    """(L, n) Montgomery-form table [w^0, w^1, ..., w^(n-1)], a tensor the
+    caller owns (a copy of a cached table)."""
+    t = _power_table(spec, w_int, n, device)
+    return t.clone() if n <= km.POW_TABLE_MAX else t
 
 
 def distribute_powers(spec: FieldSpec, arr: torch.Tensor, c_int: int) -> torch.Tensor:
@@ -106,8 +117,8 @@ def fft_fourstep_big(spec: FieldSpec, x: torch.Tensor, n1: int, n2: int, w_int: 
     m1, m2 = n1 // CH, n2 // CH
     w1, w2 = pow(w_int, n2, p), pow(w_int, n1, p)
     A = x.reshape(L, n1, n2)
-    tw1 = power_table(spec, w1, max(n1 // 2, 1), dev)
-    tw2 = tw1 if (w2, n2) == (w1, n1) else power_table(spec, w2, max(n2 // 2, 1), dev)
+    tw1 = _power_table(spec, w1, max(n1 // 2, 1), dev)
+    tw2 = tw1 if (w2, n2) == (w1, n1) else _power_table(spec, w2, max(n2 // 2, 1), dev)
 
     # pass 1: size-n1 NTT over axis 1 of each i2-block, then the k1-twiddle
     # w^(k1·i2) written into the block of C
@@ -143,7 +154,7 @@ def _fft_core(spec: FieldSpec, arr: torch.Tensor, n: int, w_int: int, scale_int:
         raise ValueError(f"_fft_core: axis 1 of {tuple(arr.shape)} must be the power of two {n}")
     dev = arr.device
     if tw is None:
-        tw = power_table(spec, w_int, max(n // 2, 1), dev)
+        tw = _power_table(spec, w_int, max(n // 2, 1), dev)
     x = torch.index_select(arr, 1, _bitrev_perm(log_n, str(dev))).contiguous()  # owned
     xv = x.view(L, n, rflat)
     for s in range(1, log_n + 1):

@@ -24,13 +24,14 @@ from zkarray_torch import DEFAULT_DEVICE
 from zkarray_torch.core.fieldspec import FieldSpec
 from zkarray_torch.ff import fp
 from zkarray_torch.kernels import mont as km
-from zkarray_torch.poly.domain import _fft_core, _pad_to, distribute_powers, power_table, twiddle_table
+from zkarray_torch.poly.domain import (_fft_core, _pad_to, _power_table, distribute_powers, power_table,
+                                       twiddle_table)
 
 
 def _naive_dft(spec: FieldSpec, A: torch.Tensor, n: int, w_int: int) -> torch.Tensor:
     """DFT over axis 1 of (L, n, *rest) by direct summation (small n)."""
     L = spec.num_limbs
-    pt = power_table(spec, w_int, n, A.device)
+    pt = _power_table(spec, w_int, n, A.device)  # read-only: gathered below
     idx = (torch.arange(n)[:, None] * torch.arange(n)[None, :]) % n  # [k, j]
     T = pt[:, idx.reshape(-1).to(A.device)].reshape(L, n, n)
     r1 = (1,) * (A.dim() - 2)
