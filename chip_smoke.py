@@ -31,11 +31,11 @@ Phases, each printing one JSON line and raising on any failure:
    tiled inputs with a host known answer; launch counts from one run
    (xyzz_add 2, xyzz_tree_sum 1, xyzz_bit_horner 1, xyzz_double 0: the 13
    weight bits in one group, two tree levels wider than TREE_SUM_MAX;
-   mont_inv 2, mont_pow 0), with
+   the to-affine one mont_div, no mont_mul, mont_inv or mont_pow), with
    the shape and operand map of every mont_mul/mont_sqr/mont_pow/mont_inv,
    xyzz_add/xyzz_double and xyzz_tree_sum launch recorded (and the inputs
    of the first launch of each, views as the tree sums pass them; the
-   inverted elements; the bit-Horner's partials). Then
+   to-affine's X, ZZ, Y, ZZZ; the bit-Horner's partials). Then
    mont_mul against its plain version at each of its shapes (inputs
    non-contiguous halves of a wider tensor), and xyzz_add/xyzz_double
    against _fadd_plain/_dbl_plain and xyzz_tree_sum against its plain
@@ -44,16 +44,21 @@ Phases, each printing one JSON line and raising on any failure:
    and bit-Horner adds before xyzz_bit_horner), xyzz_double on the
    bit-Horner's top partials, its old path shape; the median of 3 timed
    runs split into accumulate,
-   reduce and to-affine; one msm_reduce under torch.profiler (CUDA
+   reduce and to-affine (and the to-affine's launches by kernel, counted
+   on one more call); one msm_reduce under torch.profiler (CUDA
    activity only) for its launches, the device's busy time, idle share and
    host time per device op; mont_pow against its plain version at 2^20 Fq
    elements (zeros and mont_inv's edge words included) and at one element,
    for p - 2, and once through ff.fp.pow_const; mont_inv against its plain
    version (Fermat) on testing.mont_inv_edge_words (0, 1, R mod p, p - 1,
    powers of two, random; also against Python's pow), each alone and in one
-   launch, on the path's two inputs and at 2^20 elements, with its chain
-   bound (the host word model's iterations x dependent instructions x the
-   latency from phase 1) and its operation bound;
+   launch, on the MSM's ZZ and ZZZ at (24, 1), at (24, 2^12) and at 2^20
+   elements (both lane layouts), with the device ms from a trace, its chain
+   bound (testing.mont_inv_chain's dependent instructions x the latency
+   from phase 1), its operation bound and its registers, stack and spills;
+   mont_div (the to-affine) against its plain route on the MSM's own
+   result, that point at infinity and 2^16 points, with its device ms and
+   chain bound, and the batch-inverse route's ms at 2^16 beside its own;
    xyzz_accum on the path's own band-1 feed (recorded from one more
    accumulate) and band-2 feed; horner_windows on the path's own window
    rows, and every horner_windows row's chain bound: its critical-path
@@ -333,7 +338,8 @@ ADD_DEPTH = 4  # products on a generic full XYZZ add's critical path
 TREE_EDGE_ROWS = 80  # rows of each xyzz_tree_sum edge feed (the reduce's q x W)
 TREE_EDGE_WIDTHS = (1, 2, 3, 13, 255, 1023, 1024)
 TREE_ROUTE_WIDTHS = (1025, 2049, 3001)  # through ec/msm.py:_tree_sum_last
-INV_SAMPLE = 256  # inputs of the 2^20 mont_inv run whose loop iterations the host model counts
+INV_PAIRING_LOG_N = 12  # mont_inv at (24, 2^12): the pairings' Fp12 inverse's width
+DIV_LOG_N = 16  # mont_div (the to-affine) at 2^16 points against the batch-inverse route
 GROUP_LOG_N = 16  # BASELINE configs 1-2: 2^16 BN254 Fr elements, 2^16 BLS12-381 G1 points
 SMALL_LOG_N = 12  # BN254 and BLS12-377 G1: one scalar_mul and one subgroup_check each
 FIELD_KAT = 256  # field results held against Python ints at this many sampled indices
@@ -357,8 +363,14 @@ PAIR_SCALAR_BITS = 64  # phase 11: bits of a_j, b_j in the MNT and CP6 pairs (a_
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line: the phase's name, the seconds since the script
+    started (t_s) and its fields."""
+    print(json.dumps({"phase": phase, "t_s": round(time.perf_counter() - T_START, 3), **kw}),
+          flush=True)
 
 
 def nvidia_smi(fields):
@@ -647,7 +659,7 @@ def field_group_phase(torch, h, rec):
     from zkarray_torch.interop import affine_from_numpy, limbs_from_numpy
     from zkarray_torch.kernels import mont as km
     from zkarray_torch.testing import (ec_add, ec_mul, group_inputs, jac_edge_pairs,
-                                       jacobian_coords, mont_inv_edge_words, mont_inv_model,
+                                       jacobian_coords, mont_inv_edge_words, mont_inv_ops,
                                        off_subgroup_points, scalar_of, sqrt_reference)
 
     dev, sync = h.dev, h.sync
@@ -956,9 +968,8 @@ def field_group_phase(torch, h, rec):
                 nprod = e.bit_length() - 1 + bin(e).count("1") if e else 0
                 ops, nbytes = m_el * h.pow_ops(spec, e), 2 * L * m_el * 4
                 r["products"] = nprod
-            else:
-                its = [mont_inv_model(spec, v)[1] for v in fp.to_ints(spec, ins[0], mont=False)[:64]]
-                ops = m_el * sum(its) / len(its) * (18 * (L // 2) + 7)
+            else:  # the batched GCD's fixed work an element (testing.mont_inv_ops)
+                ops = m_el * mont_inv_ops(spec)
                 nbytes = 2 * L * m_el * 4
             r["ms"] = h.time_ms(lambda: kern[name](spec, ins, e), 20 if m_el <= n else 3)
             b_ms, b_by = h.bound(nbytes, ops)
@@ -1489,12 +1500,13 @@ class PathRuns:
         """fn's first call (launches counted, inputs recorded when
         ``record``), ``timed`` timed calls (the first with its peak memory
         above what is allocated before it: no recorded copy in it; the
-        median reported) and, with ``trace``, one traced call, each result
-        checked."""
+        median reported; with none, the first call's wall and no peak) and,
+        with ``trace``, one traced call, each result checked."""
         torch = self.torch
         got, first_ms, launches = self.run(fn, record)
         check(got, "the first call")
-        walls = []
+        walls = [] if timed else [first_ms]  # timed = 0: the counted call's wall, no peak
+        peak = None
         for i in range(timed):
             if i == 0:
                 self.h.sync()
@@ -1529,7 +1541,8 @@ FIELD_KERNELS = ("mont_mul", "mont_sqr", "mont_pow", "mont_inv", "fp_add", "fp_s
 
 def field_kernel_calls():
     """(plain, kern): the six field kernels' plain versions and wrappers as
-    f(spec, inputs, exponent)."""
+    f(spec, inputs, exponent), and mont_div's (inputs num0, den0, num1,
+    den1)."""
     from zkarray_torch.kernels import mont as km
 
     plain = {"mont_mul": lambda f, ins, e: km.mont_mul_plain(f, *ins),
@@ -1537,13 +1550,15 @@ def field_kernel_calls():
              "mont_pow": lambda f, ins, e: km.mont_pow_plain(f, ins[0], e),
              "mont_inv": lambda f, ins, e: km.mont_inv_plain(f, ins[0]),
              "fp_add": lambda f, ins, e: km.add_plain(f, *ins),
-             "fp_sub": lambda f, ins, e: km.sub_plain(f, *ins)}
+             "fp_sub": lambda f, ins, e: km.sub_plain(f, *ins),
+             "mont_div": lambda f, ins, e: km.mont_div_plain(f, *ins)}
     kern = {"mont_mul": lambda f, ins, e: km.mont_mul(f, *ins),
             "mont_sqr": lambda f, ins, e: km.mont_sqr(f, *ins),
             "mont_pow": lambda f, ins, e: km.mont_pow(f, ins[0], e),
             "mont_inv": lambda f, ins, e: km.mont_inv(f, ins[0]),
             "fp_add": lambda f, ins, e: km.fp_add(f, *ins),
-            "fp_sub": lambda f, ins, e: km.fp_sub(f, *ins)}
+            "fp_sub": lambda f, ins, e: km.fp_sub(f, *ins),
+            "mont_div": lambda f, ins, e: km.mont_div(f, *ins)}
     return plain, kern
 
 
@@ -1552,7 +1567,8 @@ def field_edge_checks(torch, h, fields, err):
     each field: every pair of testing.mont_inv_edge_words for the products,
     mont_pow at e = 0, 1, 2, 3, p - 2, (p - 1)/2, every pair of
     fadd_edge_words for the additions, fp_neg; mont_inv also against
-    Python's pow. Raises on a difference; ``err`` takes each kernel's
+    Python's pow; mont_div with the edge words as numerators and
+    denominators. Raises on a difference; ``err`` takes each kernel's
     largest error. Returns the counts per field."""
     from zkarray_torch.core.limbs import ints_to_limbs_np
     from zkarray_torch.ff import fp
@@ -1569,8 +1585,10 @@ def field_edge_checks(torch, h, fields, err):
         k = len(words)
         ii = torch.arange(k * k, device=dev)
         exps = [0, 1, 2, 3, p - 2, (p - 1) // 2]  # two full-length chains: the plain ones are slow
+        xr = xe.flip(1)  # zero among the denominators of both quotients
         cases = [("mont_mul", (xe[:, ii // k], xe[:, ii % k]), None), ("mont_sqr", (xe,), None),
-                 ("mont_inv", (xe,), None)] + [("mont_pow", (xe,), e) for e in exps]
+                 ("mont_inv", (xe,), None), ("mont_div", (xe, xr, xr, xe), None)]
+        cases += [("mont_pow", (xe,), e) for e in exps]
         aw = fadd_edge_words(f, np.random.default_rng(12))
         xa = torch.from_numpy(ints_to_limbs_np(aw, f.num_limbs).astype(np.int32)).to(dev)
         ka = len(aw)
@@ -1633,7 +1651,7 @@ def field_width_report(torch, h, f, rows, labels, wide_key, edge, err):
     from zkarray_torch.ff import fp
     from zkarray_torch.kernels import _build
     from zkarray_torch.kernels import mont as km
-    from zkarray_torch.testing import mont_inv_model
+    from zkarray_torch.testing import mont_inv_ops
 
     plain, kern = field_kernel_calls()
     L = f.num_limbs
@@ -1648,11 +1666,9 @@ def field_width_report(torch, h, f, rows, labels, wide_key, edge, err):
     gc.collect()
 
     def inv_ops(spec, t, m_el):
-        """mont_inv's 32-bit operations on m_el elements like t's first 16:
-        the host model's mean iterations x (18 NW + 7)."""
-        its = [mont_inv_model(spec, v)[1] for v in fp.to_ints(spec, t.reshape(t.shape[0], -1)[:, :16],
-                                                               mont=False)]
-        return m_el * sum(its) / len(its) * (18 * (spec.num_limbs // 2) + 7)
+        """mont_inv's 32-bit operations on m_el elements: the batched GCD's
+        work is fixed by the field (testing.mont_inv_ops)."""
+        return m_el * mont_inv_ops(spec)
 
     for name in FIELD_KERNELS:
         ins = (a, b) if name in ("mont_mul", "fp_add", "fp_sub") else (a,)
@@ -1826,6 +1842,8 @@ def bn_gt_bw6_phase(torch, h, rec):
                                        for lbl in path_keys}
     h.emit("nw24_kernels", rows={k: {kk: vv for kk, vv in v.items() if kk != "edge_words"}
                                  for k, v in report.items()}, edge_words=edge)
+    report["mont_div"] = dict(per_path_launches={}, edge_words_max_abs_err=err["mont_div"],
+                              fields=["bw6_761.Fq", "bw6_767.Fq"])
 
     # the XYZZ and MSM kernels are not built at NW = 24: each refuses it
     refusals = refused_launches(torch, h, bw6_761.G1)
@@ -2056,6 +2074,8 @@ def mixed_mnt_cp6_phase(torch, h, rec):
            kernels={C.name: refused_launches(torch, h, C) for C in (mnt4_298.G1, cp6_782.G1)})
     for name in FIELD_KERNELS:
         report[name]["phase11_max_abs_err"] = err[name]
+    report["mont_div"] = dict(nw10_nw26_edge_words_max_abs_err=err["mont_div"],
+                              nw10_nw26_fields=["mnt4_298.Fq", "mnt6_298.Fq", "cp6_782.Fq"])
     for name, r_ in msm_vs_plain.items():
         report[name] = {"msm_mixed": r_}
     h.emit("phase11_launches", per_call=paths)
@@ -2524,7 +2544,7 @@ def poly_scalar_phase(torch, h, rec):
         if tuple(res.shape) != (fr.num_limbs, EVAL_POINTS) or ints(fr, res[:, :HORNER_KAT]) != want_eval:
             raise AssertionError(f"dense.evaluate: {when} differs from the host Horner")
 
-    res = path("dense_evaluate", lambda: dense.evaluate(fr, a, tau_t), check_eval)
+    res = path("dense_evaluate", lambda: dense.evaluate(fr, a, tau_t), check_eval, timed=0)
     emit("dense_evaluate", field=fr.name, coefficients=n, points=EVAL_POINTS, correct=True,
          host_points=HORNER_KAT, **res)
     del a, b, a_i, b_i
@@ -2545,7 +2565,8 @@ def poly_scalar_phase(torch, h, rec):
                     host_horner(num_i, x, p):
                 raise AssertionError(f"divide_with_q_and_r: {when}: q b + r differs from a")
 
-    res = path("divide_with_q_and_r", lambda: dense.divide_with_q_and_r(fr, num, den), check_div)
+    res = path("divide_with_q_and_r", lambda: dense.divide_with_q_and_r(fr, num, den), check_div,
+               timed=0)
     emit("divide_with_q_and_r", field=fr.name, degrees=list(DIV_DEGREES), correct=True, **res)
 
     # -- MLE: a 2^20-entry table (20 variables) -----------------------------------
@@ -2750,7 +2771,7 @@ def poly_scalar_phase(torch, h, rec):
         ks = rand_ints(curve.scalar, m)
         gs = spec_fn()
         res = path(f"glv_mul_{name}", lambda: glv.glv_mul(gs, A, ks),
-                   check_lanes(curve, pts_host, ks, lanes_of(m), f"glv_mul {name}"))
+                   check_lanes(curve, pts_host, ks, lanes_of(m), f"glv_mul {name}"), timed=0)
         emit(f"glv_mul_{name}", curve=curve.name, n=m, lanes=SCALAR_KAT, correct=True, **res)
         del A, px, py
 
@@ -2768,7 +2789,7 @@ def poly_scalar_phase(torch, h, rec):
         if got != want2:
             raise AssertionError(f"glv_mul_ext bls12_381 G2: {when} differs from the host")
 
-    res = path("glv_mul_ext_bls12_381_g2", lambda: glv.glv_mul_ext(g2s, H, ks), check_g2)
+    res = path("glv_mul_ext_bls12_381_g2", lambda: glv.glv_mul_ext(g2s, H, ks), check_g2, timed=0)
     emit("glv_mul_ext_bls12_381_g2", curve=G2.name, n=m, lanes=len(lanes), correct=True, **res)
     del H
 
@@ -2776,7 +2797,7 @@ def poly_scalar_phase(torch, h, rec):
     ks = rand_ints(fr, m)
     ctx = wnaf.WnafContext(G1, gen, WNAF_WINDOW, dev)
     res = path("wnaf_mul", lambda: ctx.mul(ks),
-               check_lanes(G1, [gen] * m, ks, lanes_of(m), "WnafContext.mul"))
+               check_lanes(G1, [gen] * m, ks, lanes_of(m), "WnafContext.mul"), timed=0)
     emit("wnaf_mul", curve=G1.name, n=m, window=WNAF_WINDOW, lanes=SCALAR_KAT, correct=True, **res)
 
     m = 1 << FIXED_LOG_N
@@ -2931,6 +2952,7 @@ def curves_h2c_phase(torch, h, rec):
     from zkarray_torch.ff import fp
     from zkarray_torch.ff.hash_to_field import hash_to_field_ints
     from zkarray_torch.interop import affine_from_numpy, limbs_from_numpy
+    from zkarray_torch.kernels import mont as km
     from zkarray_torch.kernels import sw as ksw
 
     dev = h.dev
@@ -2956,8 +2978,8 @@ def curves_h2c_phase(torch, h, rec):
                 raise AssertionError(f"{what}: {when} differs from the first call")
         return check
 
-    def path(label, fn, verify, trace=False):
-        res = pr.measure(fn, first_then_same(label, verify), record=True, trace=trace)
+    def path(label, fn, verify, trace=False, timed=PAIR_TIMED_RUNS):
+        res = pr.measure(fn, first_then_same(label, verify), record=True, trace=trace, timed=timed)
         pr.replay(label, err)
         paths[label] = res["launches_per_call"]
         return res
@@ -3050,7 +3072,7 @@ def curves_h2c_phase(torch, h, rec):
                 fast_checks.bls12_381_g2_subgroup_check(G2, P).all()):
             raise AssertionError(f"hash to G2: {when}: a lane at infinity, off the twist or outside G2")
 
-    res = path("hash_to_g2", lambda: wb_g2.map_to_g2_pairs(u2), verify_g2)
+    res = path("hash_to_g2", lambda: wb_g2.map_to_g2_pairs(u2), verify_g2, timed=0)
     rfc2 = []
     for v in v2["vectors"]:
         m = v["msg"].encode()
@@ -3102,7 +3124,7 @@ def curves_h2c_phase(torch, h, rec):
                 raise AssertionError(f"{name} scalar_mul: {when}: r P is not the identity")
 
         res = path(f"te_scalar_mul_{name}", lambda: tte.to_affine(curve, tte.scalar_mul(curve, A, sc)),
-                   verify_te, trace=name == "jubjub")
+                   verify_te, trace=name == "jubjub", timed=int(name == "jubjub"))
         emit(f"te_scalar_mul_{name}", curve=curve.name, n=m, nw=curve.base.num_limbs // 2,
              a_is_minus_one=curve.a_is_minus_one, ladder_steps=curve.scalar.num_limbs * 16,
              lanes=len(lanes), order_lanes=TE_ORDER_LANES, correct=True, **res)
@@ -3176,7 +3198,8 @@ def curves_h2c_phase(torch, h, rec):
         if not bool(tdo.is_on_curve(JQ, P).all()):
             raise AssertionError(f"jq255s scalar_mul: {when}: a lane off the curve")
 
-    res = path("do_scalar_mul_jq255s", lambda: tdo.to_affine(JQ, tdo.scalar_mul(JQ, A, sc)), verify_do)
+    res = path("do_scalar_mul_jq255s", lambda: tdo.to_affine(JQ, tdo.scalar_mul(JQ, A, sc)), verify_do,
+               timed=0)
     emit("do_scalar_mul_jq255s", curve=JQ.name, n=m, lanes=len(lanes), host_model="the curve's affine law",
          host_model_s=do_host_s, correct=True, **res)
     D = tdo.to_affine(JQ, tdo.scalar_mul(JQ, A, sc))
@@ -3222,7 +3245,8 @@ def curves_h2c_phase(torch, h, rec):
         if tsw.affine_to_ints(K1, tsw.AffinePoints(P.x[:, lanes], P.y[:, lanes], P.inf[lanes])) != want:
             raise AssertionError(f"secp256k1 scalar_mul: {when} differs from the host at sampled lanes")
 
-    res = path("scalar_mul_secp256k1", lambda: tsw.to_affine(K1, tsw.scalar_mul(K1, A, sc)), verify_k1)
+    res = path("scalar_mul_secp256k1", lambda: tsw.to_affine(K1, tsw.scalar_mul(K1, A, sc)), verify_k1,
+               timed=0)
     emit("scalar_mul_secp256k1", curve=K1.name, n=m, lanes=len(lanes), correct=True, **res)
     del A, sc
 
@@ -3238,12 +3262,12 @@ def curves_h2c_phase(torch, h, rec):
         if tsw.affine_to_ints(PA, tsw.to_affine(PA, sampled)) != want:
             raise AssertionError(f"pallas glv_mul: {when} differs from the host at sampled lanes")
 
-    res = path("glv_mul_pallas", lambda: glv.glv_mul(gp, A, ks), verify_glv)
+    res = path("glv_mul_pallas", lambda: glv.glv_mul(gp, A, ks), verify_glv, timed=0)
     emit("glv_mul_pallas", curve=PA.name, n=m, lanes=len(lanes), correct=True, **res)
     del A
 
     restore_msm = install_msm_recorders(torch, rec)
-    msm_rows = {}
+    msm_rows, msm_results = {}, {}
     try:
         for label, curve, log_m in (("msm_pallas", PA, PALLAS_MSM_LOG_N),
                                     ("msm_secp256r1", zoo.SECP256R1, R1_MSM_LOG_N)):
@@ -3254,8 +3278,9 @@ def curves_h2c_phase(torch, h, rec):
             s_t = limbs_from_numpy(ssc, dev)
 
             def verify_msm(res_, when, curve=curve, want_pt=want_pt, label=label):
-                aff = tsw.xyzz_to_affine(curve, tsw.XYZZPoints(*(v[:, None] for v in res_)))
-                if tsw.affine_to_ints(curve, aff) != [want_pt]:
+                pt = tsw.XYZZPoints(*(v[:, None] for v in res_))
+                msm_results[label] = pt
+                if tsw.affine_to_ints(curve, tsw.xyzz_to_affine(curve, pt)) != [want_pt]:
                     raise AssertionError(f"{label}: {when} differs from the host known answer")
 
             res = path(label, lambda: msm.msm(curve, A, s_t, max_scalar_bits=bits), verify_msm)
@@ -3296,8 +3321,8 @@ def curves_h2c_phase(torch, h, rec):
             if not skip[s]:
                 acc = tt.ec_add(acc, pts[s] if not sign[s] else tt.ec_neg(pts[s], mod), R1.a_int, mod)
         want_acc.append(acc)
-    got_acc = tsw.affine_to_ints(R1, tsw.xyzz_to_affine(
-        R1, tsw.XYZZPoints(*(v[:, k_chk] for v in res_pts))))
+    acc64 = tsw.XYZZPoints(*(v[:, k_chk] for v in res_pts))
+    got_acc = tsw.affine_to_ints(R1, tsw.xyzz_to_affine(R1, acc64))
     if got_acc != want_acc:
         raise AssertionError("xyzz_accum secp256r1 edge rounds: sampled slots differ from the host oracle")
     W, c = 8, 4  # the path's own windows at a = -3 (W = 24, c = 11) are the msm's
@@ -3344,7 +3369,8 @@ def curves_h2c_phase(torch, h, rec):
     e = max(h.check_equal(f"xyzz_add secp256r1 edge classes {i}", g_, w_)
             for i, (g_, w_) in enumerate(zip(got, want_w)))
     err["xyzz_add"] = max(err["xyzz_add"], e)
-    if tsw.affine_to_ints(R1, tsw.xyzz_to_affine(R1, tsw.XYZZPoints(*(v[:, :64] for v in got)))) != [
+    add64 = tsw.XYZZPoints(*(v[:, :64] for v in got))
+    if tsw.affine_to_ints(R1, tsw.xyzz_to_affine(R1, add64)) != [
             tt.ec_add(a_, b_, R1.a_int, mod) for a_, b_ in zip(ps, qs)]:
         raise AssertionError("xyzz_add secp256r1 edge classes differ from the host oracle")
     edge["xyzz_add"] = dict(n=ne, classes=5, max_abs_err=e, plain_ms=plain_ms)
@@ -3353,10 +3379,23 @@ def curves_h2c_phase(torch, h, rec):
     e = max(h.check_equal(f"xyzz_double secp256r1 {i}", g_, w_)
             for i, (g_, w_) in enumerate(zip(got, want_w)))
     err["xyzz_double"] = max(err["xyzz_double"], e)
-    if tsw.affine_to_ints(R1, tsw.xyzz_to_affine(R1, tsw.XYZZPoints(*(v[:, :64] for v in got)))) != [
+    dbl64 = tsw.XYZZPoints(*(v[:, :64] for v in got))
+    if tsw.affine_to_ints(R1, tsw.xyzz_to_affine(R1, dbl64)) != [
             tt.ec_add(a_, a_, R1.a_int, mod) for a_ in ps]:
         raise AssertionError("xyzz_double secp256r1 differs from the host oracle")
     edge["xyzz_double"] = dict(n=ne, max_abs_err=e, plain_ms=plain_ms)
+    # the to-affine's mont_div at p >= R/2 against its plain route: the
+    # secp256r1 msm's result, the sampled accumulate slots and the 64-wide
+    # xyzz_add and xyzz_double batches above (infinity among them)
+    div_rows = {}
+    for what, P_ in (("msm_secp256r1 result", msm_results["msm_secp256r1"]),
+                     ("xyzz_accum slots", acc64), ("xyzz_add batch", add64),
+                     ("xyzz_double batch", dbl64)):
+        e = h.check_equal(f"mont_div secp256r1 {what}", km.mont_div(f, P_.x, P_.zz, P_.y, P_.zzz),
+                          km.mont_div_plain(f, P_.x, P_.zz, P_.y, P_.zzz))
+        err["mont_div"] = max(err["mont_div"], e)
+        div_rows[what] = dict(points=int(P_.x[0].numel()), max_abs_err=e)
+    edge["mont_div"] = div_rows
     h.emit("xyzz_general_a_edges", curve=R1.name, a=-3, feeds=edge, correct=True)
     del state, coords, valid, XP, XQ, got, want_w
 
@@ -4036,7 +4075,8 @@ def main():
     from zkarray_torch.poly import domain as tdm
     from zkarray_torch.testing import (accum_edge_rounds, accum_feed, bit_horner_edge_parts, ec_add,
                                        ec_mul, ec_neg, expected_msm, horner_edge_windows,
-                                       mont_inv_edge_words, mont_inv_model, tiled_inputs)
+                                       mont_inv_chain, mont_inv_edge_words, mont_inv_model,
+                                       mont_inv_ops, tiled_inputs)
 
     dev = torch.device(DEVICE)
     G1 = B.G1
@@ -4395,15 +4435,18 @@ def main():
     xyzz_inputs = {}
     tree_keys = collections.Counter()
     tree_inputs = {}
-    band2, path_win, inv_inputs, bit_horner_inputs = [], [], [], []
+    band2, path_win, div_inputs, bit_horner_inputs = [], [], [], []
     launch, launch_xyzz, accum_grid = km._launch, ksw._launch_xyzz, ksw.xyzz_accum_grid
     horner, tree_sum, bit_horner = ksw.horner_windows, ksw.xyzz_tree_sum, ksw.xyzz_bit_horner
+    launch_div = km._launch_div
 
     def recording_launch(kernel, spec, *ins, **kw):
         mont_shapes[(kernel, spec.name, tuple(ins[0].shape))] += 1
-        if kernel == "mont_inv":
-            inv_inputs.append(ins[0])
         return launch(kernel, spec, *ins, **kw)
+
+    def recording_div(spec, *ins):
+        div_inputs.append(ins)
+        return launch_div(spec, *ins)
 
     def recording_xyzz(kernel, curve, *coords):
         key = (kernel, tuple(coords[0].shape), tuple(tuple(km._operand(t)[1:]) for t in coords))
@@ -4434,7 +4477,7 @@ def main():
     sync()
     km._launch, ksw._launch_xyzz, ksw.xyzz_accum_grid = recording_launch, recording_xyzz, recording_accum
     ksw.horner_windows, ksw.xyzz_tree_sum = recording_horner, recording_tree
-    ksw.xyzz_bit_horner = recording_bit_horner
+    ksw.xyzz_bit_horner, km._launch_div = recording_bit_horner, recording_div
     try:
         kernels.reset_launches()
         aff = to_affine(tmsm.msm(G1, A, s, c, bits))
@@ -4443,13 +4486,13 @@ def main():
     finally:
         km._launch, ksw._launch_xyzz, ksw.xyzz_accum_grid = launch, launch_xyzz, accum_grid
         ksw.horner_windows, ksw.xyzz_tree_sum = horner, tree_sum
-        ksw.xyzz_bit_horner = bit_horner
+        ksw.xyzz_bit_horner, km._launch_div = bit_horner, launch_div
     msm_peak = torch.cuda.max_memory_allocated()
     got_pt = tsw.affine_to_ints(G1, aff)[0]
     if got_pt != want_pt:
         raise AssertionError("msm 2^20: result differs from the host known answer")
-    msm_kernels = ("mont_mul", "mont_inv", "xyzz_add", "xyzz_bit_horner", "xyzz_tree_sum",
-                   "xyzz_accum", "horner_windows")
+    msm_kernels = ("mont_div", "xyzz_add", "xyzz_bit_horner", "xyzz_tree_sum", "xyzz_accum",
+                   "horner_windows")
     missing = [k for k in msm_kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"msm 2^20: kernels never launched: {missing}")
@@ -4466,24 +4509,24 @@ def main():
                              f"{launches['xyzz_tree_sum']} counted")
     # the reduce's launches by its route: per group of weight bits, one
     # xyzz_add per tree level wider than TREE_SUM_MAX and one xyzz_tree_sum;
-    # one xyzz_bit_horner for all the bits and windows. The to-affine's two
-    # inversions are mont_inv launches
+    # one xyzz_bit_horner for all the bits and windows. The to-affine is one
+    # mont_div launch: no mont_mul, mont_inv or mont_pow
     nbits = int(tmsm._bucket_weights(c, bits).max()).bit_length()
     groups = -(-nbits // tmsm._bits_per_group(G1.base.num_limbs, W, half, nbits))
     wide, m_ = 0, half
     while m_ > ksw.TREE_SUM_MAX:
         wide, m_ = wide + 1, m_ - m_ // 2
     reduce_want = {"xyzz_add": groups * wide, "xyzz_tree_sum": groups, "xyzz_bit_horner": 1,
-                   "xyzz_double": 0, "mont_inv": 2, "mont_pow": 0}
+                   "xyzz_double": 0, "mont_div": 1, "mont_mul": 0, "mont_inv": 0, "mont_pow": 0}
     if any(launches[k] != v for k, v in reduce_want.items()):
         raise AssertionError(f"msm 2^{LOG_N}: reduce and to-affine launches "
                              f"{ {k: launches[k] for k in reduce_want} }, expected {reduce_want}")
     if launches["mont_mul"] + launches["mont_sqr"] >= 100:
         raise AssertionError(f"msm 2^20: {launches['mont_mul'] + launches['mont_sqr']} product "
                              "launches; the fused kernels should leave fewer than 100")
-    if not band2 or len(path_win) != 1 or len(bit_horner_inputs) != 1 or len(inv_inputs) != 2:
+    if not band2 or len(path_win) != 1 or len(bit_horner_inputs) != 1 or len(div_inputs) != 1:
         raise AssertionError("msm 2^20: no band-2 accumulation, window Horner, bit-Horner or "
-                             "inversion recorded")
+                             "to-affine division recorded")
 
     # mont_mul against its plain version at every main-path shape, inputs the
     # two halves of a tensor twice as wide in its last axis (non-contiguous)
@@ -4658,6 +4701,13 @@ def main():
             raise AssertionError("msm 2^20: timed run differs from the known answer")
         splits.append((t_acc + t_red + t_aff, t_acc, t_red, t_aff))
     total, t_acc, t_red, t_aff = sorted(splits)[1]
+    sync()
+    kernels.reset_launches()
+    to_affine(res)
+    sync()
+    aff_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if aff_launches != {"mont_div": 1}:
+        raise AssertionError(f"msm 2^20 to-affine: launches {aff_launches}, expected one mont_div")
 
     # the main path's own band-1 feed (the occupancy-sorted slots), recorded
     # from one more accumulate (not in the run above, to keep its peak
@@ -4677,6 +4727,7 @@ def main():
         ksw.xyzz_accum_grid = accum_grid
     emit("msm", n=n, c=c, scalar_bits=bits, correct=True, launches=launches,
          ms_total=total, ms_accumulate=t_acc, ms_reduce=t_red, ms_to_affine=t_aff,
+         to_affine_launches=aff_launches,
          ms_total_runs=[sp[0] for sp in splits], ms_reduce_runs=[sp[2] for sp in splits],
          ms_to_affine_runs=[sp[3] for sp in splits], pts_per_s=n / (total / 1e3),
          peak_mem_bytes=msm_peak, card=card)
@@ -4737,18 +4788,18 @@ def main():
         bound_by_2e20=wide["bound_by"], us_per_product_one_thread=path["ms"] * 1e3 / n_prod,
         launches_main_path=launches["mont_pow"])
 
-    # mont_inv, the to-affine's inversions, against its plain version (the
-    # Fermat power), bit for bit: the edge words (mont_inv_edge_words) in
-    # one launch and each alone, also against Python's pow; the path's two
-    # recorded inputs; 2^20 elements (mont_pow's, the edge words among
-    # them). ms per launch at one element by CUDA events and through the
-    # wrapper. Its chain bound: the word model's loop iterations on the
-    # path's inputs x the 3 NW + 5 dependent instructions of an iteration
-    # (csrc/mont.cu:mont_inv_kernel) x one dependent carried add's latency
-    # (phase 1); its operation bound: those iterations x 18 NW + 7 32-bit
-    # operations (two NW-word subtractions, two fsub_cc, 4 NW selects, the
-    # halving's shifts and multiply-adds, the test for 1), at 2^20 with the
-    # iterations of the first INV_SAMPLE inputs scaled
+    # mont_inv against its plain version (the Fermat power), bit for bit: the
+    # edge words (mont_inv_edge_words) in one launch and each alone, also
+    # against Python's pow; the MSM's own ZZ and ZZZ at (24, 1), the
+    # to-affine's denominators; (24, 2^12), the pairing's Fp12 inverse's
+    # width, with zeros and the edge words; 2^20 elements (mont_pow's, the
+    # edge words among them). Below GCD_WIDE elements two lanes work on an
+    # element, from it on one: the three sizes take both layouts. ms by
+    # CUDA events (through the wrapper: at one element that is the host's
+    # launch rate), the device ms a launch from a trace of 20, the wrapper's
+    # host ms. Its chain bound: testing.mont_inv_chain's dependent
+    # instructions of the loop x one dependent carried add's latency (phase
+    # 1); its operation bound: testing.mont_inv_ops a element.
     R, p_ = f.r_int, f.modulus
     got = km.mont_inv(f, xe)
     want = km.mont_inv_plain(f, xe)
@@ -4759,36 +4810,94 @@ def main():
     if fp.to_ints(f, got, mont=False) != [pow(w * pow(R, -1, p_), -1, p_) * R % p_ if w else 0
                                           for w in edge]:
         raise AssertionError("mont_inv: edge words differ from Python's pow")
-    want, plain_ms = once_ms(lambda: km.mont_inv_plain(f, inv_inputs[0]))
-    err = max(err, check_equal("mont_inv on the path's first input", km.mont_inv(f, inv_inputs[0]), want))
-    err = max(err, check_equal("mont_inv on the path's second input", km.mont_inv(f, inv_inputs[1]),
-                               km.mont_inv_plain(f, inv_inputs[1])))
+    X_path, ZZ_path, Y_path, ZZZ_path = div_inputs[0]
+    x1 = ZZ_path.contiguous()
+    want, plain_ms = once_ms(lambda: km.mont_inv_plain(f, x1))
+    err = max(err, check_equal("mont_inv on the path's ZZ", km.mont_inv(f, x1), want))
+    err = max(err, check_equal("mont_inv on the path's ZZZ", km.mont_inv(f, ZZZ_path),
+                               km.mont_inv_plain(f, ZZZ_path)))
+    x12 = rand_field(f, 1 << INV_PAIRING_LOG_N)
+    x12[:, ::1001] = 0
+    x12[:, 1 : 1 + len(edge)] = xe
+    want12, plain_ms_12 = once_ms(lambda: km.mont_inv_plain(f, x12))
+    err = max(err, check_equal("mont_inv at (24, 2^12)", km.mont_inv(f, x12), want12))
     xw, want_w = pow_in["2^20"]
     err = max(err, check_equal("mont_inv at 2^20", km.mont_inv(f, xw), want_w))
-    x1 = inv_inputs[0]
     ms = time_ms(lambda: km.mont_inv(f, x1), 20)
+    dev_ms, _ = traced_device_ms(torch, "mont_inv", lambda: km.mont_inv(f, x1), 20, dev)
     w_ms = wrapper_ms(lambda: km.mont_inv(f, x1))
+    ms_12 = time_ms(lambda: km.mont_inv(f, x12), 20)
+    dev_ms_12, _ = traced_device_ms(torch, "mont_inv", lambda: km.mont_inv(f, x12), 20, dev)
     ms_w = time_ms(lambda: km.mont_inv(f, xw), 3)
-    iters_path = [mont_inv_model(f, fp.to_ints(f, t, mont=False)[0])[1] for t in inv_inputs]
-    iters_w = [mont_inv_model(f, v)[1] for v in fp.to_ints(f, xw[:, :INV_SAMPLE], mont=False)]
-    dep = 3 * nw(f) + 5
-    inv_ops = 18 * nw(f) + 7
-    it_path = sum(iters_path) / len(iters_path)
-    chain_ms = it_path * dep * add_cycles / (clock_mhz * 1e3)
-    b_ms, b_by = bound(2 * Lq * 4, it_path * inv_ops)
-    it_w = sum(iters_w) / len(iters_w)
-    b_ms_w, b_by_w = bound(2 * Lq * 4 * n, n * it_w * inv_ops)
+    chain = mont_inv_chain(f)
+    chain_ms = chain * add_cycles / (clock_mhz * 1e3)
+    inv_ops = mont_inv_ops(f)
+    b_ms, b_by = bound(2 * Lq * 4, inv_ops)
+    b_ms_12, b_by_12 = bound(2 * Lq * 4 << INV_PAIRING_LOG_N, inv_ops << INV_PAIRING_LOG_N)
+    b_ms_w, b_by_w = bound(2 * Lq * 4 * n, n * inv_ops)
+    steps_path = [mont_inv_model(f, fp.to_ints(f, t, mont=False)[0])[1] for t in (ZZ_path, ZZZ_path)]
+    inv_ptxas = {k: v for k, v in ptxas.items() if "mont_inv_kernelILi12E" in k}
     report["mont_inv"] = dict(
-        max_abs_err=err, ms=ms, wrapper_ms=w_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        chain_bound_ms=chain_ms, share_of_chain_bound=chain_ms / ms, iterations_path=iters_path,
-        dependent_instructions_per_iteration=dep, cycles_per_dependent_add=add_cycles,
-        shape=f"Fq {list(inv_inputs[0].shape)} (the to-affine's one element)", ms_2e20=ms_w,
-        plain_ms_2e20=wide["plain_ms"], bound_ms_2e20=b_ms_w, bound_by_2e20=b_by_w,
-        share_of_bound_2e20=b_ms_w / ms_w, mean_iterations_2e20_sample=it_w,
-        iterations_sampled=len(iters_w), edge_words=len(edge),
+        max_abs_err=err, ms=ms, device_ms_traced=dev_ms, wrapper_ms=w_ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, chain_bound_ms=chain_ms,
+        share_of_chain_bound=chain_ms / dev_ms if dev_ms else None,
+        chain_dependent_instructions=chain, batches=km.gcd_batches(f), steps_a_batch=km.GCD_STEPS,
+        steps_to_zero_path=steps_path, cycles_per_dependent_add=add_cycles,
+        shape=f"Fq {list(x1.shape)} (the MSM's ZZ; two lanes an element)",
+        ms_2e12=ms_12, device_ms_traced_2e12=dev_ms_12, plain_ms_2e12=plain_ms_12,
+        bound_ms_2e12=b_ms_12, bound_by_2e12=b_by_12, ms_2e20=ms_w, plain_ms_2e20=wide["plain_ms"],
+        bound_ms_2e20=b_ms_w, bound_by_2e20=b_by_w, share_of_bound_2e20=b_ms_w / ms_w,
+        lanes={"(24, 1)": 2, "(24, 2^12)": 2, "2^20": 1, "wide_from": km.GCD_WIDE},
+        edge_words=len(edge), ptxas_nw12=inv_ptxas,
         mont_pow_ms_one_element=report["mont_pow"]["ms"])
     emit("kernel", kernel="mont_inv", field=f.name, **report["mont_inv"])
-    del xw, want_w, pow_in, got, want
+    del xw, want_w, pow_in, got, want, want12
+
+    # mont_div, the to-affine in one launch, against its plain route (each
+    # numerator times its batch inverse, the JAX package's), bit for bit: the
+    # MSM's own X, ZZ, Y, ZZZ; the same point at infinity (ZZ = ZZZ = 0);
+    # 2^16 random points with every 64th at infinity (one lane a division
+    # there). ms at the path's point by CUDA events, the device ms from a
+    # trace and the wrapper's host ms; at 2^16 points against the batch
+    # route's ms. Its chain bound: mont_inv's and one product (mont_pow's
+    # time a product in one thread).
+    got = km.mont_div(f, *div_inputs[0])
+    want, plain_div_ms = once_ms(lambda: km.mont_div_plain(f, *div_inputs[0]))
+    err = check_equal("mont_div on the MSM's result", got, want)
+    if not (torch.equal(got[0], aff.x) and torch.equal(got[1], aff.y)):
+        raise AssertionError("mont_div: the path's to-affine differs from a launch on its inputs")
+    z1 = torch.zeros_like(x1)
+    inf_in = (X_path, z1, Y_path, z1)
+    got = km.mont_div(f, *inf_in)
+    err = max(err, check_equal("mont_div at infinity", got, km.mont_div_plain(f, *inf_in)))
+    if bool(got.any()):
+        raise AssertionError("mont_div at infinity: the quotients are not 0")
+    P16 = [rand_field(f, 1 << DIV_LOG_N) for _ in range(4)]
+    P16[1][:, ::64] = 0
+    P16[3][:, ::64] = 0
+    err = max(err, check_equal("mont_div at 2^16 points", km.mont_div(f, *P16),
+                               km.mont_div_plain(f, *P16)))
+    div_path = div_inputs[0]
+    ms_div = time_ms(lambda: km.mont_div(f, *div_path), 20)
+    dev_div, _ = traced_device_ms(torch, "mont_div", lambda: km.mont_div(f, *div_path), 20, dev)
+    w_div = wrapper_ms(lambda: km.mont_div(f, *div_path))
+    ms_16 = time_ms(lambda: km.mont_div(f, *P16), 3)
+    route_16 = time_ms(lambda: (fp.mont_mul(f, P16[0], fp.batch_inv(f, P16[1])),
+                                fp.mont_mul(f, P16[2], fp.batch_inv(f, P16[3]))), 3)
+    div_chain_ms = chain_ms + report["mont_pow"]["us_per_product_one_thread"] / 1e3
+    div_ops = 2 * (inv_ops + mul_ops(f))
+    b_ms, b_by = bound(6 * Lq * 4, div_ops)
+    b_ms_16, b_by_16 = bound(6 * Lq * 4 << DIV_LOG_N, div_ops << DIV_LOG_N)
+    report["mont_div"] = dict(
+        max_abs_err=err, ms=ms_div, device_ms_traced=dev_div, wrapper_ms=w_div, plain_ms=plain_div_ms,
+        bound_ms=b_ms, bound_by=b_by, chain_bound_ms=div_chain_ms,
+        share_of_chain_bound=div_chain_ms / dev_div if dev_div else None,
+        shape=f"Fq 2 x {list(x1.shape)} (the MSM's X / ZZ and Y / ZZZ; a lane pair a division)",
+        ms_2e16=ms_16, bound_ms_2e16=b_ms_16, bound_by_2e16=b_by_16,
+        batch_inv_route_ms_2e16=route_16, checks=["the MSM's result", "infinity", "2^16 points"],
+        ptxas_nw12={k: v for k, v in ptxas.items() if "mont_div_kernelILi12E" in k})
+    emit("kernel", kernel="mont_div", field=f.name, **report["mont_div"])
+    del P16, got, want
 
     # xyzz_accum on the main path's own feeds: band 1 (every slot, sorted by
     # occupancy) and band 2 (the top-occupancy slots' rounds beyond band 1)
@@ -5500,7 +5609,11 @@ def main():
                      "fused into zkarray/ff/fp.py:321 pow_const"),
         "mont_inv": ("zkarray_torch/kernels/csrc/mont.cu",
                      "zkarray/kernels/mont.py:235 and zkarray/kernels/mont.py:254 in "
-                     "zkarray/ff/fp.py:370 inv's Fermat chain (pow_const), by binary GCD"),
+                     "zkarray/ff/fp.py:370 inv's Fermat chain (pow_const), by a batched binary GCD"),
+        "mont_div": ("zkarray_torch/kernels/csrc/mont.cu",
+                     "zkarray/ec/sw.py:174 xyzz_to_affine's two zkarray/ff/fp.py batch_inv calls "
+                     "(zkarray/kernels/mont.py:235 inside, and :370 inv) and two products, fused "
+                     "into one batched binary GCD a coordinate"),
         "xyzz_bit_horner": ("zkarray_torch/kernels/csrc/sw.cu",
                             "zkarray/ec/msm.py:550 the bit-Horner's zkarray/ec/sw.py:408 "
                             "xyzz_double and :376 xyzz_add calls (zkarray/kernels/mont.py:235 "
@@ -5527,6 +5640,9 @@ def main():
                          "ntt (mont_mul/mul, add, sub, concatenate), which XLA fuses"),
     }
     paths = {k: (f"msm 2^{LOG_N}", launches[k]) for k in msm_kernels}
+    for k in ("mont_mul", "mont_inv"):  # off the MSM since the to-affine is one mont_div
+        paths[k] = (f"the field and G1 group path (phase 8, 2^{GROUP_LOG_N})",
+                    report[k]["group"]["launches"])
     paths["mont_sqr"] = ("ec.sw.xyzz_double_affine", sqr_launches)
     paths["mont_pow"] = ("ff.fp.pow_const (Fq, one element, e = p - 2)", pow_launches)
     paths["xyzz_double"] = (f"ec.sw.xyzz_double ({ne} edge-class points)", dbl_launches)
@@ -5555,7 +5671,7 @@ def main():
         r = report[name]
         r["phase14"] = phase14.get(name, dict(launches={}, max_abs_err=None))
         r["phase15"] = phase15.get(name, dict(launches={}, max_abs_err=None))
-        widths = (sorted(_build.FIELD_LIBS) if name in FIELD_KERNELS + ("fp_lin",) else
+        widths = (sorted(_build.FIELD_LIBS) if name in FIELD_KERNELS + ("fp_lin", "mont_div") else
                   sorted(_build.NTT_LIBS) if name in NTT_KERNELS else
                   ["u32", "m31", "gl64", "u64"] if name == "sf_op" else ["u32", "gl64"]
                   if name == "sf_butterfly" else [8, 12])

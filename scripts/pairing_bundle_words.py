@@ -36,8 +36,15 @@ it against:
 - tests/vectors/msm_mixed.npz: zkarray.ec.msm.msm_mixed's XYZZ words on
   tests/test_scalar_mul_extras.py's mixed-magnitude BN254 inputs at c = 4
   and c = None, and on the same points with all-zero scalars.
+- tests/vectors/weighted_sum_bits.npz: zkarray.ec.msm._weighted_sum_bits on
+  tests/test_torch_msm.py's seeded (L, 5, 16) BLS12-381 G1 bucket state
+  (weighted_sum_bits_inputs), with that state.
+- tests/vectors/horner_reduce.npz: zkarray.ec.msm.msm_reduce at c = 5, 255
+  bits, on tests/test_torch_kernels_sw.py's (L, 52, 16) bucket state, the
+  XYZZ sums of two seeded affine points a bucket (horner_reduce_inputs),
+  with that state.
 
-    JAX_PLATFORMS=cpu python3 scripts/pairing_bundle_words.py [bls12_381|bls12_377|bn254|bw6_761|bw6_767|mnt4_298|mnt6_298|mnt4_753|mnt6_753|cp6_782|msm_mixed|all] [XLA cache dir]
+    JAX_PLATFORMS=cpu python3 scripts/pairing_bundle_words.py [bls12_381|bls12_377|bn254|bw6_761|bw6_767|mnt4_298|mnt6_298|mnt4_753|mnt6_753|cp6_782|msm_mixed|weighted_sum_bits|horner_reduce|all] [XLA cache dir]
 
 Run each target in a process of its own ("all" runs them one by one in
 this process): XLA:CPU can abort compiling a further 768-bit Miller graph
@@ -62,6 +69,8 @@ OUT = {"bls12_381": os.path.join(VEC_DIR, "bls12_381_pairing_bundle.npz"),
        "bw6_761": os.path.join(VEC_DIR, "bw6_761_pairing.npz"),
        "bw6_767": os.path.join(VEC_DIR, "bw6_767_pairing.npz"),
        "msm_mixed": os.path.join(VEC_DIR, "msm_mixed.npz")}
+OUT["weighted_sum_bits"] = os.path.join(VEC_DIR, "weighted_sum_bits.npz")
+OUT["horner_reduce"] = os.path.join(VEC_DIR, "horner_reduce.npz")
 MNT = ("mnt4_298", "mnt6_298", "mnt4_753", "mnt6_753")
 for _c in MNT + ("cp6_782",):
     OUT[_c] = os.path.join(VEC_DIR, f"{_c}_pairing.npz")
@@ -274,8 +283,109 @@ def words_msm_mixed():
     return out
 
 
+def xyzz_coords(pt, lam, mod):
+    """Canonical XYZZ coordinates (X, Y, ZZ, ZZZ) of an affine point (None =
+    infinity, (1, 1, 0, 0)) as the representative ZZ = lam^2, ZZZ = lam^3
+    (tests/torch_parity.py:xyzz_coords)."""
+    if pt is None:
+        return (1, 1, 0, 0)
+    l2 = lam * lam % mod
+    l3 = l2 * lam % mod
+    return (pt[0] * l2 % mod, pt[1] * l3 % mod, l2, l3)
+
+
+def weighted_sum_bits_inputs():
+    """tests/test_torch_msm.py:test_weighted_sum_bits_matches_jax_one_and_
+    several_groups's host inputs on BLS12-381 G1 at c = 5: the windows
+    (0-2 and the last two), half, and the canonical XYZZ coordinates of a
+    (5, half) bucket state: points at infinity, bucket j + 8 holding bucket
+    j's point or its negation, random ZZ representatives."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from ec_oracle import ec_mul, ec_neg
+
+    from zkarray.curves import bls12_381
+    from zkarray.ec.msm import _window_geometry
+
+    jc = bls12_381.G1
+    mod = jc.base.modulus
+    W, half, _, _ = _window_geometry(5, jc.scalar.bits)
+    wins = [0, 1, 2, W - 2, W - 1]
+    rng = np.random.default_rng(40)
+    gen = (jc.gen_x, jc.gen_y)
+    pool = [ec_mul(gen, int(k), 0, mod) for k in rng.integers(1, 1 << 40, size=6)]
+    pts = [[None if rng.random() < 0.3 else pool[rng.integers(len(pool))] for _ in range(half)]
+           for _ in wins]
+    for w, row in enumerate(pts):
+        for j in range(8):
+            if row[j] is not None and w % 3:
+                row[j + 8] = row[j] if w % 3 == 1 else ec_neg(row[j], mod)
+    lams = rng.integers(1, 1 << 62, size=len(wins) * half)
+    coords = [xyzz_coords(p, int(lam), mod) for p, lam in zip((p for row in pts for p in row), lams)]
+    return wins, half, coords
+
+
+def words_weighted_sum_bits():
+    """The JAX package's _weighted_sum_bits on weighted_sum_bits_inputs()."""
+    import jax
+
+    from zkarray.curves import bls12_381
+    from zkarray.ec import msm
+    from zkarray.ec import sw as jsw
+    from zkarray.ff import fp as jfp
+
+    from zkarray_torch.ec.msm import _bucket_weights  # the test's weights (host numpy)
+
+    jc = bls12_381.G1
+    wins, half, coords = weighted_sum_bits_inputs()
+    st = jsw.XYZZPoints(*(jfp.from_ints(jc.base, [c[k] for c in coords]).reshape(-1, len(wins), half)
+                          for k in range(4)))
+    weights = _bucket_weights(5, jc.scalar.bits)[wins]
+    want = jax.jit(lambda s: msm._weighted_sum_bits(jc, s, weights))(st)
+    return dict(state=limbs(np.stack([np.asarray(v) for v in st])),
+                want=limbs(np.stack([np.asarray(v) for v in want])))
+
+
+def horner_reduce_inputs():
+    """tests/test_torch_kernels_sw.py:test_horner_plain_matches_jax_msm_reduce's
+    host inputs at c = 5, 255 bits (W = 52, half = 16): two lists of W half
+    affine BLS12-381 G1 points (None = infinity), each bucket the XYZZ sum
+    of one of each."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from ec_oracle import ec_mul
+
+    from zkarray.curves import bls12_381
+    from zkarray.ec.msm import _window_geometry
+
+    jc = bls12_381.G1
+    W, half, _, _ = _window_geometry(5, 255)
+    rng = np.random.default_rng(22)
+    gen = (jc.gen_x, jc.gen_y)
+    pool = [ec_mul(gen, int(k), 0, jc.base.modulus) for k in rng.integers(1, 1 << 30, size=64)]
+    pool += [None] * 8
+    P = [pool[i] for i in rng.integers(0, len(pool), size=W * half)]
+    Q = [pool[i] for i in rng.integers(0, len(pool), size=W * half)]
+    return W, half, P, Q
+
+
+def words_horner_reduce():
+    """The JAX package's msm_reduce on horner_reduce_inputs()'s bucket state."""
+    from zkarray.curves import bls12_381
+    from zkarray.ec import msm
+    from zkarray.ec import sw as jsw
+
+    jc = bls12_381.G1
+    W, half, P, Q = horner_reduce_inputs()
+    S = jsw.xyzz_add(jc, jsw.xyzz_from_affine(jc, jc.affine_from_ints(P)),
+                     jsw.xyzz_from_affine(jc, jc.affine_from_ints(Q)))
+    st = jsw.XYZZPoints(*(v.reshape(-1, W, half) for v in S))
+    want = msm.msm_reduce(jc, st, 5, 255)
+    return dict(state=limbs(np.stack([np.asarray(v) for v in st])),
+                want=limbs(np.stack([np.asarray(v) for v in want])))
+
+
 def main(argv):
-    names = ("bls12_381", "bls12_377", "bn254", "bw6_761", "bw6_767") + MNT + ("cp6_782", "msm_mixed")
+    names = (("bls12_381", "bls12_377", "bn254", "bw6_761", "bw6_767") + MNT
+             + ("cp6_782", "msm_mixed", "weighted_sum_bits", "horner_reduce"))
     which = argv[0] if argv and argv[0] in names + ("all",) else "all"
     rest = argv[1:] if argv and argv[0] == which else argv
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -288,7 +398,8 @@ def main(argv):
     setup_cache(rest[0] if rest else os.environ.get("ZKARRAY_CACHE_DIR", "/tmp/zkarray-xla-cache"))
     build = {"bls12_381": words_bls12_381, "bls12_377": words_bls12_377, "bn254": words_bn254,
              "bw6_761": words_bw6_761, "bw6_767": words_bw6_767, "cp6_782": words_cp6_782,
-             "msm_mixed": words_msm_mixed}
+             "msm_mixed": words_msm_mixed, "weighted_sum_bits": words_weighted_sum_bits,
+             "horner_reduce": words_horner_reduce}
     build.update({c: (lambda c=c: words_mnt(c)) for c in MNT})
     for name in build if which == "all" else (which,):
         np.savez_compressed(OUT[name], **build[name]())

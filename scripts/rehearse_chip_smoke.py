@@ -141,6 +141,7 @@ def setup():
     cs.GROUP_LOG_N, cs.SMALL_LOG_N, cs.FIELD_KAT, cs.GROUP_KAT, cs.OFF_POOL = 6, 5, 16, 8, 4
     cs.PAIR_LOG_N, cs.PAIR_BIG_LOG_N, cs.PAIR_BASE, cs.PAIR_INF_EVERY, cs.G2_LOG_N = 3, 4, 4, 4, 5
     cs.FIELD48_LOG_N = 5
+    cs.INV_PAIRING_LOG_N, cs.DIV_LOG_N = 5, 6
     cs.MIXED_LOG_N, cs.MNT_LOG_N, cs.CP6_EACH = 8, 3, 2
     cs.SF_NTT_LOG_N, cs.SF_NTT_COLS, cs.KB_NTT_COLS, cs.GL_NTT_LOG_N = 6, 4, 2, 7
     cs.SF_ELEM_LOG_N, cs.SF_KAT, cs.DIST_MSM_LOG_N, cs.DIST_FFT_LOG_N = 8, 32, 8, 8
@@ -176,6 +177,7 @@ def setup():
     # every wrapper takes its kernel route, which now runs the plain version
     km.on_cpu = lambda *ts: False
     km._launch = launch_mont
+    km._launch_div = counted("mont_div", km.mont_div_plain)
     km._launch_addsub = launch_addsub
     ksf._launch_op = launch_sf_op
     ksf._launch_butterfly = launch_sf_butterfly

@@ -8,11 +8,12 @@ for the element-wise ops, 16 for Fermat inv, 70 with zeros for batch_inv,
 700 and 513 at L = 16 for the kernels. The CUDA kernels themselves are held
 against these plain versions on the card by chip_smoke.py.
 
-The field inverse's CUDA kernel (csrc/mont.cu:mont_inv_kernel, a binary GCD)
-cannot run here; zkarray_torch/testing.py:mont_inv_model follows its loop
-word by word, and is held against Python's pow and the JAX package's inv on
-the edge words (0, 1, R mod p, p - 1, powers of two) and random ones, with
-its iteration count under its stated bound.
+The field inverse's CUDA kernel (csrc/mont.cu:mont_inv_kernel, a binary GCD
+in batches of 30 steps) cannot run here; zkarray_torch/testing.py:
+mont_inv_model follows its loop word by word, and is held against Python's
+pow and the JAX package's inv on the edge words (0, 1, R mod p, p - 1,
+powers of two) and random ones, with its steps until a = 0 under their
+stated bound (tests/test_torch_inv.py holds it at every width).
 
 The square-root routes, Legendre symbols, powers and sums on the six fields
 of the group path: BN254 Fr and BLS12-381 Fr (Tonelli-Shanks, s = 28 and
@@ -102,11 +103,11 @@ def test_fp_inv_and_batch_inv_match_jax(pair, inputs):
 
 @pytest.mark.parametrize("pair", INV_FIELDS, ids=INV_FIELD_IDS)
 def test_mont_inv_model_matches_pow_and_jax(pair):
-    """The word model of the mont_inv kernel's binary GCD against
+    """The word model of the mont_inv kernel's batched binary GCD against
     pow(a, -1, p)·R mod p and the JAX package's inv (Fermat) on the 16 edge
-    words, against pow on 24 random words, and its iterations under the
-    stated bound; the mont_inv wrapper (its plain version on the CPU) against
-    the JAX package too."""
+    words, against pow on 24 random words, and its steps until a = 0 under
+    the stated bound; the mont_inv wrapper (its plain version on the CPU)
+    against the JAX package too."""
     js, ts = pair
     p = js.modulus
     R = ts.r_int
@@ -151,9 +152,9 @@ def test_l48_field_kernels_plain_match_jax(curve):
     mont_inv_edge_words and random words spanning the field, every pair of
     16; pow_const (mont_pow's plain version) at e = 0, 1, 2 and a seeded
     761-bit e; the inverse (mont_inv's plain version, Fermat) against the
-    JAX package's inv; and the word model of mont_inv's binary GCD at
-    NW = 24 against pow on the edge words and 4 random ones, its
-    iterations under the stated bound and under the kernel's 64 NW cap."""
+    JAX package's inv; and the word model of mont_inv's batched binary GCD
+    at NW = 24 against pow on the edge words and 4 random ones, its steps
+    until a = 0 under the stated bound, itself at most 2 bits(p) <= 64 NW."""
     import importlib
 
     js = importlib.import_module(f"zkarray.curves.{curve}").FQ
@@ -190,8 +191,8 @@ def test_l20_l52_field_kernels_plain_match_python_ints(curve):
     p - 2, the inverse (mont_inv's plain version, Fermat) against pow,
     fp_add/fp_sub/fp_neg on fadd_edge_words (words >= p too: the sum keeps
     its carry out, the difference is taken modulo 2^(16 L)); and the word
-    model of mont_inv's binary GCD, its iterations under the kernel's
-    64 NW cap."""
+    model of mont_inv's batched binary GCD, its steps until a = 0 under the
+    stated bound, itself at most 2 bits(p) <= 64 NW."""
     import importlib
 
     from zkarray_torch.core.limbs import ints_to_limbs_np, limbs_to_ints

@@ -7,7 +7,9 @@ kernels against the JAX package, bit for bit.
   slots, and in round 0 the doubling, cancel and infinity edges.
 * horner_windows (plain) against zkarray.ec.msm.msm_reduce, whose CPU path
   runs the window Horner with sw.xyzz_double / sw.xyzz_add, on the window
-  points of the same bucket state (n = 64, c = 5 geometry, as test_msm.py).
+  points of a bucket state (n = 64, c = 5 geometry, as test_msm.py): its
+  words stored in tests/vectors/horner_reduce.npz, rebuilt by a test
+  marked slow.
 * both again on the edge-class inputs of zkarray_torch/testing.py
   (accum_edge_rounds, horner_edge_windows), which chip_smoke.py also feeds
   the CUDA kernels.
@@ -25,7 +27,6 @@ torch.set_num_threads(1)
 import jax.numpy as jnp  # noqa: E402
 
 from torch_parity import JC, TC  # noqa: E402
-from zkarray.ec import msm as jmsm  # noqa: E402
 from zkarray.ec import sw as jsw  # noqa: E402
 from zkarray.ff import fp as jfp  # noqa: E402
 from zkarray_torch.core.limbs import pack_pairs, unpack_pairs  # noqa: E402
@@ -84,22 +85,43 @@ def test_accum_plain_matches_sequential_jax_mixed_adds():
             assert np.array_equal(np.asarray(w), limbs_to_numpy(unpack_pairs(got[i * Lp : (i + 1) * Lp])))
 
 
-def test_horner_plain_matches_jax_msm_reduce():
-    c, bits = 5, 255  # tests/test_msm.py's n = 64, c = 5 geometry: W = 52, half = 16
-    W, half, _, _ = tmsm._window_geometry(c, bits)
-    rng = np.random.default_rng(22)
-    pool = point_pool(rng) + [None] * 8
-    pick = lambda: [pool[i] for i in rng.integers(0, len(pool), size=W * half)]  # noqa: E731
-    # bucket state with ZZ != 1: the XYZZ sum of two affine points per bucket
-    tP = tsw.xyzz_from_affine(TC, tsw.affine_from_ints(TC, pick(), device="cpu"))
-    tQ = tsw.xyzz_from_affine(TC, tsw.affine_from_ints(TC, pick(), device="cpu"))
-    state = tsw.XYZZPoints(*(v.reshape(L, W, half) for v in tsw.xyzz_add(TC, tP, tQ)))
+def _words_script():
+    from torch_parity import words_script
 
-    want = jmsm.msm_reduce(JC, jsw.XYZZPoints(*(jnp.asarray(limbs_to_numpy(v)) for v in state)), c, bits)
-    win = tmsm._weighted_sum_bits(TC, state, tmsm._bucket_weights(c, bits))
+    return words_script()
+
+
+def test_horner_plain_matches_jax_msm_reduce():
+    """tests/test_msm.py's n = 64, c = 5 geometry (W = 52, half = 16): a
+    bucket state with ZZ != 1, the XYZZ sum of two seeded affine points a
+    bucket, reduced by the port's bit-Horner and horner_windows_plain,
+    against zkarray.ec.msm.msm_reduce's words (and the state) stored in
+    tests/vectors/horner_reduce.npz by scripts/pairing_bundle_words.py."""
+    import os
+
+    c = 5
+    W, half, P, Q = _words_script().horner_reduce_inputs()
+    ref = np.load(os.path.join(os.path.dirname(__file__), "vectors", "horner_reduce.npz"))
+    tP = tsw.xyzz_from_affine(TC, tsw.affine_from_ints(TC, P, device="cpu"))
+    tQ = tsw.xyzz_from_affine(TC, tsw.affine_from_ints(TC, Q, device="cpu"))
+    state = tsw.XYZZPoints(*(v.reshape(L, W, half) for v in tsw.xyzz_add(TC, tP, tQ)))
+    assert np.array_equal(np.stack([limbs_to_numpy(v) for v in state]), ref["state"].astype(np.uint32))
+    win = tmsm._weighted_sum_bits(TC, state, tmsm._bucket_weights(c, 255))
     got = ksw.horner_windows_plain(TC, torch.cat(list(win)).T.contiguous(), c)
-    for i, w in enumerate(want):
-        assert np.array_equal(np.asarray(w), limbs_to_numpy(got[i * L : (i + 1) * L]))
+    want = ref["want"].astype(np.uint32)
+    for i in range(4):
+        assert np.array_equal(want[i], limbs_to_numpy(got[i * L : (i + 1) * L]))
+
+
+@pytest.mark.slow
+def test_stored_horner_reduce_words_match_jax():
+    """The stored msm_reduce words equal what the JAX package computes now."""
+    mod = _words_script()
+    want = mod.words_horner_reduce()
+    ref = np.load(mod.OUT["horner_reduce"])
+    assert sorted(ref.files) == sorted(want)
+    for k, v in want.items():
+        assert ref[k].dtype == v.dtype and np.array_equal(ref[k], v), k
 
 
 def test_accum_plain_matches_sequential_jax_on_edge_rounds():

@@ -11,8 +11,9 @@ compiles), bit for bit:
   finish the bucket;
 * ChunkedMSM against the O(1) host known answer on tiled inputs;
 * msm_reduce's weighted bucket sums with the tree route split at a small
-  width against the unsplit route, and against the JAX package's with the
-  weight bits in one group and in several;
+  width against the unsplit route, and against the JAX package's words
+  (stored in tests/vectors/weighted_sum_bits.npz) with the weight bits in
+  one group and in several;
 * the bit-Horner's plain version (kernels/sw.py:xyzz_bit_horner_plain, what
   the xyzz_bit_horner kernel computes) against the JAX package's loop of
   xyzz_double and xyzz_add, on partials that take every edge branch;
@@ -209,30 +210,31 @@ def test_xyzz_bit_horner_plain_matches_jax_loop(nbits):
     assert all(torch.equal(a, b) for a, b in zip(ksw.xyzz_bit_horner(TC, parts), got))
 
 
+def _stored_words(name):
+    import os
+
+    ref = np.load(os.path.join(os.path.dirname(__file__), "vectors", f"{name}.npz"))
+    return {k: ref[k].astype(np.uint32) for k in ref.files}
+
+
 def test_weighted_sum_bits_matches_jax_one_and_several_groups(monkeypatch):
     """ec/msm.py:_weighted_sum_bits on a seeded (L, 5, 16) bucket state (the
     weights of windows 0-2 and of the last two, split, windows at c = 5;
     points at infinity, and bucket j + 8 holding bucket j's point or its
     negation) with the 5 weight bits in one group and in groups of 2,
-    against zkarray.ec.msm._weighted_sum_bits; each run makes one
+    against zkarray.ec.msm._weighted_sum_bits' words stored in
+    tests/vectors/weighted_sum_bits.npz (the state too; scripts/
+    pairing_bundle_words.py builds both); each run makes one
     xyzz_bit_horner call and no xyzz_double or per-bit xyzz_add call."""
-    mod = JC.base.modulus
-    W, half, _, _ = tmsm._window_geometry(C, BITS)
-    wins = [0, 1, 2, W - 2, W - 1]
+    from zkarray_torch.ff import fp as tfp
+
+    wins, half, coords = words_script().weighted_sum_bits_inputs()
+    ref = _stored_words("weighted_sum_bits")
     weights = tmsm._bucket_weights(C, BITS)[wins]
-    rng = np.random.default_rng(40)
-    gen = (JC.gen_x, JC.gen_y)
-    pool = [ec_mul(gen, int(k), 0, mod) for k in rng.integers(1, 1 << 40, size=6)]
-    pts = [[None if rng.random() < 0.3 else pool[rng.integers(len(pool))] for _ in range(half)]
-           for _ in wins]
-    for w, row in enumerate(pts):
-        for j in range(8):
-            if row[j] is not None and w % 3:
-                row[j + 8] = row[j] if w % 3 == 1 else ec_neg(row[j], mod)
-    lams = rng.integers(1, 1 << 62, size=len(wins) * half)
-    coords = [xyzz_coords(p, int(lam), mod) for p, lam in zip((p for row in pts for p in row), lams)]
-    jst, tst = xyzz_both(coords, (len(wins), half))
-    want = jax.jit(lambda st: jmsm._weighted_sum_bits(JC, st, weights))(jst)
+    L = TC.base.num_limbs
+    tst = tsw.XYZZPoints(*(tfp.from_ints(TC.base, [c[k] for c in coords], device="cpu")
+                           .reshape(L, len(wins), half) for k in range(4)))
+    assert np.array_equal(np.stack([limbs_to_numpy(v) for v in tst]), ref["state"])
     calls = []
     horner = ksw.xyzz_bit_horner
 
@@ -247,8 +249,21 @@ def test_weighted_sum_bits_matches_jax_one_and_several_groups(monkeypatch):
     monkeypatch.setattr(ksw, "xyzz_double", no_call)
     monkeypatch.setattr(ksw, "xyzz_add", no_call)  # half = 16: no element-wise tree level
     for quad in (None, 2):
-        assert_same_points(want, tmsm._weighted_sum_bits(TC, tst, weights, quad))
+        got = tmsm._weighted_sum_bits(TC, tst, weights, quad)
+        assert np.array_equal(np.stack([limbs_to_numpy(v) for v in got]), ref["want"])
     assert calls == [(TC.base.num_limbs, 5, len(wins))] * 2
+
+
+@pytest.mark.slow
+def test_stored_weighted_sum_bits_words_match_jax():
+    """The stored _weighted_sum_bits words equal what the JAX package
+    computes now."""
+    mod = words_script()
+    want = mod.words_weighted_sum_bits()
+    ref = np.load(mod.OUT["weighted_sum_bits"])
+    assert sorted(ref.files) == sorted(want)
+    for k, v in want.items():
+        assert ref[k].dtype == v.dtype and np.array_equal(ref[k], v), k
 
 
 # ---- msm_mixed: the magnitude-partitioned front end --------------------------

@@ -25,6 +25,7 @@ from zkarray_torch import DEFAULT_DEVICE
 from zkarray_torch.core import limbs as lb
 from zkarray_torch.core.fieldspec import FieldSpec
 from zkarray_torch.ff import fp
+from zkarray_torch.kernels import mont as km
 from zkarray_torch.kernels import sw as ksw
 
 
@@ -165,10 +166,12 @@ def select_xyzz(mask, P: XYZZPoints, Q: XYZZPoints) -> XYZZPoints:
 
 
 def xyzz_to_affine(curve: SWCurveSpec, P: XYZZPoints) -> AffinePoints:
-    f = curve.base
-    x = fp.mont_mul(f, P.x, fp.batch_inv(f, P.zz))
-    y = fp.mont_mul(f, P.y, fp.batch_inv(f, P.zzz))
-    return AffinePoints(x, y, xyzz_is_inf(P))
+    """(X / ZZ, Y / ZZZ), (0, 0) at infinity (zkarray/ec/sw.py:
+    xyzz_to_affine): kernels/mont.py:mont_div, one launch for both
+    coordinates of every point on a CUDA device; on the CPU its plain
+    version, the JAX package's products by two batch inverses."""
+    xy = km.mont_div(curve.base, P.x, P.zz, P.y, P.zzz)
+    return AffinePoints(xy[0], xy[1], xyzz_is_inf(P))
 
 
 # ---------------------------------------------------------------------------

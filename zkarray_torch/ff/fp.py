@@ -176,38 +176,11 @@ def inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     return km.mont_inv(spec, a)
 
 
-def _scan_mul(spec: FieldSpec, x: torch.Tensor, reverse: bool) -> torch.Tensor:
-    """Inclusive prefix (or suffix) products along axis 1 of (L, n), in
-    log2(n) rounds of doubling strides (Hillis-Steele)."""
-    n = x.shape[1]
-    d = 1
-    while d < n:
-        if reverse:
-            x = torch.cat([mont_mul(spec, x[:, : n - d], x[:, d:]), x[:, n - d :]], dim=1)
-        else:
-            x = torch.cat([x[:, :d], mont_mul(spec, x[:, d:], x[:, : n - d])], dim=1)
-        d *= 2
-    return x
-
-
 def batch_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """Elementwise inverse of a batch via Montgomery's trick: prefix and
-    suffix product scans and one inversion. Zeros map to zero."""
-    L = spec.num_limbs
-    batch_shape = a.shape[1:]
-    x = a.reshape(L, -1)
-    n = x.shape[1]
-    zmask = lb.is_zero(x)
-    x = select(zmask, one(spec, (n,), x.device), x)
-    pre = _scan_mul(spec, x, reverse=False)
-    suf = _scan_mul(spec, x, reverse=True)
-    total_inv = inv(spec, pre[:, -1:])
-    one1 = one(spec, (1,), x.device)
-    pre_ex = torch.cat([one1, pre[:, :-1]], dim=1)
-    suf_ex = torch.cat([suf[:, 1:], one1], dim=1)
-    out = mont_mul(spec, mont_mul(spec, pre_ex, suf_ex), total_inv)
-    out = select(zmask, torch.zeros_like(out), out)
-    return out.reshape((L,) + tuple(batch_shape))
+    suffix product scans and one inversion (kernels/mont.py:batch_inv_by on
+    ``mont_mul`` and ``inv``). Zeros map to zero."""
+    return km.batch_inv_by(spec, a, mont_mul, inv)
 
 
 # ---------------------------------------------------------------------------

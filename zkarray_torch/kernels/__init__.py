@@ -8,7 +8,8 @@ and binds them with ctypes. ``LAUNCHES`` counts each kernel's launches.
     mont_mul         mont.cu   mont.mont_mul                           mont.py:mont_mul
     mont_sqr         mont.cu   mont.mont_sqr                           mont.py:mont_sqr
     mont_pow         mont.cu   mont.mont_pow                           (none: ff/fp.py:pow_const's launch chain)
-    mont_inv         mont.cu   mont.mont_inv                           (none: ff/fp.py:inv's Fermat chain, by binary GCD)
+    mont_inv         mont.cu   mont.mont_inv                           (none: ff/fp.py:inv's Fermat chain, by a batched binary GCD)
+    mont_div         mont.cu   mont.mont_div                           (none: ec/sw.py:xyzz_to_affine's batch inverses and products)
     xyzz_accum       sw.cu     sw.xyzz_accum_grid, sw.xyzz_accum_tiles  sw.py:xyzz_accum_grid, :xyzz_accum_tiles
     horner_windows   sw.cu     sw.horner_windows                       sw.py:horner_windows
     butterfly_dit    ntt.cu    mont.butterfly_dit                      mont.py:butterfly_dit_inplace

@@ -45,8 +45,8 @@ import numpy as np
 import torch
 
 from zkarray_torch.core.fieldspec import FieldSpec
-from zkarray_torch.core.limbs import (add_with_carry, normalize, pack_pairs, sub_with_borrow,
-                                      unpack_pairs)
+from zkarray_torch.core.limbs import (add_with_carry, is_zero, normalize, pack_pairs,
+                                      sub_with_borrow, unpack_pairs)
 from zkarray_torch.kernels import _build
 
 
@@ -330,7 +330,8 @@ def launch_strided(source: str, kernel: str, L: int, consts: np.ndarray, ins, ou
 
 @functools.lru_cache(maxsize=None)
 def _r2_words(spec: FieldSpec) -> np.ndarray:
-    """R^2 mod p as NW = L/2 host words: mont_inv's starting coefficient."""
+    """R^2 mod p as NW = L/2 host words: mont_inv's starting coefficient,
+    mont_div's factor that puts a numerator x R in the form x R^2."""
     return np.asarray([(spec.r2_int >> (32 * i)) & 0xFFFFFFFF for i in range(spec.num_limbs // 2)],
                       dtype=np.uint32)
 
@@ -342,7 +343,7 @@ def _launch(kernel: str, spec: FieldSpec, *ins: torch.Tensor,
     a width outside _build.FIELD_LIBS); ``exponent`` is mont_pow's."""
     extra = ()
     if kernel == "mont_inv":
-        extra = (words_ptr(_r2_words(spec)),)
+        extra = (words_ptr(_r2_words(spec)), 0)  # 0: lanes by width
     if exponent is not None:
         nbits = exponent.bit_length()
         words = np.asarray([(exponent >> (32 * i)) & 0xFFFFFFFF for i in range(-(-nbits // 32))]
@@ -407,13 +408,101 @@ def mont_inv_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     return mont_pow_plain(spec, a, spec.modulus - 2)
 
 
+# csrc/mont.cu:GCD_STEPS: steps of the inverse's binary GCD a batch;
+# GCD_WIDE: from this many elements (points for mont_div) on, one lane a
+# division instead of a pair
+GCD_STEPS = 30
+GCD_WIDE = 1 << 14
+
+
+def gcd_batches(spec: FieldSpec) -> int:
+    """Batches the inverse and division kernels run for ``spec``
+    (csrc/mont.cu:gcd_batches): ceil((2 bits(p) - 1) / GCD_STEPS), the
+    binary GCD's bound of 2 bits(p) - 1 steps."""
+    return -(-(2 * spec.modulus.bit_length() - 1) // GCD_STEPS)
+
+
 def mont_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """a^-1 element-wise (0 -> 0) for Montgomery words a < p in (L, *batch).
     CPU tensors: plain version; CUDA tensors: csrc/mont.cu:mont_inv_kernel,
-    a binary GCD per element in one launch."""
+    a batched binary GCD in one launch (two lanes an element below GCD_WIDE
+    elements, one from there on)."""
     if on_cpu(a):
         return mont_inv_plain(spec, a)
     return _launch("mont_inv", spec, a)
+
+
+# ---------------------------------------------------------------------------
+# division (csrc/mont.cu:mont_div_kernel): the to-affine's two quotients
+# ---------------------------------------------------------------------------
+
+def _scan_products(spec: FieldSpec, mul, x: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """Inclusive prefix (or suffix) products along axis 1 of (L, n), in
+    log2(n) rounds of doubling strides (Hillis-Steele)."""
+    n = x.shape[1]
+    d = 1
+    while d < n:
+        if reverse:
+            x = torch.cat([mul(spec, x[:, : n - d], x[:, d:]), x[:, n - d :]], dim=1)
+        else:
+            x = torch.cat([x[:, :d], mul(spec, x[:, d:], x[:, : n - d])], dim=1)
+        d *= 2
+    return x
+
+
+def batch_inv_by(spec: FieldSpec, a: torch.Tensor, mul, inv) -> torch.Tensor:
+    """Element-wise inverse of a batch by Montgomery's trick
+    (zkarray/ff/fp.py:batch_inv): prefix and suffix product scans and one
+    inversion; zeros map to zero. ``mul`` and ``inv`` are the product and
+    the inverse it runs: the wrappers (ff/fp.py:batch_inv) or the plain
+    versions (``mont_div_plain``)."""
+    L = spec.num_limbs
+    batch_shape = a.shape[1:]
+    x = a.reshape(L, -1)
+    n = x.shape[1]
+    zmask = is_zero(x)
+    x = torch.where(zmask[None], const(spec, spec.r_int, (n,), x.device), x)
+    pre = _scan_products(spec, mul, x, reverse=False)
+    suf = _scan_products(spec, mul, x, reverse=True)
+    total_inv = inv(spec, pre[:, -1:])
+    one1 = const(spec, spec.r_int, (1,), x.device)
+    pre_ex = torch.cat([one1, pre[:, :-1]], dim=1)
+    suf_ex = torch.cat([suf[:, 1:], one1], dim=1)
+    out = mul(spec, mul(spec, pre_ex, suf_ex), total_inv)
+    out = torch.where(zmask[None], torch.zeros_like(out), out)
+    return out.reshape((L,) + tuple(batch_shape))
+
+
+def mont_div_plain(spec: FieldSpec, n0: torch.Tensor, d0: torch.Tensor, n1: torch.Tensor,
+                   d1: torch.Tensor) -> torch.Tensor:
+    """(n0 / d0, n1 / d1) as one (2, L, *batch) tensor, 0 where a
+    denominator is 0, in plain PyTorch: each numerator times its batch
+    inverse, the JAX package's to-affine (zkarray/ec/sw.py:174
+    xyzz_to_affine). Quotients are unique, so the words are the kernel's."""
+    return torch.stack([mont_mul_plain(spec, num, batch_inv_by(spec, den, mont_mul_plain,
+                                                               mont_inv_plain))
+                        for num, den in ((n0, d0), (n1, d1))])
+
+
+def _launch_div(spec: FieldSpec, n0: torch.Tensor, d0: torch.Tensor, n1: torch.Tensor,
+                d1: torch.Tensor) -> torch.Tensor:
+    """One csrc/mont.cu:mont_div_kernel launch: the four operands read in
+    place as ``_operand`` allows, the output (2, L, *batch) contiguous."""
+    return launch_strided(_build.field_lib(spec.num_limbs // 2), "mont_div", spec.num_limbs,
+                          field_words(spec), (n0, d0, n1, d1), out_lead=(2,),
+                          extra=(words_ptr(_r2_words(spec)), 0))
+
+
+def mont_div(spec: FieldSpec, n0: torch.Tensor, d0: torch.Tensor, n1: torch.Tensor,
+             d1: torch.Tensor) -> torch.Tensor:
+    """n0 / d0 and n1 / d1 element-wise for Montgomery words < p of one
+    (L, *batch) shape (0 where a denominator is 0), as one (2, L, *batch)
+    tensor. CPU tensors: plain version (the batch-inverse route); CUDA
+    tensors: csrc/mont.cu:mont_div_kernel, both quotients of every element
+    in one launch."""
+    if on_cpu(n0, d0, n1, d1):
+        return mont_div_plain(spec, n0, d0, n1, d1)
+    return _launch_div(spec, n0, d0, n1, d1)
 
 
 # ---------------------------------------------------------------------------

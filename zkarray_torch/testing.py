@@ -26,6 +26,7 @@ from zkarray_torch.core.limbs import pack_pairs
 from zkarray_torch.ec.sw import AffinePoints, SWCurveSpec, affine_from_ints, xyzz_from_affine
 from zkarray_torch.ec.sw_ext import ExtAffine
 from zkarray_torch.ff import fp
+from zkarray_torch.kernels import mont as km
 
 
 def ec_neg(p, mod):
@@ -348,14 +349,20 @@ def horner_edge_windows(curve: SWCurveSpec, W: int, c: int, rng: np.random.Gener
 
 
 # ---------------------------------------------------------------------------
-# the field inverse's loop (csrc/mont.cu:mont_inv_kernel), word by word
+# the field inverse's and division's loop (csrc/mont.cu:gcd_div_pair), word
+# by word
 # ---------------------------------------------------------------------------
 
 _M32 = 0xFFFFFFFF
+_M64 = (1 << 64) - 1
 
 
 def _words(x: int, nw: int) -> list:
     return [(x >> (32 * j)) & _M32 for j in range(nw)]
+
+
+def _value(ws) -> int:
+    return sum(w << (32 * j) for j, w in enumerate(ws))
 
 
 def _sub_words(a, b):
@@ -368,74 +375,148 @@ def _sub_words(a, b):
     return out, borrow
 
 
-def _fsub_words(a, b, p):
-    """csrc/field.cuh:fsub_cc: a - b, then p added under the borrow's mask,
-    the carry out dropped."""
-    d, borrow = _sub_words(a, b)
-    out, c = [], 0
-    for x, y in zip(d, p):
-        s = x + (y if borrow else 0) + c
-        out.append(s & _M32)
-        c = s >> 32
-    return out
+def _gcd_approx(a, b):
+    """csrc/mont.cu:gcd_approx: the 62-bit stand-ins of a and b, their bits
+    [0, 30) and the 32 bits below n = max(bits(a), bits(b), 62)."""
+    nw = len(a)
+    o = [x | y for x, y in zip(a, b)]
+    nz = sum(1 << j for j, w in enumerate(o) if w)
+    h = nz.bit_length() - 1
+    n = max(32 * h + (o[h].bit_length() if h >= 0 else 0), 2 * km.GCD_STEPS + 2)
+    qw, qs = (n - 32) >> 5, (n - 32) & 31
+    low = (1 << km.GCD_STEPS) - 1
+
+    def stand_in(x):
+        lo, hi = x[qw], x[qw + 1] if qw + 1 < nw else 0
+        top = ((lo | (hi << 32)) >> qs) & _M32
+        return (x[0] & low) | (top << km.GCD_STEPS)
+
+    return stand_in(a), stand_in(b)
 
 
-def _halve_words(u, b, p, inv32):
-    """csrc/mont.cu:halve: k = trailing zeros of u's low word (31 when it is
-    0); u >>= k; b = (b + m p) >> k with m = b inv32 mod 2^k, over NW + 1
-    words."""
-    nw = len(u)
-    w0 = u[0]
-    k = (w0 & -w0).bit_length() - 1 if w0 else 31
-    u = [((u[j] >> k) | (u[j + 1] << (32 - k))) & _M32 for j in range(nw - 1)] + [u[-1] >> k]
-    m = (b[0] * inv32) & ((1 << k) - 1)
-    t, c = [], 0
+def _gcd_steps(at: int, bt: int):
+    """csrc/mont.cu:gcd_steps: GCD_STEPS steps on the stand-ins with 64-bit
+    words; returns the factors (f0, g0, f1, g1) and at after each step."""
+    f0, g0, f1, g1 = 1, 0, 0, 1
+    trail = []
+    for _ in range(km.GCD_STEPS):
+        odd, lt = at & 1, at < bt
+        sw = odd and lt
+        d = ((bt - at if lt else at - bt) & _M64) if odd else at
+        f0, g0, f1, g1 = ((f1 - f0, g1 - g0, f0, g0) if sw else
+                          (f0 - f1, g0 - g1, f1, g1) if odd else (f0, g0, f1, g1))
+        bt = at if sw else bt
+        at = d >> 1
+        f1, g1 = 2 * f1, 2 * g1
+        trail.append(at)
+    return (f0, g0, f1, g1), trail
+
+
+def _gcd_combine(x0, x1, n0, n1, f, g, coef, p, inv32):
+    """csrc/mont.cu:gcd_combine with its words and carries: (f x0 + g x1) /
+    2^30, exact and made nonnegative on the integer lane (coef False), mod
+    p on the coefficient lane (n0, n1: x0, x1 stand for their negations).
+    Returns (words, negative)."""
+    nw = len(x0)
+    sf, sg = (f < 0) != n0, (g < 0) != n1
+    af, ag = abs(f), abs(g)
+    K = 0 if coef else (af if sf else 0) + (ag if sg else 0)
+    M = p if coef else [_M32] * nw
+    y0 = _sub_words(M, x0)[0] if sf else x0
+    y1 = _sub_words(M, x1)[0] if sg else x1
+    u, c, c2, m = [], K, 0, 0
     for j in range(nw):
-        s = m * p[j] + b[j] + c
-        t.append(s & _M32)
-        c = s >> 32
-    t.append(c)
-    return u, [((t[j] >> k) | (t[j + 1] << (32 - k))) & _M32 for j in range(nw)]
+        s = af * y0[j] + ag * y1[j] + c
+        c, t = s >> 32, s & _M32
+        if j == 0:
+            m = (t * inv32) & ((1 << km.GCD_STEPS) - 1) if coef else 0
+        s2 = m * p[j] + t + c2
+        u.append(s2 & _M32)
+        c2 = s2 >> 32
+    u.append((c + c2 - K) & _M32)
+    v = [((u[j] | (u[j + 1] << 32)) >> km.GCD_STEPS) & _M32 for j in range(nw)]
+    top = u[nw] - (1 << 32) if (u[nw] >> 31 and not coef) else u[nw]
+    vtop = (top >> km.GCD_STEPS) & _M32
+    neg = not coef and vtop != 0
+    d, below_p = _sub_words(v + [vtop], p + [0])
+    if neg:
+        return _sub_words([0] * nw, v)[0], True
+    return (d[:nw] if coef and not below_p else v), False
+
+
+def gcd_div_model(spec, y: int, u0: int):
+    """csrc/mont.cu:gcd_div_pair on a Montgomery word y < p with starting
+    coefficient u0 < p, in its order of work and with its carries: returns
+    (u0 / y mod p, 0 for y = 0; the steps until a = 0). The kernel runs
+    GCD_STEPS x kernels.mont.gcd_batches(spec) steps; the steps to a = 0 are
+    fewer than mont_inv_iteration_bound(spec, y), and they are counted
+    exactly where the stand-ins are (a and b below 2^62)."""
+    nw = spec.num_limbs // 2
+    p = _words(spec.modulus, nw)
+    a, b, u, v = _words(y, nw), p, _words(u0, nw), [0] * nw
+    nu = nv = False
+    steps = 0 if y == 0 else None
+    for i in range(km.gcd_batches(spec)):
+        at, bt = _gcd_approx(a, b)
+        (f0, g0, f1, g1), trail = _gcd_steps(at, bt)
+        if steps is None and max(_value(a), _value(b)) < 1 << (2 * km.GCD_STEPS + 2):
+            steps = next((i * km.GCD_STEPS + j + 1 for j, t in enumerate(trail) if t == 0), None)
+        (a, sa), (b, sb) = (_gcd_combine(a, b, False, False, f, g, False, p, spec.inv32)
+                            for f, g in ((f0, g0), (f1, g1)))
+        u, v = (_gcd_combine(u, v, nu, nv, f, g, True, p, spec.inv32)[0]
+                for f, g in ((f0, g0), (f1, g1)))
+        nu, nv = sa, sb
+    assert _value(a) == 0 and _value(b) == (1 if y else spec.modulus), "the GCD did not end"
+    q = _value(v)
+    return (spec.modulus - q if nv and q else q), steps
 
 
 def mont_inv_model(spec, x: int):
-    """csrc/mont.cu:mont_inv_kernel on one Montgomery word x < p, in its
-    order of work and with its carries: returns (x^-1's Montgomery word, the
-    loop's iterations). u v at least halves each iteration, so the
-    iterations stay below mont_inv_iteration_bound(spec, x)."""
-    nw = spec.num_limbs // 2
-    if x == 0:
-        return 0, 0
-    p = _words(spec.modulus, nw)
-    u, v, b, c = _words(x, nw), p, _words(spec.r2_int, nw), [0] * nw
-    one = [1] + [0] * (nw - 1)
+    """csrc/mont.cu:mont_inv_kernel on one Montgomery word x < p: the GCD
+    from u0 = R^2 mod p. Returns (x^-1's Montgomery word, the steps until
+    a = 0), the steps below mont_inv_iteration_bound(spec, x)."""
+    return gcd_div_model(spec, x, spec.r2_int)
 
-    def strip(u, b):
-        for _ in range(nw + 1):
-            if u[0] & 1:
-                break
-            u, b = _halve_words(u, b, p, spec.inv32)
-        return u, b
 
-    u, b = strip(u, b)
-    it = 0
-    while it < 64 * nw and u != one:
-        d, lt = _sub_words(u, v)
-        e, _ = _sub_words(v, u)
-        bc, cb = _fsub_words(b, c, p), _fsub_words(c, b, p)
-        if lt:
-            u, b, v, c = e, cb, u, b
-        else:
-            u, b = d, bc
-        u, b = strip(u, b)
-        it += 1
-    return sum(w << (32 * j) for j, w in enumerate(b)), it
+def mont_div_model(spec, num: int, den: int):
+    """csrc/mont.cu:mont_div_kernel's quotient of Montgomery words num / den
+    (0 for den = 0): the GCD on den from u0 = num R mod p (fmul(num, R^2)).
+    Returns (the quotient's Montgomery word, the steps until a = 0)."""
+    return gcd_div_model(spec, den, num * spec.r_int % spec.modulus)
 
 
 def mont_inv_iteration_bound(spec, x: int) -> int:
-    """Iterations of mont_inv's loop on x are fewer than this: log2(u v)
-    starts below bits(x) + bits(p) and falls by at least 1 each time."""
+    """The GCD's steps on x until a = 0 are fewer than this: bits(a) +
+    bits(b) starts at bits(x) + bits(p) and falls by at least 1 a step, on
+    the stand-ins too (Pornin, ePrint 2020/972). At most 2 bits(p) <=
+    GCD_STEPS x gcd_batches(spec) + 1."""
     return x.bit_length() + spec.modulus.bit_length()
+
+
+def mont_inv_chain(spec) -> int:
+    """Dependent instructions on the critical path of mont_inv_kernel's
+    loop (csrc/mont.cu:gcd_div_pair), per batch: the stand-ins (the
+    nonzero-word mask and its OR tree, a count of leading zeros, the top
+    word picked by an OR tree, its bit length, the window's words picked,
+    a funnel shift and the join: 11 + 3 ceil(log2 NW)), one shuffle, 5 a
+    step (a 64-bit subtract, two selects, a shift) and the update (a 64-bit
+    carry add a column, 2 NW, then the Montgomery factor, the top word, its
+    shift, the reduction's borrow and the select: 7); then the last
+    negation, 2 NW + 1. mont_div adds one product before the loop."""
+    nw = spec.num_limbs // 2
+    log_nw = (nw - 1).bit_length()
+    per_batch = 11 + 3 * log_nw + 1 + 5 * km.GCD_STEPS + 2 * nw + 7
+    return km.gcd_batches(spec) * per_batch + 2 * nw + 1
+
+
+def mont_inv_ops(spec) -> int:
+    """32-bit operations of one inversion, counted once (the second lane's
+    copy of the stand-ins and steps is not counted): per batch the
+    stand-ins, ~5 NW; 16 a step (two 64-bit subtracts, a compare, four
+    selects, a 64-bit shift, two factor updates); four updates of ~7 NW (the
+    negated terms, three multiply-adds a word, the shift, the reduction)."""
+    nw = spec.num_limbs // 2
+    return km.gcd_batches(spec) * (5 * nw + 16 * km.GCD_STEPS + 4 * 7 * nw)
 
 
 def mont_inv_edge_words(spec, rng: np.random.Generator, n_random: int = 8) -> list:
