@@ -133,7 +133,16 @@ Phases, each printing one JSON line and raising on any failure:
    for mont_mul; exponents 0, 1, 2, 3, p - 2, (p - 1)/2, the trace, 2^(s-1)
    and the square-root exponent for mont_pow) and on every recorded input,
    with times and bounds at 2^16 (mont_mul and mont_sqr at NW = 8 and 12,
-   mont_pow at each field's widest launch, mont_inv at its launches).
+   mont_pow at each field's widest launch, mont_inv at its launches). The
+   launch_cost line: mont_mul and mont_sqr at (24, 1), (24, 2^16), (16,
+   2^16) and BLS12-381 pairing_each's widest product batch (24, 54, 2^12):
+   ms per call back to back (CUDA events around LAUNCH_COST_CALLS calls),
+   host us per call, device ms per launch from a trace, the byte bound and
+   its share; the host's pieces of one (24, 1) call; the current stream
+   read as torch.cuda.current_stream(dev).cuda_stream against
+   torch._C._cuda_getCurrentRawStream; and a batch-transposed operand (the
+   wrapper copies it) dropped right after the call, against the plain
+   version.
 9. the pairing path (BASELINE config 5), each result against host known
    answers: BLS12-381 pairing_each over 2^12 pairs tiled from 64 seeded
    (a_j G, b_j H), every 1,024th G1 point at infinity, every lane against
@@ -180,18 +189,18 @@ Phases, each printing one JSON line and raising on any failure:
    xyzz_add, xyzz_add_affine, horner_windows, butterfly_dit and pow_table
    refusing NW = 24 (each raises, no launch counted).
 11. msm_mixed, the MNT and CP6 pairings, NW = 10 and 26: ec/msm.py:msm_mixed
-   on BLS12-381 G1 at 2^20 tiled points with scalars in six magnitude
+   on BLS12-381 G1 at 2^18 tiled points with scalars in six magnitude
    classes (0, 1, <= 8, <= 16, <= 64 bits, full width; testing.
    mixed_scalars) against the host known answer, beside msm on the same
    inputs (class sizes, launches by kernel, peak memory; msm_mixed the
-   median of 3 and a trace, msm, ~8 s a call on these skewed digits, one
-   timed call); MNT4-298, MNT6-298, MNT4-753 and MNT6-753 pairing_each at
+   median of 3 and a trace, msm on these skewed digits its counted call
+   only); MNT4-298, MNT6-298, MNT4-753 and MNT6-753 pairing_each at
    2^12 pairs tiled from 64 seeded (a_j G1, b_j G2), a_j, b_j < 2^64, every 1,024th G1 point
    at infinity, every lane against host powers of the JAX package's E,
-   and pairing once; CP6-782's host G2 ladder on the 64 distinct points
+   and pairing once; CP6-782's host G2 ladder on its 8 distinct points
    (s per point), its Miller loop and final exponentiation on the prepared
    coefficients tiled to 2^12 lanes (every lane checked) and pairing_each
-   end to end on 16 pairs. Then the six field kernels against their plain
+   end to end on 8 pairs. Then the six field kernels against their plain
    versions on the NW = 10 (MNT4/6-298) and NW = 26 (CP6-782) fields' edge
    words and on every (field, shape, strides) input recorded on the paths'
    first counted calls (one kernel_phase11_shapes line per kernel), and
@@ -299,6 +308,17 @@ Phases, each printing one JSON line and raising on any failure:
    Every row lists the word counts NW its kernel is built for
    ("nw_widths").
 
+Where a plain version is a chain of launch-bound steps (mont_pow_plain's
+square-and-multiply, so mont_inv_plain and mont_div_plain's inverse;
+horner_windows_plain's doublings), a check's reference replays each step
+through a CUDA graph captured once (``PlainChains``): the same PyTorch
+kernels on the same words (xyzz_accum_plain's rounds too, each round's
+doubling candidate computed and selected per slot). The kernels line's
+plain_ms of mont_pow, mont_inv, mont_div, horner_windows and xyzz_accum
+stays the eager plain version's. A plain version's ms is the wall time
+(host clock to torch.cuda.synchronize()) of the one call whose result its
+check reads.
+
 The last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
 before printing any result.
@@ -316,6 +336,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import types
 
@@ -341,6 +362,8 @@ TREE_ROUTE_WIDTHS = (1025, 2049, 3001)  # through ec/msm.py:_tree_sum_last
 INV_PAIRING_LOG_N = 12  # mont_inv at (24, 2^12): the pairings' Fp12 inverse's width
 DIV_LOG_N = 16  # mont_div (the to-affine) at 2^16 points against the batch-inverse route
 GROUP_LOG_N = 16  # BASELINE configs 1-2: 2^16 BN254 Fr elements, 2^16 BLS12-381 G1 points
+LAUNCH_COST_CALLS = 400  # back-to-back product calls a launch_cost timing
+PAIR_WIDEST_PRODUCT = 54  # BLS12-381 pairing_each's widest mont_mul batch: (54, 2^PAIR_LOG_N)
 SMALL_LOG_N = 12  # BN254 and BLS12-377 G1: one scalar_mul and one subgroup_check each
 FIELD_KAT = 256  # field results held against Python ints at this many sampled indices
 GROUP_KAT = 64  # group results held against the host's ec_mul at this many sampled points
@@ -356,9 +379,10 @@ PAIR_INF_EVERY = 1024  # every 1,024th lane's G1 point at infinity
 PAIR_TIMED_RUNS = 1
 G2_LOG_N = 16  # the zcash G2 vectors tiled, and the G2 subgroup check
 FIELD48_LOG_N = 16  # phases 10-11: the field kernels timed at (L, 2^16), L = 48 and 20, 52
-MIXED_LOG_N = 20  # phase 11: msm_mixed on BLS12-381 G1
+MIXED_LOG_N = 18  # phase 11: msm_mixed on BLS12-381 G1 (each MSM-kernel launch replayed)
 MNT_LOG_N = 12  # phase 11: MNT pairing_each and CP6's Miller loop + final exponentiation lanes
-CP6_EACH = 16  # phase 11: CP6-782 pairing_each end to end on this many distinct pairs
+CP6_EACH = 8  # phase 11: CP6-782 pairing_each end to end on this many distinct pairs
+CP6_BASE = 8  # phase 11: CP6-782's seeded pairs (its host G2 preparation: ~0.4 s a point)
 PAIR_SCALAR_BITS = 64  # phase 11: bits of a_j, b_j in the MNT and CP6 pairs (a_j G, b_j H)
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -368,8 +392,14 @@ T_START = time.perf_counter()
 
 def emit(phase, **kw):
     """One JSON line: the phase's name, the seconds since the script
-    started (t_s) and its fields."""
-    print(json.dumps({"phase": phase, "t_s": round(time.perf_counter() - T_START, 3), **kw}),
+    started (t_s), the device memory PyTorch holds allocated and reserved
+    then (GiB) and its fields."""
+    mem = {}
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_available() and torch.cuda.is_initialized():
+        mem = dict(cuda_allocated_gib=round(torch.cuda.memory_allocated() / 2**30, 3),
+                   cuda_reserved_gib=round(torch.cuda.memory_reserved() / 2**30, 3))
+    print(json.dumps({"phase": phase, "t_s": round(time.perf_counter() - T_START, 3), **mem, **kw}),
           flush=True)
 
 
@@ -612,6 +642,31 @@ def add_latency_cycles(torch, lib_path):
     return best
 
 
+def wide_pow_reference(torch, f, n, dev):
+    """mont_pow's 2^20 input (random words below p from a generator of its
+    own, every 1,001st zero, mont_inv_edge_words from index 1) and its
+    plain version's a^(p - 2) with that call's ms: ~20 s of device work
+    that needs no kernel, run while nvcc builds them (a launch-bound
+    plain chain would slow the build; this one keeps the device busy)."""
+    from zkarray_torch.ff import fp
+    from zkarray_torch.kernels import mont as km
+    from zkarray_torch.testing import mont_inv_edge_words
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    L, t = f.num_limbs, (f.modulus.bit_length() - 1) // 16
+    x = torch.randint(0, 1 << 16, (L, n), generator=g, device=dev, dtype=torch.int32)
+    x[t] = torch.randint(0, f.modulus >> (16 * t), (n,), generator=g, device=dev, dtype=torch.int32)
+    x[t + 1:] = 0
+    edge = mont_inv_edge_words(f, np.random.default_rng(6), n_random=8)
+    x[:, ::1001] = 0
+    x[:, 1 : 1 + len(edge)] = fp.from_ints(f, edge, mont=False, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = km.mont_pow_plain(f, x, f.modulus - 2)
+    torch.cuda.synchronize()
+    return x, want, (time.perf_counter() - t0) * 1e3
+
+
 def cuobjdump():
     found = shutil.which("cuobjdump")
     if found:
@@ -619,11 +674,22 @@ def cuobjdump():
     return str(os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump"))
 
 
-def sass_functions(path):
-    """{function: {"instructions": n, "imad": n, "opcodes": {op: n}}} from
-    cuobjdump -sass (NOPs not counted)."""
-    text = subprocess.run([cuobjdump(), "-sass", str(path)], capture_output=True, text=True,
-                          timeout=300, check=True).stdout
+def sass_functions(paths):
+    """Per path, {function: {"instructions": n, "imad": n, "opcodes": {op:
+    n}}} from cuobjdump -sass (NOPs not counted), one cuobjdump each, all
+    started at once."""
+    procs = [subprocess.Popen([cuobjdump(), "-sass", str(p)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for p in paths]
+    texts = []
+    for p, proc in zip(paths, procs):
+        out, err = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"cuobjdump -sass {p} failed:\n{err}")
+        texts.append(out)
+    return [sass_parse(t) for t in texts]
+
+
+def sass_parse(text):
     out, cur = {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -907,8 +973,8 @@ def field_group_phase(torch, h, rec):
     # -- kernel vs plain at the five moduli -------------------------------------
     plain = {"mont_mul": lambda spec, ins, e: km.mont_mul_plain(spec, *ins),
              "mont_sqr": lambda spec, ins, e: km.mont_sqr_plain(spec, *ins),
-             "mont_pow": lambda spec, ins, e: km.mont_pow_plain(spec, ins[0], e),
-             "mont_inv": lambda spec, ins, e: km.mont_inv_plain(spec, ins[0])}
+             "mont_pow": lambda spec, ins, e: PLAIN.pow(spec, ins[0], e),
+             "mont_inv": lambda spec, ins, e: PLAIN.inv(spec, ins[0])}
     kern = {"mont_mul": lambda spec, ins, e: km.mont_mul(spec, *ins),
             "mont_sqr": lambda spec, ins, e: km.mont_sqr(spec, *ins),
             "mont_pow": lambda spec, ins, e: km.mont_pow(spec, ins[0], e),
@@ -979,6 +1045,122 @@ def field_group_phase(torch, h, rec):
         report[name] = dict(max_abs_err=err[name], launches=path.get(name, 0), rows=timed,
                             edge_words=edge_fields)
     return report
+
+
+def launch_host_pieces(torch, h, FQ, calls, host_us):
+    """Host us per call of each piece of a (24, 1) mont_mul call through
+    ff/fp.py (kernels/mont.py:ProductLauncher.mul), each timed alone over
+    ``calls`` calls, and of the two ways to read the current stream; the C
+    entry's own (24, 1) product held against the plain version."""
+    from zkarray_torch.ff import fp
+    from zkarray_torch.kernels import _build
+    from zkarray_torch.kernels import mont as km
+
+    a, b = h.rand_field(FQ, 1), h.rand_field(FQ, 1)
+    idx = a.get_device()
+    go = km.product_launcher(FQ, idx)
+    res = torch.empty_like(a)
+    consts, nw, stream = go.consts, go.nw, go.raw_stream(idx)
+    proto = ctypes.CFUNCTYPE(ctypes.c_int, *_build.EXPORTS["mont"]["zk_mont_mul_v"])(
+        ("zk_mont_mul_v", go.lib))
+    pieces = {
+        "whole call (ff.fp.mont_mul)": lambda: fp.mont_mul(FQ, a, b),
+        "launcher lookup": lambda: km.product_launcher(FQ, a.get_device()),
+        "input checks": lambda: go._elements("mont_mul", a, b),
+        "two operand maps": lambda: (km.operand_map(a, 1), km.operand_map(b, 1)),
+        "output torch.empty_like": lambda: torch.empty_like(a, memory_format=torch.contiguous_format),
+        "output torch.empty_like, no memory_format": lambda: torch.empty_like(a),
+        "output torch.empty(shape, dtype, device)": lambda: torch.empty(
+            a.shape, dtype=torch.int32, device=h.dev),
+        "output a.new_empty(shape)": lambda: a.new_empty(a.shape),
+        "current device": go.current_device,
+        "torch._C._cuda_getCurrentRawStream": lambda: go.raw_stream(idx),
+        "torch.cuda.current_stream(dev).cuda_stream": lambda: torch.cuda.current_stream(h.dev).cuda_stream,
+        "three data_ptr": lambda: (a.data_ptr(), b.data_ptr(), res.data_ptr()),
+        "C entry, n = 0 (ctypes, no launch)": lambda: go.mul_fn(
+            a.data_ptr(), 1, 1, 0, b.data_ptr(), 1, 1, 0, res.data_ptr(), 0, nw, consts, stream),
+        "C entry, n = 1 (ctypes and the launch)": lambda: go.mul_fn(
+            a.data_ptr(), 1, 1, 0, b.data_ptr(), 1, 1, 0, res.data_ptr(), 1, nw, consts, stream),
+        "C entry through a CFUNCTYPE prototype, n = 0": lambda: proto(
+            a.data_ptr(), 1, 1, 0, b.data_ptr(), 1, 1, 0, res.data_ptr(), 0, nw, consts, stream),
+    }
+    host = {k: host_us(fn, calls) for k, fn in pieces.items()}
+    if not torch.equal(res, km.mont_mul_plain(FQ, a, b)):
+        raise AssertionError("launch_cost: the C entry's (24, 1) product differs from plain")
+    return host
+
+
+def launch_cost(torch, h):
+    """The launch_cost line (phase 8): what a mont_mul or mont_sqr call costs
+    through its wrapper (kernels/mont.py:ProductLauncher) at the shapes the
+    group and pairing paths give it, against the device time of its launch
+    and its byte bound; where the host time of a (24, 1) call goes; and a
+    batch-transposed operand, which the wrapper copies, dropped right after
+    the call and held against the plain version. Returns {kernel: rows}."""
+    from zkarray_torch.curves import bls12_381, bn254
+    from zkarray_torch.ff import fp
+    from zkarray_torch.kernels import mont as km
+
+    dev, K = h.dev, LAUNCH_COST_CALLS
+    FQ = bls12_381.FQ
+
+    def host_us(fn, calls=K):
+        """Host us per call of fn over ``calls`` calls, the device not awaited."""
+        h.sync()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t) / calls * 1e6
+        h.sync()
+        return us
+
+    g, pw = GROUP_LOG_N, PAIR_LOG_N
+    shapes = (("(24, 1)", FQ, (1,)), (f"(24, 2^{g})", FQ, (1 << g,)),
+              (f"(16, 2^{g})", bn254.FR, (1 << g,)),
+              (f"BLS12-381 pairing_each widest (24, {PAIR_WIDEST_PRODUCT}, 2^{pw})", FQ,
+               (PAIR_WIDEST_PRODUCT, 1 << pw)))
+    out = {"mont_mul": dict(rows=[]), "mont_sqr": dict(rows=[])}
+    for label, spec, batch in shapes:
+        L, m = spec.num_limbs, math.prod(batch)
+        a = h.rand_field(spec, m).reshape((L,) + batch)
+        b = h.rand_field(spec, m).reshape((L,) + batch)
+        for name, fn, n_in, ops in (
+                ("mont_mul", lambda: fp.mont_mul(spec, a, b), 2, h.mul_ops(spec)),
+                ("mont_sqr", lambda: fp.mont_sqr(spec, a), 1, h.sqr_ops(spec))):
+            ms = h.time_ms(fn, K)
+            dev_ms, traced = traced_device_ms(torch, name, fn, 50, dev)
+            b_ms, b_by = h.bound((n_in + 1) * L * m * 4, m * ops)
+            out[name]["rows"].append(dict(
+                shape=label, field=spec.name, ms_per_call=ms, host_us_per_call=host_us(fn),
+                device_ms_per_launch=dev_ms, traced_launches=traced, bound_ms=b_ms, bound_by=b_by,
+                share_of_bound=b_ms / ms, device_share_of_bound=b_ms / dev_ms if dev_ms else None))
+        del a, b
+
+    host = launch_host_pieces(torch, h, FQ, 2 * K, host_us) if dev.type == "cuda" else None
+
+    # a batch-transposed operand: not addressable by the operand map, so
+    # the wrapper copies it; the copy must outlive the enqueue (the output
+    # of the same size would otherwise take its memory)
+    m = 1 << 12
+    for name in ("mont_mul", "mont_sqr"):
+        x = h.rand_field(FQ, 6 * m).reshape(FQ.num_limbs, 6, m)
+        y = h.rand_field(FQ, 6 * m).reshape(FQ.num_limbs, m, 6)
+        ref = x.transpose(1, 2).contiguous()
+        got = (km.mont_mul(FQ, x.transpose(1, 2), y) if name == "mont_mul"
+               else km.mont_sqr(FQ, x.transpose(1, 2)))
+        del x
+        junk = [torch.full_like(y, -1) for _ in range(4)]  # takes the freed blocks first
+        want = km.mont_mul_plain(FQ, ref, y if name == "mont_mul" else ref)
+        out[name]["transposed_max_abs_err"] = h.check_equal(
+            f"{name} on a batch-transposed operand", got, want)
+        out[name]["transposed_shape"] = [FQ.num_limbs, m, 6]
+        del junk, got, want, y, ref
+    cheaper = None if host is None else min(
+        ("torch._C._cuda_getCurrentRawStream", "torch.cuda.current_stream(dev).cuda_stream"),
+        key=host.get)
+    h.emit("launch_cost", calls=K, correct=True, host_us_pieces_24_1=host,
+           stream_call_cheaper=cheaper, **out)
+    return out
 
 
 # ---- 9. the pairing path -----------------------------------------------------
@@ -1160,10 +1342,10 @@ def replay_msm_launches(h, curve, calls):
 
     def run(kernel, ins, extra, plain):
         if kernel == "xyzz_accum":
-            return (ksw.xyzz_accum_plain if plain else
+            return (PLAIN.accum if plain else
                     ksw.xyzz_accum_grid if extra == "grid" else ksw.xyzz_accum_tiles)(curve, *ins)
         if kernel == "horner_windows":
-            return (ksw.horner_windows_plain if plain else ksw.horner_windows)(curve, ins[0], extra)
+            return (PLAIN.horner if plain else ksw.horner_windows)(curve, ins[0], extra)
         if kernel == "xyzz_bit_horner":
             return (ksw.xyzz_bit_horner_plain if plain else ksw.xyzz_bit_horner)(curve, ins)
         if kernel == "xyzz_tree_sum":
@@ -1395,8 +1577,8 @@ def pairing_phase(torch, h, rec):
             e = key[3]
             pl = {"mont_mul": lambda: km.mont_mul_plain(spec_k, *ins),
                   "mont_sqr": lambda: km.mont_sqr_plain(spec_k, *ins),
-                  "mont_pow": lambda: km.mont_pow_plain(spec_k, ins[0], e),
-                  "mont_inv": lambda: km.mont_inv_plain(spec_k, ins[0])}[name]
+                  "mont_pow": lambda: PLAIN.pow(spec_k, ins[0], e),
+                  "mont_inv": lambda: PLAIN.inv(spec_k, ins[0])}[name]
             got = km._launch(name, spec_k, *ins, exponent=e)
             e_row = h.check_equal(f"{name} {key[1]} {key[2]} (e = {e})", got, pl())
             prods[name].append(dict(field=key[1], shape=list(key[2]), launches=count, max_abs_err=e_row,
@@ -1449,13 +1631,13 @@ def expected_gt(torch, F, r, e_flat, ks, m, inf_every, dev):
     ``dev``, and the combined E^(sum over the lanes mod r)."""
     from zkarray_torch.testing import fp12_tensor, gt_powers
 
-    rows = gt_powers(F.host, e_flat, ks)
-    one = tuple(F.host.flatten(F.host.one()))
-    table = fp12_tensor(F, rows + [one], dev)
     lane = np.arange(m) % len(ks)
     lane[np.arange(m) % inf_every == inf_every - 1] = len(ks)
     total = sum(ks[j] for j in lane.tolist() if j < len(ks)) % r
-    comb = fp12_tensor(F, gt_powers(F.host, e_flat, [total]), dev)[..., 0]
+    rows = gt_powers(F.host, e_flat, list(ks) + [total])  # one shared table
+    one = tuple(F.host.flatten(F.host.one()))
+    table = fp12_tensor(F, rows[:-1] + [one], dev)
+    comb = fp12_tensor(F, rows[-1:], dev)[..., 0]
     return table[..., torch.from_numpy(lane).to(dev)], comb
 
 
@@ -1536,6 +1718,184 @@ class PathRuns:
         return check
 
 
+GRAPH_PLAIN_ELEMS = 1 << 26  # L^2 x lanes at most for a plain chain replayed through CUDA graphs
+GRAPH_ACCUM_ELEMS = 1 << 24  # L^2 x slots at most for graphed accumulation rounds
+GRAPH_PLAIN_MIN_STEPS = 16  # shorter chains run eagerly
+GRAPH_SLACK_BYTES = 8 << 30  # device memory reserved and not allocated before the cache is emptied
+
+
+class PlainChains:
+    """The plain versions' long chains, with each step captured once as a
+    CUDA graph and replayed: mont_pow_plain's square-and-multiply (so
+    mont_inv_plain, a^(p - 2), and mont_div_plain's batch inverse),
+    horner_windows_plain's doublings and xyzz_accum_plain's rounds. The
+    same PyTorch kernels run on the same words in the same order (a
+    round's doubling candidate, which the plain version computes only when
+    a slot needs it, is computed every round and selected per slot: the
+    same words); a graph replay costs one launch where an eager plain
+    product costs ~100 (a 753-bit inverse at one element: ~2.5 s eagerly, a
+    launch-bound chain of ~1,100 products). Used where the plain version is
+    a check's reference; the kernels line's plain_ms stays the eager plain
+    version's time. Chains wider than GRAPH_PLAIN_ELEMS (L^2 x lanes: the
+    device is busy there anyway; GRAPH_ACCUM_ELEMS for the rounds) or
+    shorter than GRAPH_PLAIN_MIN_STEPS run eagerly. A chain's graphs share
+    one memory pool; a dead chain's pool stays reserved until
+    torch.cuda.empty_cache(), which ``release`` calls once the device
+    memory reserved and not allocated passes GRAPH_SLACK_BYTES (without it,
+    ~75 GiB by the end of phase 13)."""
+
+    def __init__(self):
+        self.graphed = collections.Counter()  # chains replayed, by kind
+        self.emptied = 0
+
+    @staticmethod
+    def capture(torch, step, pool=None):
+        """step() once eagerly on a side stream (the plain version's cached
+        constants are built outside the capture), then captured (into
+        ``pool``, another graph's, when given); returns the graph. The caller
+        resets the static buffers step() updated. Graphs sharing a pool are
+        replayed one at a time, each writing its result into buffers
+        allocated outside it."""
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            step()
+            g = torch.cuda.CUDAGraph()
+            g.capture_begin(pool=pool)
+            try:
+                step()
+            finally:
+                g.capture_end()
+        torch.cuda.current_stream().wait_stream(s)
+        return g
+
+    def release(self, torch):
+        """After a chain's graphs are dropped: empty PyTorch's cache when it
+        holds more than GRAPH_SLACK_BYTES unallocated."""
+        if torch.cuda.memory_reserved() - torch.cuda.memory_allocated() > GRAPH_SLACK_BYTES:
+            torch.cuda.empty_cache()
+            self.emptied += 1
+
+    def pow(self, spec, a, e):
+        """mont_pow_plain(spec, a, e): res = 1 (Montgomery), base = a; for
+        each bit of e from the lowest, res = res base when it is set and
+        base = base^2 while bits remain."""
+        import torch
+        from zkarray_torch.kernels import mont as km
+
+        L, e = spec.num_limbs, int(e)
+        batch = tuple(a.shape[1:])
+        n = math.prod(batch)
+        if (not a.is_cuda or n == 0 or n * L * L > GRAPH_PLAIN_ELEMS
+                or e.bit_length() < GRAPH_PLAIN_MIN_STEPS):
+            return km.mont_pow_plain(spec, a, e)
+        x = a.reshape(L, n).contiguous()
+        one = km.const(spec, spec.r_int, (n,), a.device)
+        base, res = x.clone(), one.clone()
+        g_sqr = self.capture(torch, lambda: base.copy_(km.mont_sqr_plain(spec, base)))
+        g_mul = self.capture(torch, lambda: res.copy_(km.mont_mul_plain(spec, res, base)),
+                             pool=g_sqr.pool())
+        base.copy_(x)
+        res.copy_(one)
+        while e:
+            if e & 1:
+                g_mul.replay()
+            e >>= 1
+            if e:
+                g_sqr.replay()
+        out = res.clone().reshape((L,) + batch)
+        del g_sqr, g_mul
+        self.release(torch)
+        self.graphed["mont_pow"] += 1
+        return out
+
+    def inv(self, spec, a):
+        """mont_inv_plain: a^(p - 2)."""
+        return self.pow(spec, a, spec.modulus - 2)
+
+    def div(self, spec, n0, d0, n1, d1):
+        """mont_div_plain: each numerator times its batch inverse
+        (km.batch_inv_by with the plain product and this inverse)."""
+        import torch
+        from zkarray_torch.kernels import mont as km
+
+        return torch.stack([km.mont_mul_plain(spec, num, km.batch_inv_by(spec, den, km.mont_mul_plain,
+                                                                          self.inv))
+                            for num, den in ((n0, d0), (n1, d1))])
+
+    def horner(self, curve, win, c):
+        """horner_windows_plain(curve, win, c): the top window, then for each
+        lower one c doublings (_dbl_plain, one graph replay each) and an add
+        (_fadd_plain, eagerly: it branches on the words)."""
+        import torch
+        from zkarray_torch.kernels import sw as ksw
+
+        L = curve.base.num_limbs
+        W = win.shape[0]
+        if not win.is_cuda or (W - 1) * c < GRAPH_PLAIN_MIN_STEPS:
+            return ksw.horner_windows_plain(curve, win, c)
+
+        def point(w):
+            return tuple(win[w, i * L : (i + 1) * L, None] for i in range(4))
+
+        st = tuple(v.clone() for v in point(W - 1))
+
+        def dbl():
+            for s_, v in zip(st, ksw._dbl_plain(curve, st)):
+                s_.copy_(v)
+
+        g_dbl = self.capture(torch, dbl)
+        for s_, v in zip(st, point(W - 1)):
+            s_.copy_(v)
+        for wi in range(W - 1):
+            for _ in range(c):
+                g_dbl.replay()
+            for s_, v in zip(st, ksw._fadd_plain(curve, st, point(W - 2 - wi))):
+                s_.copy_(v)
+        out = torch.cat([v[:, 0] for v in st]).to(torch.int32)
+        del g_dbl
+        self.release(torch)
+        self.graphed["horner_windows"] += 1
+        return out
+
+    def accum(self, curve, state, coords, valid):
+        """xyzz_accum_plain(curve, state, coords, valid): R rounds of
+        sw.accum_round_plain over the S slots, each round's points and
+        flags copied into the graph's inputs before its replay."""
+        import torch
+        from zkarray_torch.core import limbs as lb
+        from zkarray_torch.kernels import sw as ksw
+
+        L = curve.base.num_limbs
+        Lp, (_, R, S) = L // 2, coords.shape
+        if not state.is_cuda or R < GRAPH_PLAIN_MIN_STEPS or S * L * L > GRAPH_ACCUM_ELEMS:
+            return ksw.xyzz_accum_plain(curve, state, coords, valid)
+        st0 = tuple(lb.unpack_pairs(state[i * Lp : (i + 1) * Lp]) for i in range(4))
+        st = tuple(x.clone() for x in st0)
+        zero = lb.zeros(L, (S,), state.device)
+        cd, v = coords[:, 0].clone(), valid[0].clone()
+
+        def round_():
+            for s_, x in zip(st, ksw.accum_round_plain(curve, st, cd, v, zero, always_dbl=True)):
+                s_.copy_(x)
+
+        g_round = self.capture(torch, round_)
+        for s_, x in zip(st, st0):
+            s_.copy_(x)
+        for r in range(R):
+            cd.copy_(coords[:, r])
+            v.copy_(valid[r])
+            g_round.replay()
+        out = torch.cat([lb.pack_pairs(x) for x in st], dim=0)
+        del g_round
+        self.release(torch)
+        self.graphed["xyzz_accum"] += 1
+        return out
+
+
+PLAIN = PlainChains()
+
+
 FIELD_KERNELS = ("mont_mul", "mont_sqr", "mont_pow", "mont_inv", "fp_add", "fp_sub")
 
 
@@ -1547,11 +1907,11 @@ def field_kernel_calls():
 
     plain = {"mont_mul": lambda f, ins, e: km.mont_mul_plain(f, *ins),
              "mont_sqr": lambda f, ins, e: km.mont_sqr_plain(f, *ins),
-             "mont_pow": lambda f, ins, e: km.mont_pow_plain(f, ins[0], e),
-             "mont_inv": lambda f, ins, e: km.mont_inv_plain(f, ins[0]),
+             "mont_pow": lambda f, ins, e: PLAIN.pow(f, ins[0], e),
+             "mont_inv": lambda f, ins, e: PLAIN.inv(f, ins[0]),
              "fp_add": lambda f, ins, e: km.add_plain(f, *ins),
              "fp_sub": lambda f, ins, e: km.sub_plain(f, *ins),
-             "mont_div": lambda f, ins, e: km.mont_div_plain(f, *ins)}
+             "mont_div": lambda f, ins, e: PLAIN.div(f, *ins)}
     kern = {"mont_mul": lambda f, ins, e: km.mont_mul(f, *ins),
             "mont_sqr": lambda f, ins, e: km.mont_sqr(f, *ins),
             "mont_pow": lambda f, ins, e: km.mont_pow(f, ins[0], e),
@@ -1645,7 +2005,8 @@ def field_width_report(torch, h, f, rows, labels, wide_key, edge, err):
     """The six field kernels at field ``f``'s width: wrapper ms at (L,
     2^FIELD48_LOG_N) random words (mont_pow at e = p - 2) with its plain ms
     and bound, the kernel's result held against the plain version's there
-    (``err``); each kernel's widest recorded launch on the paths ``labels``
+    (``err``; mont_inv against mont_pow's plain result, the same power,
+    and with its plain ms); each kernel's widest recorded launch on the paths ``labels``
     (under ``wide_key``) with its bound; ptxas' registers, stack and spills
     at NW = L/2 from the library that holds that width."""
     from zkarray_torch.ff import fp
@@ -1675,9 +2036,13 @@ def field_width_report(torch, h, f, rows, labels, wide_key, edge, err):
         e = e_time if name == "mont_pow" else None
         iters = 3 if name in ("mont_pow", "mont_inv") else 20
         ms = h.time_ms(lambda: kern[name](f, ins, e), iters)
-        want, plain_ms = h.once_ms(lambda: plain[name](f, ins, e))
+        if name == "mont_inv":  # mont_inv_plain is mont_pow_plain at e = p - 2: that result
+            want, plain_ms = pow_want
+        else:
+            want, plain_ms = h.once_ms(lambda: plain[name](f, ins, e))
         err[name] = max(err[name], h.check_equal(f"{name} {f.name} ({L}, {m16}) (e = {e})",
                                                  kern[name](f, ins, e), want))
+        pow_want = (want, plain_ms) if name == "mont_pow" else None
         del want
         if name in ("fp_add", "fp_sub"):
             ops = m16 * h.add_ops(f)
@@ -1898,7 +2263,7 @@ def mixed_mnt_cp6_phase(torch, h, rec):
     against the host known answer, and every MSM-kernel launch of its first
     counted call against the plain version on its own inputs; the MNT4-298, MNT6-298, MNT4-753 and
     MNT6-753 pairing_each at 2^MNT_LOG_N pairs and pairing over them; CP6-782's
-    host G2 preparation per point, its Miller loop and final exponentiation
+    host G2 preparation per point (CP6_BASE seeded pairs, tiled), its Miller loop and final exponentiation
     at 2^MNT_LOG_N lanes and pairing_each end to end on CP6_EACH pairs. Each
     pairing lane against host powers of E (testing.E_*, the JAX package's
     words); each path with its launches per call by kernel, PAIR_TIMED_RUNS
@@ -1984,8 +2349,9 @@ def mixed_mnt_cp6_phase(torch, h, rec):
                             ms_sum=sum(r["ms"] for r in msm_rows if r["kernel"] == k),
                             plain_ms_sum=sum(r["plain_ms"] for r in msm_rows if r["kernel"] == k))
                     for k, v in recorded.items()}
-    # msm on these inputs is ~8 s a call (its residual rounds), within 1 % from call to call
-    whole = pr.measure(lambda: tmsm.msm(B.G1, A, s), check_pt("msm"), trace=False)
+    # msm on these inputs is ~8 s a call at 2^20 (its residual rounds), within 1 % from call to
+    # call: its counted call's wall only
+    whole = pr.measure(lambda: tmsm.msm(B.G1, A, s), check_pt("msm"), timed=0, trace=False)
     h.emit("msm_mixed", curve=B.G1.name, n=n, zero_scalars=n - sum(classes.values()),
            classes_by_bits=classes, correct=True, host_known_answer_s=host_s,
            points_per_s=n / mixed["ms"] * 1e3, **mixed, kernels_vs_plain=msm_vs_plain,
@@ -2020,10 +2386,10 @@ def mixed_mnt_cp6_phase(torch, h, rec):
     # -- CP6-782: the host G2 ladder, then the Miller loop and final exponentiation ----
     spec = cp6_782.PAIRING
     t0 = time.perf_counter()
-    P, Q, ab, inf = tt.pairing_inputs(spec, m, rng, PAIR_BASE, PAIR_INF_EVERY, device=dev,
+    P, Q, ab, inf = tt.pairing_inputs(spec, m, rng, CP6_BASE, PAIR_INF_EVERY, device=dev,
                                       scalar_bits=PAIR_SCALAR_BITS)
-    q_host = tt.g2_affine_to_ints(spec.g2, Q._replace(x=Q.x[..., :PAIR_BASE], y=Q.y[..., :PAIR_BASE],
-                                                      inf=Q.inf[:PAIR_BASE]))
+    q_host = tt.g2_affine_to_ints(spec.g2, Q._replace(x=Q.x[..., :CP6_BASE], y=Q.y[..., :CP6_BASE],
+                                                      inf=Q.inf[:CP6_BASE]))
     want, _ = expected_gt(torch, cp6_782.FQ6, spec.g1.scalar.modulus, tt.E_CP6_782, ab, m,
                           PAIR_INF_EVERY, dev)
     host_s = time.perf_counter() - t0
@@ -2033,7 +2399,7 @@ def mixed_mnt_cp6_phase(torch, h, rec):
     Qp64 = cp6.g2_prepare_host(spec, q_host, dev)
     sync()
     prep_s = time.perf_counter() - t0
-    t = torch.arange(m, device=dev) % PAIR_BASE
+    t = torch.arange(m, device=dev) % CP6_BASE
     Qp = cp6.CP6G2Prepared(*(v[..., t] for v in Qp64[:4]), torch.zeros(m, dtype=torch.bool, device=dev))
     del Qp64
     loop = pr.measure(lambda: cp6.final_exponentiation(spec, cp6.multi_miller_loop(spec, P, Qp, False)),
@@ -3307,7 +3673,7 @@ def curves_h2c_phase(torch, h, rec):
     state, coords, valid = tt.accum_feed(R1, P0, rounds, dev)
     for route, fn in (("grid", ksw.xyzz_accum_grid), ("tiles", ksw.xyzz_accum_tiles)):
         got = fn(R1, state, coords, valid)
-        want_w, plain_ms = h.once_ms(lambda: ksw.xyzz_accum_plain(R1, state, coords, valid))
+        want_w, plain_ms = h.once_ms(lambda: PLAIN.accum(R1, state, coords, valid))
         e = h.check_equal(f"xyzz_accum ({route}) secp256r1 edge rounds", got, want_w)
         err["xyzz_accum"] = max(err["xyzz_accum"], e)
         edge[f"xyzz_accum_{route}"] = dict(slots=R1_EDGE_SLOTS, rounds=R1_EDGE_ROUNDS, max_abs_err=e,
@@ -3328,7 +3694,7 @@ def curves_h2c_phase(torch, h, rec):
     W, c = 8, 4  # the path's own windows at a = -3 (W = 24, c = 11) are the msm's
     win, total = tt.horner_edge_windows(R1, W, c, rng, dev)
     got = ksw.horner_windows(R1, win, c)
-    want_w, plain_ms = h.once_ms(lambda: ksw.horner_windows_plain(R1, win, c))
+    want_w, plain_ms = h.once_ms(lambda: PLAIN.horner(R1, win, c))
     e = h.check_equal("horner_windows secp256r1 edge windows", got, want_w)
     err["horner_windows"] = max(err["horner_windows"], e)
     tot = tsw.XYZZPoints(*(got[i * L:(i + 1) * L, None] for i in range(4)))
@@ -3392,7 +3758,7 @@ def curves_h2c_phase(torch, h, rec):
                      ("xyzz_accum slots", acc64), ("xyzz_add batch", add64),
                      ("xyzz_double batch", dbl64)):
         e = h.check_equal(f"mont_div secp256r1 {what}", km.mont_div(f, P_.x, P_.zz, P_.y, P_.zzz),
-                          km.mont_div_plain(f, P_.x, P_.zz, P_.y, P_.zzz))
+                          PLAIN.div(f, P_.x, P_.zz, P_.y, P_.zzz))
         err["mont_div"] = max(err["mont_div"], e)
         div_rows[what] = dict(points=int(P_.x[0].numel()), max_abs_err=e)
     edge["mont_div"] = div_rows
@@ -4108,8 +4474,22 @@ def main():
     lat_lib = lat_src.with_suffix(".so")
     lat = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lat_lib), str(lat_src)],
                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    built = _build.build()
-    build_s = time.perf_counter() - t0
+    box = {}
+
+    def run_build():
+        try:
+            box["built"] = _build.build()
+        except BaseException as exc:  # raised again below
+            box["error"] = exc
+        box["s"] = time.perf_counter() - t0
+
+    build_thread = threading.Thread(target=run_build)
+    build_thread.start()
+    pow_wide = wide_pow_reference(torch, FQ, 1 << LOG_N, dev)  # the device is idle meanwhile
+    build_thread.join()
+    if "error" in box:
+        raise box["error"]
+    built, build_s = box["built"], box["s"]
     probe_log, _ = probe.communicate()
     if probe.returncode != 0:
         raise RuntimeError(f"nvcc failed for the SASS probe:\n{probe_log}")
@@ -4125,12 +4505,12 @@ def main():
 
     # instructions per field operation (probe minus probe_none) and the code
     # size of the two sw.cu kernels, NW = 12
-    probes = sass_functions(probe_bin)
+    probes, sw_sass, xyzz_sass, madd_sass = sass_functions(
+        [probe_bin] + [_build.lib_path(lib) for lib in ("sw", "xyzz", "madd")])
     base = probes["probe_none"]
     per_op = {k[len("probe_"):]: dict(instructions=v["instructions"] - base["instructions"],
                                       imad=v["imad"] - base["imad"], opcodes=v["opcodes"])
               for k, v in probes.items() if k not in ("probe_none", "probe_horner_serial")}
-    sw_sass = sass_functions(_build.lib_path("sw"))
 
     def sw_kernel(stem):
         hits = [(k, v) for k, v in sw_sass.items() if f"{stem}ILi12E" in k and "PlainOps" not in k]
@@ -4143,7 +4523,7 @@ def main():
     xyzz_kernels = {}
     for src, stems in (("xyzz", ("xyzz_add_kernel", "xyzz_tree_sum_kernel", "xyzz_double_kernel")),
                        ("madd", ("xyzz_add_affine_kernel",))):
-        code = sass_functions(_build.lib_path(src))
+        code = xyzz_sass if src == "xyzz" else madd_sass
         for stem in stems:
             hit = next((v for k, v in code.items() if f"{stem}ILi12E" in k and "PlainOps" not in k), {})
             xyzz_kernels[stem] = dict(ptxas_of(stem), sass_instructions=hit.get("instructions"),
@@ -4254,10 +4634,9 @@ def main():
             ("mont_sqr", km.mont_sqr, km.mont_sqr_plain, (a,), 1),
         ):
             got = kern(spec, *args)
-            want = plain(spec, *args)
+            want, plain_ms = once_ms(lambda: plain(spec, *args))
             err = check_equal(f"{name} {spec.name}", got, want)
             ms = time_ms(lambda: kern(spec, *args), 20)
-            plain_ms = time_ms(lambda: plain(spec, *args), 2)
             ops = n * (sqr_ops if name == "mont_sqr" else mul_ops)(spec)
             b_ms, b_by = bound((n_in + 1) * L * n * 4, ops)
             emit("kernel", kernel=name, field=spec.name, n=n, max_abs_err=err, ms=ms,
@@ -4312,9 +4691,10 @@ def main():
         emit("kernel", kernel="xyzz_accum", **row)
         return row
 
-    def horner_row(label, win, c):
+    def horner_row(label, win, c, graphed=True):
         got = ksw.horner_windows(G1, win, c)
-        want, plain_ms = once_ms(lambda: ksw.horner_windows_plain(G1, win, c))
+        want, plain_ms = once_ms(lambda: (PLAIN.horner if graphed else ksw.horner_windows_plain)(
+            G1, win, c))
         err = check_equal(f"horner_windows {label}", got, want)
         run = lambda: ksw.horner_windows(G1, win, c)  # noqa: E731
         w_ms, ms = wrapper_ms(run), time_ms(run, 5)
@@ -4322,7 +4702,7 @@ def main():
         b_ms, b_by = bound((win.numel() + got.numel()) * 4, (Wn - 1) * (c * dbl_ops + fadd_ops))
         products, depth = (Wn - 1) * (9 * c + 14), (Wn - 1) * (3 * c + 4)
         row = dict(feed=label, W=Wn, c=c, max_abs_err=err, ms=ms, wrapper_ms=w_ms,
-                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, products=products,
+                   plain_ms=plain_ms, plain_graphed=graphed and win.is_cuda, bound_ms=b_ms, bound_by=b_by, products=products,
                    critical_path_products=depth, us_per_product=ms * 1e3 / products,
                    us_per_critical_product=ms * 1e3 / depth)
         emit("kernel", kernel="horner_windows", **row)
@@ -4399,7 +4779,7 @@ def main():
     Wh, ch = 20, 13
     win = torch.cat([rand_field(f, Wh) for _ in range(4)]).T.contiguous()  # (W, 4L)
     win[5, 2 * L :] = 0
-    horner_rows = {"random windows": horner_row("random windows", win, ch)[0]}
+    horner_rows = {"random windows": horner_row("random windows", win, ch, graphed=False)[0]}
     win, total = horner_edge_windows(G1, Wh, ch, np.random.default_rng(4), dev)
     horner_rows["oracle edge windows"], got = horner_row("oracle edge windows", win, ch)
     res = tsw.XYZZPoints(*(got[i * L : (i + 1) * L, None] for i in range(4)))
@@ -4544,9 +4924,9 @@ def main():
         wide = rand_field(spec, 2 * m).reshape((L,) + batch[:-1] + (2 * batch[-1],))
         halves = (wide[..., : batch[-1]], wide[..., batch[-1] :])[:n_in]
         got = kern(spec, *halves)
-        err = check_equal(f"{name} {fname} at {shape}", got, plain(spec, *halves))
+        want, plain_ms = once_ms(lambda: plain(spec, *halves))
+        err = check_equal(f"{name} {fname} at {shape}", got, want)
         ms = time_ms(lambda: kern(spec, *halves), 20)
-        plain_ms = time_ms(lambda: plain(spec, *halves), 2)
         ops = m * (sqr_ops if name == "mont_sqr" else mul_ops)(spec)
         tb, to = (n_in + 1) * L * m * 4 / HBM_BYTES_PER_S * 1e3, ops / int_ops_per_s * 1e3
         at_shape[name].append(dict(field=fname, shape=list(shape), launches=count, max_abs_err=err,
@@ -4589,11 +4969,11 @@ def main():
         """Kernel against plain on points ``pts``: (error, ms, plain ms,
         byte-bound ms, operation-bound ms)."""
         kern, plain, lane_ops, coords = xyzz_fns[name]
-        got, want = kern(G1, *pts), plain(G1, *pts)
+        got = kern(G1, *pts)
+        want, plain_ms = once_ms(lambda: plain(G1, *pts))
         err = max(check_equal(f"{name} {what}, coordinate {i}", g, w_)
                   for i, (g, w_) in enumerate(zip(got, want)))
         ms = time_ms(lambda: kern(G1, *pts), 20)
-        plain_ms = time_ms(lambda: plain(G1, *pts), 2)
         m = pts[0][0][0].numel()
         return (err, ms, plain_ms, coords * Lq * m * 4 / HBM_BYTES_PER_S * 1e3,
                 lane_ops(*pts) / int_ops_per_s * 1e3)
@@ -4669,11 +5049,11 @@ def main():
         return blocks.value, threads.value
 
     def tree_row(P, what, launches_=0):
-        got, want = ksw.xyzz_tree_sum(G1, P), ksw.xyzz_tree_sum_plain(G1, P)
+        got = ksw.xyzz_tree_sum(G1, P)
+        want, plain_ms = once_ms(lambda: ksw.xyzz_tree_sum_plain(G1, P))
         err = max(check_equal(f"xyzz_tree_sum {what}, coordinate {i}", g, w_)
                   for i, (g, w_) in enumerate(zip(got, want)))
         ms = time_ms(lambda: ksw.xyzz_tree_sum(G1, P), 20)
-        plain_ms = time_ms(lambda: ksw.xyzz_tree_sum_plain(G1, P), 2)
         m = P[0].shape[-1]
         rows_ = P[0][0].numel() // m
         blocks, _ = tree_occupancy(m)
@@ -4758,13 +5138,13 @@ def main():
     edge = mont_inv_edge_words(f, np.random.default_rng(6), n_random=8)
     xe = fp.from_ints(f, edge, mont=False, device=dev)  # the words themselves
     pow_rows, pow_in = {}, {}
-    for label, x in (("2^20", rand_field(f, n)), ("one element", rand_field(f, 1))):
-        if label == "2^20":
-            x[:, ::1001] = 0
-            x[:, 1 : 1 + len(edge)] = xe
+    for label, x in (("2^20", pow_wide[0]), ("one element", rand_field(f, 1))):
         m = x[0].numel()
         got = km.mont_pow(f, x, e)
-        want, plain_ms = once_ms(lambda: km.mont_pow_plain(f, x, e))
+        if label == "2^20":  # its plain version ran while nvcc built the kernels
+            want, plain_ms = pow_wide[1:]
+        else:
+            want, plain_ms = once_ms(lambda: km.mont_pow_plain(f, x, e))
         err = check_equal(f"mont_pow at {tuple(x.shape)}", got, want)
         ms = time_ms(lambda: km.mont_pow(f, x, e), 3 if m > 1024 else 20)
         b_ms, b_by = bound(2 * Lq * m * 4, m * pow_ops(f, e))
@@ -4802,7 +5182,7 @@ def main():
     # 1); its operation bound: testing.mont_inv_ops a element.
     R, p_ = f.r_int, f.modulus
     got = km.mont_inv(f, xe)
-    want = km.mont_inv_plain(f, xe)
+    want = PLAIN.inv(f, xe)
     err = check_equal("mont_inv on the edge words", got, want)
     for j in range(len(edge)):
         err = max(err, check_equal(f"mont_inv on edge word {j} alone", km.mont_inv(f, xe[:, j : j + 1]),
@@ -4815,7 +5195,7 @@ def main():
     want, plain_ms = once_ms(lambda: km.mont_inv_plain(f, x1))
     err = max(err, check_equal("mont_inv on the path's ZZ", km.mont_inv(f, x1), want))
     err = max(err, check_equal("mont_inv on the path's ZZZ", km.mont_inv(f, ZZZ_path),
-                               km.mont_inv_plain(f, ZZZ_path)))
+                               PLAIN.inv(f, ZZZ_path)))
     x12 = rand_field(f, 1 << INV_PAIRING_LOG_N)
     x12[:, ::1001] = 0
     x12[:, 1 : 1 + len(edge)] = xe
@@ -4869,14 +5249,14 @@ def main():
     z1 = torch.zeros_like(x1)
     inf_in = (X_path, z1, Y_path, z1)
     got = km.mont_div(f, *inf_in)
-    err = max(err, check_equal("mont_div at infinity", got, km.mont_div_plain(f, *inf_in)))
+    err = max(err, check_equal("mont_div at infinity", got, PLAIN.div(f, *inf_in)))
     if bool(got.any()):
         raise AssertionError("mont_div at infinity: the quotients are not 0")
     P16 = [rand_field(f, 1 << DIV_LOG_N) for _ in range(4)]
     P16[1][:, ::64] = 0
     P16[3][:, ::64] = 0
     err = max(err, check_equal("mont_div at 2^16 points", km.mont_div(f, *P16),
-                               km.mont_div_plain(f, *P16)))
+                               PLAIN.div(f, *P16)))
     div_path = div_inputs[0]
     ms_div = time_ms(lambda: km.mont_div(f, *div_path), 20)
     dev_div, _ = traced_device_ms(torch, "mont_div", lambda: km.mont_div(f, *div_path), 20, dev)
@@ -5281,9 +5661,10 @@ def main():
         xb = rand_field(FR, C * 2 * H * R).reshape(shape)
         twb = rand_field(FR, T)
         got = km.butterfly_dit(FR, xb.clone(), twb, stride)
-        err = check_equal(f"butterfly_dit at {shape}", got, km.butterfly_dit_plain(FR, xb.clone(), twb, stride))
+        xc = xb.clone()
+        want, plain_ms = once_ms(lambda: km.butterfly_dit_plain(FR, xc, twb, stride))
+        err = check_equal(f"butterfly_dit at {shape}", got, want)
         ms = time_ms(lambda: km.butterfly_dit(FR, xb, twb, stride), 20)
-        plain_ms = time_ms(lambda: km.butterfly_dit_plain(FR, xb, twb, stride), 2)
         pairs = C * H * R
         dit_rows.append(dict(run=label, shape=list(shape), stride=stride,
                              launches=count if label == "fft" else 0, calls=count,
@@ -5307,10 +5688,9 @@ def main():
     pow_rows = []
     for (label, w_int, n_t, scale, packed), count in pow_keys.items():
         got = km.pow_table(FR, w_int, n_t, dev, scale, packed)
-        err = check_equal(f"pow_table {label} n={n_t}", got,
-                          km.pow_table_plain(FR, w_int, n_t, dev, scale, packed))
+        want, plain_ms = once_ms(lambda: km.pow_table_plain(FR, w_int, n_t, dev, scale, packed))
+        err = check_equal(f"pow_table {label} n={n_t}", got, want)
         ms = time_ms(lambda: km.pow_table(FR, w_int, n_t, dev, scale, packed), 20)
-        plain_ms = time_ms(lambda: km.pow_table_plain(FR, w_int, n_t, dev, scale, packed), 2)
         dev_ms, dev_seen = traced_device_ms(
             torch, "pow_table", lambda: km.pow_table(FR, w_int, n_t, dev, scale, packed), 20, dev)
         sync()  # host time of a build: the wrapper's call, launch included, no wait for the card
@@ -5359,10 +5739,10 @@ def main():
 
         xk, ok = args()
         xp, op = args()
+        want, plain_ms = once_ms(lambda: km.twiddle_mul_plain(FR, xp, tw, r0, c0, op))
         err = check_equal(f"twiddle_mul {label} at {shape} r0={r0} c0={c0}",
-                          km.twiddle_mul(FR, xk, tw, r0, c0, ok), km.twiddle_mul_plain(FR, xp, tw, r0, c0, op))
+                          km.twiddle_mul(FR, xk, tw, r0, c0, ok), want)
         ms = time_ms(lambda: km.twiddle_mul(FR, xk, tw, r0, c0, ok), 20)
-        plain_ms = time_ms(lambda: km.twiddle_mul_plain(FR, xp, tw, r0, c0, op), 2)
         m = math.prod(shape[1:])
         read = (distinct_elems(x) + m) * L + tw.lo.numel() + tw.hi.numel()
         tw_rows.append(dict(run=label, shape=list(shape), x_strides=list(strides), r0=r0, c0=c0,
@@ -5389,10 +5769,9 @@ def main():
     got = km.butterfly_stage(FR, lo, hi, w)
     sync()
     stage_launches = kernels.LAUNCHES["butterfly_stage"]
-    want = km.butterfly_stage_plain(FR, lo, hi, w)
+    want, plain_ms = once_ms(lambda: km.butterfly_stage_plain(FR, lo, hi, w))
     err = max(check_equal("butterfly_stage a", got[0], want[0]), check_equal("butterfly_stage b", got[1], want[1]))
     ms = time_ms(lambda: km.butterfly_stage(FR, lo, hi, w), 20)
-    plain_ms = time_ms(lambda: km.butterfly_stage_plain(FR, lo, hi, w), 2)
     b_ms, b_by = bound(5 * L * ne * 4, ne * dit_ops)
     emit("kernel", kernel="butterfly_stage", field=FR.name, n=ne, max_abs_err=err, ms=ms,
          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
@@ -5527,6 +5906,9 @@ def main():
         check_equal=check_equal, mul_ops=mul_ops, sqr_ops=sqr_ops, pow_ops=pow_ops, add_ops=add_ops,
         bound=bound, emit=emit,
         distinct_elems=distinct_elems)
+    for name, r in launch_cost(torch, helpers).items():  # before the recorders wrap _launch
+        report[name]["launch_cost"] = r
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], r["transposed_max_abs_err"])
     rec, restore = install_recorders(torch, km)
     try:
         group_report = field_group_phase(torch, helpers, rec)
@@ -5678,6 +6060,7 @@ def main():
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
                      "path": paths[name][0], "launches": paths[name][1], "library_ms": None,
                      "nw_widths": widths, **r})
+    emit("plain_chains", graphed=dict(PLAIN.graphed), cache_emptied=PLAIN.emptied)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
-"""Time the host-bound calls of the group and G2 paths (chip_smoke.py
-phases 8 and 9) of this tree against another checkout's (e.g. the parent
-commit unpacked with git archive), in turns, on one NVIDIA GPU.
+"""Time the host-bound calls of the group, G2 and pairing paths
+(chip_smoke.py phases 8 and 9) and of the field product's launch of this
+tree against another checkout's (e.g. the parent commit unpacked with git
+archive), in turns, on one NVIDIA GPU.
 
     python3 scripts/group_ab.py OTHER_CHECKOUT [--pairs 3] [--runs 7] [--calls a,b]
 
-The calls, each at 2^16 lanes on BLS12-381: ``clear_cofactor`` (G1 points
-outside the subgroup), ``subgroup_check`` (the generic G1 check) and
-``fast_g1_check`` (``ec.fast_checks``) on lanes mixing multiples of G,
+The calls, at 2^16 lanes on BLS12-381 unless stated: ``clear_cofactor``
+(G1 points outside the subgroup), ``subgroup_check`` (the generic G1 check)
+and ``fast_g1_check`` (``ec.fast_checks``) on lanes mixing multiples of G,
 points outside the subgroup and infinity, ``g2_check`` on multiples of the
-G2 generator mixed with points outside G2, and ``scalar_mul`` on 64
-multiples of G tiled, with 255-bit scalars. Each pair runs the other
+G2 generator mixed with points outside G2, ``scalar_mul`` on 64 multiples
+of G tiled, with 255-bit scalars, ``pairing_each`` over 2^12 pairs
+(testing.pairing_inputs: 64 seeded pairs tiled, every 1,024th G1 point at
+infinity), and ``mont_mul_24_1``, ``mont_mul_24_2^16``, ``mont_sqr_24_1``,
+``mont_sqr_24_2^16``: PRODUCT_CALLS back-to-back ``ff.fp.mont_mul`` /
+``mont_sqr`` calls on Fq at (24, 1) and (24, 2^16), timed as one run (its
+median is then ms per PRODUCT_CALLS calls). Each pair runs the other
 checkout, this tree, this tree, the other checkout, each in a fresh
 process that imports its own checkout's zkarray_torch and builds its
 kernels before any timing. A process makes its inputs from seed 8, runs
@@ -32,7 +38,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 LOG_N = 16
-CALLS = ("clear_cofactor", "subgroup_check", "fast_g1_check", "g2_check", "scalar_mul")
+PAIR_LOG_N = 12
+PRODUCT_CALLS = 1000
+CALLS = ("clear_cofactor", "subgroup_check", "fast_g1_check", "g2_check", "scalar_mul",
+         "pairing_each", "mont_mul_24_1", "mont_mul_24_2^16", "mont_sqr_24_1", "mont_sqr_24_2^16")
 
 
 def worker(checkout, runs, calls):
@@ -43,10 +52,12 @@ def worker(checkout, runs, calls):
     from zkarray_torch.curves import bls12_381 as B
     from zkarray_torch.ec import fast_checks, sw_ext
     from zkarray_torch.ec import sw as tsw
+    from zkarray_torch.ec.pairing import bls12
+    from zkarray_torch.ff import fp
     from zkarray_torch.interop import affine_from_numpy, limbs_from_numpy
     from zkarray_torch.kernels import _build
     from zkarray_torch.testing import (ext_ec_mul, g2_affine_from_ints, g2_off_subgroup_points,
-                                       group_inputs, off_subgroup_points)
+                                       group_inputs, off_subgroup_points, pairing_inputs)
 
     if not torch.cuda.is_available():
         raise RuntimeError("group_ab: no CUDA device")
@@ -75,15 +86,38 @@ def worker(checkout, runs, calls):
     Hin, Hout = tiled(H, t16), tiled(Ho, t16)
     Q = sw_ext.ExtAffine(torch.where(out2, Hout.x, Hin.x), torch.where(out2, Hout.y, Hin.y),
                          Hin.inf | (cls == 7))
+    PP, PQ, _, _ = pairing_inputs(B.PAIRING, 1 << PAIR_LOG_N, rng, 64, 1024, device=dev)
+    F = C.base
+    x1, y1 = A.x[:, :1].contiguous(), A.y[:, :1].contiguous()
+
+    def products(fn, *ins):
+        def loop():
+            for _ in range(PRODUCT_CALLS):
+                res = fn(F, *ins)
+            return res
+        return loop
+
     fns = {"clear_cofactor": lambda: tsw.clear_cofactor(C, off),
            "subgroup_check": lambda: tsw.subgroup_check(C, mix),
            "fast_g1_check": lambda: fast_checks.bls12_381_g1_subgroup_check(C, mix),
            "g2_check": lambda: fast_checks.bls12_381_g2_subgroup_check(C2, Q),
-           "scalar_mul": lambda: tsw.scalar_mul(C, A, s)}
+           "scalar_mul": lambda: tsw.scalar_mul(C, A, s),
+           "pairing_each": lambda: bls12.pairing_each(B.PAIRING, PP, PQ),
+           "mont_mul_24_1": products(fp.mont_mul, x1, y1),
+           "mont_mul_24_2^16": products(fp.mont_mul, A.x, A.y),
+           "mont_sqr_24_1": products(fp.mont_sqr, x1),
+           "mont_sqr_24_2^16": products(fp.mont_sqr, A.x)}
+
+    def tensors(res):
+        if isinstance(res, torch.Tensor):
+            yield res
+        else:
+            for r in res:
+                yield from tensors(r)
 
     def digest(res):
         h = hashlib.sha256()
-        for t in (res if isinstance(res, tuple) else (res,)):
+        for t in tensors(res):
             h.update(t.cpu().numpy().tobytes())
         return h.hexdigest()[:16]
 

@@ -119,7 +119,7 @@ def main():
     libs.update((label, out_dir / f"{label}_mont.so") for label in csrcs)
     sass = {}
     for label, path in libs.items():
-        funcs = {k: v["instructions"] for k, v in cs.sass_functions(path).items()
+        funcs = {k: v["instructions"] for k, v in cs.sass_functions([path])[0].items()
                  if ("mont_inv" in k or "mont_div" in k) and "ILi12E" in k}
         sass[label] = funcs
         if args.sass:

@@ -21,9 +21,9 @@ from zkarray_torch.kernels import _build  # noqa: E402
 from zkarray_torch.kernels import mont as km  # noqa: E402
 
 
-def run(phase: str, tag: str):
-    """Build, make the helpers, run chip_smoke.<phase> with the recorders;
-    lines teed into DIR/<tag>.out when a directory is given."""
+def setup(tag: str, names=_build.SOURCES):
+    """Build the libraries ``names`` and make main()'s helpers; lines teed
+    into DIR/<tag>.out when a directory is given. Returns (helpers, tee)."""
     log = None
     if len(sys.argv) > 1:
         out_dir = pathlib.Path(sys.argv[1])
@@ -41,7 +41,7 @@ def run(phase: str, tag: str):
     cs.print = tee
     tee(cs.nvidia_smi("name,power.limit"))
     t0 = time.perf_counter()
-    built = _build.build()
+    built = _build.build(names)
     tee(json.dumps({"build_s": time.perf_counter() - t0, "per_source": {k: v["seconds"] for k, v in built.items()}}))
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -95,6 +95,13 @@ def run(phase: str, tag: str):
         sqr_ops=lambda s: 3 * nw(s) ** 2 + 4 * nw(s), pow_ops=None, add_ops=lambda s: 3 * nw(s),
         bound=bound, emit=cs.emit,
         distinct_elems=lambda t: (lambda m: m[2] if m[3] == 0 else t[0].numel())(km._operand(t)))
+    return h, tee
+
+
+def run(phase: str, tag: str):
+    """Build, make the helpers, run chip_smoke.<phase> with the recorders;
+    lines teed into DIR/<tag>.out when a directory is given."""
+    h, tee = setup(tag)
     rec, restore = cs.install_recorders(torch, km)
     t = time.perf_counter()
     try:

@@ -142,7 +142,7 @@ def setup():
     cs.PAIR_LOG_N, cs.PAIR_BIG_LOG_N, cs.PAIR_BASE, cs.PAIR_INF_EVERY, cs.G2_LOG_N = 3, 4, 4, 4, 5
     cs.FIELD48_LOG_N = 5
     cs.INV_PAIRING_LOG_N, cs.DIV_LOG_N = 5, 6
-    cs.MIXED_LOG_N, cs.MNT_LOG_N, cs.CP6_EACH = 8, 3, 2
+    cs.MIXED_LOG_N, cs.MNT_LOG_N, cs.CP6_EACH, cs.CP6_BASE = 8, 3, 2, 2
     cs.SF_NTT_LOG_N, cs.SF_NTT_COLS, cs.KB_NTT_COLS, cs.GL_NTT_LOG_N = 6, 4, 2, 7
     cs.SF_ELEM_LOG_N, cs.SF_KAT, cs.DIST_MSM_LOG_N, cs.DIST_FFT_LOG_N = 8, 32, 8, 8
     cs.RB_LOG_N, cs.RB_KAT, cs.DERIVE_LOG_N, cs.MADD_TOP_LOG_N, cs.R1_TIME_LOG_N = 6, 16, 6, 7, 7
@@ -161,9 +161,9 @@ def setup():
     cu.device_count = lambda: 1
     cs.nvidia_smi = lambda fields: "1980 MHz" if "clocks" in fields else "stub card, 700.00 W"
     cs.add_latency_cycles = lambda torch, lib: 4.0
-    cs.sass_functions = lambda path: {
+    cs.sass_functions = lambda paths: [{
         k: dict(instructions=10, imad=5, opcodes={})
-        for k in ("probe_none", "probe_fmul", "probe_fmul_wide", "probe_horner_serial")}
+        for k in ("probe_none", "probe_fmul", "probe_fmul_wide", "probe_horner_serial")} for _ in paths]
 
     fake = pathlib.Path(tempfile.mkdtemp(prefix="rehearse_build_"))
     for name in _build.SOURCES:

@@ -58,8 +58,8 @@ _U, _ULL = ctypes.c_uint, ctypes.c_ulonglong
 # the stream included, as c_void_p so ctypes does not cut it to 32 bits).
 EXPORTS = {
     "mont": {
-        "zk_mont_mul": [_P, _P, _LL, _I, _P, _P],
-        "zk_mont_sqr": [_P, _P, _LL, _I, _P, _P],
+        "zk_mont_mul_v": [_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P, _LL, _I, _P, _P],
+        "zk_mont_sqr_v": [_P, _LL, _LL, _LL, _P, _LL, _I, _P, _P],
         "zk_mont_pow": [_P, _P, _LL, _P, _I, _I, _P, _P],
         "zk_mont_inv": [_P, _P, _LL, _P, _I, _I, _P, _P],
         "zk_mont_div": [_P, _P, _LL, _P, _I, _I, _P, _P],

@@ -422,25 +422,28 @@ static inline unsigned blocks_for(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
-// ops: host descriptors (pointer, ld, inner, outer) of a then b; out:
+// a, b: each operand's data pointer and map (ld, inner, outer; field.cuh's
+// Operand) as scalars, so the wrapper builds no descriptor array; out:
 // int32[L, n] contiguous; consts: host words (see field.cuh).
-extern "C" int zk_mont_mul(const long long* ops, void* out, long long n, int nw,
-                           const uint32_t* consts, void* stream) {
+extern "C" int zk_mont_mul_v(const void* a, long long a_ld, long long a_inner, long long a_outer,
+                             const void* b, long long b_ld, long long b_inner, long long b_outer,
+                             void* out, long long n, int nw, const uint32_t* consts, void* stream) {
   if (n <= 0) return 0;
-  if (!operands_ok(ops, 2)) return (int)cudaErrorInvalidValue;
-  const Operand a = operand_from_host(ops), b = operand_from_host(ops + 4);
+  if (a_inner <= 0 || a_outer < 0 || b_inner <= 0 || b_outer < 0) return (int)cudaErrorInvalidValue;
+  const Operand oa{(const int32_t*)a, a_ld, a_inner, a_outer};
+  const Operand ob{(const int32_t*)b, b_ld, b_inner, b_outer};
   ZK_DISPATCH_NW_FIELD(nw, mont_mul_kernel<NW><<<blocks_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
-                          a, b, (int32_t*)out, n, consts_from_host<NW>(consts)));
+                          oa, ob, (int32_t*)out, n, consts_from_host<NW>(consts)));
   return (int)cudaGetLastError();
 }
 
-extern "C" int zk_mont_sqr(const long long* ops, void* out, long long n, int nw,
-                           const uint32_t* consts, void* stream) {
+extern "C" int zk_mont_sqr_v(const void* a, long long a_ld, long long a_inner, long long a_outer,
+                             void* out, long long n, int nw, const uint32_t* consts, void* stream) {
   if (n <= 0) return 0;
-  if (!operands_ok(ops, 1)) return (int)cudaErrorInvalidValue;
-  const Operand a = operand_from_host(ops);
+  if (a_inner <= 0 || a_outer < 0) return (int)cudaErrorInvalidValue;
+  const Operand oa{(const int32_t*)a, a_ld, a_inner, a_outer};
   ZK_DISPATCH_NW_FIELD(nw, mont_sqr_kernel<NW><<<blocks_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
-                          a, (int32_t*)out, n, consts_from_host<NW>(consts)));
+                          oa, (int32_t*)out, n, consts_from_host<NW>(consts)));
   return (int)cudaGetLastError();
 }
 

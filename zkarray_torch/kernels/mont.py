@@ -336,11 +336,110 @@ def _r2_words(spec: FieldSpec) -> np.ndarray:
                       dtype=np.uint32)
 
 
+def operand_map(t: torch.Tensor, n: int):
+    """``_operand``'s (tensor, ld, inner, outer) for an (L, *batch) operand
+    of n batch elements, with a contiguous one taken as it is (ld = inner =
+    n, outer = 0) without a call of ``batch_map``. A stride-0 broadcast is
+    not contiguous, so it never takes that case."""
+    if t.is_contiguous():
+        return t, n, n, 0
+    return _operand(t)
+
+
+class ProductLauncher:
+    """csrc/mont.cu's product and square (zk_mont_mul_v, zk_mont_sqr_v) for
+    one field on one CUDA device, built once by ``product_launcher``: it
+    holds the width library's C entries, the field's constant words (kept
+    alive here, passed by address) and the device index, so that a call
+    loads no library, builds no descriptor array and makes no lookup keyed
+    by a numpy array."""
+
+    __slots__ = ("spec", "L", "nw", "index", "lib", "mul_fn", "sqr_fn", "words", "consts",
+                 "current_device", "raw_stream")
+
+    def __init__(self, spec: FieldSpec, index: int):
+        if index < 0:
+            raise ValueError("mont_mul/mont_sqr: expected CUDA tensors")
+        self.spec, self.index = spec, index
+        self.L, self.nw = spec.num_limbs, spec.num_limbs // 2
+        self.lib = _build.load(_build.field_lib(self.nw))
+        self.mul_fn, self.sqr_fn = self.lib.zk_mont_mul_v, self.lib.zk_mont_sqr_v
+        self.words = field_words(spec)
+        self.consts = self.words.ctypes.data
+        self.current_device = torch._C._cuda_getDevice
+        # the current stream as an int, as PyTorch's generated launchers read
+        # it: ~0.1 us a call on an H100 machine's host, where
+        # torch.cuda.current_stream(dev).cuda_stream, which builds a Stream
+        # object first, takes 8-12 us (chip_smoke.py's launch_cost line)
+        self.raw_stream = torch._C._cuda_getCurrentRawStream
+
+    def _elements(self, kernel: str, a: torch.Tensor, *others: torch.Tensor) -> int:
+        """Batch elements of the (L, *batch) int32 inputs on this device, all
+        of a's shape; raises otherwise."""
+        shape = a.shape
+        for t in (a,) + others:
+            if t.dtype is not torch.int32:
+                raise TypeError(f"{kernel}: expected int32 tensors, got {t.dtype}")
+            if t.get_device() != self.index:
+                raise ValueError(f"{kernel}: tensors on different devices")
+            if t.shape != shape or shape[0] != self.L:
+                raise ValueError(f"{kernel}: expected inputs of one (L={self.L}, *batch) shape")
+        return a.numel() // self.L
+
+    def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        if self.current_device() != self.index:
+            with torch.cuda.device(self.index):
+                return self.mul(a, b)
+        n = self._elements("mont_mul", a, b)
+        a, a_ld, a_in, a_out = operand_map(a, n)  # a copy is held until the launch
+        b, b_ld, b_in, b_out = operand_map(b, n)
+        out = torch.empty_like(a, memory_format=torch.contiguous_format)
+        err = self.mul_fn(a.data_ptr(), a_ld, a_in, a_out, b.data_ptr(), b_ld, b_in, b_out,
+                          out.data_ptr(), n, self.nw, self.consts, self.raw_stream(self.index))
+        if err:
+            _build.check(self.lib, err, "mont_mul")
+        _build.LAUNCHES["mont_mul"] += 1
+        return out
+
+    def sqr(self, a: torch.Tensor) -> torch.Tensor:
+        if self.current_device() != self.index:
+            with torch.cuda.device(self.index):
+                return self.sqr(a)
+        n = self._elements("mont_sqr", a)
+        a, a_ld, a_in, a_out = operand_map(a, n)  # a copy is held until the launch
+        out = torch.empty_like(a, memory_format=torch.contiguous_format)
+        err = self.sqr_fn(a.data_ptr(), a_ld, a_in, a_out, out.data_ptr(), n, self.nw,
+                          self.consts, self.raw_stream(self.index))
+        if err:
+            _build.check(self.lib, err, "mont_sqr")
+        _build.LAUNCHES["mont_sqr"] += 1
+        return out
+
+
+_PRODUCT_LAUNCHERS: dict = {}
+
+
+def product_launcher(spec: FieldSpec, index: int) -> ProductLauncher:
+    """The ``ProductLauncher`` of ``spec`` on CUDA device ``index``, built on
+    first use and kept. Keyed by the spec's id (FieldSpec.__hash__ is Python
+    code, hashing the modulus); the launcher holds the spec, so the id stays
+    its own."""
+    got = _PRODUCT_LAUNCHERS.get((id(spec), index))
+    if got is None:
+        got = _PRODUCT_LAUNCHERS[(id(spec), index)] = ProductLauncher(spec, index)
+    return got
+
+
 def _launch(kernel: str, spec: FieldSpec, *ins: torch.Tensor,
             exponent: int | None = None) -> torch.Tensor:
     """Run the element-wise kernel ``kernel`` of csrc/mont.cu on (L, *batch)
     inputs of one shape, from the library built for its width (raises for
-    a width outside _build.FIELD_LIBS); ``exponent`` is mont_pow's."""
+    a width outside _build.FIELD_LIBS); ``exponent`` is mont_pow's. The
+    product and the square go through their ``ProductLauncher``."""
+    if kernel == "mont_mul":
+        return product_launcher(spec, ins[0].get_device()).mul(*ins)
+    if kernel == "mont_sqr":
+        return product_launcher(spec, ins[0].get_device()).sqr(*ins)
     extra = ()
     if kernel == "mont_inv":
         extra = (words_ptr(_r2_words(spec)), 0)  # 0: lanes by width
@@ -355,16 +454,18 @@ def _launch(kernel: str, spec: FieldSpec, *ins: torch.Tensor,
 
 def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery product of (L, *batch) int32 limb tensors (broadcast as
-    align does). CPU tensors: plain version; CUDA tensors: the kernel."""
-    if on_cpu(a, b):
+    align does). CPU tensors: plain version; CUDA tensors: the kernel (or
+    it raises); a mix of devices raises (``on_cpu``)."""
+    if not (a.is_cuda and b.is_cuda) and on_cpu(a, b):
         return mont_mul_plain(spec, a, b)
-    a, b = align(spec.num_limbs, a, b)
+    if a.shape != b.shape:
+        a, b = align(spec.num_limbs, a, b)
     return _launch("mont_mul", spec, a, b)
 
 
 def mont_sqr(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """Montgomery square; dispatch as ``mont_mul``."""
-    if on_cpu(a):
+    if not a.is_cuda and on_cpu(a):
         return mont_sqr_plain(spec, a)
     return _launch("mont_sqr", spec, a)
 

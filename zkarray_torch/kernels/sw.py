@@ -63,10 +63,11 @@ def _a_const(curve, like):
     return km.const(f, f.to_mont_int(curve.a_int), like.shape[1:], like.device)
 
 
-def _madd_plain(curve, st, AX, AY, a_inf):
+def _madd_plain(curve, st, AX, AY, a_inf, always_dbl=False):
     """XYZZ += affine (mmadd-xyzz), edge selects as _madd_core: doubling,
     cancel, P = inf, A = inf. The doubling candidate is computed only when
-    some slot needs it, as the TPU kernel's lazy_dbl does per block."""
+    some slot needs it, as the TPU kernel's lazy_dbl does per block; with
+    ``always_dbl`` on every call (the same words, no host branch on them)."""
     mul, sqr, add, sub = _ops(curve)
     X1, Y1, ZZ1, ZZZ1 = st
     U2 = mul(AX, ZZ1)
@@ -88,7 +89,7 @@ def _madd_plain(curve, st, AX, AY, a_inf):
     is_cancel = both & p0 & ~r0
     inf = _inf(curve, AX.shape[1:], AX.device)
 
-    if bool(is_dbl.any()):
+    if always_dbl or bool(is_dbl.any()):
         U = add(AY, AY)
         V = sqr(U)
         Wr = mul(U, V)
@@ -165,21 +166,28 @@ def _fadd_plain(curve, st, st2):
 
 def xyzz_accum_plain(curve, state, coords, valid):
     """R sequential bucket rounds over S slots (layout in the module doc)."""
-    f = curve.base
-    L = f.num_limbs
+    L = curve.base.num_limbs
     Lp = L // 2
     st = tuple(lb.unpack_pairs(state[i * Lp : (i + 1) * Lp]) for i in range(4))
     zero = lb.zeros(L, state.shape[1:], state.device)
     for r in range(coords.shape[1]):
-        cd = coords[:, r]
-        AX = lb.unpack_pairs(cd[:Lp])
-        AY = lb.unpack_pairs(cd[Lp:])
-        v = valid[r]
-        a_inf = (v & 1) == 0
-        sign = ((v >> 1) & 1) != 0
-        AY = torch.where(sign[None], km.sub_plain(f, zero, AY), AY)
-        st = _madd_plain(curve, st, AX, AY, a_inf)
+        st = accum_round_plain(curve, st, coords[:, r], valid[r], zero)
     return torch.cat([lb.pack_pairs(v) for v in st], dim=0)
+
+
+def accum_round_plain(curve, st, cd, v, zero, always_dbl=False):
+    """One bucket round of ``xyzz_accum_plain``: the unpacked XYZZ state
+    ``st`` += the round's affine points ``cd`` (packed X | Y, (L, S)),
+    negated where bit 1 of ``v`` is set, skipped where bit 0 is clear
+    (``_madd_plain``; ``always_dbl`` as there)."""
+    f = curve.base
+    Lp = f.num_limbs // 2
+    AX = lb.unpack_pairs(cd[:Lp])
+    AY = lb.unpack_pairs(cd[Lp:])
+    a_inf = (v & 1) == 0
+    sign = ((v >> 1) & 1) != 0
+    AY = torch.where(sign[None], km.sub_plain(f, zero, AY), AY)
+    return _madd_plain(curve, st, AX, AY, a_inf, always_dbl)
 
 
 def horner_windows_plain(curve, win, c: int):

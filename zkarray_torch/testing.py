@@ -824,7 +824,27 @@ def _flat_cols(ops, a):
 
 def gt_powers(F12h, e_flat, ks) -> list:
     """[E^k for k in ks] on the host (any target tower), the squarings
-    E^(2^i) shared."""
+    E^(2^i) shared; for eight or more exponents a shared table of E^(d
+    16^i) for each 4-bit digit d of k instead, one product a nonzero digit
+    (about half the host products of the binary route a power)."""
+    if len(ks) >= 8:
+        x = fp12_from_flat(F12h, e_flat)
+        table = []  # table[i][d] = E^(d 16^i)
+        for _ in range(0, max(k.bit_length() for k in ks), 4):
+            row = [None, x]
+            for _ in range(14):
+                row.append(F12h.mul(row[-1], x))
+            table.append(row)
+            x = F12h.mul(row[-1], x)
+        out = []
+        for k in ks:
+            acc = None
+            for i, row in enumerate(table):
+                d = (k >> (4 * i)) & 15
+                if d:
+                    acc = row[d] if acc is None else F12h.mul(acc, row[d])
+            out.append(tuple(F12h.flatten(F12h.one() if acc is None else acc)))
+        return out
     sq = [fp12_from_flat(F12h, e_flat)]
     for _ in range(max(k.bit_length() for k in ks)):
         sq.append(F12h.mul(sq[-1], sq[-1]))
@@ -971,12 +991,32 @@ def te_add_host(spec, P, Q):
 
 
 def te_mul_host(spec, P, k: int):
-    acc = (0, 1)
+    """k P by double-and-add in projective (X : Y : Z), x = X/Z, y = Y/Z,
+    with the addition te_add_host computes (add-2008-bbjlp: the same
+    denominators 1 +- d x1 x2 y1 y2, as Z3 = F G) and one inverse at the
+    end."""
+    p, a, d = spec.base.modulus, spec.a_int, spec.d_int
+
+    def add(P1, P2):
+        (X1, Y1, Z1), (X2, Y2, Z2) = P1, P2
+        A = Z1 * Z2 % p
+        B = A * A % p
+        C = X1 * X2 % p
+        D = Y1 * Y2 % p
+        E = d * C % p * D % p
+        F, G = (B - E) % p, (B + E) % p
+        X3 = A * F % p * (((X1 + Y1) * (X2 + Y2) - C - D) % p) % p
+        Y3 = A * G % p * ((D - a * C) % p) % p
+        return X3, Y3, F * G % p
+
+    Q = (P[0] % p, P[1] % p, 1)
+    acc = (0, 1, 1)
     for bit in bin(k)[2:] if k else "":
-        acc = te_add_host(spec, acc, acc)
+        acc = add(acc, acc)
         if bit == "1":
-            acc = te_add_host(spec, acc, P)
-    return acc
+            acc = add(acc, Q)
+    zi = pow(acc[2], -1, p)
+    return acc[0] * zi % p, acc[1] * zi % p
 
 
 def do_to_xy(spec, eu):
