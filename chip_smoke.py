@@ -142,7 +142,13 @@ Phases, each printing one JSON line and raising on any failure:
    read as torch.cuda.current_stream(dev).cuda_stream against
    torch._C._cuda_getCurrentRawStream; and a batch-transposed operand (the
    wrapper copies it) dropped right after the call, against the plain
-   version.
+   version. The same line's fp_add, fp_sub and fp_neg rows (through
+   kernels/mont.py:AddSubLauncher) at (24, 1), (24, 2^16), (16, 2^16) and
+   BLS12-381 pairing_each's widest addition (24, 6, 3, 2^12), written
+   through a movedim'd tower view as ff/towers.py:_lin writes it, each
+   against its plain version; the host's pieces of one (24, 1) fp_add
+   call; a batch-transposed operand; and an out that cannot be written in
+   place, which must raise and stay unwritten.
 9. the pairing path (BASELINE config 5), each result against host known
    answers: BLS12-381 pairing_each over 2^12 pairs tiled from 64 seeded
    (a_j G, b_j H), every 1,024th G1 point at infinity, every lane against
@@ -364,6 +370,9 @@ DIV_LOG_N = 16  # mont_div (the to-affine) at 2^16 points against the batch-inve
 GROUP_LOG_N = 16  # BASELINE configs 1-2: 2^16 BN254 Fr elements, 2^16 BLS12-381 G1 points
 LAUNCH_COST_CALLS = 400  # back-to-back product calls a launch_cost timing
 PAIR_WIDEST_PRODUCT = 54  # BLS12-381 pairing_each's widest mont_mul batch: (54, 2^PAIR_LOG_N)
+# BLS12-381 pairing_each's widest addition: (24, 6, 3, 2^PAIR_LOG_N), its out
+# a (6, 24, 3, 2^PAIR_LOG_N) tower tensor written through its movedim'd view
+PAIR_WIDEST_ADDITION = (6, 3)
 SMALL_LOG_N = 12  # BN254 and BLS12-377 G1: one scalar_mul and one subgroup_check each
 FIELD_KAT = 256  # field results held against Python ints at this many sampled indices
 GROUP_KAT = 64  # group results held against the host's ec_mul at this many sampled points
@@ -1096,7 +1105,9 @@ def launch_cost(torch, h):
     group and pairing paths give it, against the device time of its launch
     and its byte bound; where the host time of a (24, 1) call goes; and a
     batch-transposed operand, which the wrapper copies, dropped right after
-    the call and held against the plain version. Returns {kernel: rows}."""
+    the call and held against the plain version. Then the same for fp_add,
+    fp_sub and fp_neg (``addsub_launch_cost``, ``addsub_host_pieces``).
+    Returns {kernel: rows}, fp_neg's apart."""
     from zkarray_torch.curves import bls12_381, bn254
     from zkarray_torch.ff import fp
     from zkarray_torch.kernels import mont as km
@@ -1158,9 +1169,134 @@ def launch_cost(torch, h):
     cheaper = None if host is None else min(
         ("torch._C._cuda_getCurrentRawStream", "torch.cuda.current_stream(dev).cuda_stream"),
         key=host.get)
+    add_shapes = shapes[:3] + ((f"BLS12-381 pairing_each widest addition (24, "
+                                f"{', '.join(map(str, PAIR_WIDEST_ADDITION))}, 2^{pw}), out a "
+                                "movedim'd tower view", FQ, PAIR_WIDEST_ADDITION + (1 << pw,)),)
+    out.update(addsub_launch_cost(torch, h, K, host_us, add_shapes))
+    add_host = addsub_host_pieces(torch, h, FQ, 2 * K, host_us) if dev.type == "cuda" else None
     h.emit("launch_cost", calls=K, correct=True, host_us_pieces_24_1=host,
-           stream_call_cheaper=cheaper, **out)
+           host_us_pieces_fp_add_24_1=add_host, stream_call_cheaper=cheaper, **out)
     return out
+
+
+def addsub_launch_cost(torch, h, K, host_us, shapes):
+    """launch_cost's rows of fp_add, fp_sub and fp_neg (ff/fp.py's add, sub,
+    neg through kernels/mont.py:AddSubLauncher) at ``shapes``: ms per call
+    back to back, host us per call, device ms per launch (a trace of its
+    own), the byte bound (a and b read, out written, L x 4 B an element
+    each; fp_neg reads a and a stride-0 zero) and both shares, each result
+    against its plain version. The last shape's operands are (c, L, *rest)
+    tower tensors read as (L, c, *rest) views and its output written
+    through one, as ff/towers.py:_lin does. Then a batch-transposed operand
+    (copied by the launcher) dropped right after the call, and an ``out``
+    that cannot be written in place, which must raise."""
+    from zkarray_torch.curves import bls12_381
+    from zkarray_torch.ff import fp
+    from zkarray_torch.kernels import mont as km
+
+    dev = h.dev
+    ops = {"fp_add": lambda f, x, y, out=None: fp.add(f, x, y, out=out),
+           "fp_sub": lambda f, x, y, out=None: fp.sub(f, x, y, out=out),
+           "fp_neg": lambda f, x, y, out=None: fp.neg(f, x, out=out)}  # y unused
+    plain = {"fp_add": km.add_plain, "fp_sub": km.sub_plain,
+             "fp_neg": lambda f, x, y: km.sub_plain(f, torch.zeros_like(x), x)}
+    out = {k: dict(rows=[]) for k in ops}
+    for i, (label, spec, batch) in enumerate(shapes):
+        L, m = spec.num_limbs, math.prod(batch)
+        tower = i == len(shapes) - 1
+        if tower:  # (c, L, *rest) tensors and their (L, c, *rest) views
+            c, rest = batch[0], batch[1:]
+            a, b = (h.rand_field(spec, m).reshape((L,) + batch).movedim(1, 0).contiguous()
+                    .movedim(1, 0) for _ in range(2))
+            res = torch.empty((c, L) + rest, dtype=torch.int32, device=dev).movedim(1, 0)
+        else:
+            a = h.rand_field(spec, m).reshape((L,) + batch)
+            b = h.rand_field(spec, m).reshape((L,) + batch)
+            res = None
+        for name, op in ops.items():
+            fn = lambda: op(spec, a, b, out=res)  # noqa: E731
+            got = fn()
+            err = h.check_equal(f"launch_cost {name} {label}", got, plain[name](spec, a, b))
+            if tower and got.data_ptr() != res.data_ptr():
+                raise AssertionError(f"launch_cost {name} {label}: out not written in place")
+            ms = h.time_ms(fn, K)
+            dev_ms, traced = traced_device_ms(torch, "fp_sub" if name == "fp_neg" else name, fn, 50,
+                                              dev)
+            n_in = 1 if name == "fp_neg" else 2
+            b_ms, b_by = h.bound((n_in + 1) * L * m * 4, m * h.add_ops(spec))
+            out[name]["rows"].append(dict(
+                shape=label, field=spec.name, max_abs_err=err, ms_per_call=ms,
+                host_us_per_call=host_us(fn), device_ms_per_launch=dev_ms, traced_launches=traced,
+                bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+                device_share_of_bound=b_ms / dev_ms if dev_ms else None))
+        del a, b, res
+
+    FQ = bls12_381.FQ
+    L, m = FQ.num_limbs, 1 << 12
+    for name, op in ops.items():  # a batch-transposed operand, copied, the copy held until the launch
+        x = h.rand_field(FQ, 6 * m).reshape(L, 6, m)
+        y = h.rand_field(FQ, 6 * m).reshape(L, m, 6)
+        ref = x.transpose(1, 2).contiguous()
+        got = op(FQ, x.transpose(1, 2), y)
+        del x
+        junk = [torch.full_like(y, -1) for _ in range(4)]  # takes the freed blocks first
+        out[name]["transposed_max_abs_err"] = h.check_equal(
+            f"{name} on a batch-transposed operand", got, plain[name](FQ, ref, y))
+        out[name]["transposed_shape"] = [L, m, 6]
+        # an out the map cannot address: it raises, nothing is written
+        bad = torch.full((L, 6, m), -1, dtype=torch.int32, device=dev).transpose(1, 2)
+        try:
+            op(FQ, ref, y, out=bad)
+        except ValueError as e:
+            if "cannot be written in place" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name}: an out that cannot be written in place was accepted")
+        if not bool((bad == -1).all()):
+            raise AssertionError(f"{name}: the refused out was written")
+        out[name]["out_not_in_place_raises"] = True
+        del junk, got, y, ref, bad
+    return out
+
+
+def addsub_host_pieces(torch, h, FQ, calls, host_us):
+    """Host us per call of each piece of a (24, 1) fp_add call through
+    ff/fp.py (kernels/mont.py:AddSubLauncher.launch), each timed alone over
+    ``calls`` calls, with fp_neg's and fp.double's whole calls; the C
+    entry's own (24, 1) sum held against the plain version."""
+    from zkarray_torch.ff import fp
+    from zkarray_torch.kernels import mont as km
+
+    a, b = h.rand_field(FQ, 1), h.rand_field(FQ, 1)
+    idx = a.get_device()
+    go = km.addsub_launcher(FQ, idx)
+    res = torch.empty_like(a)
+    consts, nw, stream, add_fn = go.consts, go.nw, go.raw_stream(idx), go.fns["fp_add"]
+    pieces = {
+        "whole call (ff.fp.add)": lambda: fp.add(FQ, a, b),
+        "whole call (ff.fp.neg)": lambda: fp.neg(FQ, a),
+        "whole call (ff.fp.double)": lambda: fp.double(FQ, a),
+        "through the seam (kernels.mont._launch_addsub)": lambda: km._launch_addsub(
+            "fp_add", FQ, a, b, None),
+        "launcher lookup": lambda: km.addsub_launcher(FQ, a.get_device()),
+        "input checks": lambda: go._elements("fp_add", a, b),
+        "two operand maps": lambda: (km.operand_map(a, 1), km.operand_map(b, 1)),
+        "fp_neg's zero (zero_view)": lambda: km.zero_view(FQ, a),
+        "output torch.empty_like": lambda: torch.empty_like(a, memory_format=torch.contiguous_format),
+        "current device": go.current_device,
+        "torch._C._cuda_getCurrentRawStream": lambda: go.raw_stream(idx),
+        "three data_ptr": lambda: (a.data_ptr(), b.data_ptr(), res.data_ptr()),
+        "C entry, n = 0 (ctypes, no launch)": lambda: add_fn(
+            a.data_ptr(), 1, 1, 0, b.data_ptr(), 1, 1, 0, res.data_ptr(), 1, 1, 0, 0, nw, consts,
+            stream),
+        "C entry, n = 1 (ctypes and the launch)": lambda: add_fn(
+            a.data_ptr(), 1, 1, 0, b.data_ptr(), 1, 1, 0, res.data_ptr(), 1, 1, 0, 1, nw, consts,
+            stream),
+    }
+    host = {k: host_us(fn, calls) for k, fn in pieces.items()}
+    if not torch.equal(res, km.add_plain(FQ, a, b)):
+        raise AssertionError("launch_cost: the C entry's (24, 1) sum differs from plain")
+    return host
 
 
 # ---- 9. the pairing path -----------------------------------------------------
@@ -5906,7 +6042,9 @@ def main():
         check_equal=check_equal, mul_ops=mul_ops, sqr_ops=sqr_ops, pow_ops=pow_ops, add_ops=add_ops,
         bound=bound, emit=emit,
         distinct_elems=distinct_elems)
-    for name, r in launch_cost(torch, helpers).items():  # before the recorders wrap _launch
+    costs = launch_cost(torch, helpers)  # before the recorders wrap _launch and _launch_addsub
+    for name in ("mont_mul", "mont_sqr"):
+        r = costs.pop(name)
         report[name]["launch_cost"] = r
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"], r["transposed_max_abs_err"])
     rec, restore = install_recorders(torch, km)
@@ -5932,6 +6070,13 @@ def main():
     for name in ("mont_mul", "mont_sqr", "mont_inv", "mont_pow"):
         report[name]["pairing"] = pair_report.pop(name)
     report.update(pair_report)
+    costs["fp_sub"]["fp_neg"] = costs.pop("fp_neg")  # fp_neg launches fp_sub's kernel
+    for name, r in costs.items():
+        report[name]["launch_cost"] = r
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], r["transposed_max_abs_err"],
+                                          r.get("fp_neg", r)["transposed_max_abs_err"],
+                                          *(row["max_abs_err"] for row in r["rows"]),
+                                          *(row["max_abs_err"] for row in r.get("fp_neg", r)["rows"]))
     for name, r in nw24_report.items():
         report[name].update(r.pop("per_path_launches"))
         report[name]["nw24"] = r

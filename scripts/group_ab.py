@@ -13,10 +13,14 @@ points outside the subgroup and infinity, ``g2_check`` on multiples of the
 G2 generator mixed with points outside G2, ``scalar_mul`` on 64 multiples
 of G tiled, with 255-bit scalars, ``pairing_each`` over 2^12 pairs
 (testing.pairing_inputs: 64 seeded pairs tiled, every 1,024th G1 point at
-infinity), and ``mont_mul_24_1``, ``mont_mul_24_2^16``, ``mont_sqr_24_1``,
-``mont_sqr_24_2^16``: PRODUCT_CALLS back-to-back ``ff.fp.mont_mul`` /
-``mont_sqr`` calls on Fq at (24, 1) and (24, 2^16), timed as one run (its
-median is then ms per PRODUCT_CALLS calls). Each pair runs the other
+infinity), ``mnt4_753_pairing_each`` (MNT4-753, 2^12 pairs tiled from 64
+seeded pairs with 64-bit scalars, as chip_smoke.py phase 11 makes them),
+and ``mont_mul_24_1``, ``mont_mul_24_2^16``, ``mont_sqr_24_1``,
+``mont_sqr_24_2^16``, ``fp_add_24_1``, ``fp_add_24_2^16``,
+``fp_sub_24_2^16``, ``fp_neg_24_2^16``: PRODUCT_CALLS back-to-back
+``ff.fp.mont_mul`` / ``mont_sqr`` / ``add`` / ``sub`` / ``neg`` calls on Fq
+at (24, 1) and (24, 2^16), timed as one run (its median is then ms per
+PRODUCT_CALLS calls). Each pair runs the other
 checkout, this tree, this tree, the other checkout, each in a fresh
 process that imports its own checkout's zkarray_torch and builds its
 kernels before any timing. A process makes its inputs from seed 8, runs
@@ -41,7 +45,10 @@ LOG_N = 16
 PAIR_LOG_N = 12
 PRODUCT_CALLS = 1000
 CALLS = ("clear_cofactor", "subgroup_check", "fast_g1_check", "g2_check", "scalar_mul",
-         "pairing_each", "mont_mul_24_1", "mont_mul_24_2^16", "mont_sqr_24_1", "mont_sqr_24_2^16")
+         "pairing_each", "mnt4_753_pairing_each", "mont_mul_24_1", "mont_mul_24_2^16",
+         "mont_sqr_24_1", "mont_sqr_24_2^16", "fp_add_24_1", "fp_add_24_2^16", "fp_sub_24_2^16",
+         "fp_neg_24_2^16")
+MNT_SCALAR_BITS = 64  # chip_smoke.py's PAIR_SCALAR_BITS
 
 
 def worker(checkout, runs, calls):
@@ -52,7 +59,8 @@ def worker(checkout, runs, calls):
     from zkarray_torch.curves import bls12_381 as B
     from zkarray_torch.ec import fast_checks, sw_ext
     from zkarray_torch.ec import sw as tsw
-    from zkarray_torch.ec.pairing import bls12
+    from zkarray_torch.curves import mnt4_753
+    from zkarray_torch.ec.pairing import bls12, mnt
     from zkarray_torch.ff import fp
     from zkarray_torch.interop import affine_from_numpy, limbs_from_numpy
     from zkarray_torch.kernels import _build
@@ -87,6 +95,9 @@ def worker(checkout, runs, calls):
     Q = sw_ext.ExtAffine(torch.where(out2, Hout.x, Hin.x), torch.where(out2, Hout.y, Hin.y),
                          Hin.inf | (cls == 7))
     PP, PQ, _, _ = pairing_inputs(B.PAIRING, 1 << PAIR_LOG_N, rng, 64, 1024, device=dev)
+    if "mnt4_753_pairing_each" in calls:
+        MP, MQ, _, _ = pairing_inputs(mnt4_753.PAIRING, 1 << PAIR_LOG_N, rng, 64, 1024, device=dev,
+                                      scalar_bits=MNT_SCALAR_BITS)
     F = C.base
     x1, y1 = A.x[:, :1].contiguous(), A.y[:, :1].contiguous()
 
@@ -103,10 +114,15 @@ def worker(checkout, runs, calls):
            "g2_check": lambda: fast_checks.bls12_381_g2_subgroup_check(C2, Q),
            "scalar_mul": lambda: tsw.scalar_mul(C, A, s),
            "pairing_each": lambda: bls12.pairing_each(B.PAIRING, PP, PQ),
+           "mnt4_753_pairing_each": lambda: mnt.pairing_each(mnt4_753.PAIRING, MP, MQ),
            "mont_mul_24_1": products(fp.mont_mul, x1, y1),
            "mont_mul_24_2^16": products(fp.mont_mul, A.x, A.y),
            "mont_sqr_24_1": products(fp.mont_sqr, x1),
-           "mont_sqr_24_2^16": products(fp.mont_sqr, A.x)}
+           "mont_sqr_24_2^16": products(fp.mont_sqr, A.x),
+           "fp_add_24_1": products(fp.add, x1, y1),
+           "fp_add_24_2^16": products(fp.add, A.x, A.y),
+           "fp_sub_24_2^16": products(fp.sub, A.x, A.y),
+           "fp_neg_24_2^16": products(fp.neg, A.x)}
 
     def tensors(res):
         if isinstance(res, torch.Tensor):

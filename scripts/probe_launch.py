@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Run chip_smoke.py's launch_cost measurement (phase 8: mont_mul and
 mont_sqr through kernels/mont.py:ProductLauncher at (24, 1), (24, 2^16),
-(16, 2^16) and BLS12-381 pairing_each's widest product batch; the host's
-pieces of a (24, 1) call; a batch-transposed operand against the plain
-version) alone on one CUDA card, after building csrc/mont.cu at NW = 8,
-10 and 12 only. With a directory argument its lines are also teed into
-DIR/probe_launch.out.
+(16, 2^16) and BLS12-381 pairing_each's widest product batch; fp_add,
+fp_sub and fp_neg through AddSubLauncher at the first three and the
+pairing's widest addition, written through a tower view; the host's
+pieces of a (24, 1) mont_mul and fp_add call; a batch-transposed operand
+against the plain version; an out that cannot be written in place) alone
+on one CUDA card, after building csrc/mont.cu at NW = 8, 10 and 12 and
+csrc/fadd.cu only. With a directory argument its lines are also teed
+into DIR/probe_launch.out.
 
     python3 scripts/probe_launch.py [DIR]   # ~1 minute on an H100, the build included
 """
@@ -20,7 +23,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 from probe_phase13 import cs, setup  # noqa: E402
 
 if __name__ == "__main__":
-    h, tee = setup("probe_launch", ("mont",))
+    h, tee = setup("probe_launch", ("mont", "fadd"))
     t = time.perf_counter()
     cs.launch_cost(torch, h)
     tee(json.dumps({"launch_cost_seconds": time.perf_counter() - t}))

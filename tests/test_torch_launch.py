@@ -102,14 +102,20 @@ def test_fast_case_only_for_contiguous_operands(spec, monkeypatch):
 
 
 def test_c_entries_match_exports():
-    """Every extern "C" entry of csrc/mont.cu has the argument list its
-    _build.EXPORTS row gives ctypes, and the descriptor-array entries of
-    the product and square are gone."""
-    src = (_build.CSRC / "mont.cu").read_text()
-    decls = dict(re.findall(r'extern "C" int (zk_\w+)\(([^)]*)\)', src))
-    assert set(decls) == set(_build.EXPORTS["mont"])
-    assert {"zk_mont_mul_v", "zk_mont_sqr_v"} <= set(decls)
-    assert not {"zk_mont_mul", "zk_mont_sqr"} & set(decls)
+    """Every extern "C" entry of csrc/mont.cu and csrc/fadd.cu has the
+    argument list its _build.EXPORTS row gives ctypes, and the
+    descriptor-array entries of the product, the square and the two
+    additions are gone."""
+    decls = {}
+    for lib, entries, gone in (("mont", {"zk_mont_mul_v", "zk_mont_sqr_v"},
+                                {"zk_mont_mul", "zk_mont_sqr"}),
+                               ("fadd", {"zk_fp_add_v", "zk_fp_sub_v"},
+                                {"zk_fp_add", "zk_fp_sub"})):
+        src = (_build.CSRC / f"{lib}.cu").read_text()
+        found = dict(re.findall(r'extern "C" int (zk_\w+)\(([^)]*)\)', src))
+        assert set(found) == set(_build.EXPORTS[lib]) and set(found) >= entries
+        assert not gone & set(found)
+        decls.update({name: (lib, params) for name, params in found.items()})
 
     def ctype(param):
         param = " ".join(param.split())
@@ -121,8 +127,8 @@ def test_c_entries_match_exports():
             return ctypes.c_int
         raise AssertionError(f"unexpected parameter {param!r}")
 
-    for name, params in decls.items():
-        assert [ctype(p) for p in params.split(",")] == _build.EXPORTS["mont"][name], name
+    for name, (lib, params) in decls.items():
+        assert [ctype(p) for p in params.split(",")] == _build.EXPORTS[lib][name], name
     for lib in ("mont_w24", "mont_w26"):
         assert _build.EXPORTS[lib] is _build.EXPORTS["mont"]
 

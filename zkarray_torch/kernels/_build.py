@@ -88,8 +88,8 @@ EXPORTS = {
         "zk_twiddle_mul": [_P, _P, _LL, _LL, _P, _LL, _P, _LL, _I, _LL, _LL, _LL, _LL, _I, _P, _P],
     },
     "fadd": {
-        "zk_fp_add": [_P, _LL, _I, _P, _P],
-        "zk_fp_sub": [_P, _LL, _I, _P, _P],
+        "zk_fp_add_v": [_P, _LL, _LL, _LL] * 3 + [_LL, _I, _P, _P],
+        "zk_fp_sub_v": [_P, _LL, _LL, _LL] * 3 + [_LL, _I, _P, _P],
     },
     "flin": {
         "zk_fp_lin": [_P, _I, _P, _I, _LL, _I, _P, _P],

@@ -103,12 +103,11 @@ static inline unsigned blocks_for(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
-static int launch_addsub(bool sub, const long long* ops, long long n, int nw,
-                         const uint32_t* consts, void* stream) {
+static int launch_addsub(bool sub, const Operand& a, const Operand& b, const OutOperand& o,
+                         long long n, int nw, const uint32_t* consts, void* stream) {
   if (n <= 0) return 0;
-  if (!operands_ok(ops, 3)) return (int)cudaErrorInvalidValue;
-  const Operand a = operand_from_host(ops), b = operand_from_host(ops + 4);
-  const OutOperand o{(int32_t*)(uintptr_t)ops[8], ops[9], ops[10], ops[11]};
+  if (a.inner <= 0 || a.outer < 0 || b.inner <= 0 || b.outer < 0 || o.inner <= 0 || o.outer < 0)
+    return (int)cudaErrorInvalidValue;
   const unsigned grid = blocks_for(n, 256);
   ZK_DISPATCH_NW_FIELD(nw, {
     const FieldConsts<NW> F = consts_from_host<NW>(consts);
@@ -120,14 +119,23 @@ static int launch_addsub(bool sub, const long long* ops, long long n, int nw,
   return (int)cudaGetLastError();
 }
 
-// ops: host descriptors (pointer, ld, inner, outer) of a, b, then the
-// output; consts: host words (see field.cuh).
-extern "C" int zk_fp_add(const long long* ops, long long n, int nw, const uint32_t* consts,
-                         void* stream) {
-  return launch_addsub(false, ops, n, nw, consts, stream);
+// a, b, out: each tensor's data pointer and map (ld, inner, outer; field.cuh's
+// Operand) as scalars, so the wrapper builds no descriptor array; consts: host
+// words (see field.cuh).
+extern "C" int zk_fp_add_v(const void* a, long long a_ld, long long a_inner, long long a_outer,
+                           const void* b, long long b_ld, long long b_inner, long long b_outer,
+                           void* out, long long o_ld, long long o_inner, long long o_outer,
+                           long long n, int nw, const uint32_t* consts, void* stream) {
+  return launch_addsub(false, Operand{(const int32_t*)a, a_ld, a_inner, a_outer},
+                       Operand{(const int32_t*)b, b_ld, b_inner, b_outer},
+                       OutOperand{(int32_t*)out, o_ld, o_inner, o_outer}, n, nw, consts, stream);
 }
 
-extern "C" int zk_fp_sub(const long long* ops, long long n, int nw, const uint32_t* consts,
-                         void* stream) {
-  return launch_addsub(true, ops, n, nw, consts, stream);
+extern "C" int zk_fp_sub_v(const void* a, long long a_ld, long long a_inner, long long a_outer,
+                           const void* b, long long b_ld, long long b_inner, long long b_outer,
+                           void* out, long long o_ld, long long o_inner, long long o_outer,
+                           long long n, int nw, const uint32_t* consts, void* stream) {
+  return launch_addsub(true, Operand{(const int32_t*)a, a_ld, a_inner, a_outer},
+                       Operand{(const int32_t*)b, b_ld, b_inner, b_outer},
+                       OutOperand{(int32_t*)out, o_ld, o_inner, o_outer}, n, nw, consts, stream);
 }

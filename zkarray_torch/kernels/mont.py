@@ -283,6 +283,12 @@ def batch_map(shape, strides):
     return inner, outer
 
 
+# batch_map by its (shape, strides) tuples: the paths give a few dozen
+# layouts, over and over (the tower views of ff/towers.py:_lin, the ladder
+# glue's slices), and the map costs more host time than its lookup
+batch_map_memo = functools.lru_cache(maxsize=1 << 12)(batch_map)
+
+
 def _operand(t: torch.Tensor):
     """(tensor, ld, inner, outer) such that batch element i (row-major), limb
     k, of ``t`` sits at offset k*ld + (i // inner)*outer + i % inner from its
@@ -291,7 +297,7 @@ def _operand(t: torch.Tensor):
     constant broadcast over leading batch axes (outer = 0) and the last-axis
     halves v[..., :h], v[..., h:2h] of a (..., m) tensor (inner = h, outer =
     m). Anything else is copied first."""
-    m = batch_map(t.shape[1:], t.stride()[1:])
+    m = batch_map_memo(t.shape[1:], t.stride()[1:])
     if m is None:
         t = t.contiguous()
         return t, t[0].numel(), t[0].numel(), 0
@@ -346,24 +352,35 @@ def operand_map(t: torch.Tensor, n: int):
     return _operand(t)
 
 
-class ProductLauncher:
-    """csrc/mont.cu's product and square (zk_mont_mul_v, zk_mont_sqr_v) for
-    one field on one CUDA device, built once by ``product_launcher``: it
-    holds the width library's C entries, the field's constant words (kept
-    alive here, passed by address) and the device index, so that a call
-    loads no library, builds no descriptor array and makes no lookup keyed
-    by a numpy array."""
+def out_map(kernel: str, out: torch.Tensor, n: int):
+    """(ld, inner, outer) of an (L, *batch) output of n batch elements that
+    the kernel writes in place (a contiguous one without a call of
+    ``batch_map``); raises where there is none, rather than write a copy:
+    a layout the map cannot address, or one whose elements share addresses
+    (a stride-0 axis)."""
+    if out.is_contiguous():
+        return n, n, 0
+    m = batch_map_memo(out.shape[1:], out.stride()[1:])
+    if m is None or (m[1] == 0 and m[0] < n) or out.stride(0) == 0:
+        raise ValueError(f"{kernel}: out's strides {out.stride()} cannot be written in place")
+    return (out.stride(0),) + m
 
-    __slots__ = ("spec", "L", "nw", "index", "lib", "mul_fn", "sqr_fn", "words", "consts",
-                 "current_device", "raw_stream")
 
-    def __init__(self, spec: FieldSpec, index: int):
+class FieldLauncher:
+    """What a cached launcher of element-wise field kernels holds for one
+    field on one CUDA device: the field's constant words (kept alive here,
+    passed by address), the device index and the readers of the current
+    device and stream, so that a call loads no library, builds no
+    descriptor array and makes no lookup keyed by a numpy array."""
+
+    __slots__ = ("spec", "L", "nw", "index", "lib", "words", "consts", "current_device",
+                 "raw_stream")
+
+    def __init__(self, spec: FieldSpec, index: int, what: str):
         if index < 0:
-            raise ValueError("mont_mul/mont_sqr: expected CUDA tensors")
+            raise ValueError(f"{what}: expected CUDA tensors")
         self.spec, self.index = spec, index
         self.L, self.nw = spec.num_limbs, spec.num_limbs // 2
-        self.lib = _build.load(_build.field_lib(self.nw))
-        self.mul_fn, self.sqr_fn = self.lib.zk_mont_mul_v, self.lib.zk_mont_sqr_v
         self.words = field_words(spec)
         self.consts = self.words.ctypes.data
         self.current_device = torch._C._cuda_getDevice
@@ -374,7 +391,7 @@ class ProductLauncher:
         self.raw_stream = torch._C._cuda_getCurrentRawStream
 
     def _elements(self, kernel: str, a: torch.Tensor, *others: torch.Tensor) -> int:
-        """Batch elements of the (L, *batch) int32 inputs on this device, all
+        """Batch elements of the (L, *batch) int32 tensors on this device, all
         of a's shape; raises otherwise."""
         shape = a.shape
         for t in (a,) + others:
@@ -385,6 +402,19 @@ class ProductLauncher:
             if t.shape != shape or shape[0] != self.L:
                 raise ValueError(f"{kernel}: expected inputs of one (L={self.L}, *batch) shape")
         return a.numel() // self.L
+
+
+class ProductLauncher(FieldLauncher):
+    """csrc/mont.cu's product and square (zk_mont_mul_v, zk_mont_sqr_v) for
+    one field on one CUDA device, built once by ``product_launcher``: the
+    width library's C entries beside ``FieldLauncher``'s state."""
+
+    __slots__ = ("mul_fn", "sqr_fn")
+
+    def __init__(self, spec: FieldSpec, index: int):
+        super().__init__(spec, index, "mont_mul/mont_sqr")
+        self.lib = _build.load(_build.field_lib(self.nw))
+        self.mul_fn, self.sqr_fn = self.lib.zk_mont_mul_v, self.lib.zk_mont_sqr_v
 
     def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if self.current_device() != self.index:
@@ -610,42 +640,94 @@ def mont_div(spec: FieldSpec, n0: torch.Tensor, d0: torch.Tensor, n1: torch.Tens
 # field addition and subtraction (csrc/fadd.cu)
 # ---------------------------------------------------------------------------
 
+class AddSubLauncher(FieldLauncher):
+    """csrc/fadd.cu's addition and subtraction (zk_fp_add_v, zk_fp_sub_v) for
+    one field on one CUDA device, built once by ``addsub_launcher``: the
+    library's two C entries beside ``FieldLauncher``'s state."""
+
+    __slots__ = ("fns",)
+
+    def __init__(self, spec: FieldSpec, index: int):
+        super().__init__(spec, index, "fp_add/fp_sub")
+        self.lib = _build.load("fadd")
+        self.fns = {"fp_add": self.lib.zk_fp_add_v, "fp_sub": self.lib.zk_fp_sub_v}
+
+    def launch(self, kernel: str, a: torch.Tensor, b: torch.Tensor,
+               out: torch.Tensor | None) -> torch.Tensor:
+        if self.current_device() != self.index:
+            with torch.cuda.device(self.index):
+                return self.launch(kernel, a, b, out)
+        n = self._elements(kernel, a, b) if out is None else self._elements(kernel, a, b, out)
+        a_t, a_ld, a_in, a_out = operand_map(a, n)  # a copy is held until the launch
+        if b is a:  # fp.double: one map for both operands
+            b_t, b_ld, b_in, b_out = a_t, a_ld, a_in, a_out
+        else:
+            b_t, b_ld, b_in, b_out = operand_map(b, n)
+        if out is None:
+            out = torch.empty_like(a_t, memory_format=torch.contiguous_format)
+            o_ld = o_in = n
+            o_out = 0
+        else:
+            o_ld, o_in, o_out = out_map(kernel, out, n)
+        err = self.fns[kernel](a_t.data_ptr(), a_ld, a_in, a_out, b_t.data_ptr(), b_ld, b_in, b_out,
+                               out.data_ptr(), o_ld, o_in, o_out, n, self.nw, self.consts,
+                               self.raw_stream(self.index))
+        if err:
+            _build.check(self.lib, err, kernel)
+        _build.LAUNCHES[kernel] += 1
+        return out
+
+
+_ADDSUB_LAUNCHERS: dict = {}
+
+
+def addsub_launcher(spec: FieldSpec, index: int) -> AddSubLauncher:
+    """The ``AddSubLauncher`` of ``spec`` on CUDA device ``index``, built on
+    first use and kept (keyed as ``product_launcher``'s)."""
+    got = _ADDSUB_LAUNCHERS.get((id(spec), index))
+    if got is None:
+        got = _ADDSUB_LAUNCHERS[(id(spec), index)] = AddSubLauncher(spec, index)
+    return got
+
+
+# fp_neg's zeros (``zero_view``) kept before the cache starts again
+ZERO_VIEWS = 256
+_ZEROS: dict = {}
+
+
+def zero_view(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """0 in a's (L, *batch) shape on a's device: a stride-0 view of one
+    (L, 1, ..., 1) int32 column, cached per (field, device, batch shape) and
+    only ever read. Keyed by the spec's id, the spec held beside the view."""
+    key = (id(spec), a.get_device(), a.shape[1:])
+    got = _ZEROS.get(key)
+    if got is None:
+        if len(_ZEROS) >= ZERO_VIEWS:
+            _ZEROS.clear()
+        L = spec.num_limbs
+        col = torch.zeros((L,) + (1,) * (a.dim() - 1), dtype=torch.int32, device=a.device)
+        got = _ZEROS[key] = (spec, col.expand((L,) + tuple(a.shape[1:])))
+    return got[1]
+
+
 def _launch_addsub(kernel: str, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor,
                    out: torch.Tensor | None) -> torch.Tensor:
     """Launch csrc/fadd.cu's ``kernel`` (fp_add or fp_sub) on (L, *batch)
-    inputs of one shape, each read in place as ``_operand`` allows (or
-    copied, the copy held until the launch); the output is ``out`` (written
-    through the same map, so it must be expressible without a copy) or a new
-    contiguous tensor."""
-    L = spec.num_limbs
-    shape = a.shape
-    if shape[0] != L or b.shape != shape:
-        raise ValueError(f"{kernel}: expected inputs of one (L={L}, *batch) shape")
-    if out is None:
-        out = torch.empty(shape, dtype=torch.int32, device=a.device)
-    elif out.shape != shape:
-        raise ValueError(f"{kernel}: out {tuple(out.shape)} is not {tuple(shape)}")
-    check_cuda_int32(kernel, a, b, out, contiguous=False)
-    ops = [_operand(a), _operand(b), _operand(out)]  # held until the launch
-    if ops[2][0] is not out:
-        raise ValueError(f"{kernel}: out's strides {out.stride()} cannot be written in place")
-    desc = operand_words(ops)
-    lib = _build.load("fadd")
-    with torch.cuda.device(out.device):
-        err = getattr(lib, f"zk_{kernel}")(words_ptr(desc), out[0].numel(), L // 2,
-                                           words_ptr(field_words(spec)),
-                                           torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, kernel)
-    _build.LAUNCHES[kernel] += 1
-    return out
+    inputs of one shape through their ``AddSubLauncher``: each input read in
+    place as ``_operand`` allows (or copied, the copy held until the
+    launch); the output ``out``, written through its map (``out_map``: it
+    raises where that needs a copy), or a new contiguous tensor."""
+    return addsub_launcher(spec, a.get_device()).launch(kernel, a, b, out)
 
 
 def _addsub(kernel: str, plain, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor,
             out: torch.Tensor | None) -> torch.Tensor:
-    if on_cpu(a, b, *(() if out is None else (out,))):
+    if (not (a.is_cuda and b.is_cuda and (out is None or out.is_cuda))
+            and on_cpu(a, b, *(() if out is None else (out,)))):
         r = plain(spec, a, b)
         return r if out is None else out.copy_(r)
-    a, b = align(spec.num_limbs, a, b)
+    if a.shape != b.shape:
+        a, b = align(spec.num_limbs, a, b)
     return _launch_addsub(kernel, spec, a, b, out)
 
 
@@ -653,7 +735,7 @@ def fp_add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor,
            out: torch.Tensor | None = None) -> torch.Tensor:
     """(a + b) mod p over (L, *batch) int32 limb tensors broadcast as align
     does, into ``out`` when given. CPU tensors: ``add_plain``; CUDA tensors:
-    csrc/fadd.cu:fp_add, one launch."""
+    csrc/fadd.cu:fp_add, one launch; a mix of devices raises."""
     return _addsub("fp_add", add_plain, spec, a, b, out)
 
 
@@ -666,8 +748,11 @@ def fp_sub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor,
 def fp_neg(spec: FieldSpec, a: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """-a mod p (0 stays 0) as ``fp_sub`` of 0 - a, the 0 a stride-0
     constant: ``sub_plain`` on CPU tensors, one csrc/fadd.cu:fp_sub launch
-    on CUDA tensors."""
-    return _addsub("fp_sub", sub_plain, spec, const(spec, 0, a.shape[1:], a.device), a, out)
+    on CUDA tensors (the zero a cached ``zero_view``: no constant built, no
+    ``align``)."""
+    if not (a.is_cuda and (out is None or out.is_cuda)) and on_cpu(a, *(() if out is None else (out,))):
+        return _addsub("fp_sub", sub_plain, spec, const(spec, 0, a.shape[1:], a.device), a, out)
+    return _launch_addsub("fp_sub", spec, zero_view(spec, a), a, out)
 
 
 def _launch_dit(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor, stride: int):
