@@ -148,7 +148,12 @@ Phases, each printing one JSON line and raising on any failure:
    through a movedim'd tower view as ff/towers.py:_lin writes it, each
    against its plain version; the host's pieces of one (24, 1) fp_add
    call; a batch-transposed operand; and an out that cannot be written in
-   place, which must raise and stay unwritten.
+   place, which must raise and stay unwritten. Its fp_lin rows (through
+   kernels/lin.py:LinLauncher): a BLS12-381 Fp12 product's pre-map into
+   the slab's movedim view and its post-map from the product's, at 64
+   lanes, and the pre-map at pairing_each's widest launch (108, 24, 2^12),
+   each against fp_lin_plain; and an out whose rows share addresses (a
+   slot stride of 0), which must raise and stay unwritten.
 9. the pairing path (BASELINE config 5), each result against host known
    answers: BLS12-381 pairing_each over 2^12 pairs tiled from 64 seeded
    (a_j G, b_j H), every 1,024th G1 point at infinity, every lane against
@@ -226,8 +231,9 @@ Phases, each printing one JSON line and raising on any failure:
    BLS12-381 pairing_each's widest (the kernels line's figures) timed
    against their byte bounds, with the device time per launch in a trace
    of their own; the host's us per launch at 64 lanes for fp_lin's two BLS12-381
-   Fp12-product maps, fp_add and a whole Fp12 product (fp_lin_host); and
-   BLS12-381 pairing_each's launches per call held at most 12,000.
+   Fp12-product maps, fp_add and a whole Fp12 product, and the host's
+   pieces of one 64-lane post-map call (fp_lin_host); and BLS12-381
+   pairing_each's launches per call held at most 12,000.
 13. the polynomial layer and the scalar-multiplication family
    (``poly_scalar_phase``): the Groth16 quotient at 2^20 (dense.mul, then
    divide_by_vanishing_poly) and dense.evaluate at 64 points against host
@@ -1106,8 +1112,9 @@ def launch_cost(torch, h):
     and its byte bound; where the host time of a (24, 1) call goes; and a
     batch-transposed operand, which the wrapper copies, dropped right after
     the call and held against the plain version. Then the same for fp_add,
-    fp_sub and fp_neg (``addsub_launch_cost``, ``addsub_host_pieces``).
-    Returns {kernel: rows}, fp_neg's apart."""
+    fp_sub and fp_neg (``addsub_launch_cost``, ``addsub_host_pieces``) and
+    for fp_lin (``lin_launch_cost``). Returns {kernel: rows}, fp_neg's
+    apart."""
     from zkarray_torch.curves import bls12_381, bn254
     from zkarray_torch.ff import fp
     from zkarray_torch.kernels import mont as km
@@ -1174,6 +1181,7 @@ def launch_cost(torch, h):
                                 "movedim'd tower view", FQ, PAIR_WIDEST_ADDITION + (1 << pw,)),)
     out.update(addsub_launch_cost(torch, h, K, host_us, add_shapes))
     add_host = addsub_host_pieces(torch, h, FQ, 2 * K, host_us) if dev.type == "cuda" else None
+    out["fp_lin"] = lin_launch_cost(torch, h, K, host_us)
     h.emit("launch_cost", calls=K, correct=True, host_us_pieces_24_1=host,
            host_us_pieces_fp_add_24_1=add_host, stream_call_cheaper=cheaper, **out)
     return out
@@ -2592,6 +2600,164 @@ LIN_HOST_CALLS = 200  # calls per host-time measurement (small batch: the host's
 LIN_HOST_LANES = 64
 
 
+def lin_launch_cost(torch, h, K, host_us):
+    """launch_cost's fp_lin rows (lin.fp_lin through kernels/lin.py:
+    LinLauncher) for a BLS12-381 Fp12 product's maps as ff/linmap.py:Route
+    launches them: the pre-map into the slab's movedim view and the
+    post-map from the product's movedim view at LIN_HOST_LANES lanes, and
+    the pre-map at pairing_each's widest launch (108, 24, 2^PAIR_LOG_N):
+    ms per call back to back (CUDA events around K calls), host us per
+    call, device ms per launch (a trace of its own), the byte bound and
+    both shares, each result against fp_lin_plain. Then an out whose rows
+    share addresses (a slot stride of 0), which must raise unwritten."""
+    from zkarray_torch.curves import bls12_381 as B
+    from zkarray_torch.ff import linmap
+    from zkarray_torch.kernels import lin
+
+    dev, F, F12 = h.dev, B.FQ, B.FQ12
+    L = F.num_limbs
+    route = linmap.route(F12, "mul", type(F12)._mul_sched, (F12, F12))
+    rows = []
+    for label, lanes, which in (
+            (f"Fp12 mul pre-map ({route.pre.m}, {L}, {LIN_HOST_LANES}), out the slab's movedim "
+             "view", LIN_HOST_LANES, "pre"),
+            (f"Fp12 mul post-map ({route.post.m}, {L}, {LIN_HOST_LANES}) from the product's "
+             "movedim view", LIN_HOST_LANES, "post"),
+            (f"BLS12-381 pairing_each widest: Fp12 mul pre-map ({route.pre.m}, {L}, "
+             f"2^{PAIR_LOG_N}), out the slab's movedim view", 1 << PAIR_LOG_N, "pre")):
+        x, y = (h.rand_field(F, 12 * lanes).reshape(L, 12, lanes).movedim(1, 0).contiguous()
+                for _ in range(2))
+        if which == "pre":
+            lmap, srcs = route.pre, [x, y]
+            out = torch.empty((L, lmap.m, lanes), dtype=torch.int32, device=dev).movedim(1, 0)
+        else:
+            prod = h.rand_field(F, route.s * lanes).reshape(L, route.s, lanes)
+            lmap, srcs, out = route.post, [prod.movedim(1, 0), x], None
+        fn = lambda: lin.fp_lin(F, lmap, srcs, out=out)  # noqa: E731
+        got = fn()
+        err = h.check_equal(f"launch_cost fp_lin {label}", got, lin.fp_lin_plain(F, lmap, srcs))
+        if out is not None and got.data_ptr() != out.data_ptr():
+            raise AssertionError(f"launch_cost fp_lin {label}: out not written in place")
+        ms = h.time_ms(fn, K)
+        dev_ms, traced = traced_device_ms(torch, "fp_lin", fn, 50, dev)
+        b_ms, b_by = h.bound(lin_bytes(lmap, srcs, lanes, L, h), lanes * lin_ops(lmap, L))
+        rows.append(dict(shape=label, field=F.name, max_abs_err=err, ms_per_call=ms,
+                         host_us_per_call=host_us(fn), device_ms_per_launch=dev_ms,
+                         traced_launches=traced, bound_ms=b_ms, bound_by=b_by,
+                         share_of_bound=b_ms / ms,
+                         device_share_of_bound=b_ms / dev_ms if dev_ms else None))
+        del x, y, srcs, out, got
+    # rows sharing addresses: refused on the card, as the CPU's out.copy_ refuses them
+    src = h.rand_field(F, 2 * 8).reshape(L, 2, 8).movedim(1, 0).contiguous()
+    lmap = lin.LinMap([[(0, 0, 1)], [(0, 1, -1)], [(0, 0, 2), (0, 1, 1)]], (2,), "three rows")
+    bad = torch.full((L, 8), -1, dtype=torch.int32, device=dev).expand(3, L, 8)
+    try:
+        lin.fp_lin(F, lmap, [src], out=bad)
+    except ValueError as e:
+        if "cannot be written in place" not in str(e):
+            raise
+    else:
+        raise AssertionError("fp_lin: an out whose rows share addresses was accepted")
+    if not bool((bad == -1).all()):
+        raise AssertionError("fp_lin: the refused out was written")
+    return dict(rows=rows, max_abs_err=max(r["max_abs_err"] for r in rows),
+                shared_rows_out_raises=True)
+
+
+def lin_host_pieces(torch, h, route, prod, flat, host_us):
+    """Host us per call of each piece of a 64-lane BLS12-381 Fp12 product
+    (ff/linmap.py:Route) and of its post-map's fp_lin call through
+    kernels/lin.py:LinLauncher.launch, the product (S, L, n) read as the
+    route reads it (a movedim view of mont_mul's output), each piece timed
+    alone by ``host_us``; the C entry's own call held against
+    fp_lin_plain."""
+    from zkarray_torch.curves import bls12_381 as B
+    from zkarray_torch.ff import linmap
+    from zkarray_torch.kernels import lin
+    from zkarray_torch.kernels import mont as km
+
+    F, F12, L = B.FQ, B.FQ12, B.FQ.num_limbs
+    lmap, n = route.post, prod.shape[-1]
+    srcs = [prod.movedim(1, 0).contiguous().movedim(1, 0), flat]
+    idx = prod.get_device()
+    go = lin.lin_launcher(F, idx)
+    ts, batch = lin._sources(lmap, srcs, L)
+    res = torch.empty((lmap.m, L, n), dtype=torch.int32, device=h.dev)
+    slab = h.rand_field(F, route.pre.m * n).reshape(L, route.pre.m, n)
+    slab_view = slab.movedim(1, 0)
+    words = [lmap.table_ptr(idx), go.consts, lmap.m, n, go.nw, len(ts)]
+    for t in ts:
+        words += (t.data_ptr(),) + lin._operand(t, n)[1:]
+    words += (res.data_ptr(), L * n, n, n, 0)
+    block, stream = lin._CALLS[len(ts)].pack(*words), go.raw_stream(idx)
+    block_n0 = lin._CALLS[len(ts)].pack(*(words[:3] + [0] + words[4:]))
+    pieces = {
+        "route lookup (linmap.route)": lambda: linmap.route(F12, "mul", type(F12)._mul_sched,
+                                                            (F12, F12)),
+        "the product's mont_mul of the slab's halves": lambda: km.mont_mul(F, *slab.chunk(2, 1)),
+        "whole post-map call (lin.fp_lin)": lambda: lin.fp_lin(F, lmap, srcs),
+        "through the seam (lin._launch_lin)": lambda: lin._launch_lin(F, lmap, srcs, None),
+        "launcher lookup": lambda: lin.lin_launcher(F, prod.get_device()),
+        "source checks (lin._sources)": lambda: lin._sources(lmap, srcs, L),
+        "source maps (lin._operand)": lambda: [lin._operand(t, n) for t in ts],
+        "the pre-map's out map (lin.out_operand of the slab's movedim view)": lambda:
+            lin.out_operand("pre", slab_view, n),
+        "table address (LinMap.table_ptr)": lambda: lmap.table_ptr(idx),
+        "output (Tensor.new_empty)": lambda: ts[0].new_empty((lmap.m, L) + batch),
+        "pack the LinCall block": lambda: lin._CALLS[len(ts)].pack(*words),
+        "current device": go.current_device,
+        "torch._C._cuda_getCurrentRawStream": lambda: go.raw_stream(idx),
+        "C entry, n = 0 (ctypes, no launch)": lambda: go.fn(block_n0, stream),
+        f"C entry, n = {n} (ctypes and the launch)": lambda: go.fn(block, stream),
+    }
+    host = {k: host_us(fn) for k, fn in pieces.items()}
+    if not torch.equal(res, lin.fp_lin_plain(F, lmap, srcs)):
+        raise AssertionError("fp_lin_host: the C entry's 64-lane post-map differs from plain")
+    return host
+
+
+def lin_host_line(torch, h):
+    """The fp_lin_host line: the host's us per call at LIN_HOST_LANES lanes
+    (LIN_HOST_CALLS calls, the device not awaited) of a BLS12-381 Fp12
+    product's two fp_lin maps, an Fp12 add, an fp_add on the same element
+    and a whole Fp12 product, with the pieces of the product and of its
+    post-map's call (``lin_host_pieces``) on a CUDA device. Returns the
+    line's fields."""
+    from zkarray_torch.curves import bls12_381 as B
+    from zkarray_torch.ff import linmap
+    from zkarray_torch.kernels import lin
+    from zkarray_torch.kernels import mont as km
+
+    F12 = B.FQ12
+    L = B.FQ.num_limbs
+    g = torch.stack([h.rand_field(B.FQ, LIN_HOST_LANES) for _ in range(12)]).reshape(
+        (2, 3, 2, L, LIN_HOST_LANES))
+    route = linmap.route(F12, "mul", type(F12)._mul_sched, (F12, F12))
+    prod = torch.stack([h.rand_field(B.FQ, LIN_HOST_LANES) for _ in range(route.s)])
+    flat = g.flatten(0, 2)
+
+    def host_us(fn):
+        fn()
+        h.sync()
+        t = time.perf_counter()
+        for _ in range(LIN_HOST_CALLS):
+            fn()
+        host = (time.perf_counter() - t) * 1e6 / LIN_HOST_CALLS
+        h.sync()
+        return host
+
+    host = dict(lanes=LIN_HOST_LANES, calls=LIN_HOST_CALLS,
+                fp_lin_post_map_us=host_us(lambda: lin.fp_lin(B.FQ, route.post, [prod, flat])),
+                fp_lin_pre_map_us=host_us(lambda: lin.fp_lin(B.FQ, route.pre, [flat, flat])),
+                fp_add_fq12_us=host_us(lambda: F12.add(g, g)),
+                fp_add_us=host_us(lambda: km.fp_add(B.FQ, g[0, 0, 0], g[1, 0, 0])),
+                fq12_mul_us=host_us(lambda: F12.mul(g, g)))
+    if h.dev.type == "cuda":
+        host["host_us_pieces_fp_lin_64"] = lin_host_pieces(torch, h, route, prod, flat, host_us)
+    h.emit("fp_lin_host", **host)
+    return host
+
+
 def lin_phase(torch, h, rec):
     """Phase 12: fp_lin (csrc/flin.cu) against fp_lin_plain on the card, bit
     for bit: on edge words at NW = 8, 10, 12, 24 and 26 (every map row at
@@ -2604,10 +2770,8 @@ def lin_phase(torch, h, rec):
     us per launch beside fp_add's. Returns the kernels line's fp_lin row."""
     import importlib
 
-    from zkarray_torch.curves import bls12_381 as B
-    from zkarray_torch.ff import fp, linmap
+    from zkarray_torch.ff import fp
     from zkarray_torch.kernels import lin
-    from zkarray_torch.kernels import mont as km
     from zkarray_torch.testing import lin_edge_rows, lin_edge_words
 
     dev = h.dev
@@ -2675,32 +2839,7 @@ def lin_phase(torch, h, rec):
     for r in rows:
         r["_ins"] = r["_out"] = None
 
-    # -- the host's cost per launch: fp_lin against fp_add on the same element --
-    F12 = B.FQ12
-    L = B.FQ.num_limbs
-    g = torch.stack([h.rand_field(B.FQ, LIN_HOST_LANES) for _ in range(12)]).reshape(
-        (2, 3, 2, L, LIN_HOST_LANES))
-    route = linmap.route(F12, "mul", type(F12)._mul_sched, (F12, F12))
-    prod = torch.stack([h.rand_field(B.FQ, LIN_HOST_LANES) for _ in range(route.s)])
-    flat = g.flatten(0, 2)
-
-    def host_us(fn):
-        fn()
-        h.sync()
-        t = time.perf_counter()
-        for _ in range(LIN_HOST_CALLS):
-            fn()
-        host = (time.perf_counter() - t) * 1e6 / LIN_HOST_CALLS
-        h.sync()
-        return host
-
-    host = dict(lanes=LIN_HOST_LANES, calls=LIN_HOST_CALLS,
-                fp_lin_post_map_us=host_us(lambda: lin.fp_lin(B.FQ, route.post, [prod, flat])),
-                fp_lin_pre_map_us=host_us(lambda: lin.fp_lin(B.FQ, route.pre, [flat, flat])),
-                fp_add_fq12_us=host_us(lambda: F12.add(g, g)),
-                fp_add_us=host_us(lambda: km.fp_add(B.FQ, g[0, 0, 0], g[1, 0, 0])),
-                fq12_mul_us=host_us(lambda: F12.mul(g, g)))
-    h.emit("fp_lin_host", **host)
+    host = lin_host_line(torch, h)
 
     per_path = {lbl: v.get("fp_lin", 0) for lbl, v in rec.path_launches.items() if v.get("fp_lin")}
     totals = {lbl: sum(v.values()) for lbl, v in rec.path_launches.items()}
@@ -6047,6 +6186,7 @@ def main():
         r = costs.pop(name)
         report[name]["launch_cost"] = r
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"], r["transposed_max_abs_err"])
+    lin_cost = costs.pop("fp_lin")
     rec, restore = install_recorders(torch, km)
     try:
         group_report = field_group_phase(torch, helpers, rec)
@@ -6066,6 +6206,8 @@ def main():
 
     # ---- 12. fp_lin on edge words and on every recorded path input -----------
     report["fp_lin"] = lin_phase(torch, helpers, rec)
+    report["fp_lin"]["launch_cost"] = lin_cost
+    report["fp_lin"]["max_abs_err"] = max(report["fp_lin"]["max_abs_err"], lin_cost["max_abs_err"])
     del rec
     for name in ("mont_mul", "mont_sqr", "mont_inv", "mont_pow"):
         report[name]["pairing"] = pair_report.pop(name)

@@ -13,10 +13,15 @@ points outside the subgroup and infinity, ``g2_check`` on multiples of the
 G2 generator mixed with points outside G2, ``scalar_mul`` on 64 multiples
 of G tiled, with 255-bit scalars, ``pairing_each`` over 2^12 pairs
 (testing.pairing_inputs: 64 seeded pairs tiled, every 1,024th G1 point at
-infinity), ``mnt4_753_pairing_each`` (MNT4-753, 2^12 pairs tiled from 64
-seeded pairs with 64-bit scalars, as chip_smoke.py phase 11 makes them),
-and ``mont_mul_24_1``, ``mont_mul_24_2^16``, ``mont_sqr_24_1``,
-``mont_sqr_24_2^16``, ``fp_add_24_1``, ``fp_add_24_2^16``,
+infinity), ``bn254_pairing_each`` (BN254, the same), ``gt_msm`` (c = 3 over
+2^12 BLS12-381 GT elements tiled from 64 seeded powers of E with 255-bit
+scalars, testing.gt_inputs, as chip_smoke.py phase 10 makes them),
+``mnt4_753_pairing_each`` (MNT4-753, 2^12 pairs tiled from 64 seeded pairs
+with 64-bit scalars, as chip_smoke.py phase 11 makes them), ``fq12_mul_64``
+(PRODUCT_CALLS back-to-back ``FQ12.mul`` calls at 64 lanes: one fp_lin,
+one mont_mul, one fp_lin a call), and ``mont_mul_24_1``,
+``mont_mul_24_2^16``, ``mont_sqr_24_1``, ``mont_sqr_24_2^16``,
+``fp_add_24_1``, ``fp_add_24_2^16``,
 ``fp_sub_24_2^16``, ``fp_neg_24_2^16``: PRODUCT_CALLS back-to-back
 ``ff.fp.mont_mul`` / ``mont_sqr`` / ``add`` / ``sub`` / ``neg`` calls on Fq
 at (24, 1) and (24, 2^16), timed as one run (its median is then ms per
@@ -45,7 +50,8 @@ LOG_N = 16
 PAIR_LOG_N = 12
 PRODUCT_CALLS = 1000
 CALLS = ("clear_cofactor", "subgroup_check", "fast_g1_check", "g2_check", "scalar_mul",
-         "pairing_each", "mnt4_753_pairing_each", "mont_mul_24_1", "mont_mul_24_2^16",
+         "pairing_each", "bn254_pairing_each", "gt_msm", "mnt4_753_pairing_each", "fq12_mul_64",
+         "mont_mul_24_1", "mont_mul_24_2^16",
          "mont_sqr_24_1", "mont_sqr_24_2^16", "fp_add_24_1", "fp_add_24_2^16", "fp_sub_24_2^16",
          "fp_neg_24_2^16")
 MNT_SCALAR_BITS = 64  # chip_smoke.py's PAIR_SCALAR_BITS
@@ -59,13 +65,14 @@ def worker(checkout, runs, calls):
     from zkarray_torch.curves import bls12_381 as B
     from zkarray_torch.ec import fast_checks, sw_ext
     from zkarray_torch.ec import sw as tsw
-    from zkarray_torch.curves import mnt4_753
-    from zkarray_torch.ec.pairing import bls12, mnt
+    from zkarray_torch.curves import bn254, mnt4_753
+    from zkarray_torch.ec.pairing import bls12, bn, gt, mnt
     from zkarray_torch.ff import fp
     from zkarray_torch.interop import affine_from_numpy, limbs_from_numpy
     from zkarray_torch.kernels import _build
-    from zkarray_torch.testing import (ext_ec_mul, g2_affine_from_ints, g2_off_subgroup_points,
-                                       group_inputs, off_subgroup_points, pairing_inputs)
+    from zkarray_torch.testing import (E_BLS12_381, ext_ec_mul, g2_affine_from_ints,
+                                       g2_off_subgroup_points, group_inputs, gt_inputs,
+                                       off_subgroup_points, pairing_inputs)
 
     if not torch.cuda.is_available():
         raise RuntimeError("group_ab: no CUDA device")
@@ -98,6 +105,14 @@ def worker(checkout, runs, calls):
     if "mnt4_753_pairing_each" in calls:
         MP, MQ, _, _ = pairing_inputs(mnt4_753.PAIRING, 1 << PAIR_LOG_N, rng, 64, 1024, device=dev,
                                       scalar_bits=MNT_SCALAR_BITS)
+    if "bn254_pairing_each" in calls:
+        BP, BQ, _, _ = pairing_inputs(bn254.PAIRING, 1 << PAIR_LOG_N, rng, 64, 1024, device=dev)
+    if "gt_msm" in calls:
+        GA, GS, _, _ = gt_inputs(B.FQ12, E_BLS12_381, B.FR, 1 << PAIR_LOG_N, rng, 64, device=dev)
+    GTG = gt.GTGroup(B.FQ12, B.FR)
+    f12 = torch.stack([fp.from_ints(B.FQ, [int.from_bytes(rng.bytes(48), "little") % B.FQ.modulus
+                                            for _ in range(64)], device=dev)
+                       for _ in range(12)]).reshape((2, 3, 2, B.FQ.num_limbs, 64))
     F = C.base
     x1, y1 = A.x[:, :1].contiguous(), A.y[:, :1].contiguous()
 
@@ -108,13 +123,21 @@ def worker(checkout, runs, calls):
             return res
         return loop
 
+    def fq12_loop():
+        for _ in range(PRODUCT_CALLS):
+            res = B.FQ12.mul(f12, f12)
+        return res
+
     fns = {"clear_cofactor": lambda: tsw.clear_cofactor(C, off),
            "subgroup_check": lambda: tsw.subgroup_check(C, mix),
            "fast_g1_check": lambda: fast_checks.bls12_381_g1_subgroup_check(C, mix),
            "g2_check": lambda: fast_checks.bls12_381_g2_subgroup_check(C2, Q),
            "scalar_mul": lambda: tsw.scalar_mul(C, A, s),
            "pairing_each": lambda: bls12.pairing_each(B.PAIRING, PP, PQ),
+           "bn254_pairing_each": lambda: bn.pairing_each(bn254.PAIRING, BP, BQ),
+           "gt_msm": lambda: gt.gt_msm(GTG, GA, GS, 3),
            "mnt4_753_pairing_each": lambda: mnt.pairing_each(mnt4_753.PAIRING, MP, MQ),
+           "fq12_mul_64": fq12_loop,
            "mont_mul_24_1": products(fp.mont_mul, x1, y1),
            "mont_mul_24_2^16": products(fp.mont_mul, A.x, A.y),
            "mont_sqr_24_1": products(fp.mont_sqr, x1),

@@ -105,12 +105,16 @@ def launch_xyzz(kernel, curve, *coords):
 
 
 def launch_addsub(kernel, spec, a, b, out):
+    if out is not None:
+        km.out_map(kernel, out, a[0].numel())  # the launcher's refusals, as on the card
     LAUNCHES[kernel] += 1
     r = (km.add_plain if kernel == "fp_add" else km.sub_plain)(spec, a, b)
     return r if out is None else out.copy_(r)
 
 
 def launch_lin(spec, lmap, srcs, out):
+    if out is not None:
+        lin.out_operand(lmap.name, out, out[0, 0].numel())  # the launcher's refusals
     LAUNCHES["fp_lin"] += 1
     return lin.fp_lin_plain(spec, lmap, srcs, out)
 

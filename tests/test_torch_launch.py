@@ -102,15 +102,16 @@ def test_fast_case_only_for_contiguous_operands(spec, monkeypatch):
 
 
 def test_c_entries_match_exports():
-    """Every extern "C" entry of csrc/mont.cu and csrc/fadd.cu has the
-    argument list its _build.EXPORTS row gives ctypes, and the
-    descriptor-array entries of the product, the square and the two
-    additions are gone."""
+    """Every extern "C" entry of csrc/mont.cu, csrc/fadd.cu and csrc/flin.cu
+    has the argument list its _build.EXPORTS row gives ctypes, and the
+    descriptor-array entries of the product, the square, the two additions
+    and the linear map are gone."""
     decls = {}
     for lib, entries, gone in (("mont", {"zk_mont_mul_v", "zk_mont_sqr_v"},
                                 {"zk_mont_mul", "zk_mont_sqr"}),
                                ("fadd", {"zk_fp_add_v", "zk_fp_sub_v"},
-                                {"zk_fp_add", "zk_fp_sub"})):
+                                {"zk_fp_add", "zk_fp_sub"}),
+                               ("flin", {"zk_fp_lin_v"}, {"zk_fp_lin"})):
         src = (_build.CSRC / f"{lib}.cu").read_text()
         found = dict(re.findall(r'extern "C" int (zk_\w+)\(([^)]*)\)', src))
         assert set(found) == set(_build.EXPORTS[lib]) and set(found) >= entries

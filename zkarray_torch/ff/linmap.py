@@ -23,7 +23,7 @@ Because the maps come from the JAX package's schedules (Karatsuba, the
 Toom-style cubic, the complex and CH-SQR2 squarings, Granger-Scott, the
 sparse line products), the products are the same ones, and so are the words.
 
-``run`` caches the route per (tower, op) and computes the op as fp_lin (pre)
+``run`` caches the route per (tower object, op) and computes the op as fp_lin (pre)
 -> mont_mul -> fp_lin (post): three launches on a CUDA device, the same route
 on the CPU through the plain versions. Every tower of the port derives its
 routes; the schedules never run on tensors.
@@ -34,7 +34,6 @@ from __future__ import annotations
 import math
 
 import numpy as np
-import torch
 
 from zkarray_torch.ff import towers
 from zkarray_torch.kernels import lin
@@ -176,15 +175,14 @@ class Route:
 
     def __call__(self, spec, srcs):
         L = spec.num_limbs
-        S = self.s
         flat = [t.flatten(0, k - 1) if k > 1 else t if k == 1 else t.unsqueeze(0)
                 for t, k in zip(srcs, self.naxes)]
         batch = lin.common_batch([flat[j] for j in self.pre.used])
-        slab = torch.empty((L, 2 * S) + batch, dtype=torch.int32, device=flat[0].device)
+        slab = flat[0].new_empty((L, 2 * self.s) + batch)
         lin.fp_lin(spec, self.pre, flat, out=slab.movedim(1, 0))
-        prod = km.mont_mul(spec, slab[:, :S], slab[:, S:])
+        prod = km.mont_mul(spec, *slab.chunk(2, 1))  # the x and y halves, (L, S, *batch) each
         res = lin.fp_lin(spec, self.post, [prod.movedim(1, 0)] + flat)
-        return res.reshape(self.out_shape + tuple(res.shape[1:]))
+        return res if len(self.out_shape) == 1 else res.unflatten(0, self.out_shape)
 
 
 def derive(ops, op: str, sched, src_ops) -> Route:
@@ -212,15 +210,18 @@ def derive(ops, op: str, sched, src_ops) -> Route:
     return Route(pre, post, len(prods), tuple(out.shape), [len(o.shape) for o in src_ops])
 
 
-_ROUTES = {}
+# (id(ops), op) -> (ops, route): ExtOps.__hash__ and __eq__ recurse down the
+# tower to FieldSpec's Python hash, which a lookup by the object would pay a
+# call; the ops is held beside its route, so its id stays its own
+_ROUTES: dict = {}
 
 
 def route(ops, op: str, sched, src_ops) -> Route:
     """The route of (ops, op), derived on first use and cached."""
-    r = _ROUTES.get((ops, op))
-    if r is None:
-        r = _ROUTES[(ops, op)] = derive(ops, op, sched, src_ops)
-    return r
+    got = _ROUTES.get((id(ops), op))
+    if got is None:
+        got = _ROUTES[(id(ops), op)] = (ops, derive(ops, op, sched, src_ops))
+    return got[1]
 
 
 def run(ops, op: str, sched, srcs, src_ops):

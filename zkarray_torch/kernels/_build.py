@@ -92,7 +92,7 @@ EXPORTS = {
         "zk_fp_sub_v": [_P, _LL, _LL, _LL] * 3 + [_LL, _I, _P, _P],
     },
     "flin": {
-        "zk_fp_lin": [_P, _I, _P, _I, _LL, _I, _P, _P],
+        "zk_fp_lin_v": [_P, _P],
     },
     "smallfp": {
         "zk_sf_op": [_I, _I, _P, _LL, _P, _I, _LL, _P, _I, _LL, _LL, _ULL, _ULL, _U, _P, _I, _P],

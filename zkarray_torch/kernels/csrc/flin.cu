@@ -14,8 +14,8 @@
 // map(i) = (i / inner)*outer + i % inner. So a tower element's coefficient axes, the
 // product slab of mont_mul (L, S, *batch), a stride-0 constant and a batch slice are all
 // read in place, and the result is written straight into its (c..., L, *batch) tensor.
-// The map is a table on the device, uploaded once per map (kernels/lin.py): per output
-// row (first term, terms, cneg, kbits), then per term (source << 16 | slot, coefficient).
+// The map is a table on the device, uploaded once per map and device (kernels/lin.py): per
+// output row (first term, terms, cneg, kbits), then per term (source << 16 | slot, coefficient).
 //
 // Arithmetic. The wrapper holds each row to sum |c| < 2^16 and the caller gives words
 // below p. A thread owns one output row of one element. It accumulates every term on
@@ -119,25 +119,36 @@ fp_lin_kernel(const __grid_constant__ LinArgs A, const int32_t* __restrict__ tab
   }
 }
 
-// desc: host descriptors (pointer, slot stride, ld, inner, outer) of the nsrc sources the
-// table names, then the output; table: the map on the device (m rows); n batch elements.
-extern "C" int zk_fp_lin(const long long* desc, int nsrc, const int32_t* table, int m,
-                         long long n, int nw, const uint32_t* consts, void* stream) {
-  if (n <= 0 || m <= 0) return 0;
-  if (nsrc < 0 || nsrc > LIN_MAX_SRC || m > 65535) return (int)cudaErrorInvalidValue;
+// One launch as kernels/lin.py:LinLauncher packs it: a block of 64-bit words, built anew
+// a call (so no buffer is shared between callers) and read here before the launch; the
+// kernel's __grid_constant__ arguments are copied at launch, so nothing reads the block
+// after this entry returns.
+struct LinCall {
+  const int32_t* table;            // the map on the device (m rows)
+  const uint32_t* consts;          // the field's constant words (host)
+  long long m, n, nw, nsrc;        // rows, batch elements, 32-bit words, sources
+  LinOperand op[LIN_MAX_SRC + 1];  // the nsrc sources the table names, then the output
+};
+static_assert(sizeof(LinOperand) == 40 && sizeof(LinCall) == 8 * (6 + 5 * (LIN_MAX_SRC + 1)),
+              "kernels/lin.py packs LinCall as 64-bit words");
+
+extern "C" int zk_fp_lin_v(const LinCall* c, void* stream) {
+  if (c->n <= 0 || c->m <= 0) return 0;
+  if (c->nsrc < 0 || c->nsrc > LIN_MAX_SRC || c->m > 65535) return (int)cudaErrorInvalidValue;
   LinArgs A{};
-  for (int s = 0; s <= nsrc; ++s) {
-    const long long* d = desc + 5 * s;
-    if (d[3] <= 0 || d[4] < 0) return (int)cudaErrorInvalidValue;
-    const LinOperand o{(int32_t*)(uintptr_t)d[0], d[1], d[2], d[3], d[4]};
-    if (s < nsrc)
+  for (int s = 0; s <= c->nsrc; ++s) {
+    const LinOperand& o = c->op[s];
+    if (o.inner <= 0 || o.outer < 0) return (int)cudaErrorInvalidValue;
+    if (s < c->nsrc)
       A.src[s] = o;
     else
       A.out = o;
   }
-  const dim3 grid((unsigned)((n + 255) / 256), (unsigned)m);
-  ZK_DISPATCH_NW_FIELD(nw, {
-    const FieldConsts<NW> F = consts_from_host<NW>(consts);
+  const dim3 grid((unsigned)((c->n + 255) / 256), (unsigned)c->m);
+  const int32_t* table = c->table;
+  const long long n = c->n;
+  ZK_DISPATCH_NW_FIELD((int)c->nw, {
+    const FieldConsts<NW> F = consts_from_host<NW>(c->consts);
     fp_lin_kernel<NW><<<grid, 256, 0, (cudaStream_t)stream>>>(A, table, n, F);
   });
   return (int)cudaGetLastError();

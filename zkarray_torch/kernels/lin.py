@@ -11,17 +11,19 @@ axis, the batch), read in place through a slot stride on top of the
 operand map of kernels/mont.py:_operand; the batches broadcast as the tower
 code aligns them (trailing axes padded with 1s). The output is a new
 contiguous (m, L, *batch) tensor, or ``out``, any view of that shape that
-the map can write in place (not aliasing a source). Inputs must be words
-below p: every value on the paths is a kernel's reduced output or a reduced
-constant. CPU tensors take ``fp_lin_plain``; CUDA tensors launch the kernel
-or raise.
+the map can write in place (not aliasing a source): a layout the map cannot
+address, or whose elements share addresses (a stride-0 axis), raises rather
+than be copied. Inputs must be words below p: every value on the paths is a
+kernel's reduced output or a reduced constant. CPU tensors take
+``fp_lin_plain``; CUDA tensors launch the kernel through the field's cached
+``LinLauncher``, or raise.
 """
 
 from __future__ import annotations
 
-import array
 import functools
 import math
+import struct
 
 import numpy as np
 import torch
@@ -36,13 +38,17 @@ from zkarray_torch.kernels import mont as km
 MAX_SRC = 4
 COEF_SUM_LIMIT = 1 << 16
 MAX_ROWS = 65535
+# csrc/flin.cu:LinCall with k used sources: table, consts, m, n, nw, nsrc, then
+# (pointer, slot stride, ld, inner, outer) of each source and of the output
+_CALLS = tuple(struct.Struct(f"{6 + 5 * (k + 1)}q") for k in range(MAX_SRC + 1))
 
 
 class LinMap:
     """A linear map with small integer coefficients: ``rows[i]`` is output
     row i as (source, slot, coefficient) terms over sources of ``sizes[j]``
     slots. Raises ValueError on a map outside the kernel's bounds. The
-    device table and the plain version's matrix are built once per device."""
+    device table (and its address) and the plain version's matrix are built
+    once per device and kept on the map."""
 
     def __init__(self, rows, sizes, name: str = ""):
         self.name = name
@@ -75,22 +81,30 @@ class LinMap:
     def __repr__(self):
         return f"LinMap({self.name}, {self.m} rows, sources {self.sizes})"
 
-    def table(self, device) -> torch.Tensor:
+    def table_words(self) -> np.ndarray:
         """The int32 table csrc/flin.cu reads: per row (first term's word
         offset, terms, cneg, kbits), then per term (position of the source
         among the used ones << 16 | slot, coefficient)."""
-        t = self._tables.get(device)
-        if t is None:
-            pos = {s: i for i, s in enumerate(self.used)}
-            head, terms = [], []
-            for r, cn, kb in zip(self.rows, self.cneg, self.kbits):
-                head.append((4 * self.m + 2 * len(terms), len(r), cn, kb))
-                terms.extend((pos[s] << 16 | k, c) for s, k, c in r)
-            words = np.asarray(head, dtype=np.int32).reshape(-1)
-            if terms:
-                words = np.concatenate([words, np.asarray(terms, dtype=np.int32).reshape(-1)])
-            t = self._tables[device] = torch.from_numpy(words).to(device)
-        return t
+        pos = {s: i for i, s in enumerate(self.used)}
+        head, terms = [], []
+        for r, cn, kb in zip(self.rows, self.cneg, self.kbits):
+            head.append((4 * self.m + 2 * len(terms), len(r), cn, kb))
+            terms.extend((pos[s] << 16 | k, c) for s, k, c in r)
+        words = np.asarray(head, dtype=np.int32).reshape(-1)
+        if terms:
+            words = np.concatenate([words, np.asarray(terms, dtype=np.int32).reshape(-1)])
+        return words
+
+    def table_ptr(self, index: int) -> int:
+        """Address of ``table_words`` on device ``index`` (as
+        Tensor.get_device gives it: -1 for the CPU), uploaded on first use
+        and kept, with the tensor that owns it, by that index."""
+        got = self._tables.get(index)
+        if got is None:
+            dev = torch.device("cuda", index) if index >= 0 else torch.device("cpu")
+            t = torch.from_numpy(self.table_words()).to(dev)
+            got = self._tables[index] = (t, t.data_ptr())
+        return got[1]
 
     def plain_matrix(self, device):
         """(W, cneg, kmax): W the (m, 2K) float64 matrix [positive c | -negative
@@ -175,52 +189,120 @@ def fp_lin_plain(spec: FieldSpec, lmap: LinMap, srcs, out: torch.Tensor | None =
     return res if out is None else out.copy_(res)
 
 
-def _operand(t: torch.Tensor):
-    """(tensor, slot stride, ld, inner, outer) of a (k, L, *batch) tensor:
-    slot s, limb k, batch element i at offset s*slot + k*ld + map(i), map as
-    kernels/mont.py:batch_map; copied first where no such map exists."""
-    st = t.stride()
-    m = km.batch_map(t.shape[2:], st[2:])
-    if m is None:
-        t = t.contiguous()
+def _operand(t: torch.Tensor, n: int):
+    """(tensor, slot stride, ld, inner, outer) of a (k, L, *batch) source of
+    n batch elements: slot s, limb k, batch element i at offset s*slot +
+    k*ld + map(i), map as kernels/mont.py:batch_map (memoised); a contiguous
+    source without a call of it, one that no map addresses copied first (the
+    copy held by the caller until the launch)."""
+    if not t.is_contiguous():
         st = t.stride()
-        m = (math.prod(t.shape[2:]), 0)
-    return (t, st[0] if t.shape[0] > 1 else 0, st[1]) + m
+        m = km.batch_map_memo(t.shape[2:], st[2:])
+        if m is not None:
+            return t, st[0], st[1], m[0], m[1]
+        t = t.contiguous()
+    return t, t.shape[1] * n, n, n, 0
+
+
+def out_operand(name: str, out: torch.Tensor, n: int):
+    """(slot stride, ld, inner, outer) of an (m, L, *batch) output of n
+    batch elements that the kernel writes in place (``_operand``'s map);
+    raises where there is none, rather than write a copy: a layout the map
+    cannot address, or one whose elements share addresses (a stride-0 batch
+    or limb axis, or a slot stride of 0 over more than one row), as
+    kernels/mont.py:out_map refuses for the additions."""
+    if out.is_contiguous():
+        return out.shape[1] * n, n, n, 0
+    st = out.stride()
+    m = km.batch_map_memo(out.shape[2:], st[2:])
+    if m is None or (m[1] == 0 and m[0] < n) or st[1] == 0 or (st[0] == 0 and out.shape[0] > 1):
+        raise ValueError(f"fp_lin {name}: out's strides {st} cannot be written in place")
+    return st[0], st[1], m[0], m[1]
+
+
+class LinLauncher(km.FieldLauncher):
+    """csrc/flin.cu's linear map (zk_fp_lin_v) for one field on one CUDA
+    device, built once by ``lin_launcher``: the library's C entry beside
+    ``FieldLauncher``'s state. A call packs one csrc/flin.cu:LinCall (a new
+    bytes object, so callers share no buffer) and reads each map's device
+    table through ``LinMap.table_ptr``."""
+
+    __slots__ = ("fn",)
+
+    def __init__(self, spec: FieldSpec, index: int):
+        super().__init__(spec, index, "fp_lin")
+        self.lib = _build.load("flin")
+        self.fn = self.lib.zk_fp_lin_v
+
+    def launch(self, lmap: LinMap, srcs, out: torch.Tensor | None) -> torch.Tensor:
+        if self.current_device() != self.index:
+            with torch.cuda.device(self.index):
+                return self.launch(lmap, srcs, out)
+        index = self.index
+        ts, batch = _sources(lmap, srcs, self.L)
+        for t in ts if out is None else ts + [out]:
+            if t.dtype is not torch.int32:
+                raise TypeError(f"fp_lin: expected int32 tensors, got {t.dtype}")
+            if t.get_device() != index:
+                raise ValueError("fp_lin: tensors on different devices")
+        n = math.prod(batch)
+        shape = (lmap.m, self.L) + batch
+        if out is None:
+            out = ts[0].new_empty(shape)  # int32 on this device, without parsing a device
+            o_map = (self.L * n, n, n, 0)
+        elif out.shape != shape:
+            raise ValueError(f"fp_lin {lmap.name}: out {tuple(out.shape)} is not {tuple(shape)}")
+        else:
+            o_map = out_operand(lmap.name, out, n)
+        words = [lmap.table_ptr(index), self.consts, lmap.m, n, self.nw, len(ts)]
+        held = []  # copies of sources that no map addresses, until the launch
+        for t in ts:
+            t, slot, ld, inner, outer = _operand(t, n)
+            held.append(t)
+            words += (t.data_ptr(), slot, ld, inner, outer)
+        words.append(out.data_ptr())
+        words += o_map
+        err = self.fn(_CALLS[len(ts)].pack(*words), self.raw_stream(index))
+        if err:
+            _build.check(self.lib, err, "fp_lin")
+        _build.LAUNCHES["fp_lin"] += 1
+        return out
+
+
+_LIN_LAUNCHERS: dict = {}
+
+
+def lin_launcher(spec: FieldSpec, index: int) -> LinLauncher:
+    """The ``LinLauncher`` of ``spec`` on CUDA device ``index``, built on
+    first use and kept (keyed as kernels/mont.py:product_launcher's)."""
+    got = _LIN_LAUNCHERS.get((id(spec), index))
+    if got is None:
+        got = _LIN_LAUNCHERS[(id(spec), index)] = LinLauncher(spec, index)
+    return got
 
 
 def _launch_lin(spec: FieldSpec, lmap: LinMap, srcs, out: torch.Tensor | None) -> torch.Tensor:
-    """Launch csrc/flin.cu:fp_lin_kernel over the map's used sources, each
-    read in place as ``_operand`` allows (or copied, the copy held until
-    the launch), into ``out`` or a new contiguous (m, L, *batch) tensor."""
-    L = spec.num_limbs
-    ts, batch = _sources(lmap, srcs, L)
-    if out is None:
-        out = torch.empty((lmap.m, L) + batch, dtype=torch.int32, device=ts[0].device)
-    elif tuple(out.shape) != (lmap.m, L) + batch:
-        raise ValueError(f"fp_lin {lmap.name}: out {tuple(out.shape)} is not "
-                         f"{(lmap.m, L) + batch}")
-    km.check_cuda_int32("fp_lin", *ts, out, contiguous=False)
-    ops = [_operand(t) for t in ts] + [_operand(out)]  # held until the launch
-    if ops[-1][0] is not out:
-        raise ValueError(f"fp_lin {lmap.name}: out's strides {out.stride()} cannot be written "
-                         "in place")
-    desc = array.array("q", [w for o in ops for w in (o[0].data_ptr(),) + o[1:]])
-    table = lmap.table(out.device)
-    lib = _build.load("flin")
-    with torch.cuda.device(out.device):
-        err = lib.zk_fp_lin(desc.buffer_info()[0], len(ts), table.data_ptr(), lmap.m,
-                            math.prod(batch), L // 2, km.words_ptr(km.field_words(spec)),
-                            torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "fp_lin")
-    _build.LAUNCHES["fp_lin"] += 1
-    return out
+    """Launch csrc/flin.cu:fp_lin_kernel through the field's ``LinLauncher``
+    on the device of the map's first used source: each source read in place
+    as ``_operand`` allows (or copied, the copy held until the launch); the
+    output ``out``, written through its map (``out_operand``: it raises where
+    that needs a copy), or a new contiguous (m, L, *batch) tensor."""
+    return lin_launcher(spec, srcs[lmap.used[0]].get_device()).launch(lmap, srcs, out)
 
 
 def fp_lin(spec: FieldSpec, lmap: LinMap, srcs, out: torch.Tensor | None = None) -> torch.Tensor:
     """out[i] = sum_j c[i][j] src[j] mod p for the map ``lmap`` over the
     (k_j, L, *batch_j) sources ``srcs`` (an unused source may be None).
-    CPU tensors: ``fp_lin_plain``; CUDA tensors: csrc/flin.cu, one launch."""
+    CPU tensors: ``fp_lin_plain``; CUDA tensors: csrc/flin.cu, one launch;
+    a mix of devices raises."""
     used = [srcs[s] for s in lmap.used]
-    if km.on_cpu(*used, *(() if out is None else (out,))):
+    if out is not None:
+        used.append(out)
+    for t in used:
+        if not t.is_cuda:
+            break
+    else:
+        return _launch_lin(spec, lmap, srcs, out)
+    if km.on_cpu(*used):
         return fp_lin_plain(spec, lmap, srcs, out)
     return _launch_lin(spec, lmap, srcs, out)
