@@ -15,7 +15,9 @@ Phases, each printing one JSON line and raising on any failure:
    inlined (the earlier design of horner_windows); registers, spills and
    SASS instructions of the xyzz.cu and madd.cu kernels; one dependent
    carried add's latency in SM cycles (a one-thread chain between two
-   clock64() reads), for mont_inv's chain bound.
+   clock64() reads), for mont_inv's chain bound; and, for fp_lin's, a
+   dependent L2 load's (a pointer chase), a warp shuffle's and an empty
+   launch's device ms.
 2. kernel vs plain: each CUDA kernel against its plain PyTorch version on
    the same device inputs, bit for bit (tolerance zero), with both times:
    mont_mul and mont_sqr on 2^20 Fq and Fr elements; xyzz_accum through both
@@ -233,7 +235,18 @@ Phases, each printing one JSON line and raising on any failure:
    of their own; the host's us per launch at 64 lanes for fp_lin's two BLS12-381
    Fp12-product maps, fp_add and a whole Fp12 product, and the host's
    pieces of one 64-lane post-map call (fp_lin_host); and BLS12-381
-   pairing_each's launches per call held at most 12,000.
+   pairing_each's launches per call held at most 12,000. Both bodies of
+   flin.cu (one thread a row; G = 2 to 32 lanes a row, kernels/lin.py:lanes
+   choosing): rows of 33 and 70 terms at every width at one element and on
+   both sides of the crossover, against the plain version and Python ints;
+   the Fp12 product's maps and the Granger-Scott square's post-map at 1 to
+   7 x 2^11 elements, every G through the C entry against the plain
+   version, each G's device ms from one trace a shape, the rule's events ms and
+   its chain bound from the latency line (fp_lin_narrow); fp_lin's busy ms
+   by body in phase 10's gt_msm trace (gt_msm_fp_lin); registers, spills
+   and SASS size per instantiation (fp_lin_code); and twiddle_mul and
+   sf_op refusing an out whose elements share addresses, left unwritten
+   (shared_out_refused).
 13. the polynomial layer and the scalar-multiplication family
    (``poly_scalar_phase``): the Groth16 quotient at 2^20 (dense.mul, then
    divide_by_vanishing_poly) and dense.evaluate at 64 points against host
@@ -484,6 +497,9 @@ def device_trace(torch, fn, untraced_ms):
         if hits:
             n_k, ns_k = sum(h[0] for h in hits), sum(h[1] for h in hits)
             ours[k] = dict(launches=n_k, device_ms=ns_k / 1e6, device_ms_per_launch=ns_k / 1e6 / n_k)
+            if len(hits) > 1:  # its instantiations apart (fp_lin's bodies: <NW, lanes>)
+                ours[k]["by_name"] = {nm[:60]: dict(launches=v[0], device_ms=v[1] / 1e6)
+                                      for nm, v in by_name.items() if f"{k}_kernel" in nm}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     busy_ms = union_ns([(a, b) for a, b, _ in dev_iv]) / 1e6
     return out, dict(
@@ -497,11 +513,12 @@ def device_trace(torch, fn, untraced_ms):
         note=None if dev_iv else "the trace holds no device events")
 
 
-def traced_device_ms(torch, kernel, fn, reps, device):
-    """(device ms per launch, launches recorded) of ``kernel`` over ``reps``
-    calls of fn() traced on their own, after eight launches of another
-    kernel inside the trace (the profiler can drop a trace's first few
-    device ops); (None, 0) when the trace records none of its launches."""
+def traced_kernel(torch, kernel, fn, reps, device):
+    """``device_trace``'s entry for ``kernel`` (launches, device ms, and
+    ``by_name`` where it ran as several instantiations) over ``reps`` calls
+    of fn() traced on their own, after eight launches of another kernel
+    inside the trace (the profiler can drop a trace's first few device
+    ops); None when the trace records none of its launches."""
     warm = torch.zeros(1, device=device)
 
     def body():
@@ -511,7 +528,14 @@ def traced_device_ms(torch, kernel, fn, reps, device):
             fn()
 
     _, tr = device_trace(torch, body, 1.0)
-    k = None if tr is None else tr["port_kernels"].get(kernel)
+    return None if tr is None else tr["port_kernels"].get(kernel)
+
+
+def traced_device_ms(torch, kernel, fn, reps, device):
+    """(device ms per launch, launches recorded) of ``kernel`` over ``reps``
+    calls of fn() (``traced_kernel``); (None, 0) when the trace records none
+    of its launches."""
+    k = traced_kernel(torch, kernel, fn, reps, device)
     return (None, 0) if k is None else (k["device_ms_per_launch"], k["launches"])
 
 
@@ -614,7 +638,8 @@ extern "C" __global__ void probe_horner_serial(const Xyzz<12>* win, Xyzz<12>* ou
 # The latency of one dependent carried add on the card: one thread runs
 # rounds of 32 add.cc/addc pairs, each instruction waiting on the one
 # before, between two clock64() reads. mont_inv's chain bound counts its
-# critical path in such instructions.
+# critical path in such instructions; fp_lin's also counts dependent L2
+# loads and warp shuffles, timed the same way, and an empty launch.
 LATENCY_PROBE = r"""
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -634,8 +659,45 @@ extern "C" int zk_add_chain(void* out, void* cycles, int rounds, void* stream) {
   add_chain<<<1, 1, 0, (cudaStream_t)stream>>>((uint32_t*)out, (long long*)cycles, rounds, 12345u);
   return (int)cudaGetLastError();
 }
+// dependent loads served by L2 (ld.global.cg): next[] is a cycle through 128-byte lines
+__global__ void load_chain(const uint32_t* next, uint32_t* out, long long* cycles, int rounds) {
+  uint32_t j = 0;
+  const long long t0 = clock64();
+  for (int i = 0; i < rounds; ++i) j = __ldcg(next + j);
+  const long long t1 = clock64();
+  out[0] = j;
+  cycles[0] = t1 - t0;
+}
+extern "C" int zk_load_chain(const void* next, void* out, void* cycles, int rounds, void* stream) {
+  load_chain<<<1, 1, 0, (cudaStream_t)stream>>>((const uint32_t*)next, (uint32_t*)out,
+                                               (long long*)cycles, rounds);
+  return (int)cudaGetLastError();
+}
+// dependent warp shuffles (one warp)
+__global__ void shfl_chain(uint32_t* out, long long* cycles, int rounds) {
+  uint32_t x = threadIdx.x;
+  const long long t0 = clock64();
+  for (int i = 0; i < rounds; ++i) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) x = __shfl_xor_sync(0xFFFFFFFFu, x, 1 << (j % 5));
+  }
+  const long long t1 = clock64();
+  out[threadIdx.x] = x;
+  if (threadIdx.x == 0) cycles[0] = t1 - t0;
+}
+extern "C" int zk_shfl_chain(void* out, void* cycles, int rounds, void* stream) {
+  shfl_chain<<<1, 32, 0, (cudaStream_t)stream>>>((uint32_t*)out, (long long*)cycles, rounds);
+  return (int)cudaGetLastError();
+}
+// a launch that does nothing: the device floor of one launch
+__global__ void empty_kernel() {}
+extern "C" int zk_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
 """
 ADD_CHAIN_ROUNDS = 4096
+LOAD_CHAIN_LINES, LOAD_CHAIN_ROUNDS = 2048, 4096  # a 256 KiB cycle: L2-resident after one pass
 
 
 def add_latency_cycles(torch, lib_path):
@@ -655,6 +717,60 @@ def add_latency_cycles(torch, lib_path):
         per = int(cycles.item()) / (ADD_CHAIN_ROUNDS * 64)
         best = per if best is None else min(best, per)
     return best
+
+
+def latency_line(torch, lib_path, clock_mhz):
+    """The latency line's figures from LATENCY_PROBE's library: SM cycles
+    per dependent carried add, per dependent L2 load (a pointer chase over
+    LOAD_CHAIN_LINES lines, warm) and per dependent warp shuffle (minimum
+    of three calls each), and the device ms of an empty launch (the mean of
+    its own trace): what csrc/flin.cu's chain bound multiplies."""
+    lib = ctypes.CDLL(str(lib_path))
+    v = ctypes.c_void_p
+    for fn, args in (("zk_load_chain", [v, v, v, ctypes.c_int, v]),
+                     ("zk_shfl_chain", [v, v, ctypes.c_int, v]), ("zk_empty", [v])):
+        getattr(lib, fn).argtypes, getattr(lib, fn).restype = args, ctypes.c_int
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    out = torch.zeros(32, dtype=torch.int32, device="cuda")
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    rng = np.random.default_rng(7)
+    order = np.concatenate([[0], 1 + rng.permutation(LOAD_CHAIN_LINES - 1)]) * 32
+    nxt = np.zeros(LOAD_CHAIN_LINES * 32, dtype=np.int32)
+    nxt[order] = np.roll(order, -1)
+    nxt = torch.from_numpy(nxt).cuda()
+
+    def best(call, per):
+        got = None
+        for _ in range(3):  # the first call also loads the module and warms L2
+            err = call()
+            if err != 0:
+                raise RuntimeError(f"latency probe: CUDA launch failed ({err})")
+            torch.cuda.synchronize()
+            c = int(cycles.item()) / per
+            got = c if got is None else min(got, c)
+        return got
+
+    load = best(lambda: lib.zk_load_chain(nxt.data_ptr(), out.data_ptr(), cycles.data_ptr(),
+                                          LOAD_CHAIN_ROUNDS, stream()), LOAD_CHAIN_ROUNDS)
+    shfl = best(lambda: lib.zk_shfl_chain(out.data_ptr(), cycles.data_ptr(), ADD_CHAIN_ROUNDS,
+                                          stream()), ADD_CHAIN_ROUNDS * 32)
+    add = add_latency_cycles(torch, lib_path)
+    warm = torch.zeros(1, device="cuda")
+
+    def empties():
+        for _ in range(8):
+            warm.add_(1)
+        for _ in range(50):
+            lib.zk_empty(stream())
+
+    _, tr = device_trace(torch, empties, 1.0)
+    tops = [] if tr is None else [t for t in tr["top_device_ms"] if "empty_kernel" in t["name"]]
+    empty_ms = tops[0]["device_ms"] / tops[0]["ops"] if tops else None
+    return dict(cycles_per_dependent_carried_add=add, cycles_per_dependent_l2_load=load,
+                cycles_per_dependent_shuffle=shfl, empty_launch_device_ms=empty_ms,
+                max_sm_clock_mhz=clock_mhz, ns_per_dependent_carried_add=add / clock_mhz * 1e3,
+                ns_per_dependent_l2_load=load / clock_mhz * 1e3,
+                ns_per_dependent_shuffle=shfl / clock_mhz * 1e3)
 
 
 def wide_pow_reference(torch, f, n, dev):
@@ -1332,7 +1448,7 @@ def install_recorders(torch, km):
     from zkarray_torch.kernels import lin
 
     rec = types.SimpleNamespace(on=False, keys=collections.Counter(), first={}, lin_rows=[],
-                                path_launches={})
+                                path_launches={}, gt_msm_trace=None)
     addsub, launch, lin_launch = km._launch_addsub, km._launch, lin._launch_lin
 
     def rec_addsub(kernel, spec, a, b, out):
@@ -2315,6 +2431,7 @@ def bn_gt_bw6_phase(torch, h, rec):
         row["ops_per_s"] = (n if op == "mul_scalar" else 1) / row["ms"] * 1e3
         gt_rows[op] = row
         paths[f"gt_{op}"] = row["launches_per_call"]
+    rec.gt_msm_trace = gt_rows["msm"]["trace"]  # phase 12 reads fp_lin's share of it
     B_ = A.roll(1, -1)
     for op, fn, want in (("neg", lambda: G.neg(A), want_neg), ("sub", lambda: G.sub(A, B_), want_sub),
                          ("double", lambda: G.double(A), want_dbl)):
@@ -2685,7 +2802,8 @@ def lin_host_pieces(torch, h, route, prod, flat, host_us):
     res = torch.empty((lmap.m, L, n), dtype=torch.int32, device=h.dev)
     slab = h.rand_field(F, route.pre.m * n).reshape(L, route.pre.m, n)
     slab_view = slab.movedim(1, 0)
-    words = [lmap.table_ptr(idx), go.consts, lmap.m, n, go.nw, len(ts)]
+    words = [lmap.table_ptr(idx), go.consts, lmap.m, n, go.nw, len(ts),
+             lin.lanes(n, lmap.m, lmap.max_terms)]
     for t in ts:
         words += (t.data_ptr(),) + lin._operand(t, n)[1:]
     words += (res.data_ptr(), L * n, n, n, 0)
@@ -2758,6 +2876,244 @@ def lin_host_line(torch, h):
     return host
 
 
+# fp_lin's narrow batches: gt_msm's (one element; its tree's 7 x 2^8 and 7 x 2^11), 7, 64
+# lanes, the pairing's 2^12; every G launched LIN_NARROW_REPS times in one trace a shape
+LIN_NARROW_N = (1, 7, 64, 448, 1792, 1 << 12, 7 << 11)
+LIN_NARROW_REPS = 10
+LIN_EDGE_SIZES = (40, 40, 1)  # sources of the long-row edge map: rows of 33 and 70 terms
+LIN_EDGE_LONG = (33, 70)
+
+
+def lin_forced(torch, lin, spec, lmap, srcs, lanes, out=None):
+    """A call of csrc/flin.cu's C entry for lmap over srcs into ``out`` (a
+    new contiguous output by default) with ``lanes`` lanes a (row,
+    element), whatever kernels/lin.py:lanes would pick: (fn, out), fn
+    raising on an error code; ``fn.block`` is the packed LinCall.
+    Measurement only: the port's calls take the rule's lanes."""
+    L = spec.num_limbs
+    idx = srcs[lmap.used[0]].get_device()
+    go = lin.lin_launcher(spec, idx)
+    ts, batch = lin._sources(lmap, srcs, L)
+    n = math.prod(batch)
+    if out is None:
+        out = torch.empty((lmap.m, L) + tuple(batch), dtype=torch.int32, device=ts[0].device)
+    words = [lmap.table_ptr(idx), go.consts, lmap.m, n, go.nw, len(ts), lanes]
+    held = [out]
+    for t in ts:
+        t, slot, ld, inner, outer = lin._operand(t, n)
+        held.append(t)
+        words += (t.data_ptr(), slot, ld, inner, outer)
+    words += (out.data_ptr(),) + lin.out_operand(lmap.name, out, n)
+    block = lin._CALLS[len(ts)].pack(*words)
+
+    def fn():
+        err = go.fn(block, go.raw_stream(idx))
+        if err:
+            raise RuntimeError(f"fp_lin {lmap.name}: lanes {lanes} refused ({err})")
+    fn.held, fn.block = held, block  # the block's sources and output live as long as the call
+    return fn, out
+
+
+def lin_chain_ms(lat, L, lmap, lanes):
+    """csrc/flin.cu's chain bound for one launch of lmap with ``lanes``
+    lanes a (row, element): an empty launch's device ms plus, for the row
+    whose chain is longest, its dependent steps times their measured
+    latencies (``lat``, the latency line) at L limbs: dependent L2 loads
+    (one thread a row: the row's head, then a term word and its source limbs
+    for each term; G lanes: the head, the first term word, then one round of
+    source limbs each of ceil(terms / G) rounds, the next round's term word
+    in flight meanwhile), log2 G shuffle rounds, and the carry pass (two
+    carried adds a limb) with kbits conditional subtractions of NW + 1 words
+    and a select (carried adds). The store waits on nothing after it."""
+    cyc = 0.0
+    for r, kb in zip(lmap.rows, lmap.kbits):
+        loads = 1 + 2 * len(r) if lanes == 1 else 2 + -(-len(r) // lanes)
+        cyc = max(cyc, loads * lat["cycles_per_dependent_l2_load"]
+                  + (lanes.bit_length() - 1) * lat["cycles_per_dependent_shuffle"]
+                  + (2 * L + kb * (L // 2 + 2)) * lat["cycles_per_dependent_carried_add"])
+    return (lat["empty_launch_device_ms"] or 0.0) + cyc / lat["max_sm_clock_mhz"] / 1e3
+
+
+def lin_lanes_device_ms(torch, calls, reps, dev):
+    """Device ms per launch of each call in ``calls`` ({lanes: fn}, one
+    launch shape), the calls run in turn ``reps`` times in one trace
+    (``traced_kernel``): each lanes value G launches an instantiation of its
+    own name (fp_lin_kernel<NW, G>; fp_lin_kernel<NW> for G = 1), which
+    ``device_trace`` keeps apart. None for a G the trace kept none of."""
+    k = traced_kernel(torch, "fp_lin", lambda: [fn() for fn in calls.values()], reps, dev)
+    out = dict.fromkeys(calls)
+    for nm, v in (k or {}).get("by_name", {}).items():
+        m = re.search(r"fp_lin_kernel<\d+(?:, (\d+))?>", nm)  # <NW>: one thread a row
+        if m:
+            out[int(m.group(1) or 1)] = v["device_ms"] / v["launches"]
+    return out
+
+
+def lin_narrow_line(torch, h):
+    """The fp_lin_narrow line: a BLS12-381 Fp12 product's pre-map and
+    post-map and the Granger-Scott square's post-map, laid out as
+    ff/linmap.py:Route launches them, at LIN_NARROW_N elements: the lanes
+    kernels/lin.py:lanes picks (which body ran), the rule's call against
+    fp_lin_plain and every lanes value of csrc/flin.cu through its C entry
+    against it too (both bodies, bit for bit), each one's device ms per
+    launch from one trace of the shape, the rule's events ms back to back, its chain
+    bound (``lin_chain_ms``) and the share of it. Returns the line."""
+    from zkarray_torch.curves import bls12_381 as B
+    from zkarray_torch.ff import cyclotomic, linmap
+    from zkarray_torch.kernels import lin
+
+    F, F12, dev = B.FQ, B.FQ12, h.dev
+    L = F.num_limbs
+    mul = linmap.route(F12, "mul", type(F12)._mul_sched, (F12, F12))
+    gs = linmap.route(F12, "gs_sqr", cyclotomic._gs_sched, (F12,))
+    cases, per_case, err = [], [], 0
+    for n in LIN_NARROW_N:
+        x, y = (h.rand_field(F, 12 * n).reshape(L, 12, n).movedim(1, 0).contiguous()
+                for _ in range(2))
+        for name, route, which in (("fp12_mul_pre", mul, "pre"), ("fp12_mul_post", mul, "post"),
+                                   ("cyclotomic_sqr_post", gs, "post")):
+            if which == "pre":
+                lmap, srcs = route.pre, [x, y]
+                out = torch.empty((L, lmap.m, n), dtype=torch.int32, device=dev).movedim(1, 0)
+            else:
+                prod = h.rand_field(F, route.s * n).reshape(L, route.s, n)
+                lmap, srcs, out = route.post, [prod.movedim(1, 0), x], None
+            want = lin.fp_lin_plain(F, lmap, srcs)
+            fn = lambda lmap=lmap, srcs=srcs, out=out: lin.fp_lin(F, lmap, srcs, out=out)  # noqa: E731
+            e = h.check_equal(f"fp_lin_narrow {name} n={n}", fn(), want)
+            g = lin.lanes(n, lmap.m, lmap.max_terms)
+            calls = {}
+            for lanes in lin.LANES if dev.type == "cuda" else ():  # the C entry: the card only
+                f_, o_ = lin_forced(torch, lin, F, lmap, srcs, lanes)
+                f_()
+                e = max(e, h.check_equal(f"fp_lin_narrow {name} n={n} lanes={lanes}", o_, want))
+                calls[lanes] = f_
+            per_case.append(calls)
+            err = max(err, e)
+            cases.append(dict(map=name, n=n, m=lmap.m, max_terms=lmap.max_terms,
+                              kbits_max=max(lmap.kbits), lanes=g,
+                              body="one thread a row" if g == 1 else f"{g} lanes a row",
+                              max_abs_err=e, ms_events=h.time_ms(fn, 50),
+                              chain_bound_ms=lin_chain_ms(h.latency, L, lmap, g),
+                              chain_bound_one_thread_ms=lin_chain_ms(h.latency, L, lmap, 1)))
+    for c, calls in zip(cases, per_case):
+        got = lin_lanes_device_ms(torch, calls, LIN_NARROW_REPS, dev) if calls else {}
+        per = {g: got.get(g) for g in lin.LANES}
+        c["device_ms_by_lanes"] = per
+        c["device_ms"] = per[c["lanes"]]
+        c["share_of_chain_bound"] = (c["chain_bound_ms"] / c["device_ms"]) if c["device_ms"] else None
+        got = [g for g in lin.LANES if per[g] is not None]
+        c["fastest_lanes"] = min(got, key=lambda g: per[g]) if got else None
+    line = dict(field=F.name, reps=LIN_NARROW_REPS, fill_threads=lin.FILL_THREADS,
+                pair_elements=lin.PAIR_ELEMENTS, max_abs_err=err, cases=cases)
+    h.emit("fp_lin_narrow", **line)
+    del per_case
+    return line
+
+
+def lin_code():
+    """csrc/flin.cu's instantiations fp_lin_kernel<NW> (G = 1) and <NW, G>:
+    {"NW,G": ptxas' registers, stack and spills and cuobjdump's SASS
+    instructions}."""
+    from zkarray_torch.kernels import _build
+
+    path = _build.lib_path("flin")
+    ptx = parse_ptxas(path.with_suffix(".ptxas.txt").read_text())
+    sass = sass_functions([path])[0]
+    out = {}
+    for name, r in ptx.items():
+        m = re.search(r"fp_lin_kernelILi(\d+)E(?:Li(\d+)E)?E", name)  # <NW>: G = 1
+        if m:
+            out[f"{m.group(1)},{m.group(2) or 1}"] = dict(
+                r, sass_instructions=sass.get(name, {}).get("instructions"))
+    return out
+
+
+def lin_edge_crossover(torch, h, err):
+    """Edge words at every width through a map with rows of LIN_EDGE_LONG
+    terms at the coefficient bound (testing.lin_edge_rows), at one element
+    and at the widths on both sides of kernels/lin.py's crossover (the
+    last with two lanes or more and the first with one), against
+    fp_lin_plain and, on 64 lanes, Python ints. Returns {field: rows}."""
+    import importlib
+
+    from zkarray_torch.ff import fp
+    from zkarray_torch.kernels import lin
+    from zkarray_torch.testing import lanes_crossover, lin_edge_rows, lin_edge_words
+
+    dev, out = h.dev, {}
+    for curve in LIN_CURVES:
+        f = importlib.import_module(f"zkarray_torch.curves.{curve}").FQ
+        p, L = f.modulus, f.num_limbs
+        rng = np.random.default_rng(L + 1)
+        words = lin_edge_words(f, rng)
+        k = len(words)
+        lmap = lin.LinMap(lin_edge_rows(LIN_EDGE_SIZES, rng, long_rows=LIN_EDGE_LONG),
+                          LIN_EDGE_SIZES, f"{f.name} long-row edge")
+        n_hi = lanes_crossover(lmap.m, lmap.max_terms) + 1  # the first width with one lane
+        rows = []
+        x = fp.from_ints(f, words, mont=False, device=dev)
+        for n in (1, n_hi - 1, n_hi):
+            ii = torch.arange(n, device=dev)
+            a = torch.stack([x[:, (ii * (2 * j + 1) + j) % k] for j in range(LIN_EDGE_SIZES[0])])
+            b = torch.stack([x[:, (ii * (3 * j + 2) + 5 * j) % k]
+                             for j in range(LIN_EDGE_SIZES[1])]).repeat_interleave(2, -1)[..., ::2]
+            c = x[None, :, (7 * k) // 8]
+            got = lin.fp_lin(f, lmap, [a, b, c])
+            e = h.check_equal(f"fp_lin {f.name} long-row edge n={n}", got, lin.fp_lin_plain(f, lmap, [a, b, c]))
+            m_ = min(n, 64)
+            src = [[fp.to_ints(f, t[j, :, :m_], mont=False) for j in range(t.shape[0])] for t in (a, b)]
+            src.append([[words[(7 * k) // 8]] * m_])
+            if [fp.to_ints(f, got[i, :, :m_], mont=False) for i in range(lmap.m)] != [
+                    [sum(cf * src[s_][j][e_] for s_, j, cf in r) % p for e_ in range(m_)]
+                    for r in lmap.rows]:
+                raise AssertionError(f"fp_lin {f.name}: long-row edge words differ from Python ints")
+            err["fp_lin"] = max(err["fp_lin"], e)
+            rows.append(dict(n=n, lanes=lin.lanes(n, lmap.m, lmap.max_terms), max_abs_err=e))
+        if rows[0]["lanes"] < 2 or rows[1]["lanes"] < 2 or rows[2]["lanes"] != 1:
+            raise AssertionError(f"fp_lin {f.name}: the widths {rows} miss the crossover")
+        out[f.name] = dict(rows=lmap.m, max_terms=lmap.max_terms, widths=rows)
+    return out
+
+
+def shared_out_refusals(torch, h):
+    """twiddle_mul and sf_op into an ``out`` whose elements share addresses
+    (rows on one address; two planes on one address): each raises before
+    its launch and leaves the out unwritten, as fp_lin's does
+    (``lin_launch_cost``). Returns {kernel: True}."""
+    from zkarray_torch.curves import bls12_381 as B
+    from zkarray_torch.kernels import mont as km
+    from zkarray_torch.kernels import smallfp as ks
+
+    got = {}
+    F = B.FR
+    L = F.num_limbs
+    tw = km.twiddle_tables(F, F.root_of_unity(16), 9, h.dev)
+    x = h.rand_field(F, 16).reshape(L, 4, 4)
+    cases = {"twiddle_mul": (lambda o: km.twiddle_mul(F, x, tw, out=o),
+                             lambda: torch.full((L, 1, 4), -1, dtype=torch.int32,
+                                                device=h.dev).expand(L, 4, 4)),
+             "sf_op": (lambda o: ks.sf_op("gl64", ks.GL64, "add", a, a, out=o),
+                       lambda: torch.full((1, 3), 7, dtype=torch.uint32,
+                                          device=h.dev).expand(2, 3))}
+    a = torch.ones((2, 3), dtype=torch.uint32, device=h.dev)
+    for name, (fn, make) in cases.items():
+        bad = make()
+        before = bad.clone()
+        try:
+            fn(bad)
+        except ValueError as e:
+            if "cannot be written in place" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name}: an out whose elements share addresses was accepted")
+        h.sync()
+        if not torch.equal(bad, before):
+            raise AssertionError(f"{name}: the refused out was written")
+        got[name] = True
+    return got
+
+
 def lin_phase(torch, h, rec):
     """Phase 12: fp_lin (csrc/flin.cu) against fp_lin_plain on the card, bit
     for bit: on edge words at NW = 8, 10, 12, 24 and 26 (every map row at
@@ -2767,7 +3123,13 @@ def lin_phase(torch, h, rec):
     (``rec.lin_rows``, replayed there). Times at each width's widest recorded
     path launch and at BLS12-381 pairing_each's widest against their byte
     bounds, the device time per launch in a trace of its own, and the host's
-    us per launch beside fp_add's. Returns the kernels line's fp_lin row."""
+    us per launch beside fp_add's. Both bodies of csrc/flin.cu: rows of 33
+    and 70 terms at every width at one element and on both sides of the
+    crossover (``lin_edge_crossover``), the Fp12 maps at narrow widths with
+    every lanes value against the plain version (``lin_narrow_line``), and
+    fp_lin's share of gt_msm's trace (phase 10). Then twiddle_mul and sf_op
+    refusing an out whose elements share addresses. Returns the kernels
+    line's fp_lin row."""
     import importlib
 
     from zkarray_torch.ff import fp
@@ -2819,6 +3181,24 @@ def lin_phase(torch, h, rec):
         edge[f.name] = dict(words=k, lanes=k * k, rows=lmap.m, max_abs_err=e)
         widths[L // 2] = f
 
+    # -- rows longer than 32 and 64 terms at one element and on both sides of the
+    # crossover; both bodies on the Fp12 maps at narrow widths; gt_msm's trace
+    long_edge = lin_edge_crossover(torch, h, err)
+    narrow = lin_narrow_line(torch, h)
+    err["fp_lin"] = max(err["fp_lin"], narrow["max_abs_err"])
+    tr = rec.gt_msm_trace
+    k = (tr or {}).get("port_kernels", {}).get("fp_lin")
+    gt_msm = None if k is None else dict(
+        device_busy_ms=tr["ms_device_busy"], fp_lin_device_ms=k["device_ms"],
+        fp_lin_launches=k["launches"], fp_lin_device_ms_per_launch=k["device_ms_per_launch"],
+        fp_lin_by_body=k.get("by_name"), device_ops=tr["device_ops"],
+        device_idle_share=tr["device_idle_share"])
+    h.emit("gt_msm_fp_lin", trace=gt_msm)
+    refused = shared_out_refusals(torch, h)
+    h.emit("shared_out_refused", kernels=refused, correct=True)
+    code = lin_code() if dev.type == "cuda" else {}
+    h.emit("fp_lin_code", instantiations=code)
+
     # -- each width's widest recorded path launch and BLS12-381 pairing_each's:
     # time, plain time, bound ----------------------------------------------------
     def timed(r):
@@ -2852,7 +3232,15 @@ def lin_phase(torch, h, rec):
                   device_ms_per_launch_traced=main["device_ms_per_launch_traced"],
                   shape=main["shape"], map=main["map"], path_launch_timed=main,
                   widest_path_launch=widest,
-                  recorded_keys=len(rows), edge_words=edge, host_us_per_launch=host)
+                  recorded_keys=len(rows), edge_words=edge, host_us_per_launch=host,
+                  long_row_edge_words=long_edge, gt_msm_trace=gt_msm,
+                  shared_out_refused=refused, code_by_nw_lanes=code,
+                  narrow=dict(fill_threads=narrow["fill_threads"],
+                              pair_elements=narrow["pair_elements"],
+                              max_abs_err=narrow["max_abs_err"],
+                              cases=[{k_: c[k_] for k_ in ("map", "n", "lanes", "device_ms",
+                                                             "chain_bound_ms", "fastest_lanes")}
+                                     for c in narrow["cases"]]))
     h.emit("fp_lin_kernel", **{k: v for k, v in report.items() if k != "edge_words"})
     return report
 
@@ -4808,9 +5196,9 @@ def main():
                 chain_mul_code=sw_kernel("chain_mul"), xyzz_accum_code=sw_kernel("xyzz_accum_kernel"),
                 xyzz_kernels_nw12=xyzz_kernels)
     emit("sass", **sass)
-    add_cycles = add_latency_cycles(torch, lat_lib)
-    emit("latency", cycles_per_dependent_carried_add=add_cycles, max_sm_clock_mhz=clock_mhz,
-         ns_per_dependent_carried_add=add_cycles / clock_mhz * 1e3)
+    latency = latency_line(torch, lat_lib, clock_mhz)
+    add_cycles = latency["cycles_per_dependent_carried_add"]
+    emit("latency", **latency)
 
     # ---- helpers -------------------------------------------------------------
     def sync():
@@ -6180,7 +6568,7 @@ def main():
         dev=dev, sync=sync, time_ms=time_ms, once_ms=once_ms, rand_field=rand_field,
         check_equal=check_equal, mul_ops=mul_ops, sqr_ops=sqr_ops, pow_ops=pow_ops, add_ops=add_ops,
         bound=bound, emit=emit,
-        distinct_elems=distinct_elems)
+        distinct_elems=distinct_elems, latency=latency)
     costs = launch_cost(torch, helpers)  # before the recorders wrap _launch and _launch_addsub
     for name in ("mont_mul", "mont_sqr"):
         r = costs.pop(name)

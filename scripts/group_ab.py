@@ -13,7 +13,8 @@ points outside the subgroup and infinity, ``g2_check`` on multiples of the
 G2 generator mixed with points outside G2, ``scalar_mul`` on 64 multiples
 of G tiled, with 255-bit scalars, ``pairing_each`` over 2^12 pairs
 (testing.pairing_inputs: 64 seeded pairs tiled, every 1,024th G1 point at
-infinity), ``bn254_pairing_each`` (BN254, the same), ``gt_msm`` (c = 3 over
+infinity), ``pairing`` (their product: one final exponentiation on one
+element), ``bn254_pairing_each`` (BN254, the same), ``gt_msm`` (c = 3 over
 2^12 BLS12-381 GT elements tiled from 64 seeded powers of E with 255-bit
 scalars, testing.gt_inputs, as chip_smoke.py phase 10 makes them),
 ``mnt4_753_pairing_each`` (MNT4-753, 2^12 pairs tiled from 64 seeded pairs
@@ -32,8 +33,9 @@ kernels before any timing. A process makes its inputs from seed 8, runs
 each call once to warm up, then --runs timed calls (host clock to
 torch.cuda.synchronize()). Prints one JSON line per process (per call:
 the median, the runs, a digest of the result's words) and a summary line:
-per call and side the median of the processes' medians, every process's
-median, the pairs this tree won and whether both sides' words agree.
+per call and side the median of the processes' medians, their quartiles,
+every process's median, the pairs this tree won and whether both sides'
+words agree.
 """
 
 import argparse
@@ -50,7 +52,7 @@ LOG_N = 16
 PAIR_LOG_N = 12
 PRODUCT_CALLS = 1000
 CALLS = ("clear_cofactor", "subgroup_check", "fast_g1_check", "g2_check", "scalar_mul",
-         "pairing_each", "bn254_pairing_each", "gt_msm", "mnt4_753_pairing_each", "fq12_mul_64",
+         "pairing_each", "pairing", "bn254_pairing_each", "gt_msm", "mnt4_753_pairing_each", "fq12_mul_64",
          "mont_mul_24_1", "mont_mul_24_2^16",
          "mont_sqr_24_1", "mont_sqr_24_2^16", "fp_add_24_1", "fp_add_24_2^16", "fp_sub_24_2^16",
          "fp_neg_24_2^16")
@@ -134,6 +136,7 @@ def worker(checkout, runs, calls):
            "g2_check": lambda: fast_checks.bls12_381_g2_subgroup_check(C2, Q),
            "scalar_mul": lambda: tsw.scalar_mul(C, A, s),
            "pairing_each": lambda: bls12.pairing_each(B.PAIRING, PP, PQ),
+           "pairing": lambda: bls12.pairing(B.PAIRING, PP, PQ),
            "bn254_pairing_each": lambda: bn.pairing_each(bn254.PAIRING, BP, BQ),
            "gt_msm": lambda: gt.gt_msm(GTG, GA, GS, 3),
            "mnt4_753_pairing_each": lambda: mnt.pairing_each(mnt4_753.PAIRING, MP, MQ),
@@ -206,6 +209,8 @@ def main():
                  for i in range(a.pairs)]
         summary[name] = dict(
             median_ms={side: statistics.median(v) for side, v in med.items()},
+            quartiles_ms={side: statistics.quantiles(v, n=4) if len(v) > 1 else v
+                          for side, v in med.items()},
             process_medians_ms=med,
             this_won_pairs=sum(t < o for o, t in pairs), pairs=a.pairs,
             same_words=len({res[name]["digest"] for _, res in procs}) == 1)

@@ -120,6 +120,8 @@ def launch_lin(spec, lmap, srcs, out):
 
 
 def launch_sf_op(fam, c, op, a, b, exponent, out):
+    if out is not None and not km.distinct_addresses(out.shape, out.stride()):
+        raise ValueError(f"sf_op: out's strides {out.stride()} cannot be written in place")
     LAUNCHES["sf_op"] += 1
     res = ksf.sf_op_plain(fam, c, op, a, b, exponent)
     return res if out is None else out.copy_(res)
@@ -164,7 +166,10 @@ def setup():
     cu.get_device_name = lambda *a: "stub"
     cu.device_count = lambda: 1
     cs.nvidia_smi = lambda fields: "1980 MHz" if "clocks" in fields else "stub card, 700.00 W"
-    cs.add_latency_cycles = lambda torch, lib: 4.0
+    cs.latency_line = lambda torch, lib, clock: dict(  # an H100's, as the card reports them
+        cycles_per_dependent_carried_add=5.0, cycles_per_dependent_l2_load=283.0,
+        cycles_per_dependent_shuffle=24.0, empty_launch_device_ms=0.00087, max_sm_clock_mhz=clock)
+    cs.LIN_NARROW_N = (1, 7, 64)
     cs.sass_functions = lambda paths: [{
         k: dict(instructions=10, imad=5, opcodes={})
         for k in ("probe_none", "probe_fmul", "probe_fmul_wide", "probe_horner_serial")} for _ in paths]
@@ -203,6 +208,9 @@ def setup():
     twiddle_mul = km.twiddle_mul
 
     def twiddle_on_cpu(*args, **kw):
+        out = kw.get("out")
+        if out is not None and not km.distinct_addresses(out.shape, out.stride()):
+            raise ValueError("twiddle_mul: out cannot be written in place")  # as on the card
         km.on_cpu = lambda *ts: True
         try:
             return twiddle_mul(*args, **kw)

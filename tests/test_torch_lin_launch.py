@@ -89,12 +89,13 @@ class LinStandIn:
 
     def _run(self, call, stream):
         spec, L = self.spec, self.spec.num_limbs
-        table, consts, m, n, nw, nsrc = longs(call, 6)
+        table, consts, m, n, nw, nsrc, lanes = longs(call, 7)
         if n <= 0 or m <= 0:  # as the C entry: nothing to launch
             return
-        ops = longs(call + 6 * 8, 5 * (nsrc + 1))
+        ops = longs(call + 7 * 8, 5 * (nsrc + 1))
         ops = [tuple(ops[5 * j:5 * j + 5]) for j in range(nsrc + 1)]
         assert nw == L // 2 and stream == STREAM and 0 < nsrc <= lin.MAX_SRC and m > 0
+        assert lanes in lin.LANES
         words = km.field_words(spec)
         assert np.array_equal(np.ctypeslib.as_array(
             (ctypes.c_uint32 * words.size).from_address(consts)), words)
@@ -120,7 +121,8 @@ class LinStandIn:
         buf = np.ctypeslib.as_array((ctypes.c_int32 * (int(offs.max()) + 1)).from_address(base))
         buf[offs] = res
         self.calls.append(dict(m=m, n=n, rows=rows, srcs=[o[1:] for o in ops[:-1]],
-                               out=ops[-1][1:], ptrs=[o[0] for o in ops], table=table))
+                               out=ops[-1][1:], ptrs=[o[0] for o in ops], table=table,
+                               lanes=lanes))
 
 
 def host_launcher(spec, entries):
@@ -328,21 +330,26 @@ def test_out_that_cannot_be_written_in_place_raises(layout, kernel_route):
 
 
 def test_c_entry_block_matches_the_packing():
-    """csrc/flin.cu's LinCall (six head words, then LIN_MAX_SRC + 1
-    operands of five words each, the static_assert on its size) and
-    LIN_MAX_SRC against kernels/lin.py's packing of k sources."""
+    """csrc/flin.cu's LinCall (seven head words, the lanes last, then
+    LIN_MAX_SRC + 1 operands of five words each, the static_assert on its
+    size), LIN_MAX_SRC and the lanes the C entry launches against
+    kernels/lin.py's packing of k sources and its LANES."""
     src = (_build.CSRC / "flin.cu").read_text()
     assert int(re.search(r"constexpr int LIN_MAX_SRC = (\d+);", src).group(1)) == lin.MAX_SRC
     body = re.search(r"struct LinCall \{(.*?)\};", src, re.S).group(1)
     fields = [ln.split("//")[0].strip() for ln in body.splitlines() if ln.split("//")[0].strip()]
     assert fields == ["const int32_t* table;", "const uint32_t* consts;",
-                      "long long m, n, nw, nsrc;", "LinOperand op[LIN_MAX_SRC + 1];"]
+                      "long long m, n, nw, nsrc;", "long long lanes;",
+                      "LinOperand op[LIN_MAX_SRC + 1];"]
     op = re.search(r"struct LinOperand \{(.*?)\};", src, re.S).group(1).split()
     assert op == ["int32_t*", "base;", "long", "long", "slot;", "long", "long", "ld;", "long",
                   "long", "inner;", "long", "long", "outer;"]
-    assert "sizeof(LinCall) == 8 * (6 + 5 * (LIN_MAX_SRC + 1))" in src
+    assert "sizeof(LinCall) == 8 * (7 + 5 * (LIN_MAX_SRC + 1))" in src
     for k, s in enumerate(lin._CALLS):
-        assert s.size == 8 * (6 + 5 * (k + 1)) and s.format.endswith("q")
+        assert s.size == 8 * (7 + 5 * (k + 1)) and s.format.endswith("q")
+    entry = src[src.index('extern "C" int zk_fp_lin_v'):]
+    cases = re.findall(r"case (\d+): launch_lin<NW, (\d+)>", entry)
+    assert [int(a) for a, b in cases] == [int(b) for a, b in cases] == list(lin.LANES)
 
 
 def test_route_lookup_never_hashes_the_tower(monkeypatch):

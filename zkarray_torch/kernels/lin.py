@@ -38,9 +38,32 @@ from zkarray_torch.kernels import mont as km
 MAX_SRC = 4
 COEF_SUM_LIMIT = 1 << 16
 MAX_ROWS = 65535
-# csrc/flin.cu:LinCall with k used sources: table, consts, m, n, nw, nsrc, then
-# (pointer, slot stride, ld, inner, outer) of each source and of the output
-_CALLS = tuple(struct.Struct(f"{6 + 5 * (k + 1)}q") for k in range(MAX_SRC + 1))
+# csrc/flin.cu:LinCall with k used sources: table, consts, m, n, nw, nsrc, lanes,
+# then (pointer, slot stride, ld, inner, outer) of each source and of the output
+_CALLS = tuple(struct.Struct(f"{7 + 5 * (k + 1)}q") for k in range(MAX_SRC + 1))
+# csrc/flin.cu: the lanes G a (row, element) can take (1: one thread a row); the
+# crossovers of ``lanes``, measured on the card (PERF.md row K): four lanes or more
+# while the launch's m x n x G lanes stay within FILL_THREADS, two while its m x n
+# (row, element) pairs stay within PAIR_ELEMENTS
+LANES = (1, 2, 4, 8, 16, 32)
+FILL_THREADS = 1 << 15
+PAIR_ELEMENTS = 1 << 16
+
+
+@functools.lru_cache(maxsize=1 << 12)  # the paths launch a few dozen shapes: ~0.1 us, not ~0.5
+def lanes(n: int, m: int, max_terms: int) -> int:
+    """G, the lanes csrc/flin.cu gives each (row, element) of a launch of m
+    rows over n elements whose longest row has ``max_terms`` terms: the
+    power of two that covers that row, at most 32, halved while m n G
+    exceeds FILL_THREADS (down to two), and one once m n exceeds
+    PAIR_ELEMENTS. G = 1 is the one-thread body (wide batches, where the
+    card is full of threads), G > 1 the narrow body (a row's terms over G
+    lanes, its column sums by warp shuffles). The one place the body is
+    chosen."""
+    g = min(32, 1 << (max_terms - 1).bit_length()) if max_terms > 1 else 1
+    while g > 2 and m * n * g > FILL_THREADS:
+        g >>= 1
+    return 1 if g == 2 and m * n > PAIR_ELEMENTS else g
 
 
 class LinMap:
@@ -73,6 +96,7 @@ class LinMap:
         if max(self.sum_abs) >= COEF_SUM_LIMIT:
             raise ValueError(f"{name}: a row's sum of |c| is {max(self.sum_abs)}; the bound is "
                              f"below {COEF_SUM_LIMIT}")
+        self.max_terms = max(len(r) for r in self.rows)
         self.cneg = [sum(-c for _, _, c in r if c < 0) for r in self.rows]
         self.kbits = [s.bit_length() for s in self.sum_abs]
         self._tables = {}
@@ -208,14 +232,15 @@ def out_operand(name: str, out: torch.Tensor, n: int):
     """(slot stride, ld, inner, outer) of an (m, L, *batch) output of n
     batch elements that the kernel writes in place (``_operand``'s map);
     raises where there is none, rather than write a copy: a layout the map
-    cannot address, or one whose elements share addresses (a stride-0 batch
-    or limb axis, or a slot stride of 0 over more than one row), as
-    kernels/mont.py:out_map refuses for the additions."""
+    cannot address, or one whose elements share addresses
+    (``km.distinct_addresses``: a stride-0 batch or limb axis, a slot stride
+    of 0 over more than one row), as kernels/mont.py:out_map refuses for the
+    additions."""
     if out.is_contiguous():
         return out.shape[1] * n, n, n, 0
     st = out.stride()
     m = km.batch_map_memo(out.shape[2:], st[2:])
-    if m is None or (m[1] == 0 and m[0] < n) or st[1] == 0 or (st[0] == 0 and out.shape[0] > 1):
+    if m is None or not km.distinct_addresses(out.shape, st):
         raise ValueError(f"fp_lin {name}: out's strides {st} cannot be written in place")
     return st[0], st[1], m[0], m[1]
 
@@ -254,7 +279,8 @@ class LinLauncher(km.FieldLauncher):
             raise ValueError(f"fp_lin {lmap.name}: out {tuple(out.shape)} is not {tuple(shape)}")
         else:
             o_map = out_operand(lmap.name, out, n)
-        words = [lmap.table_ptr(index), self.consts, lmap.m, n, self.nw, len(ts)]
+        words = [lmap.table_ptr(index), self.consts, lmap.m, n, self.nw, len(ts),
+                 lanes(n, lmap.m, lmap.max_terms)]
         held = []  # copies of sources that no map addresses, until the launch
         for t in ts:
             t, slot, ld, inner, outer = _operand(t, n)

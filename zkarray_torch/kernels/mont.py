@@ -352,16 +352,35 @@ def operand_map(t: torch.Tensor, n: int):
     return _operand(t)
 
 
+@functools.lru_cache(maxsize=1 << 12)
+def distinct_addresses(shape, strides) -> bool:
+    """Whether a layout gives each element an address of its own: its axes
+    of more than one element, in order of stride, each step past the span
+    of the axes below it. A stride-0 (broadcast) axis, or one that steps
+    inside another's span, fails; every view of a tensor that owns its
+    memory passes. The one rule by which every wrapper that writes an
+    ``out`` in place (out_map, kernels/lin.py:out_operand, twiddle_mul,
+    kernels/smallfp.py:sf_op) refuses one whose elements share addresses,
+    as the CPU's ``copy_`` refuses it. Memoised: the paths give a few
+    dozen layouts."""
+    span = 0
+    for st, s in sorted((st, s) for s, st in zip(shape, strides) if s > 1):
+        if st <= span:
+            return False
+        span += (s - 1) * st
+    return True
+
+
 def out_map(kernel: str, out: torch.Tensor, n: int):
     """(ld, inner, outer) of an (L, *batch) output of n batch elements that
     the kernel writes in place (a contiguous one without a call of
     ``batch_map``); raises where there is none, rather than write a copy:
     a layout the map cannot address, or one whose elements share addresses
-    (a stride-0 axis)."""
+    (``distinct_addresses``: a stride-0 axis)."""
     if out.is_contiguous():
         return n, n, 0
     m = batch_map_memo(out.shape[1:], out.stride()[1:])
-    if m is None or (m[1] == 0 and m[0] < n) or out.stride(0) == 0:
+    if m is None or not distinct_addresses(out.shape, out.stride()):
         raise ValueError(f"{kernel}: out's strides {out.stride()} cannot be written in place")
     return (out.stride(0),) + m
 
@@ -967,7 +986,9 @@ def twiddle_mul(spec: FieldSpec, x: torch.Tensor, tw: Twiddles, r0: int = 0, c0:
     the tables ``tw`` of twiddle_tables(w, e_max, scale s). ``out``: None for
     a new contiguous tensor, or an (L, R, C) int32 tensor with a contiguous
     last axis (a column block of a wider one, or x itself), written and
-    returned. CPU tensors: plain version; CUDA tensors:
+    returned; one whose elements share addresses (a stride-0 row or limb
+    axis) raises before the launch (``distinct_addresses``; on the CPU its
+    ``copy_`` raises). CPU tensors: plain version; CUDA tensors:
     csrc/twiddle.cu:twiddle_mul_kernel, one launch."""
     L = spec.num_limbs
     if x.dim() != 3 or x.shape[0] != L:
@@ -984,6 +1005,8 @@ def twiddle_mul(spec: FieldSpec, x: torch.Tensor, tw: Twiddles, r0: int = 0, c0:
     if on_cpu(x, out, tw.lo, tw.hi):
         return twiddle_mul_plain(spec, x, tw, r0, c0, out)
     check_cuda_int32("twiddle_mul", x, out, tw.lo, tw.hi, contiguous=False)
+    if not distinct_addresses(out.shape, out.stride()):  # rows or limbs on one address
+        raise ValueError(f"twiddle_mul: out's strides {out.stride()} cannot be written in place")
     desc = operand_words([_operand(x)])
     lib = _build.load(_build.ntt_lib("twiddle", L // 2))
     with torch.cuda.device(out.device):

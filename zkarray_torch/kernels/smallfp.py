@@ -330,6 +330,8 @@ def _launch_op(fam: str, c: Consts, op: str, a, b, exponent, out):
         out = torch.empty(shape, dtype=torch.uint32, device=a.device)
     elif tuple(out.shape) != shape or not (out if planes == 1 else out[0]).is_contiguous():
         raise ValueError(f"sf_op: out must be {shape} with each plane contiguous")
+    elif not km.distinct_addresses(out.shape, out.stride()):  # two planes on one address
+        raise ValueError(f"sf_op: out's strides {out.stride()} cannot be written in place")
     if n == 0:
         return out
     ops = [_operand(t, planes, batch, n) for t in ins]
@@ -354,8 +356,9 @@ def sf_op(fam: str, c: Consts, op: str, a: torch.Tensor, b: Optional[torch.Tenso
     """One element-wise small-field op (``op`` in OPS) of family ``fam`` over
     uint32 tensors, the two operands broadcast over their batch shapes.
     ``exponent`` is pow's (0 <= e < 2^MAX_EXP_BITS). ``out``: a tensor of the
-    result's shape with contiguous planes to write into (CUDA only; the
-    plain version returns a new tensor and the wrapper copies). CPU
+    result's shape with contiguous planes to write into, two planes not on
+    one address (CUDA: refused before the launch; the plain version returns
+    a new tensor and the wrapper copies, which refuses it too). CPU
     tensors: ``sf_op_plain``; CUDA tensors: csrc/smallfp.cu:sf_op_kernel,
     one launch."""
     if fam not in FAMILIES or op not in OPS:

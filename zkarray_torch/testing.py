@@ -957,11 +957,30 @@ def lin_edge_words(spec, rng: np.random.Generator, n_random: int = 6) -> list:
     return sorted(set(w for w in words if 0 <= w < p))
 
 
-def lin_edge_rows(sizes, rng: np.random.Generator, n_random: int = 6) -> list:
+def lanes_crossover(m: int, max_terms: int) -> int:
+    """The last width n at which kernels/lin.py:lanes gives a launch of m
+    rows, the longest of ``max_terms`` terms, two lanes or more (the narrow
+    body); n + 1 takes one thread a row."""
+    from zkarray_torch.kernels.lin import lanes
+
+    lo = 1
+    while lanes(2 * lo, m, max_terms) > 1:
+        lo *= 2
+    hi = 2 * lo  # lanes(lo) > 1 >= lanes(hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if lanes(mid, m, max_terms) > 1 else (lo, mid)
+    return lo
+
+
+def lin_edge_rows(sizes, rng: np.random.Generator, n_random: int = 6, long_rows=()) -> list:
     """Rows of a LinMap over sources of ``sizes`` slots for fp_lin's edges:
     a row's sum of |c| at the bound 2^16 - 1 all positive, all negative and
     mixed; a copy, a negation, an empty row (0) and a lone -1; then random
-    rows of 1 to 6 terms whose |c| sum near the bound."""
+    rows of 1 to 6 terms whose |c| sum near the bound; then, for each count
+    in ``long_rows``, a row of that many terms (distinct slots, mixed signs)
+    whose |c| sum to the bound exactly, as the narrow body's lanes split
+    a row longer than 32 or 64 terms."""
     limit = (1 << 16) - 1
     ref = [(s, k) for s, n in enumerate(sizes) for k in range(n)]
     rows = [[(0, 0, limit)], [(0, 0, -limit)], [(0, 0, 1)], [(0, 0, -1)], [],
@@ -974,6 +993,14 @@ def lin_edge_rows(sizes, rng: np.random.Generator, n_random: int = 6) -> list:
         mags = np.diff(np.concatenate([[0], cuts, [limit - int(rng.integers(0, 4))]]))
         rows.append([(*ref[i], int(m) * (1 if rng.random() < 0.5 else -1))
                      for i, m in zip(picks, mags) if m])
+    for t in long_rows:
+        if not 0 < t <= len(ref):
+            raise ValueError(f"lin_edge_rows: a row of {t} terms over {len(ref)} slots")
+        picks = rng.choice(len(ref), t, replace=False)
+        cuts = np.sort(rng.choice(np.arange(1, limit), t - 1, replace=False))
+        mags = np.diff(np.concatenate([[0], cuts, [limit]]))
+        rows.append([(*ref[i], int(m) * (1 if j % 2 else -1))
+                     for j, (i, m) in enumerate(zip(picks, mags))])
     return rows
 
 
